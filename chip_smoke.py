@@ -1,0 +1,398 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's try-on path once on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its numbers before the last line:
+
+1. the card's name and power limit (``nvidia-smi``), then the build of
+   the hand-written kernels under ``ladi_vton_tpu_torch/csrc`` into the
+   git-ignored ``build/`` directory, with its seconds;
+2. each kernel against its plain PyTorch version on the card, at the
+   shapes the main path gives it: the kernel in bf16, the plain version
+   in fp32 on the same bf16 inputs (TF32 off), max abs error against a
+   stated limit, and both times from CUDA events (the plain version timed
+   on the bf16 inputs);
+3. integration at full width: one level-0 ``Transformer2D`` (C=320,
+   64x48, batch 4) and one VAE ``MidBlock`` (512 at 64x48) through the
+   kernels on the card and through the plain versions on the CPU, same
+   weights, relative L2 error against a stated limit; then the whole
+   sampler at full SD-2 width on a small 128x128 input (2 DDIM steps,
+   CFG 7.5) on the card against the CPU;
+4. the main path: a ``TryOnService`` at full SD-2 width (31-channel UNet,
+   SD-2 VAE, EMASC) with seeded random bf16 weights, 512x384, DDIM-50,
+   CFG 7.5, batch_size 2, answering three requests of 1, 2 and 2 images;
+   each output is checked for shape, finiteness and range, and each
+   kernel's launch counter must have risen during the requests.
+
+The line before the last is ``{"kernels": [...]}``; the last is
+``{"ok": true, "device": {...}}``.  Any failed check raises, so the
+script exits non-zero without that line; it also refuses to run without
+CUDA.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ladi_vton_tpu_torch.diffusion.schedulers import DDIMScheduler
+from ladi_vton_tpu_torch.models.emasc import EMASC
+from ladi_vton_tpu_torch.models.layers import Transformer2D
+from ladi_vton_tpu_torch.models.unet_condition import (
+    UNet2DCondition,
+    sd2_unet_config,
+)
+from ladi_vton_tpu_torch.models.vae import AutoencoderKL, MidBlock, VAEConfig
+from ladi_vton_tpu_torch.ops import _build
+from ladi_vton_tpu_torch.ops.attention import attention_ref
+from ladi_vton_tpu_torch.ops.flash_attention import flash_attention
+from ladi_vton_tpu_torch.ops.geglu import geglu, geglu_ref
+from ladi_vton_tpu_torch.ops.group_norm import group_norm, group_norm_ref
+from ladi_vton_tpu_torch.pipelines.serving import TryOnService
+from ladi_vton_tpu_torch.pipelines.tryon import TryOnPipeline
+
+BF16 = torch.bfloat16
+
+# kernel-vs-plain limits on max abs error, for unit-scale outputs: the
+# kernels round their outputs (and GEGLU its intermediate) to bf16, whose
+# half ulp is 1.6e-2 at |y| in [4, 8)
+ATTN_LIMIT = 2e-2
+GN_LIMIT = 3e-2
+GEGLU_LIMIT = 5e-2
+# relative L2 error of a full-width block, bf16 on the card against fp32
+# on the CPU: a few bf16 roundings (2^-9 relative each) per layer
+BLOCK_LIMIT = 2e-2
+# the sampler end to end, bf16 against fp32: CFG 7.5 scales the
+# difference of two bf16-rounded UNet outputs, and a DDIM step at
+# t = 981 divides by sqrt(alpha) = 0.07
+LATENT_LIMIT = 1e-1
+IMAGE_MEAN_LIMIT = 2e-2
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean milliseconds per call from CUDA events, after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+class Gen:
+    """Seeded random tensors on the card."""
+
+    def __init__(self, seed: int):
+        self.g = torch.Generator("cuda").manual_seed(seed)
+
+    def normal(self, *shape, scale=1.0, dtype=BF16):
+        x = torch.randn(shape, generator=self.g, device="cuda")
+        return (x * scale).to(dtype)
+
+
+def check_attention(gen: Gen) -> dict:
+    # (B, Sq, Sk, H, D): UNet self-attention at the three levels (batch
+    # 2B = 8), cross-attention (Sk = 77), the mid block (S = 48) and the
+    # VAE's single-head mid block (D = 512)
+    shapes = [(8, 3072, 3072, 5, 64), (8, 768, 768, 10, 64),
+              (8, 192, 192, 20, 64), (8, 3072, 77, 5, 64),
+              (8, 48, 48, 20, 64), (4, 3072, 3072, 1, 512)]
+    rows = []
+    for B, Sq, Sk, H, D in shapes:
+        q = gen.normal(B, Sq, H, D)
+        k = gen.normal(B, Sk, H, D)
+        v = gen.normal(B, Sk, H, D)
+        out = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = attention_ref(q.float(), k.float(), v.float())
+        err = (out.float() - ref).abs().max().item()
+        ms = cuda_ms(lambda: flash_attention(q, k, v), 10)
+        plain_ms = cuda_ms(lambda: attention_ref(q, k, v), 3)
+        log(f"K1 flash_attention B={B} Sq={Sq} Sk={Sk} H={H} D={D}: "
+            f"max_abs_err {err:.3e} (limit {ATTN_LIMIT}) kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms")
+        if not err <= ATTN_LIMIT:
+            raise AssertionError(f"flash_attention disagrees: {err}")
+        rows.append((err, ms, plain_ms))
+    return summarize(rows)
+
+
+def check_group_norm(gen: Gen) -> dict:
+    # (B, N, C, silu, eps): UNet level-0 resnet norm, the UNet's widest
+    # (up-block concat 2560 at 8x6) and the VAE encoder's largest slab
+    # (128 channels at 512x384, batch 2B = 4)
+    shapes = [(4, 3072, 320, True, 1e-5), (4, 48, 2560, True, 1e-5),
+              (4, 3072, 320, False, 1e-6), (4, 196608, 128, True, 1e-6)]
+    rows = []
+    for B, N, C, silu, eps in shapes:
+        act = "silu" if silu else "none"
+        x = gen.normal(B, N, C)
+        w = gen.normal(C, scale=0.1, dtype=torch.float32) + 1.0
+        b = gen.normal(C, scale=0.1, dtype=torch.float32)
+        out = group_norm(x, w, b, eps=eps, act=act)
+        torch.cuda.synchronize()
+        ref = group_norm_ref(x.float(), w, b, eps=eps, act=act)
+        err = (out.float() - ref).abs().max().item()
+        ms = cuda_ms(lambda: group_norm(x, w, b, eps=eps, act=act), 20)
+        plain_ms = cuda_ms(lambda: group_norm_ref(x, w, b, eps=eps, act=act),
+                           5)
+        log(f"K2 group_norm B={B} N={N} C={C} act={act} eps={eps}: "
+            f"max_abs_err {err:.3e} (limit {GN_LIMIT}) kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms")
+        if not err <= GN_LIMIT:
+            raise AssertionError(f"group_norm disagrees: {err}")
+        rows.append((err, ms, plain_ms))
+    return summarize(rows)
+
+
+def check_geglu(gen: Gen) -> dict:
+    # rows x C -> 2I -> C at the UNet's three widths, batch 2B = 4
+    shapes = [(4 * 3072, 320), (4 * 768, 640), (4 * 192, 1280),
+              (4 * 48, 1280)]
+    rows = []
+    for M, C in shapes:
+        inner = 4 * C
+        x = gen.normal(M, C)
+        w1 = gen.normal(2 * inner, C, scale=C ** -0.5)
+        b1 = gen.normal(2 * inner, scale=0.1)
+        w2 = gen.normal(C, inner, scale=inner ** -0.5)
+        b2 = gen.normal(C, scale=0.1)
+        out = geglu(x, w1, b1, w2, b2)
+        torch.cuda.synchronize()
+        ref = geglu_ref(x.float(), w1.float(), b1.float(), w2.float(),
+                        b2.float())
+        err = (out.float() - ref).abs().max().item()
+        ms = cuda_ms(lambda: geglu(x, w1, b1, w2, b2), 20)
+        plain_ms = cuda_ms(lambda: geglu_ref(x, w1, b1, w2, b2), 20)
+        log(f"K4 geglu rows={M} C={C} I={inner}: max_abs_err {err:.3e} "
+            f"(limit {GEGLU_LIMIT}) kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms")
+        if not err <= GEGLU_LIMIT:
+            raise AssertionError(f"geglu disagrees: {err}")
+        rows.append((err, ms, plain_ms))
+    return summarize(rows)
+
+
+def summarize(rows) -> dict:
+    """Worst error over the shapes; times at the first (hottest) shape."""
+    return {"max_abs_err": max(r[0] for r in rows), "ms": rows[0][1],
+            "plain_ms": rows[0][2]}
+
+
+def seeded(factory, seed: int, device: str, dtype=torch.float32):
+    torch.manual_seed(seed)
+    with torch.device(device):
+        module = factory()
+    return module.to(dtype).eval()
+
+
+def cpu_copy(module: torch.nn.Module, factory) -> torch.nn.Module:
+    """fp32 CPU twin with the card module's (bf16-rounded) weights."""
+    twin = factory().eval()
+    twin.load_state_dict({k: v.float().cpu()
+                          for k, v in module.state_dict().items()})
+    return twin
+
+
+@torch.no_grad()
+def check_blocks(gen: Gen) -> None:
+    def tfm():
+        return Transformer2D(5, 64, 320, 1024)
+
+    block = seeded(tfm, 1, "cuda", BF16)
+    x = gen.normal(4, 320, 64, 48).contiguous(
+        memory_format=torch.channels_last)
+    ctx = gen.normal(4, 77, 1024)
+    out = block(x, ctx)
+    torch.cuda.synchronize()
+    ref = cpu_copy(block, tfm)(x.float().cpu(), ctx.float().cpu())
+    err = rel_l2(out, ref)
+    log(f"integration Transformer2D C=320 64x48 B=4: rel_l2 {err:.3e} "
+        f"(limit {BLOCK_LIMIT})")
+    if not err <= BLOCK_LIMIT:
+        raise AssertionError(f"Transformer2D disagrees: {err}")
+
+    def mid():
+        return MidBlock(512)
+
+    block = seeded(mid, 2, "cuda", BF16)
+    x = gen.normal(1, 512, 64, 48).contiguous(
+        memory_format=torch.channels_last)
+    out = block(x)
+    torch.cuda.synchronize()
+    ref = cpu_copy(block, mid)(x.float().cpu())
+    err = rel_l2(out, ref)
+    log(f"integration VAE MidBlock C=512 64x48 B=1: rel_l2 {err:.3e} "
+        f"(limit {BLOCK_LIMIT})")
+    if not err <= BLOCK_LIMIT:
+        raise AssertionError(f"MidBlock disagrees: {err}")
+
+
+def full_width_pipeline() -> TryOnPipeline:
+    """SD-2-width towers with seeded random bf16 weights on the card."""
+    return TryOnPipeline(
+        unet=seeded(lambda: UNet2DCondition(sd2_unet_config(31)), 10, "cuda",
+                    BF16),
+        vae=seeded(lambda: AutoencoderKL(VAEConfig()), 11, "cuda", BF16),
+        emasc=seeded(EMASC, 12, "cuda", BF16),
+        scheduler=DDIMScheduler())
+
+
+def request(rng: np.random.Generator, n: int, h: int, w: int) -> dict:
+    mask = np.zeros((n, h, w, 1), np.float32)
+    mask[:, h // 8: h - h // 16, w // 6: w - w // 6] = 1.0
+    f = np.float32
+    return dict(
+        image=rng.uniform(-1, 1, (n, h, w, 3)).astype(f),
+        inpaint_mask=mask,
+        pose_map=rng.uniform(0, 1, (n, h, w, 18)).astype(f),
+        warped_cloth=rng.uniform(-1, 1, (n, h, w, 3)).astype(f),
+        prompt_embeds=rng.standard_normal((n, 77, 1024)).astype(f),
+        negative_prompt_embeds=rng.standard_normal((n, 77, 1024)).astype(f),
+    )
+
+
+@torch.no_grad()
+def check_small_sample(pipe: TryOnPipeline) -> None:
+    """The sampler at full width on a 128x128 input: card vs CPU."""
+    cpu_pipe = TryOnPipeline(
+        unet=cpu_copy(pipe.unet, lambda: UNet2DCondition(sd2_unet_config(31))),
+        vae=cpu_copy(pipe.vae, lambda: AutoencoderKL(VAEConfig())),
+        emasc=cpu_copy(pipe.emasc, EMASC), scheduler=DDIMScheduler())
+    req = request(np.random.default_rng(5), 1, 128, 128)
+    args = dict(image=req["image"], mask_image=req["inpaint_mask"],
+                pose_map=req["pose_map"], warped_cloth=req["warped_cloth"],
+                prompt_embeds=req["prompt_embeds"],
+                negative_prompt_embeds=req["negative_prompt_embeds"])
+    noise = {k: torch.from_numpy(np.random.default_rng(6 + i)
+                                 .standard_normal((1, 16, 16, 4))
+                                 .astype(np.float32))
+             for i, k in enumerate(("latents", "masked", "cloth"))}
+    results = []
+    for p in (pipe, cpu_pipe):
+        t = {k: torch.from_numpy(v) for k, v in args.items()}
+        prepared = p.prepare(image=t["image"], mask_image=t["mask_image"],
+                             pose_map=t["pose_map"],
+                             warped_cloth=t["warped_cloth"], noise=noise)
+        inter = prepared.pop("intermediate")
+        lat = p.denoise(prepared, prompt_embeds=t["prompt_embeds"],
+                        negative_prompt_embeds=t["negative_prompt_embeds"],
+                        num_inference_steps=2, guidance_scale=7.5)
+        results.append((lat.float().cpu(), p.decode(lat, inter).cpu()))
+    (lat_gpu, img_gpu), (lat_cpu, img_cpu) = results
+    lat_err = rel_l2(lat_gpu, lat_cpu)
+    img_err = float((img_gpu - img_cpu).abs().mean())
+    log(f"integration sampler SD-2 width 128x128 DDIM-2 CFG 7.5: latents "
+        f"rel_l2 {lat_err:.3e} (limit {LATENT_LIMIT}), image mean abs "
+        f"{img_err:.3e} (limit {IMAGE_MEAN_LIMIT})")
+    if not (torch.isfinite(img_gpu).all() and lat_err <= LATENT_LIMIT
+            and img_err <= IMAGE_MEAN_LIMIT):
+        raise AssertionError("the sampler disagrees with the CPU")
+
+
+KERNELS = (
+    ("flash_attention", flash_attention, check_attention,
+     "ladi_vton_tpu_torch/csrc/flash_attention.cu",
+     "ladi_vton_tpu/ops/flash_attention.py:99"),
+    ("group_norm", group_norm, check_group_norm,
+     "ladi_vton_tpu_torch/csrc/group_norm.cu",
+     "ladi_vton_tpu/ops/group_norm.py:154"),
+    ("geglu", geglu, check_geglu, "ladi_vton_tpu_torch/csrc/geglu.cu",
+     "ladi_vton_tpu/ops/geglu.py:72"),
+)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: CUDA is not available; this script measures "
+                 "the port on an NVIDIA GPU and has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)}")
+
+    lib_path, build_s = _build.build()
+    _build.library()
+    log(f"phase 1: kernels built from ladi_vton_tpu_torch/csrc in "
+        f"{build_s:.2f} s (0 = already built for these sources); ptxas "
+        f"report in {lib_path.parent / 'nvcc.log'}")
+
+    gen = Gen(0)
+    results = {}
+    for name, _, check, _, _ in KERNELS:
+        results[name] = check(gen)
+    log("phase 2: every kernel agrees with its plain version")
+
+    check_blocks(gen)
+    pipe = full_width_pipeline()
+    check_small_sample(pipe)
+    log("phase 3: full-width blocks and the sampler agree with the CPU")
+
+    service = TryOnService(pipe, batch_size=2, height=512, width=384,
+                           num_inference_steps=50, guidance_scale=7.5,
+                           context_dim=1024, seed=0)
+    t0 = time.perf_counter()
+    service.warmup()
+    torch.cuda.synchronize()
+    log(f"phase 4: warmup request (2 images) {time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(0)
+    for _, wrapper, _, _, _ in KERNELS:
+        wrapper.launches = 0
+    for n in (1, 2, 2):
+        req = request(rng, n, 512, 384)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = service.generate(**req)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ok = (out.shape == (n, 512, 384, 3) and np.isfinite(out).all()
+              and out.min() >= 0.0 and out.max() <= 1.0)
+        log(f"request of {n} image(s) at 512x384, DDIM-50, CFG 7.5, batch 2: "
+            f"{dt:.3f} s, peak device memory {peak:.2f} GiB, output "
+            f"{out.shape} in [{out.min():.4f}, {out.max():.4f}] std "
+            f"{out.std():.4f}")
+        if not ok:
+            raise AssertionError(f"request of {n}: bad output")
+    launches = {name: wrapper.launches for name, wrapper, _, _, _ in KERNELS}
+    log(f"launches during the three requests: {launches}")
+    missing = [name for name, count in launches.items() if count == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the path: {missing}")
+
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches[name],
+         **results[name]}
+        for name, _, _, source, replaces in KERNELS]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,134 @@
+"""Build and bind the hand-written Hopper kernels under ``csrc/``.
+
+The sources compile with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded through ``ctypes``.  The build
+happens at first use, into ``build/kernels/<hash>/`` at the repository
+root (git-ignored), keyed by a hash of the sources and the flags, so an
+edited kernel rebuilds and an unchanged one loads at once.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` turns a non-zero code into an
+exception, because a refused launch never runs and a later
+``torch.cuda.synchronize()`` would not report it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+I64 = ctypes.c_int64
+F = ctypes.c_float
+
+# C signatures of the entry points (csrc/*.cu, extern "C"); every one
+# returns the cudaError_t of its launches as an int
+SIGNATURES = {
+    # q, k, v, o, B, H, Sq, Sk, D, 4 x (stride_b, stride_h, stride_s),
+    # scale, stream
+    "ladi_flash_attention_fwd": [P, P, P, P, I, I, I, I, I]
+    + [I64] * 12 + [F, P],
+    # x, workspace, B, N, C, chunks, stream
+    "ladi_group_norm_stats": [P, P, I, I, I, I, P],
+    # workspace, weight, bias, coeffs, B, N, C, G, chunks, eps, stream
+    "ladi_group_norm_finalize": [P, P, P, P, I, I, I, I, I, F, P],
+    # x, coeffs, out, B, N, C, silu, stream
+    "ladi_group_norm_apply": [P, P, P, I, I, I, I, P],
+    # x, w1, b1, a, M, C, I, stream
+    "ladi_geglu_proj": [P, P, P, P, I, I, I, P],
+    # a, w2, b2, y, M, I, C, stream
+    "ladi_geglu_out": [P, P, P, P, I, I, I, P],
+}
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = Path(cuda_home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the kernels under ladi_vton_tpu_torch/csrc")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, float]:
+    """Compile ``csrc/*.cu`` unless the hashed library exists.
+
+    Returns (library path, seconds spent compiling; 0.0 when cached).
+    The compiler's output, with the ``-Xptxas -v`` report of registers,
+    shared memory and spills per kernel, is kept beside the library in
+    ``nvcc.log``.
+    """
+    out_dir = BUILD_ROOT / source_hash()
+    lib = out_dir / "libladi_kernels.so"
+    if lib.exists():
+        return lib, 0.0
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
+    # compile to a private name, then rename: a concurrent loader never
+    # sees a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cus]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    (out_dir / "nvcc.log").write_text(" ".join(cmd) + "\n" + proc.stdout
+                                      + proc.stderr)
+    os.replace(tmp, lib)
+    return lib, seconds
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    lib_path, _ = build()
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_ptr(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

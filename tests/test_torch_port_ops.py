@@ -1,0 +1,245 @@
+"""Parity of the PyTorch port's ops with the JAX package, on the CPU.
+
+The same inputs, made with numpy from a seed, go through the JAX function
+and its port counterpart in fp32.  For the three kernel modules the JAX
+side runs both its Pallas kernel in interpret mode and its XLA oracle;
+the port side is what a CPU tensor takes, the plain PyTorch version.
+Each tolerance is stated where it is used.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax.traverse_util import flatten_dict, unflatten_dict
+
+import ladi_vton_tpu.ops.group_norm as jax_gn
+from ladi_vton_tpu.core.checkpoint import export_torch_state, unet_torch_key_map
+from ladi_vton_tpu.diffusion.schedulers import DDIMScheduler as JaxDDIM
+from ladi_vton_tpu.models.layers import timestep_embedding as jax_temb
+from ladi_vton_tpu.models.unet_condition import UNet2DCondition as JaxUNet
+from ladi_vton_tpu.models.unet_condition import UNetConfig as JaxUNetConfig
+from ladi_vton_tpu.ops.attention import dot_product_attention as jax_attention
+from ladi_vton_tpu.ops.flash_attention import flash_attention as jax_flash
+from ladi_vton_tpu.ops.geglu import _geglu as jax_geglu_pallas
+from ladi_vton_tpu.ops.geglu import geglu_xla
+from ladi_vton_tpu.ops.layer_norm import layer_norm_xla
+from ladi_vton_tpu.ops.resize import resize_bilinear as jax_bilinear
+from ladi_vton_tpu.ops.resize import resize_nearest as jax_nearest
+from ladi_vton_tpu_torch.core.checkpoint import state_dict_from_jax, unet_key_map
+from ladi_vton_tpu_torch.diffusion.schedulers import DDIMScheduler
+from ladi_vton_tpu_torch.models.layers import timestep_embedding
+from ladi_vton_tpu_torch.ops.attention import dot_product_attention
+from ladi_vton_tpu_torch.ops.flash_attention import flash_attention
+from ladi_vton_tpu_torch.ops.geglu import geglu
+from ladi_vton_tpu_torch.ops.group_norm import group_norm
+from ladi_vton_tpu_torch.ops.layer_norm import layer_norm_ref
+from ladi_vton_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+
+T = torch.from_numpy
+
+
+def _nchw(x: np.ndarray) -> torch.Tensor:
+    return T(np.ascontiguousarray(x.transpose(0, 3, 1, 2)))
+
+
+def _nhwc(x: torch.Tensor) -> np.ndarray:
+    return x.permute(0, 2, 3, 1).numpy()
+
+
+# ---------------------------------------------------------------- K1
+
+
+@pytest.mark.parametrize("sq,sk,heads,d", [(256, 256, 2, 64), (256, 77, 2, 64),
+                                           (128, 128, 1, 512)])
+def test_attention_matches_pallas_flash_and_xla(sq, sk, heads, d):
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((2, sq, heads, d)).astype(np.float32)
+    k = rng.standard_normal((2, sk, heads, d)).astype(np.float32)
+    v = rng.standard_normal((2, sk, heads, d)).astype(np.float32)
+    ours = dot_product_attention(T(q), T(k), T(v)).numpy()
+    # the flash wrapper on a CPU tensor is the same plain version
+    np.testing.assert_array_equal(flash_attention(T(q), T(k), T(v)).numpy(),
+                                  ours)
+    xla = np.asarray(jax_attention(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), impl="xla"))
+    pallas = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), interpret=True))
+    # fp32 throughout; the sums run in another order (and online in the
+    # Pallas kernel), ~1e-6 seen: 1e-5
+    np.testing.assert_allclose(ours, xla, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ours, pallas, rtol=1e-5, atol=1e-5)
+
+
+def test_causal_attention_matches_xla():
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((1, 11, 2, 8)).astype(np.float32)
+    ours = dot_product_attention(T(q), T(q), T(q), causal=True).numpy()
+    ref = np.asarray(jax_attention(jnp.asarray(q), jnp.asarray(q),
+                                   jnp.asarray(q), causal=True, impl="xla"))
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------- K2 / K3
+
+
+@pytest.mark.parametrize("act,eps", [("silu", 1e-5), ("none", 1e-6)])
+@pytest.mark.parametrize("two_pass", [False, True], ids=["one_pass",
+                                                          "two_pass"])
+@pytest.mark.parametrize("channels", [128, 320])
+def test_group_norm_matches_pallas_and_xla(channels, two_pass, act, eps,
+                                           monkeypatch):
+    if two_pass:
+        # small slabs always take the one-pass kernel; switch the size
+        # rule off so the two-pass kernels (K3) run with 8-row tiles
+        monkeypatch.setattr(jax_gn, "_one_pass_profitable", lambda n: False)
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((2, 8, 8, channels)) * 2 + 0.5).astype(
+        np.float32)
+    scale = rng.standard_normal(channels).astype(np.float32)
+    bias = rng.standard_normal(channels).astype(np.float32)
+    xj = jnp.asarray(x)
+    pallas = np.asarray(jax_gn.group_norm_pallas(
+        xj, jnp.asarray(scale), jnp.asarray(bias), eps=eps, act=act,
+        row_tile=8, interpret=True))
+    xla = np.asarray(jax_gn.group_norm_xla(xj, jnp.asarray(scale),
+                                           jnp.asarray(bias), eps=eps,
+                                           act=act))
+    before = group_norm.launches
+    ours4 = _nhwc(group_norm(_nchw(x).contiguous(
+        memory_format=torch.channels_last), T(scale), T(bias), eps=eps,
+        act=act))
+    ours3 = group_norm(T(x.reshape(2, 64, channels)), T(scale), T(bias),
+                       eps=eps, act=act).numpy().reshape(x.shape)
+    assert group_norm.launches == before  # CPU tensors take the plain path
+    np.testing.assert_array_equal(ours4, ours3)
+    # same fp32 formula, sums in another order: 1e-5
+    np.testing.assert_allclose(ours4, xla, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ours4, pallas, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------- K4
+
+
+def test_geglu_matches_pallas_and_xla():
+    rng = np.random.default_rng(4)
+    C, I = 640, 2560
+    x = rng.standard_normal((1, 64, C)).astype(np.float32)
+    w1 = (rng.standard_normal((C, 2 * I)) * C ** -0.5).astype(np.float32)
+    b1 = (rng.standard_normal(2 * I) * 0.1).astype(np.float32)
+    w2 = (rng.standard_normal((I, C)) * I ** -0.5).astype(np.float32)
+    b2 = (rng.standard_normal(C) * 0.1).astype(np.float32)
+    args = [jnp.asarray(a) for a in (x, w1, b1, w2, b2)]
+    xla = np.asarray(geglu_xla(*args))
+    pallas = np.asarray(jax_geglu_pallas(*args, 32, True))
+    before = geglu.launches
+    # the port takes Linear-layout weights: (2I, C) and (C, I)
+    ours = geglu(T(x), T(np.ascontiguousarray(w1.T)), T(b1),
+                 T(np.ascontiguousarray(w2.T)), T(b2)).numpy()
+    assert geglu.launches == before
+    # fp32 products over C=640 and I=2560 in another order, 2e-6 seen;
+    # the Pallas kernel's A&S erf (abs error 1.5e-7) adds less: 1e-5
+    np.testing.assert_allclose(ours, xla, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ours, pallas, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------- plain ops
+
+
+def test_layer_norm_matches_xla():
+    rng = np.random.default_rng(5)
+    x = (rng.standard_normal((2, 24, 320)) * 3 + 1).astype(np.float32)
+    scale = rng.standard_normal(320).astype(np.float32)
+    bias = rng.standard_normal(320).astype(np.float32)
+    ours = layer_norm_ref(T(x), T(scale), T(bias)).numpy()
+    ref = np.asarray(layer_norm_xla(jnp.asarray(x), jnp.asarray(scale),
+                                    jnp.asarray(bias)))
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("out_hw", [(8, 6), (37, 29)])
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_resize_bilinear_matches_jax(out_hw, align_corners):
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 16, 12, 3)).astype(np.float32)
+    ours = _nhwc(resize_bilinear(_nchw(x), out_hw,
+                                 align_corners=align_corners))
+    ref = np.asarray(jax_bilinear(jnp.asarray(x), out_hw,
+                                  align_corners=align_corners))
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("out_hw", [(8, 6), (13, 7), (40, 30)])
+def test_resize_nearest_matches_jax(out_hw):
+    x = np.random.default_rng(7).standard_normal((1, 16, 12, 2)).astype(
+        np.float32)
+    ours = _nhwc(resize_nearest(_nchw(x), out_hw))
+    np.testing.assert_array_equal(
+        ours, np.asarray(jax_nearest(jnp.asarray(x), out_hw)))
+
+
+def test_timestep_embedding_matches_jax():
+    t = np.asarray([0, 1, 21, 500, 981], np.int64)
+    for dim in (32, 320, 33):
+        ours = timestep_embedding(T(t), dim).numpy()
+        ref = np.asarray(jax_temb(jnp.asarray(t), dim))
+        # arguments reach ~981 rad, where one fp32 ulp of the argument
+        # (6e-5) moves sin/cos by as much: 2e-4
+        np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("steps", [2, 50])
+def test_ddim_plan_and_steps_match_jax(steps):
+    jsched, ours = JaxDDIM(), DDIMScheduler()
+    plan = jsched.set_timesteps(steps)
+    assert ours.set_timesteps(steps) == [int(t) for t in plan]
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((1, 4, 8, 8)).astype(np.float32)
+    for t in ours.set_timesteps(steps)[:3] + ours.set_timesteps(steps)[-2:]:
+        eps = rng.standard_normal(x.shape).astype(np.float32)
+        ref = np.asarray(jsched.step(jnp.asarray(eps), jnp.asarray(t),
+                                     jnp.asarray(x)))
+        got = ours.step(T(eps), t, T(x), steps).numpy()
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+        x = np.array(ref)
+
+
+def test_state_dict_from_jax_matches_export_torch_state():
+    unet = JaxUNet(JaxUNetConfig(in_channels=31,
+                                 block_out_channels=(32, 64, 64, 64),
+                                 head_dim=8, cross_attention_dim=64))
+    shapes = jax.eval_shape(unet.init, jax.random.key(0),
+                            jnp.zeros((1, 8, 8, 31)), jnp.asarray([0]),
+                            jnp.zeros((1, 7, 64)))
+    rng = np.random.default_rng(9)
+    flat = {k: rng.standard_normal(v.shape).astype(np.float32)
+            for k, v in flatten_dict(shapes).items()}
+    ours = state_dict_from_jax(flat, unet_key_map)
+    ref = export_torch_state(unflatten_dict(flat), None,
+                             key_map=unet_torch_key_map)
+    assert sorted(ours) == sorted(ref)
+    for key, value in ref.items():
+        assert ours[key].shape == value.shape, key
+        np.testing.assert_array_equal(ours[key].numpy(), value.numpy())
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    # meta tensors are not CPU tensors, so the wrappers validate them as
+    # they would a CUDA tensor and raise before any build or launch
+    meta = {"device": "meta"}
+    q = torch.empty(1, 16, 2, 32, dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention(q.float(), q.float(), q.float())
+    x = torch.empty(2, 64, 4, 4, dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="channels_last"):
+        group_norm(x, torch.ones(64), torch.zeros(64))
+    with pytest.raises(ValueError, match="bf16"):
+        group_norm(x.float(), torch.ones(64), torch.zeros(64))
+    h = torch.empty(4, 96, dtype=torch.bfloat16, **meta)
+    w1 = torch.empty(768, 96, dtype=torch.bfloat16, **meta)
+    w2 = torch.empty(96, 384, dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        geglu(h, w1, torch.empty(768, **meta), w2, torch.empty(96, **meta))
