@@ -7,43 +7,73 @@ Phases, each printing its numbers before the last line:
 
 1. the card's name and power limit (``nvidia-smi``), then the build of
    the hand-written kernels under ``ladi_vton_tpu_torch/csrc`` into the
-   git-ignored ``build/`` directory, with its seconds;
+   git-ignored ``build/`` directory (one ``nvcc`` per source, in
+   parallel), with its seconds;
 2. each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it: the kernel in bf16, the plain version
    in fp32 on the same bf16 inputs (TF32 off), max abs error against a
-   stated limit, and both times from CUDA events (the plain version timed
-   on the bf16 inputs);
+   stated limit; the kernel's, the plain version's (on the bf16 inputs)
+   and one PyTorch library call's times from CUDA events, and the bound:
+   the least time the card could take for the call;
 3. integration at full width: one level-0 ``Transformer2D`` (C=320,
    64x48, batch 4) and one VAE ``MidBlock`` (512 at 64x48) through the
    kernels on the card and through the plain versions on the CPU, same
-   weights, relative L2 error against a stated limit; then the whole
-   sampler at full SD-2 width on a small 128x128 input (2 DDIM steps,
-   CFG 7.5) on the card against the CPU;
+   weights, relative L2 error against a stated limit; the whole sampler
+   at full SD-2 width on a small 128x128 input (2 DDIM steps, CFG 7.5);
+   the conditioner at full width and 2 layers per CLIP tower on a
+   256x192 image (TPS at 256x192), on the card against the CPU;
 4. the main path: a ``TryOnService`` at full SD-2 width (31-channel UNet,
    SD-2 VAE, EMASC) with seeded random bf16 weights, 512x384, DDIM-50,
    CFG 7.5, batch_size 2, answering three requests of 1, 2 and 2 images;
    each output is checked for shape, finiteness and range, and each
-   kernel's launch counter must have risen during the requests.
+   kernel's launch counter must have risen during the requests;
+5. raw requests: a ``ConditionService`` at full width (ViT-H/14 vision,
+   SD-2 text, the SD-2 inversion adapter in bf16; TPS at 256x192 and the
+   refinement at 512x384 in fp32; ``num_vstar`` 16) in front of the
+   phase-4 service turns cloth, pose, masked person and category into
+   the try-on inputs, for requests of 1 and 2 images; conditioning and
+   total seconds and peak memory per request, every output checked, and
+   K5 launched in both stages.  A deterministic word tokenizer stands in
+   for the CLIP BPE tokenizer, whose vocabulary files the repository
+   does not hold.
 
-The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.  Any failed check raises, so the
-script exits non-zero without that line; it also refuses to run without
-CUDA.
+Phases 2 and 3 compare with TF32 off for matmuls and cuDNN; phases 4
+and 5 serve with PyTorch's defaults (cuDNN TF32 allowed, matmul TF32
+off), which the port leaves as they are: with cuDNN TF32 off, cuDNN runs
+the fp32 refinement through FFT convolutions that take ~60x longer and
+a ~20 GiB workspace (``tools/profile_raw_request.py``).
+
+The line before the last is ``{"kernels": [...]}``, with the launches
+of phase 5; the last is ``{"ok": true, "device": {...}}``.  Any failed
+check raises, so the script exits non-zero without that line; it also
+refuses to run without CUDA.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ladi_vton_tpu_torch.diffusion.schedulers import DDIMScheduler
+from ladi_vton_tpu_torch.models.clip import (
+    CLIPTextModel,
+    CLIPVisionModel,
+    sd2_text_config,
+    vit_h_vision_config,
+)
 from ladi_vton_tpu_torch.models.emasc import EMASC
+from ladi_vton_tpu_torch.models.inversion_adapter import InversionAdapter
 from ladi_vton_tpu_torch.models.layers import Transformer2D
+from ladi_vton_tpu_torch.models.refinement import UNetVanilla
+from ladi_vton_tpu_torch.models.tps import ConvNetTPS
 from ladi_vton_tpu_torch.models.unet_condition import (
     UNet2DCondition,
     sd2_unet_config,
@@ -54,7 +84,9 @@ from ladi_vton_tpu_torch.ops.attention import attention_ref
 from ladi_vton_tpu_torch.ops.flash_attention import flash_attention
 from ladi_vton_tpu_torch.ops.geglu import geglu, geglu_ref
 from ladi_vton_tpu_torch.ops.group_norm import group_norm, group_norm_ref
-from ladi_vton_tpu_torch.pipelines.serving import TryOnService
+from ladi_vton_tpu_torch.ops.layer_norm import layer_norm, layer_norm_ref
+from ladi_vton_tpu_torch.pipelines.condition import Conditioner
+from ladi_vton_tpu_torch.pipelines.serving import ConditionService, TryOnService
 from ladi_vton_tpu_torch.pipelines.tryon import TryOnPipeline
 
 BF16 = torch.bfloat16
@@ -65,6 +97,7 @@ BF16 = torch.bfloat16
 ATTN_LIMIT = 2e-2
 GN_LIMIT = 3e-2
 GEGLU_LIMIT = 5e-2
+LN_LIMIT = 3e-2
 # relative L2 error of a full-width block, bf16 on the card against fp32
 # on the CPU: a few bf16 roundings (2^-9 relative each) per layer
 BLOCK_LIMIT = 2e-2
@@ -73,6 +106,33 @@ BLOCK_LIMIT = 2e-2
 # t = 981 divides by sqrt(alpha) = 0.07
 LATENT_LIMIT = 1e-1
 IMAGE_MEAN_LIMIT = 2e-2
+# the conditioner, card against CPU: the warped cloth is fp32 on both
+# (TF32 off) and rounded once to bf16 at the end (2^-9 relative); the
+# embeddings pass 2 bf16 CLIP layers, the adapter's layer and MLP, 2 text
+# layers: a few bf16 roundings each
+WARPED_LIMIT = 1e-2
+EMBEDS_LIMIT = 5e-2
+NUM_VSTAR = 16
+
+
+# the least time the card could take for a call: the larger of its bytes
+# (each input read once, each output written once) over the memory rate
+# and its operations over the peak rate for their type (NVIDIA H100 SXM
+# data sheet, dense, at the full 700 W)
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+
+def nbytes(*tensors: torch.Tensor) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops: float, rate: float, moved: int) -> dict:
+    ops_ms = flops / rate * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def log(msg: str) -> None:
@@ -127,12 +187,19 @@ def check_attention(gen: Gen) -> dict:
         err = (out.float() - ref).abs().max().item()
         ms = cuda_ms(lambda: flash_attention(q, k, v), 10)
         plain_ms = cuda_ms(lambda: attention_ref(q, k, v), 3)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        library_ms = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qh, kh, vh), 10)
+        b = bound(4.0 * B * H * Sq * Sk * D, BF16_TENSOR_FLOPS,
+                  nbytes(q, k, v, out))
         log(f"K1 flash_attention B={B} Sq={Sq} Sk={Sk} H={H} D={D}: "
             f"max_abs_err {err:.3e} (limit {ATTN_LIMIT}) kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms")
+            f"plain {plain_ms:.4f} ms library (F.scaled_dot_product_attention)"
+            f" {library_ms:.4f} ms bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})")
         if not err <= ATTN_LIMIT:
             raise AssertionError(f"flash_attention disagrees: {err}")
-        rows.append((err, ms, plain_ms))
+        rows.append((err, ms, plain_ms, library_ms, b))
     return summarize(rows)
 
 
@@ -155,12 +222,26 @@ def check_group_norm(gen: Gen) -> dict:
         ms = cuda_ms(lambda: group_norm(x, w, b, eps=eps, act=act), 20)
         plain_ms = cuda_ms(lambda: group_norm_ref(x, w, b, eps=eps, act=act),
                            5)
+        # the library pair takes (B, C, N) and weights in x's dtype
+        xt, wl, bl = x.transpose(1, 2).contiguous(), w.to(BF16), b.to(BF16)
+
+        def library():
+            y = F.group_norm(xt, 32, wl, bl, eps)
+            return F.silu(y) if silu else y
+
+        library_ms = cuda_ms(library, 20)
+        # statistics (sum, square), the affine and, with SiLU, its four
+        per_elem = 4 + (4 if silu else 0)
+        bd = bound(float(per_elem * x.numel()), FP32_FLOPS,
+                   nbytes(x, w, b, out))
         log(f"K2 group_norm B={B} N={N} C={C} act={act} eps={eps}: "
             f"max_abs_err {err:.3e} (limit {GN_LIMIT}) kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms")
+            f"plain {plain_ms:.4f} ms library (F.group_norm"
+            f"{' then F.silu' if silu else ''}) {library_ms:.4f} ms bound "
+            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
         if not err <= GN_LIMIT:
             raise AssertionError(f"group_norm disagrees: {err}")
-        rows.append((err, ms, plain_ms))
+        rows.append((err, ms, plain_ms, library_ms, bd))
     return summarize(rows)
 
 
@@ -183,26 +264,72 @@ def check_geglu(gen: Gen) -> dict:
         err = (out.float() - ref).abs().max().item()
         ms = cuda_ms(lambda: geglu(x, w1, b1, w2, b2), 20)
         plain_ms = cuda_ms(lambda: geglu_ref(x, w1, b1, w2, b2), 20)
+
+        def library():
+            h, gate = F.linear(x, w1, b1).chunk(2, dim=-1)
+            return F.linear(h * F.gelu(gate), w2, b2)
+
+        library_ms = cuda_ms(library, 20)
+        b = bound(2.0 * M * C * 2 * inner + 2.0 * M * inner * C,
+                  BF16_TENSOR_FLOPS, nbytes(x, w1, b1, w2, b2, out))
         log(f"K4 geglu rows={M} C={C} I={inner}: max_abs_err {err:.3e} "
             f"(limit {GEGLU_LIMIT}) kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms")
+            f"{plain_ms:.4f} ms library (F.linear, gate, F.linear) "
+            f"{library_ms:.4f} ms bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']})")
         if not err <= GEGLU_LIMIT:
             raise AssertionError(f"geglu disagrees: {err}")
-        rows.append((err, ms, plain_ms))
+        rows.append((err, ms, plain_ms, library_ms, b))
+    return summarize(rows)
+
+
+def check_layer_norm(gen: Gen) -> dict:
+    # (rows, C): the UNet's three levels and mid block (batch 2B = 4),
+    # CLIP text (2 x 77 tokens), CLIP vision and the adapter (2 x 257) and
+    # the adapter's CLS rows, read in place through their row stride
+    shapes = [(4 * 3072, 320), (4 * 768, 640), (4 * 192, 1280),
+              (4 * 48, 1280), (2 * 77, 1024), (2 * 257, 1280), (2, 1280)]
+    rows = []
+    for M, C in shapes:
+        if M == 2:  # x[:, 0, :] of (2, 257, C)
+            x = (gen.normal(2, 257, C, scale=2.0) + 0.5)[:, 0, :]
+        else:
+            x = gen.normal(M, C, scale=2.0) + 0.5
+        w = gen.normal(C, scale=0.1) + 1.0
+        b = gen.normal(C, scale=0.1)
+        out = layer_norm(x, w, b)
+        torch.cuda.synchronize()
+        ref = layer_norm_ref(x.float(), w.float(), b.float())
+        err = (out.float() - ref).abs().max().item()
+        ms = cuda_ms(lambda: layer_norm(x, w, b), 20)
+        plain_ms = cuda_ms(lambda: layer_norm_ref(x, w, b), 20)
+        library_ms = cuda_ms(lambda: F.layer_norm(x, (C,), w, b, 1e-5), 20)
+        # sum, centre, square-and-add, scale, affine
+        bd = bound(7.0 * x.numel(), FP32_FLOPS, nbytes(x, w, b, out))
+        log(f"K5 layer_norm rows={M} C={C} row stride {x.stride(0)}: "
+            f"max_abs_err {err:.3e} (limit {LN_LIMIT}) kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms library (F.layer_norm) "
+            f"{library_ms:.4f} ms bound {bd['bound_ms']:.4f} ms "
+            f"({bd['bound_by']})")
+        if not err <= LN_LIMIT:
+            raise AssertionError(f"layer_norm disagrees: {err}")
+        rows.append((err, ms, plain_ms, library_ms, bd))
     return summarize(rows)
 
 
 def summarize(rows) -> dict:
-    """Worst error over the shapes; times at the first (hottest) shape."""
-    return {"max_abs_err": max(r[0] for r in rows), "ms": rows[0][1],
-            "plain_ms": rows[0][2]}
+    """Worst error over the shapes; times and bound at the first
+    (hottest) shape."""
+    err, ms, plain_ms, library_ms, b = rows[0]
+    return {"max_abs_err": max(r[0] for r in rows), "ms": ms,
+            "plain_ms": plain_ms, **b, "library_ms": library_ms}
 
 
 def seeded(factory, seed: int, device: str, dtype=torch.float32):
     torch.manual_seed(seed)
     with torch.device(device):
         module = factory()
-    return module.to(dtype).eval()
+    return module.to(device=device, dtype=dtype).eval()
 
 
 def cpu_copy(module: torch.nn.Module, factory) -> torch.nn.Module:
@@ -309,6 +436,164 @@ def check_small_sample(pipe: TryOnPipeline) -> None:
         raise AssertionError("the sampler disagrees with the CPU")
 
 
+class WordTokenizer:
+    """A deterministic stand-in for the CLIP BPE tokenizer: start id
+    49406, one id per word (``$`` is 259, every other word a hash in
+    [1, 49405] that skips 259), end id 49407, padding 0, 77 ids."""
+
+    def __call__(self, texts) -> np.ndarray:
+        ids = np.zeros((len(texts), 77), np.int64)
+        for i, text in enumerate(texts):
+            words = [259 if w == "$" else self.word_id(w)
+                     for w in text.split()][:75]
+            ids[i, :len(words) + 2] = [49406, *words, 49407]
+        return ids
+
+    @staticmethod
+    def word_id(word: str) -> int:
+        i = 1 + zlib.crc32(word.encode()) % 49404
+        return i + 1 if i >= 259 else i
+
+
+def conditioner(device: str, image_size: tuple, clip_layers=None
+                ) -> Conditioner:
+    """The conditioning towers at full width with seeded random weights:
+    TPS and refinement in fp32, the CLIP towers and the adapter in bf16;
+    ``clip_layers`` cuts the depth of both CLIP towers."""
+    vcfg, tcfg = vit_h_vision_config(), sd2_text_config()
+    if clip_layers is not None:
+        vcfg = dataclasses.replace(vcfg, num_hidden_layers=clip_layers)
+        tcfg = dataclasses.replace(tcfg, num_hidden_layers=clip_layers)
+
+    def tps():
+        module = ConvNetTPS(256, 192, 21)
+        # the regression starts at the identity warp (zero weights); a
+        # small random weight lets the features move the grid
+        torch.nn.init.normal_(module.loc_net.regression.linear.weight,
+                              std=1e-3)
+        return module
+
+    empty_ids = torch.from_numpy(WordTokenizer()([""])[0])
+    return Conditioner(
+        tps=seeded(tps, 20, device),
+        refinement=seeded(UNetVanilla, 21, device),
+        vision=seeded(lambda: CLIPVisionModel(vcfg), 22, device, BF16),
+        adapter=seeded(lambda: InversionAdapter(num_encoder_layers=1),
+                       23, device, BF16),
+        text_model=seeded(lambda: CLIPTextModel(tcfg), 24, device, BF16),
+        num_vstar=NUM_VSTAR, empty_ids=empty_ids, image_size=image_size,
+        tps_size=(256, 192))
+
+
+def cpu_conditioner(cond: Conditioner) -> Conditioner:
+    """fp32 CPU twin of a conditioner, with its (bf16-rounded) weights."""
+    vcfg = cond.vision.config
+    tcfg = cond.text_model.config
+    return dataclasses.replace(
+        cond, tps=cpu_copy(cond.tps, lambda: ConvNetTPS(256, 192, 21)),
+        refinement=cpu_copy(cond.refinement, UNetVanilla),
+        vision=cpu_copy(cond.vision, lambda: CLIPVisionModel(vcfg)),
+        adapter=cpu_copy(cond.adapter,
+                         lambda: InversionAdapter(num_encoder_layers=1)),
+        text_model=cpu_copy(cond.text_model, lambda: CLIPTextModel(tcfg)))
+
+
+def raw_request(rng: np.random.Generator, n: int, h: int, w: int) -> dict:
+    """What a user sends: person image and inpainting mask, masked
+    person, pose, in-shop cloth, category."""
+    req = request(rng, n, h, w)
+    f = np.float32
+    return dict(
+        image=req["image"], inpaint_mask=req["inpaint_mask"],
+        pose_map=req["pose_map"],
+        im_mask=req["image"] * (1.0 - req["inpaint_mask"]),
+        cloth=rng.uniform(-1, 1, (n, h, w, 3)).astype(f),
+        categories=[("dresses", "upper_body", "lower_body")[i % 3]
+                    for i in range(n)])
+
+
+@torch.no_grad()
+def check_conditioner() -> None:
+    h, w = 256, 192
+    cond = conditioner("cuda", (h, w), clip_layers=2)
+    raw = raw_request(np.random.default_rng(7), 1, h, w)
+    results = []
+    for c, device in ((cond, "cuda"), (cpu_conditioner(cond), "cpu")):
+        service = ConditionService(c, WordTokenizer(), batch_size=1,
+                                   num_vstar=NUM_VSTAR, device=device)
+        results.append([torch.from_numpy(a) for a in service.run(
+            cloth=raw["cloth"], pose_map=raw["pose_map"],
+            im_mask=raw["im_mask"], categories=raw["categories"])])
+    errs = [rel_l2(a, b) for a, b in zip(*results)]
+    log(f"integration conditioner full width, 2 CLIP layers, 256x192, TPS "
+        f"256x192: warped cloth rel_l2 {errs[0]:.3e} (limit {WARPED_LIMIT}), "
+        f"prompt embeds {errs[1]:.3e}, negative embeds {errs[2]:.3e} "
+        f"(limit {EMBEDS_LIMIT})")
+    if not (all(torch.isfinite(t).all() for t in results[0])
+            and errs[0] <= WARPED_LIMIT and errs[1] <= EMBEDS_LIMIT
+            and errs[2] <= EMBEDS_LIMIT):
+        raise AssertionError("the conditioner disagrees with the CPU")
+
+
+def serve_raw_requests(service: TryOnService, wrappers: dict) -> dict:
+    """Phase 5: ConditionService -> TryOnService at full width; returns
+    the kernels' launches over the two requests."""
+    h, w = service.height, service.width
+    cond = ConditionService(conditioner("cuda", (h, w)), WordTokenizer(),
+                            batch_size=service.batch_size,
+                            num_vstar=NUM_VSTAR)
+    rng = np.random.default_rng(1)
+
+    def answer(raw: dict):
+        t0 = time.perf_counter()
+        warped, embeds, negative = cond.run(
+            cloth=raw["cloth"], pose_map=raw["pose_map"],
+            im_mask=raw["im_mask"], categories=raw["categories"])
+        torch.cuda.synchronize()
+        t_cond = time.perf_counter() - t0
+        ln_cond = layer_norm.launches
+        out = service.generate(
+            image=raw["image"], inpaint_mask=raw["inpaint_mask"],
+            pose_map=raw["pose_map"], warped_cloth=warped,
+            prompt_embeds=embeds, negative_prompt_embeds=negative)
+        torch.cuda.synchronize()
+        return (warped, embeds, negative, out, t_cond,
+                time.perf_counter() - t0, ln_cond)
+
+    t0 = time.perf_counter()
+    answer(raw_request(rng, 2, h, w))
+    log(f"phase 5: warmup raw request (2 images) "
+        f"{time.perf_counter() - t0:.3f} s")
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    for n in (1, 2):
+        raw = raw_request(rng, n, h, w)
+        torch.cuda.reset_peak_memory_stats()
+        ln_before = layer_norm.launches
+        warped, embeds, negative, out, t_cond, total, ln_cond = answer(raw)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ok = (warped.shape == (n, h, w, 3) and np.isfinite(warped).all()
+              and warped.min() >= -1.0 and warped.max() <= 1.0
+              and embeds.shape == negative.shape == (n, 77, 1024)
+              and np.isfinite(embeds).all() and np.isfinite(negative).all()
+              and out.shape == (n, h, w, 3) and np.isfinite(out).all()
+              and out.min() >= 0.0 and out.max() <= 1.0)
+        log(f"raw request of {n} image(s) ({', '.join(raw['categories'])}) "
+            f"at {h}x{w}: conditioning {t_cond:.3f} s, total {total:.3f} s "
+            f"(DDIM-{service.num_inference_steps}, CFG "
+            f"{service.guidance_scale}, batch {service.batch_size}), peak device "
+            f"memory {peak:.2f} GiB, warped cloth in [{warped.min():.4f}, "
+            f"{warped.max():.4f}], prompt embeds std {embeds.std():.4f}, "
+            f"output in [{out.min():.4f}, {out.max():.4f}] std "
+            f"{out.std():.4f}; K5 launches: conditioning "
+            f"{ln_cond - ln_before}, try-on {layer_norm.launches - ln_cond}")
+        if not ok:
+            raise AssertionError(f"raw request of {n}: bad output")
+        if not (ln_cond > ln_before and layer_norm.launches > ln_cond):
+            raise AssertionError("K5 was not launched in both stages")
+    return {name: wrapper.launches for name, wrapper in wrappers.items()}
+
+
 KERNELS = (
     ("flash_attention", flash_attention, check_attention,
      "ladi_vton_tpu_torch/csrc/flash_attention.cu",
@@ -318,6 +603,9 @@ KERNELS = (
      "ladi_vton_tpu/ops/group_norm.py:154"),
     ("geglu", geglu, check_geglu, "ladi_vton_tpu_torch/csrc/geglu.cu",
      "ladi_vton_tpu/ops/geglu.py:72"),
+    ("layer_norm", layer_norm, check_layer_norm,
+     "ladi_vton_tpu_torch/csrc/layer_norm.cu",
+     "ladi_vton_tpu/ops/layer_norm.py:66"),
 )
 
 
@@ -335,11 +623,12 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)}")
 
-    lib_path, build_s = _build.build()
+    build_dir, build_s = _build.build()
     _build.library()
     log(f"phase 1: kernels built from ladi_vton_tpu_torch/csrc in "
-        f"{build_s:.2f} s (0 = already built for these sources); ptxas "
-        f"report in {lib_path.parent / 'nvcc.log'}")
+        f"{build_s:.2f} s, one nvcc per source in parallel (0 = already "
+        f"built for these sources); ptxas report in "
+        f"{build_dir / 'nvcc.log'}")
 
     gen = Gen(0)
     results = {}
@@ -350,8 +639,11 @@ def main() -> None:
     check_blocks(gen)
     pipe = full_width_pipeline()
     check_small_sample(pipe)
-    log("phase 3: full-width blocks and the sampler agree with the CPU")
+    check_conditioner()
+    log("phase 3: full-width blocks, the sampler and the conditioner agree "
+        "with the CPU")
 
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
     service = TryOnService(pipe, batch_size=2, height=512, width=384,
                            num_inference_steps=50, guidance_scale=7.5,
                            context_dim=1024, seed=0)
@@ -360,7 +652,8 @@ def main() -> None:
     torch.cuda.synchronize()
     log(f"phase 4: warmup request (2 images) {time.perf_counter() - t0:.3f} s")
     rng = np.random.default_rng(0)
-    for _, wrapper, _, _, _ in KERNELS:
+    wrappers = {name: wrapper for name, wrapper, _, _, _ in KERNELS}
+    for wrapper in wrappers.values():
         wrapper.launches = 0
     for n in (1, 2, 2):
         req = request(rng, n, 512, 384)
@@ -378,11 +671,18 @@ def main() -> None:
             f"{out.std():.4f}")
         if not ok:
             raise AssertionError(f"request of {n}: bad output")
-    launches = {name: wrapper.launches for name, wrapper, _, _, _ in KERNELS}
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
     log(f"launches during the three requests: {launches}")
     missing = [name for name, count in launches.items() if count == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the path: {missing}")
+
+    launches = serve_raw_requests(service, wrappers)
+    log(f"launches during the two raw requests: {launches}")
+    missing = [name for name, count in launches.items() if count == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the raw-request "
+                             f"path: {missing}")
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,

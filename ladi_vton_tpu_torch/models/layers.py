@@ -21,7 +21,8 @@ from torch import nn
 from ladi_vton_tpu_torch.ops.attention import dot_product_attention
 from ladi_vton_tpu_torch.ops.geglu import geglu
 from ladi_vton_tpu_torch.ops.group_norm import group_norm
-from ladi_vton_tpu_torch.ops.layer_norm import layer_norm_ref
+from ladi_vton_tpu_torch.ops.layer_norm import layer_norm
+
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
     """Sinusoidal timestep features in diffusers' SD convention
@@ -71,7 +72,8 @@ class GroupNorm(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last axis with fp32 statistics (plain)."""
+    """LayerNorm over the last axis with fp32 statistics
+    (``ops.layer_norm``: kernel K5 on CUDA)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -80,7 +82,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm_ref(x, self.weight, self.bias, eps=self.eps)
+        return layer_norm(x, self.weight, self.bias, eps=self.eps)
 
 
 class ResnetBlock2D(nn.Module):

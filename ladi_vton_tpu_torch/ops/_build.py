@@ -1,9 +1,10 @@
 """Build and bind the hand-written Hopper kernels under ``csrc/``.
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded through ``ctypes``.  The build
-happens at first use, into ``build/kernels/<hash>/`` at the repository
-root (git-ignored), keyed by a hash of the sources and the flags, so an
+Each ``.cu`` source compiles with ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded through ``ctypes``; the
+compilers run side by side, one process per source.  The build happens
+at first use, into ``build/kernels/<hash>/`` at the repository root
+(git-ignored), keyed by a hash of the sources and the flags, so an
 edited kernel rebuilds and an unchanged one loads at once.
 
 Every C entry point launches on the stream it is given and returns
@@ -22,6 +23,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+import types
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -52,6 +54,8 @@ SIGNATURES = {
     "ladi_geglu_proj": [P, P, P, P, I, I, I, P],
     # a, w2, b2, y, M, I, C, stream
     "ladi_geglu_out": [P, P, P, P, I, I, I, P],
+    # x, weight, bias, out, rows, C, x row stride, eps, stream
+    "ladi_layer_norm_fwd": [P, P, P, P, I, I, I64, F, P],
 }
 
 
@@ -80,47 +84,66 @@ def source_hash() -> str:
 
 
 def build() -> tuple[Path, float]:
-    """Compile ``csrc/*.cu`` unless the hashed library exists.
+    """Compile each ``csrc/*.cu`` whose hashed library is missing.
 
-    Returns (library path, seconds spent compiling; 0.0 when cached).
-    The compiler's output, with the ``-Xptxas -v`` report of registers,
-    shared memory and spills per kernel, is kept beside the library in
-    ``nvcc.log``.
+    Returns (build directory, seconds spent compiling; 0.0 when cached).
+    The compilers' output, with the ``-Xptxas -v`` report of registers,
+    shared memory and spills per kernel, is kept in ``nvcc.log`` there.
     """
     out_dir = BUILD_ROOT / source_hash()
-    lib = out_dir / "libladi_kernels.so"
-    if lib.exists():
-        return lib, 0.0
+    todo = [p for p in _sources() if p.suffix == ".cu"
+            and not (out_dir / f"lib{p.stem}.so").exists()]
+    if not todo:
+        return out_dir, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    cus = [str(p) for p in _sources() if p.suffix == ".cu"]
-    # compile to a private name, then rename: a concurrent loader never
-    # sees a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cus]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in todo:
+        # compile to a private name, then rename: a concurrent loader
+        # never sees a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, tmp, cmd, proc))
+    log, failed = [], []
+    for src, tmp, cmd, proc in jobs:
+        output, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + output)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{src.name} ({proc.returncode}):\n{output}")
+        else:
+            os.replace(tmp, out_dir / f"lib{src.stem}.so")
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    (out_dir / "nvcc.log").write_text(" ".join(cmd) + "\n" + proc.stdout
-                                      + proc.stderr)
-    os.replace(tmp, lib)
-    return lib, seconds
+    with open(out_dir / "nvcc.log", "a") as f:
+        f.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return out_dir, seconds
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    lib_path, _ = build()
-    lib = ctypes.CDLL(str(lib_path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+def library() -> types.SimpleNamespace:
+    """The entry points of all kernel libraries (built on first call)."""
+    out_dir, _ = build()
+    found = {}
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        lib = ctypes.CDLL(str(out_dir / f"lib{src.stem}.so"))
+        for name, argtypes in SIGNATURES.items():
+            if hasattr(lib, name):
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                found[name] = fn
+    missing = sorted(set(SIGNATURES) - set(found))
+    if missing:
+        raise RuntimeError(f"kernel entry points not found: {missing}")
+    return types.SimpleNamespace(**found)
 
 
 def check(err: int, what: str) -> None:

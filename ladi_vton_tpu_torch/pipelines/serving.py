@@ -1,11 +1,15 @@
-"""Serving wrapper around the try-on pipeline.
+"""Serving wrappers around the conditioning stage and the try-on pipeline.
 
-Counterpart of ``ladi_vton_tpu/pipelines/serving.py TryOnService``
-without a mesh: requests of up to ``batch_size`` images are padded to
-the fixed batch (repeating the last sample), run through
-``TryOnPipeline.sample`` and returned unpadded.  Each request without an
-explicit generator gets its own, seeded from (seed, request count) in
-place of the JAX ``fold_in``.
+Counterparts of ``ladi_vton_tpu/pipelines/serving.py`` ``TryOnService``
+(without a mesh) and ``ConditionService``.  Requests of up to
+``batch_size`` images are padded to the fixed batch (repeating the last
+sample), run, and returned unpadded as float32 numpy arrays.  A raw
+try-on request goes through both: ``ConditionService.run`` turns cloth,
+pose, masked person and category into warped cloth and prompt
+embeddings, which ``TryOnService.generate`` takes with the person image
+and inpainting mask.  Each try-on request without an explicit generator
+gets its own, seeded from (seed, request count) in place of the JAX
+``fold_in``.
 """
 
 from __future__ import annotations
@@ -16,7 +20,26 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ladi_vton_tpu_torch.pipelines.condition import Conditioner
 from ladi_vton_tpu_torch.pipelines.tryon import TryOnPipeline
+
+# prompt text per garment category (ladi_vton_tpu/data/labels.py)
+CATEGORY_PROMPT_TEXT = {
+    "dresses": "a dress",
+    "upper_body": "an upper body garment",
+    "lower_body": "a lower body garment",
+}
+
+
+def pad_batch(x: np.ndarray, batch_size: int) -> np.ndarray:
+    """Pad a request to ``batch_size`` by repeating its last sample."""
+    n = x.shape[0]
+    if n > batch_size:
+        raise ValueError(f"request batch {n} exceeds the service batch "
+                         f"{batch_size}; split the request")
+    if n < batch_size:
+        x = np.concatenate([x] + [x[-1:]] * (batch_size - n))
+    return x
 
 
 def request_seed(seed: int, count: int) -> int:
@@ -53,14 +76,8 @@ class TryOnService:
                                             np.float32))
 
     def _pad(self, x: np.ndarray) -> torch.Tensor:
-        n = x.shape[0]
-        if n > self.batch_size:
-            raise ValueError(f"request batch {n} exceeds the service batch "
-                             f"{self.batch_size}; split the request")
-        if n < self.batch_size:
-            x = np.concatenate([x] + [x[-1:]] * (self.batch_size - n))
-        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
-            self.pipe.device)
+        x = pad_batch(np.asarray(x, np.float32), self.batch_size)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.pipe.device)
 
     def generate(self, *, image, inpaint_mask, pose_map, warped_cloth,
                  prompt_embeds, negative_prompt_embeds,
@@ -83,3 +100,42 @@ class TryOnService:
                 num_inference_steps=self.num_inference_steps,
                 guidance_scale=self.guidance_scale)
         return out[:n].cpu().numpy()
+
+
+class ConditionService:
+    """In-shop cloth + pose + masked person + category strings ->
+    warped cloth and prompt embeddings, ready for ``TryOnService``.
+
+    ``tokenizer`` maps a list of prompts to (n, S) token ids, as the CLIP
+    tokenizer does (S = 77 for SD-2).  The conditioner's towers are
+    placed on ``device``."""
+
+    def __init__(self, conditioner: Conditioner, tokenizer, *,
+                 batch_size: int = 8, num_vstar: int = 16,
+                 device: str = "cuda"):
+        self.conditioner = conditioner.to(device)
+        self.tokenizer = tokenizer
+        self.batch_size = batch_size
+        self.num_vstar = num_vstar
+        self._lock = threading.Lock()
+
+    def prompts(self, categories) -> list[str]:
+        return [f"a photo of a model wearing "
+                f"{CATEGORY_PROMPT_TEXT[str(c)]} {' $ ' * self.num_vstar}"
+                for c in categories]
+
+    def _pad(self, x, dtype) -> torch.Tensor:
+        x = pad_batch(np.asarray(x, dtype), self.batch_size)
+        return torch.from_numpy(np.ascontiguousarray(x))
+
+    def run(self, *, cloth, pose_map, im_mask, categories):
+        """Returns float32 (warped_cloth, prompt_embeds,
+        negative_prompt_embeds), unpadded to the request's n samples."""
+        n = cloth.shape[0]
+        input_ids = np.asarray(self.tokenizer(self.prompts(categories)))
+        with self._lock:
+            out = self.conditioner(
+                self._pad(pose_map, np.float32), self._pad(cloth, np.float32),
+                self._pad(im_mask, np.float32),
+                self._pad(input_ids, np.int64))
+        return tuple(t[:n].float().cpu().numpy() for t in out)

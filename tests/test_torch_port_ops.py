@@ -24,7 +24,7 @@ from ladi_vton_tpu.ops.attention import dot_product_attention as jax_attention
 from ladi_vton_tpu.ops.flash_attention import flash_attention as jax_flash
 from ladi_vton_tpu.ops.geglu import _geglu as jax_geglu_pallas
 from ladi_vton_tpu.ops.geglu import geglu_xla
-from ladi_vton_tpu.ops.layer_norm import layer_norm_xla
+from ladi_vton_tpu.ops.layer_norm import layer_norm_pallas, layer_norm_xla
 from ladi_vton_tpu.ops.resize import resize_bilinear as jax_bilinear
 from ladi_vton_tpu.ops.resize import resize_nearest as jax_nearest
 from ladi_vton_tpu_torch.core.checkpoint import state_dict_from_jax, unet_key_map
@@ -34,7 +34,7 @@ from ladi_vton_tpu_torch.ops.attention import dot_product_attention
 from ladi_vton_tpu_torch.ops.flash_attention import flash_attention
 from ladi_vton_tpu_torch.ops.geglu import geglu
 from ladi_vton_tpu_torch.ops.group_norm import group_norm
-from ladi_vton_tpu_torch.ops.layer_norm import layer_norm_ref
+from ladi_vton_tpu_torch.ops.layer_norm import layer_norm, layer_norm_ref
 from ladi_vton_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 
 T = torch.from_numpy
@@ -156,6 +156,62 @@ def test_layer_norm_matches_xla():
     ref = np.asarray(layer_norm_xla(jnp.asarray(x), jnp.asarray(scale),
                                     jnp.asarray(bias)))
     np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------- K5
+
+
+@pytest.mark.parametrize("shape", [(2, 24, 320), (4, 16, 640), (2, 1280),
+                                   (4, 16, 1280), (2, 77, 1024)],
+                         ids=["unet320", "unet640", "cls1280", "unet1280",
+                              "text1024_ragged"])
+def test_layer_norm_matches_pallas_and_xla(shape):
+    rng = np.random.default_rng(10)
+    C = shape[-1]
+    x = (rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+    scale = (1 + 0.1 * rng.standard_normal(C)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(C)).astype(np.float32)
+    args = [jnp.asarray(a) for a in (x, scale, bias)]
+    xla = np.asarray(layer_norm_xla(*args))
+    # 2 x 77 rows have no 8-row tile, so layer_norm_pallas takes the XLA
+    # path there (the port's kernel masks the ragged tail instead)
+    pallas = np.asarray(layer_norm_pallas(*args, interpret=True))
+    before = layer_norm.launches
+    ours = layer_norm(T(x), T(scale), T(bias)).numpy()
+    assert layer_norm.launches == before  # CPU tensors take the plain path
+    np.testing.assert_array_equal(ours, layer_norm_ref(T(x), T(scale),
+                                                       T(bias)).numpy())
+    # the same fp32 formula, sums over C in another order: 1e-5
+    np.testing.assert_allclose(ours, xla, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ours, pallas, rtol=1e-5, atol=1e-5)
+
+
+def test_layer_norm_of_the_cls_slice_equals_the_copied_rows():
+    x = np.random.default_rng(11).standard_normal((2, 257, 64)).astype(
+        np.float32)
+    w, b = torch.ones(64), torch.zeros(64)
+    cls = T(x)[:, 0, :]
+    assert cls.stride(0) == 257 * 64
+    np.testing.assert_array_equal(layer_norm(cls, w, b).numpy(),
+                                  layer_norm(cls.contiguous(), w, b).numpy())
+
+
+def test_layer_norm_wrapper_rejects_what_the_kernel_does_not_take():
+    # meta tensors are validated as CUDA tensors and raise before a build
+    meta = {"device": "meta"}
+    x = torch.empty(4, 77, 320, dtype=torch.bfloat16, **meta)
+    w = torch.empty(320, dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="bf16"):
+        layer_norm(x.float(), w, w)
+    x100 = torch.empty(4, 77, 100, dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="unsupported C"):
+        layer_norm(x100, w[:100], w[:100])
+    with pytest.raises(ValueError, match="contiguous"):
+        layer_norm(x.transpose(0, 1), w, w)
+    with pytest.raises(ValueError, match="bias"):
+        layer_norm(x, w, w.float())
+    with pytest.raises(ValueError, match="weight"):
+        layer_norm(x, torch.empty(640, dtype=torch.bfloat16, **meta), w)
 
 
 @pytest.mark.parametrize("out_hw", [(8, 6), (37, 29)])
