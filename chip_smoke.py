@@ -2,6 +2,7 @@
 """Drive the PyTorch port's try-on path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sweep-geglu   # K4's device time per tiling
 
 Phases, each printing its numbers before the last line:
 
@@ -13,8 +14,11 @@ Phases, each printing its numbers before the last line:
    shapes the main path gives it: the kernel in bf16, the plain version
    in fp32 on the same bf16 inputs (TF32 off), max abs error against a
    stated limit; the kernel's, the plain version's (on the bf16 inputs)
-   and one PyTorch library call's times from CUDA events, and the bound:
-   the least time the card could take for the call;
+   and one PyTorch library call's times from CUDA events over
+   back-to-back calls (host launch cost included), the kernel's and the
+   library call's device times from a CUDA graph of ten calls, and the
+   bound: the least time the card could take for the call, with its
+   share of the kernel's device time;
 3. integration at full width: one level-0 ``Transformer2D`` (C=320,
    64x48, batch 4) and one VAE ``MidBlock`` (512 at 64x48) through the
    kernels on the card and through the plain versions on the CPU, same
@@ -44,14 +48,17 @@ the fp32 refinement through FFT convolutions that take ~60x longer and
 a ~20 GiB workspace (``tools/profile_raw_request.py``).
 
 The line before the last is ``{"kernels": [...]}``, with the launches
-of phase 5; the last is ``{"ok": true, "device": {...}}``.  Any failed
+of phase 5, the first (hottest) shape's times and, under ``shapes``,
+every shape's; the last is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero without that line; it also
 refuses to run without CUDA.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -82,7 +89,13 @@ from ladi_vton_tpu_torch.models.vae import AutoencoderKL, MidBlock, VAEConfig
 from ladi_vton_tpu_torch.ops import _build
 from ladi_vton_tpu_torch.ops.attention import attention_ref
 from ladi_vton_tpu_torch.ops.flash_attention import flash_attention
-from ladi_vton_tpu_torch.ops.geglu import geglu, geglu_ref
+from ladi_vton_tpu_torch.ops.geglu import (
+    BLOCK_K,
+    geglu,
+    geglu_out_tiling,
+    geglu_proj_tiling,
+    geglu_ref,
+)
 from ladi_vton_tpu_torch.ops.group_norm import group_norm, group_norm_ref
 from ladi_vton_tpu_torch.ops.layer_norm import layer_norm, layer_norm_ref
 from ladi_vton_tpu_torch.pipelines.condition import Conditioner
@@ -113,6 +126,10 @@ IMAGE_MEAN_LIMIT = 2e-2
 WARPED_LIMIT = 1e-2
 EMBEDS_LIMIT = 5e-2
 NUM_VSTAR = 16
+# K4's rows x C -> 2I -> C at the UNet's three widths and its mid block,
+# batch 2B = 4
+GEGLU_SHAPES = [(4 * 3072, 320), (4 * 768, 640), (4 * 192, 1280),
+                (4 * 48, 1280)]
 
 
 # the least time the card could take for a call: the larger of its bytes
@@ -153,6 +170,39 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+@functools.lru_cache(maxsize=None)
+def capture_stream() -> torch.cuda.Stream:
+    return torch.cuda.Stream()
+
+
+def graph_ms(fn, calls: int = 10) -> float:
+    """Device milliseconds per call: `calls` calls captured in a CUDA
+    graph and replayed twice, so no host launch cost is timed.  One
+    capture stream serves every graph, and `fn` runs once on it before
+    the capture, so lazily made state (cuBLAS keeps a workspace per
+    stream) is made once and outside the graph."""
+    stream = capture_stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    graph.reset()  # hand the graph's memory back before the next phase
+    return start.elapsed_time(end) / (2 * calls)
+
+
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.double().cpu(), b.double().cpu()
     return float((a - b).norm() / b.norm())
@@ -170,12 +220,15 @@ class Gen:
 
 
 def check_attention(gen: Gen) -> dict:
-    # (B, Sq, Sk, H, D): UNet self-attention at the three levels (batch
-    # 2B = 8), cross-attention (Sk = 77), the mid block (S = 48) and the
-    # VAE's single-head mid block (D = 512)
-    shapes = [(8, 3072, 3072, 5, 64), (8, 768, 768, 10, 64),
-              (8, 192, 192, 20, 64), (8, 3072, 77, 5, 64),
-              (8, 48, 48, 20, 64), (4, 3072, 3072, 1, 512)]
+    # (B, Sq, Sk, H, D): UNet self-attention at the three levels at batch
+    # 2B = 8 and at the path's batch 4 (service batch 2 with CFG),
+    # cross-attention (Sk = 77), the mid block (S = 48) and the VAE's
+    # single-head mid block (D = 512)
+    shapes = [(8, 3072, 3072, 5, 64), (4, 3072, 3072, 5, 64),
+              (8, 768, 768, 10, 64), (4, 768, 768, 10, 64),
+              (8, 192, 192, 20, 64), (4, 192, 192, 20, 64),
+              (8, 3072, 77, 5, 64), (8, 48, 48, 20, 64),
+              (4, 3072, 3072, 1, 512)]
     rows = []
     for B, Sq, Sk, H, D in shapes:
         q = gen.normal(B, Sq, H, D)
@@ -185,21 +238,18 @@ def check_attention(gen: Gen) -> dict:
         torch.cuda.synchronize()
         ref = attention_ref(q.float(), k.float(), v.float())
         err = (out.float() - ref).abs().max().item()
-        ms = cuda_ms(lambda: flash_attention(q, k, v), 10)
-        plain_ms = cuda_ms(lambda: attention_ref(q, k, v), 3)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        library_ms = cuda_ms(
-            lambda: F.scaled_dot_product_attention(qh, kh, vh), 10)
+        t = timings(lambda: flash_attention(q, k, v),
+                    lambda: attention_ref(q, k, v),
+                    lambda: F.scaled_dot_product_attention(qh, kh, vh), 10, 3)
         b = bound(4.0 * B * H * Sq * Sk * D, BF16_TENSOR_FLOPS,
                   nbytes(q, k, v, out))
-        log(f"K1 flash_attention B={B} Sq={Sq} Sk={Sk} H={H} D={D}: "
-            f"max_abs_err {err:.3e} (limit {ATTN_LIMIT}) kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms library (F.scaled_dot_product_attention)"
-            f" {library_ms:.4f} ms bound {b['bound_ms']:.4f} ms "
-            f"({b['bound_by']})")
+        r = row(f"B={B} Sq={Sq} Sk={Sk} H={H} D={D}", err, t, b)
+        log(f"K1 flash_attention {r['shape']}: max_abs_err {err:.3e} (limit "
+            f"{ATTN_LIMIT}) {describe(r, 'F.scaled_dot_product_attention')}")
         if not err <= ATTN_LIMIT:
             raise AssertionError(f"flash_attention disagrees: {err}")
-        rows.append((err, ms, plain_ms, library_ms, b))
+        rows.append(r)
     return summarize(rows)
 
 
@@ -219,9 +269,6 @@ def check_group_norm(gen: Gen) -> dict:
         torch.cuda.synchronize()
         ref = group_norm_ref(x.float(), w, b, eps=eps, act=act)
         err = (out.float() - ref).abs().max().item()
-        ms = cuda_ms(lambda: group_norm(x, w, b, eps=eps, act=act), 20)
-        plain_ms = cuda_ms(lambda: group_norm_ref(x, w, b, eps=eps, act=act),
-                           5)
         # the library pair takes (B, C, N) and weights in x's dtype
         xt, wl, bl = x.transpose(1, 2).contiguous(), w.to(BF16), b.to(BF16)
 
@@ -229,57 +276,61 @@ def check_group_norm(gen: Gen) -> dict:
             y = F.group_norm(xt, 32, wl, bl, eps)
             return F.silu(y) if silu else y
 
-        library_ms = cuda_ms(library, 20)
+        t = timings(lambda: group_norm(x, w, b, eps=eps, act=act),
+                    lambda: group_norm_ref(x, w, b, eps=eps, act=act),
+                    library, 20, 5)
         # statistics (sum, square), the affine and, with SiLU, its four
         per_elem = 4 + (4 if silu else 0)
         bd = bound(float(per_elem * x.numel()), FP32_FLOPS,
                    nbytes(x, w, b, out))
-        log(f"K2 group_norm B={B} N={N} C={C} act={act} eps={eps}: "
-            f"max_abs_err {err:.3e} (limit {GN_LIMIT}) kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms library (F.group_norm"
-            f"{' then F.silu' if silu else ''}) {library_ms:.4f} ms bound "
-            f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+        r = row(f"B={B} N={N} C={C} act={act} eps={eps}", err, t, bd)
+        log(f"K2 group_norm {r['shape']}: max_abs_err {err:.3e} (limit "
+            f"{GN_LIMIT}) "
+            f"{describe(r, 'F.group_norm' + (' then F.silu' if silu else ''))}")
         if not err <= GN_LIMIT:
             raise AssertionError(f"group_norm disagrees: {err}")
-        rows.append((err, ms, plain_ms, library_ms, bd))
+        rows.append(r)
     return summarize(rows)
 
 
 def check_geglu(gen: Gen) -> dict:
-    # rows x C -> 2I -> C at the UNet's three widths, batch 2B = 4
-    shapes = [(4 * 3072, 320), (4 * 768, 640), (4 * 192, 1280),
-              (4 * 48, 1280)]
+    # the UNet's biases are bf16, and each shape also runs fp32 biases
     rows = []
-    for M, C in shapes:
+    for M, C in GEGLU_SHAPES:
         inner = 4 * C
         x = gen.normal(M, C)
         w1 = gen.normal(2 * inner, C, scale=C ** -0.5)
         b1 = gen.normal(2 * inner, scale=0.1)
         w2 = gen.normal(C, inner, scale=inner ** -0.5)
         b2 = gen.normal(C, scale=0.1)
-        out = geglu(x, w1, b1, w2, b2)
-        torch.cuda.synchronize()
-        ref = geglu_ref(x.float(), w1.float(), b1.float(), w2.float(),
-                        b2.float())
-        err = (out.float() - ref).abs().max().item()
-        ms = cuda_ms(lambda: geglu(x, w1, b1, w2, b2), 20)
-        plain_ms = cuda_ms(lambda: geglu_ref(x, w1, b1, w2, b2), 20)
-
+        b1f = gen.normal(2 * inner, scale=0.1, dtype=torch.float32)
+        b2f = gen.normal(C, scale=0.1, dtype=torch.float32)
+        errs = []
+        for bias1, bias2 in ((b1, b2), (b1f, b2f)):
+            out = geglu(x, w1, bias1, w2, bias2)
+            torch.cuda.synchronize()
+            ref = geglu_ref(x.float(), w1.float(), bias1.float(), w2.float(),
+                            bias2.float())
+            errs.append((out.float() - ref).abs().max().item())
+        err = max(errs)
         def library():
             h, gate = F.linear(x, w1, b1).chunk(2, dim=-1)
             return F.linear(h * F.gelu(gate), w2, b2)
 
-        library_ms = cuda_ms(library, 20)
+        t = timings(lambda: geglu(x, w1, b1, w2, b2),
+                    lambda: geglu_ref(x, w1, b1, w2, b2), library, 20, 20)
         b = bound(2.0 * M * C * 2 * inner + 2.0 * M * inner * C,
                   BF16_TENSOR_FLOPS, nbytes(x, w1, b1, w2, b2, out))
-        log(f"K4 geglu rows={M} C={C} I={inner}: max_abs_err {err:.3e} "
-            f"(limit {GEGLU_LIMIT}) kernel {ms:.4f} ms plain "
-            f"{plain_ms:.4f} ms library (F.linear, gate, F.linear) "
-            f"{library_ms:.4f} ms bound {b['bound_ms']:.4f} ms "
-            f"({b['bound_by']})")
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        r = row(f"rows={M} C={C} I={inner}", err, t, b)
+        log(f"K4 geglu {r['shape']} (first product width "
+            f"{geglu_proj_tiling(M, C, inner, sms)}, second width and splits "
+            f"{geglu_out_tiling(M, C, inner, sms)}): max_abs_err bf16 "
+            f"biases {errs[0]:.3e}, fp32 biases {errs[1]:.3e} (limit "
+            f"{GEGLU_LIMIT}) {describe(r, 'F.linear, gate, F.linear')}")
         if not err <= GEGLU_LIMIT:
-            raise AssertionError(f"geglu disagrees: {err}")
-        rows.append((err, ms, plain_ms, library_ms, b))
+            raise AssertionError(f"geglu disagrees: {errs}")
+        rows.append(r)
     return summarize(rows)
 
 
@@ -301,28 +352,54 @@ def check_layer_norm(gen: Gen) -> dict:
         torch.cuda.synchronize()
         ref = layer_norm_ref(x.float(), w.float(), b.float())
         err = (out.float() - ref).abs().max().item()
-        ms = cuda_ms(lambda: layer_norm(x, w, b), 20)
-        plain_ms = cuda_ms(lambda: layer_norm_ref(x, w, b), 20)
-        library_ms = cuda_ms(lambda: F.layer_norm(x, (C,), w, b, 1e-5), 20)
+        t = timings(lambda: layer_norm(x, w, b),
+                    lambda: layer_norm_ref(x, w, b),
+                    lambda: F.layer_norm(x, (C,), w, b, 1e-5), 20, 20)
         # sum, centre, square-and-add, scale, affine
         bd = bound(7.0 * x.numel(), FP32_FLOPS, nbytes(x, w, b, out))
-        log(f"K5 layer_norm rows={M} C={C} row stride {x.stride(0)}: "
-            f"max_abs_err {err:.3e} (limit {LN_LIMIT}) kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms library (F.layer_norm) "
-            f"{library_ms:.4f} ms bound {bd['bound_ms']:.4f} ms "
-            f"({bd['bound_by']})")
+        r = row(f"rows={M} C={C} row stride {x.stride(0)}", err, t, bd)
+        log(f"K5 layer_norm {r['shape']}: max_abs_err {err:.3e} (limit "
+            f"{LN_LIMIT}) {describe(r, 'F.layer_norm')}")
         if not err <= LN_LIMIT:
             raise AssertionError(f"layer_norm disagrees: {err}")
-        rows.append((err, ms, plain_ms, library_ms, bd))
+        rows.append(r)
     return summarize(rows)
 
 
-def summarize(rows) -> dict:
+def timings(kernel, plain, library, iters: int, plain_iters: int) -> dict:
+    """CUDA-event ms per call over back-to-back calls (host launch cost
+    included) of the kernel, its plain version and the library call, and
+    the device ms per call of the kernel and the library from a CUDA
+    graph."""
+    return {"ms": cuda_ms(kernel, iters),
+            "plain_ms": cuda_ms(plain, plain_iters),
+            "library_ms": cuda_ms(library, iters),
+            "device_ms": graph_ms(kernel),
+            "library_device_ms": graph_ms(library)}
+
+
+def row(shape: str, err: float, t: dict, b: dict) -> dict:
+    """One shape's numbers; the bound's share is of the device time."""
+    return {"shape": shape, "err": err, **t, **b,
+            "bound_share": b["bound_ms"] / t["device_ms"]}
+
+
+def describe(r: dict, library: str) -> str:
+    return (f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f}) plain "
+            f"{r['plain_ms']:.4f} ms library ({library}) "
+            f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f})"
+            f" bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{r['bound_share']:.1%} of the kernel's device time)")
+
+
+def summarize(rows: list) -> dict:
     """Worst error over the shapes; times and bound at the first
-    (hottest) shape."""
-    err, ms, plain_ms, library_ms, b = rows[0]
-    return {"max_abs_err": max(r[0] for r in rows), "ms": ms,
-            "plain_ms": plain_ms, **b, "library_ms": library_ms}
+    (hottest) shape; every shape's numbers under ``shapes``."""
+    first = rows[0]
+    return {"max_abs_err": max(r["err"] for r in rows), "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "shapes": rows}
 
 
 def seeded(factory, seed: int, device: str, dtype=torch.float32):
@@ -594,6 +671,78 @@ def serve_raw_requests(service: TryOnService, wrappers: dict) -> dict:
     return {name: wrapper.launches for name, wrapper in wrappers.items()}
 
 
+def sweep_geglu_tilings() -> None:
+    """``--sweep-geglu``: K4's device time per tiling at the UNet's four
+    GEGLU shapes: the first product at each accumulator width, the
+    second at each tile width and contraction split the kernels take,
+    device microseconds per call from a CUDA graph of 20 calls, with what
+    ``ops/geglu.py`` picks marked.  Every tiling's output is checked
+    against the first one's: the first product's bit for bit, the
+    second's within 2e-2 (the splits add fp32 partials in another
+    order).  The measurement behind ``geglu_proj_tiling`` and
+    ``geglu_out_tiling``."""
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = Gen(0)
+    for M, C in GEGLU_SHAPES:
+        inner = 4 * C
+        x = gen.normal(M, C)
+        w1 = gen.normal(2 * inner, C, scale=C ** -0.5)
+        b1 = gen.normal(2 * inner, scale=0.1)
+        w2 = gen.normal(C, inner, scale=inner ** -0.5)
+        b2 = gen.normal(C, scale=0.1)
+        a = torch.empty(M, inner, dtype=torch.bfloat16, device="cuda")
+        y = torch.empty(M, C, dtype=torch.bfloat16, device="cuda")
+        picked_proj = geglu_proj_tiling(M, C, inner, sms)
+        picked_out = geglu_out_tiling(M, C, inner, sms)
+        first, cells = None, []
+        for bn in (128, 256):
+            def proj(bn=bn):
+                _build.check(lib.ladi_geglu_proj(
+                    x.data_ptr(), w1.data_ptr(), b1.data_ptr(), 0,
+                    a.data_ptr(), M, C, inner, bn, _build.stream_ptr(x)),
+                    "geglu proj")
+
+            proj()
+            torch.cuda.synchronize()
+            if first is None:
+                first = a.clone()
+            elif not torch.equal(a, first):
+                raise AssertionError(f"first product width {bn} disagrees")
+            mark = "*" if bn == picked_proj else ""
+            cells.append(f"proj {bn}{mark} "
+                         f"{graph_ms(proj, 20) * 1e3:.2f}")
+        steps = inner // BLOCK_K
+        first = None
+        for bn in (256, 160, 128, 64):
+            if C % bn:
+                continue
+            for split in (1, 2, 4, 5, 8, 10):
+                if steps % split or (split > 1 and steps // split < 4):
+                    continue
+                partial = torch.empty(split, M, C, dtype=torch.float32,
+                                      device="cuda")
+
+                def out(bn=bn, split=split, partial=partial):
+                    _build.check(lib.ladi_geglu_out(
+                        a.data_ptr(), w2.data_ptr(), b2.data_ptr(), 0,
+                        y.data_ptr(), partial.data_ptr(), M, inner, C, bn,
+                        split, _build.stream_ptr(x)), "geglu out")
+
+                out()
+                torch.cuda.synchronize()
+                if first is None:
+                    first = y.float()
+                elif not (y.float() - first).abs().max().item() <= 2e-2:
+                    raise AssertionError(f"width {bn} split {split} "
+                                         f"disagrees")
+                mark = "*" if (bn, split) == picked_out else ""
+                cells.append(f"out {bn}/{split}{mark} "
+                             f"{graph_ms(out, 20) * 1e3:.2f}")
+        print(f"K4 rows={M} C={C} I={inner}, device us per call (* = "
+              f"picked): " + ", ".join(cells), flush=True)
+
+
 KERNELS = (
     ("flash_attention", flash_attention, check_attention,
      "ladi_vton_tpu_torch/csrc/flash_attention.cu",
@@ -610,6 +759,11 @@ KERNELS = (
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--sweep-geglu", action="store_true",
+                        help="time every GEGLU tiling instead of the "
+                        "phases, and exit")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script measures "
                  "the port on an NVIDIA GPU and has no CPU mode")
@@ -625,6 +779,9 @@ def main() -> None:
 
     build_dir, build_s = _build.build()
     _build.library()
+    if args.sweep_geglu:
+        sweep_geglu_tilings()
+        return
     log(f"phase 1: kernels built from ladi_vton_tpu_torch/csrc in "
         f"{build_s:.2f} s, one nvcc per source in parallel (0 = already "
         f"built for these sources); ptxas report in "

@@ -41,19 +41,20 @@ F = ctypes.c_float
 # returns the cudaError_t of its launches as an int
 SIGNATURES = {
     # q, k, v, o, B, H, Sq, Sk, D, 4 x (stride_b, stride_h, stride_s),
-    # scale, stream
+    # scale, block_q, block_k, stream
     "ladi_flash_attention_fwd": [P, P, P, P, I, I, I, I, I]
-    + [I64] * 12 + [F, P],
+    + [I64] * 12 + [F, I, I, P],
     # x, workspace, B, N, C, chunks, stream
     "ladi_group_norm_stats": [P, P, I, I, I, I, P],
     # workspace, weight, bias, coeffs, B, N, C, G, chunks, eps, stream
     "ladi_group_norm_finalize": [P, P, P, P, I, I, I, I, I, F, P],
     # x, coeffs, out, B, N, C, silu, stream
     "ladi_group_norm_apply": [P, P, P, I, I, I, I, P],
-    # x, w1, b1, a, M, C, I, stream
-    "ladi_geglu_proj": [P, P, P, P, I, I, I, P],
-    # a, w2, b2, y, M, I, C, stream
-    "ladi_geglu_out": [P, P, P, P, I, I, I, P],
+    # x, w1, b1, b1 is fp32, a, M, C, I, accumulator width, stream
+    "ladi_geglu_proj": [P, P, P, I, P, I, I, I, I, P],
+    # a, w2, b2, b2 is fp32, y, fp32 partials, M, I, C, tile width,
+    # splits, stream
+    "ladi_geglu_out": [P, P, P, I, P, P, I, I, I, I, I, P],
     # x, weight, bias, out, rows, C, x row stride, eps, stream
     "ladi_layer_norm_fwd": [P, P, P, P, I, I, I64, F, P],
 }
@@ -151,7 +152,17 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def stream_ptr(t) -> int:
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def stream_ptr(t) -> int:
+    """The raw handle of the current stream on t's device (what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
+    building a Stream object on every launch)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

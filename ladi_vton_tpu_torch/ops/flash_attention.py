@@ -6,10 +6,12 @@ tensor it launches the hand-written Hopper kernel
 tensor it runs the plain ``attention_ref``.  Nothing falls back: a CUDA
 call the kernel cannot take raises.
 
-The kernel reads q, k and v through their (batch, head, seq) strides, so
-the (B, S, H, D) views that come straight out of the projections need no
-copy; the head dimension must be contiguous.  The output is a new
-contiguous (B, S, H, D) tensor.
+The kernel reads q, k and v through TMA tensor maps over their (batch,
+head, seq) strides, so the (B, S, H, D) views that come straight out of
+the projections need no copy; the head dimension must be contiguous and
+the base and strides 16-byte aligned.  The output is a new contiguous
+(B, S, H, D) tensor.  ``flash_tiling`` picks the kernel's tiling from
+the head dimension.
 """
 
 from __future__ import annotations
@@ -22,6 +24,22 @@ from ladi_vton_tpu_torch.ops import _build
 from ladi_vton_tpu_torch.ops.attention import attention_ref
 
 SUPPORTED_HEAD_DIMS = (64, 512)
+
+
+def flash_tiling(head_dim: int) -> tuple[int, int]:
+    """(q rows, K/V rows) per block of the kernel compiled for head_dim.
+
+    D = 64: 128 q rows (two consumer warpgroups of 64) against 128-row
+    K/V tiles.  D = 512: 64 q rows, the two consumers splitting D, and
+    32-row K/V tiles so that Q (64 KB), a two-stage K/V ring (128 KB) and
+    the partial-score exchange (32 KB) fit in 227 KB of shared memory.
+    """
+    if head_dim == 64:
+        return 128, 128
+    if head_dim == 512:
+        return 64, 32
+    raise ValueError(f"flash_attention: unsupported head dim {head_dim} "
+                     f"(head dim in {SUPPORTED_HEAD_DIMS})")
 
 
 def _check(name: str, t: torch.Tensor, ref: torch.Tensor) -> None:
@@ -59,10 +77,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for t in (q, k, v, out):
         sb, ss, sh, _ = t.stride()
         strides += [sb, sh, ss]
+    block_q, block_k = flash_tiling(D)
     lib = _build.library()
     err = lib.ladi_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Sq,
-        Sk, D, *strides, float(scale), _build.stream_ptr(q))
+        Sk, D, *strides, float(scale), block_q, block_k,
+        _build.stream_ptr(q))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out

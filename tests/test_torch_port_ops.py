@@ -31,8 +31,16 @@ from ladi_vton_tpu_torch.core.checkpoint import state_dict_from_jax, unet_key_ma
 from ladi_vton_tpu_torch.diffusion.schedulers import DDIMScheduler
 from ladi_vton_tpu_torch.models.layers import timestep_embedding
 from ladi_vton_tpu_torch.ops.attention import dot_product_attention
-from ladi_vton_tpu_torch.ops.flash_attention import flash_attention
-from ladi_vton_tpu_torch.ops.geglu import geglu
+from ladi_vton_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_tiling,
+)
+from ladi_vton_tpu_torch.ops.geglu import (
+    BLOCK_K,
+    geglu,
+    geglu_out_tiling,
+    geglu_proj_tiling,
+)
 from ladi_vton_tpu_torch.ops.group_norm import group_norm
 from ladi_vton_tpu_torch.ops.layer_norm import layer_norm, layer_norm_ref
 from ladi_vton_tpu_torch.ops.resize import resize_bilinear, resize_nearest
@@ -70,6 +78,20 @@ def test_attention_matches_pallas_flash_and_xla(sq, sk, heads, d):
     # Pallas kernel), ~1e-6 seen: 1e-5
     np.testing.assert_allclose(ours, xla, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(ours, pallas, rtol=1e-5, atol=1e-5)
+
+
+def test_flash_tiling_fits_each_head_dim():
+    # D = 64: two 64-row consumers, 128-row K/V tiles
+    assert flash_tiling(64) == (128, 128)
+    # D = 512: Q (64 rows) + two K/V stages + the fp32 partial-score swap
+    # (2 parities x 2 warpgroups x 64 x block_k) in 227 KB of shared memory
+    block_q, block_k = flash_tiling(512)
+    assert block_q == 64
+    smem = block_q * 512 * 2 + 2 * 2 * block_k * 512 * 2 + 4 * 64 * block_k * 4
+    assert smem <= 227 * 1024
+    for d in (32, 80, 128):
+        with pytest.raises(ValueError, match="head dim"):
+            flash_tiling(d)
 
 
 def test_causal_attention_matches_xla():
@@ -142,6 +164,44 @@ def test_geglu_matches_pallas_and_xla():
     # the Pallas kernel's A&S erf (abs error 1.5e-7) adds less: 1e-5
     np.testing.assert_allclose(ours, xla, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(ours, pallas, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows,C", [(4 * 3072, 320), (4 * 768, 640),
+                                    (4 * 192, 1280), (4 * 48, 1280),
+                                    (2 * 48, 1280), (1, 1280), (77, 320),
+                                    (2 * 3072, 320)])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_geglu_tilings(rows, C, sms):
+    inner = 4 * C
+    proj = geglu_proj_tiling(rows, C, inner, sms)
+    assert proj in (128, 256) and inner % (proj // 2) == 0
+    if proj == 256:
+        # shared 128-row tiles only where they fill the card and the
+        # contraction is deep enough to hide the gate
+        assert -(-rows // 128) * (inner // 128) >= sms and C >= 640
+    bn, split = geglu_out_tiling(rows, C, inner, sms)
+    steps = inner // BLOCK_K
+    assert bn in (64, 128, 160, 256) and C % bn == 0
+    assert split >= 1 and steps % split == 0
+    tiles = -(-rows // 64) * (C // bn)
+    if split > 1:
+        # only where the tiles alone would leave half the SMs idle, and
+        # never below 4 steps a split
+        assert 2 * tiles < sms and steps // split >= 4
+    if tiles * 2 >= sms:
+        assert split == 1
+
+
+def test_geglu_tilings_at_the_unet_shapes():
+    # the widths measured fastest on an H100 (132 SMs): the mid block's
+    # 192 rows split the second product 8 ways, 15 tiles -> 120
+    expected = {(4 * 3072, 320): (128, (160, 1)),
+                (4 * 768, 640): (256, (128, 1)),
+                (4 * 192, 1280): (256, (256, 2)),
+                (4 * 48, 1280): (128, (256, 8))}
+    for (rows, C), (proj, out) in expected.items():
+        assert geglu_proj_tiling(rows, C, 4 * C) == proj
+        assert geglu_out_tiling(rows, C, 4 * C) == out
 
 
 # ---------------------------------------------------------------- plain ops
@@ -299,3 +359,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     w2 = torch.empty(96, 384, dtype=torch.bfloat16, **meta)
     with pytest.raises(ValueError, match="multiples of 64"):
         geglu(h, w1, torch.empty(768, **meta), w2, torch.empty(96, **meta))
+    # the biases reach the kernels as stored: bf16 or fp32, contiguous
+    x = torch.empty(4, 64, dtype=torch.bfloat16, **meta)
+    w1 = torch.empty(512, 64, dtype=torch.bfloat16, **meta)
+    w2 = torch.empty(64, 256, dtype=torch.bfloat16, **meta)
+    b2 = torch.empty(64, dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="b1 must be a contiguous bf16 or"):
+        geglu(x, w1, torch.empty(512, dtype=torch.float16, **meta), w2, b2)
+    with pytest.raises(ValueError, match="b2 must be a contiguous bf16 or"):
+        geglu(x, w1, torch.empty(512, **meta), w2,
+              torch.empty(128, **meta)[::2])
+    # TMA needs a 16-byte aligned base and 16-byte multiples as strides
+    q = torch.empty(1, 16, 2, 64, dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention(q, q.as_strided(q.shape, (2044, 132, 66, 1)), q)
