@@ -2,7 +2,8 @@
 """Drive the PyTorch port's try-on path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --sweep-geglu   # K4's device time per tiling
+    python3 chip_smoke.py --sweep-geglu       # K4's device time per tiling
+    python3 chip_smoke.py --sweep-group-norm  # K2's device time per plan
 
 Phases, each printing its numbers before the last line:
 
@@ -18,7 +19,10 @@ Phases, each printing its numbers before the last line:
    back-to-back calls (host launch cost included), the kernel's and the
    library call's device times from a CUDA graph of ten calls, and the
    bound: the least time the card could take for the call, with its
-   share of the kernel's device time;
+   share of the kernel's device time.  K2 runs at every form and cluster
+   size of its plan, with bf16 parameters as the towers hold them (one
+   row fp32); each row checks that two calls are bitwise equal and counts
+   the kernels one call runs (torch.profiler);
 3. integration at full width: one level-0 ``Transformer2D`` (C=320,
    64x48, batch 4) and one VAE ``MidBlock`` (512 at 64x48) through the
    kernels on the card and through the plain versions on the CPU, same
@@ -30,14 +34,17 @@ Phases, each printing its numbers before the last line:
    SD-2 VAE, EMASC) with seeded random bf16 weights, 512x384, DDIM-50,
    CFG 7.5, batch_size 2, answering three requests of 1, 2 and 2 images;
    each output is checked for shape, finiteness and range, and each
-   kernel's launch counter must have risen during the requests;
+   kernel's launch counter must have risen during the requests; a census
+   of the GroupNorm calls of one 2-image request lists their shapes and
+   K2's plan for each, and fails if phase 2 missed one of those plans;
 5. raw requests: a ``ConditionService`` at full width (ViT-H/14 vision,
    SD-2 text, the SD-2 inversion adapter in bf16; TPS at 256x192 and the
    refinement at 512x384 in fp32; ``num_vstar`` 16) in front of the
    phase-4 service turns cloth, pose, masked person and category into
    the try-on inputs, for requests of 1 and 2 images; conditioning and
    total seconds and peak memory per request, every output checked, and
-   K5 launched in both stages.  A deterministic word tokenizer stands in
+   K5 launched in both stages, K2's calls and kernel launches per
+   request logged.  A deterministic word tokenizer stands in
    for the CLIP BPE tokenizer, whose vocabulary files the repository
    does not hold.
 
@@ -60,6 +67,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -78,7 +86,7 @@ from ladi_vton_tpu_torch.models.clip import (
 )
 from ladi_vton_tpu_torch.models.emasc import EMASC
 from ladi_vton_tpu_torch.models.inversion_adapter import InversionAdapter
-from ladi_vton_tpu_torch.models.layers import Transformer2D
+from ladi_vton_tpu_torch.models.layers import GroupNorm, Transformer2D
 from ladi_vton_tpu_torch.models.refinement import UNetVanilla
 from ladi_vton_tpu_torch.models.tps import ConvNetTPS
 from ladi_vton_tpu_torch.models.unet_condition import (
@@ -96,7 +104,15 @@ from ladi_vton_tpu_torch.ops.geglu import (
     geglu_proj_tiling,
     geglu_ref,
 )
-from ladi_vton_tpu_torch.ops.group_norm import group_norm, group_norm_ref
+from ladi_vton_tpu_torch.ops.group_norm import (
+    CLUSTER_VECTORS,
+    SMEM_LIMIT,
+    GroupNormPlan,
+    cluster_smem,
+    group_norm,
+    group_norm_plan,
+    group_norm_ref,
+)
 from ladi_vton_tpu_torch.ops.layer_norm import layer_norm, layer_norm_ref
 from ladi_vton_tpu_torch.pipelines.condition import Conditioner
 from ladi_vton_tpu_torch.pipelines.serving import ConditionService, TryOnService
@@ -253,22 +269,95 @@ def check_attention(gen: Gen) -> dict:
     return summarize(rows)
 
 
+# K2's phase-2 shapes (B, N, C, silu, eps, weight and bias dtype): every
+# kernel instantiation that group_norm_plan gives the path on an H100, that
+# is every form and, in the cluster form, every cluster size and vector
+# count V = channels / 8 (the census of phase 4 lists the path's calls and
+# checks they are covered): the UNet's level-0 resnet (clusters of 8, V =
+# 10) and its Transformer2D norm with fp32 parameters, the widest level-0
+# concat (no wave of clusters holds it: split form), levels 1-3 (clusters
+# of 4, 2 and 1, V = 10), the concats of 960 and 1920 channels (clusters
+# of 8 and 4 at V = 30, of 2 at V = 15), the VAE encoder at 128x96
+# (clusters of 2, V = 1) and at 64x48 (clusters of 1, V = 2), the VAE mid
+# block of one image (clusters of 4, V = 2), the decoder at 128x96
+# (clusters of 2 holding 192 KB of rows each), at 256x192 and the encoder
+# and decoder at 512x384 (split form)
+GN_SHAPES = [(4, 3072, 320, True, 1e-5, BF16),
+             (4, 3072, 320, False, 1e-6, torch.float32),
+             (4, 3072, 960, True, 1e-5, BF16), (4, 768, 640, True, 1e-5, BF16),
+             (4, 192, 1280, True, 1e-5, BF16), (4, 48, 2560, True, 1e-5, BF16),
+             (4, 768, 960, True, 1e-5, BF16), (4, 192, 1920, True, 1e-5, BF16),
+             (4, 768, 1920, True, 1e-5, BF16),
+             (4, 12288, 256, True, 1e-6, BF16),
+             (4, 3072, 512, True, 1e-6, BF16),
+             (1, 3072, 512, False, 1e-6, BF16),
+             (2, 12288, 512, True, 1e-6, BF16),
+             (2, 49152, 512, True, 1e-6, BF16),
+             (4, 196608, 128, True, 1e-6, BF16),
+             (2, 196608, 256, True, 1e-6, BF16)]
+
+
+def device_kernels(fn) -> list:
+    """Names of the device kernels, copies and memsets one call of fn
+    runs, from torch.profiler.  Now and then a trace comes back with no
+    device activity at all, not even the call's own kernels: it is taken
+    again, up to three times in all."""
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() for _ in range(e.count)
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    return names
+
+
+def gn_plan(B: int, N: int, C: int) -> GroupNormPlan:
+    return group_norm_plan(B, N, C, _build.sm_count(torch.device("cuda", 0)))
+
+
+def plan_kernel(p: GroupNormPlan) -> tuple:
+    """The kernel instantiation a plan runs: the split form, or the
+    cluster form at a cluster size and vector count."""
+    if p.form == "split":
+        return ("split", p.cluster)
+    return ("cluster", p.cluster, p.channels // 8)
+
+
+def describe_plan(p: GroupNormPlan) -> str:
+    if p.form == "cluster":
+        return (f"one launch, {p.ctas} CTAs in clusters of {p.cluster}, "
+                f"{p.channels} channels x {p.rows} rows a CTA")
+    return (f"split form, two launches, {p.ctas} statistics CTAs of "
+            f"{p.rows} rows in clusters of {p.cluster}")
+
+
 def check_group_norm(gen: Gen) -> dict:
-    # (B, N, C, silu, eps): UNet level-0 resnet norm, the UNet's widest
-    # (up-block concat 2560 at 8x6) and the VAE encoder's largest slab
-    # (128 channels at 512x384, batch 2B = 4)
-    shapes = [(4, 3072, 320, True, 1e-5), (4, 48, 2560, True, 1e-5),
-              (4, 3072, 320, False, 1e-6), (4, 196608, 128, True, 1e-6)]
     rows = []
-    for B, N, C, silu, eps in shapes:
+    for B, N, C, silu, eps, wdt in GN_SHAPES:
         act = "silu" if silu else "none"
         x = gen.normal(B, N, C)
-        w = gen.normal(C, scale=0.1, dtype=torch.float32) + 1.0
-        b = gen.normal(C, scale=0.1, dtype=torch.float32)
+        w = gen.normal(C, scale=0.1, dtype=wdt) + 1.0
+        b = gen.normal(C, scale=0.1, dtype=wdt)
         out = group_norm(x, w, b, eps=eps, act=act)
+        again = group_norm(x, w, b, eps=eps, act=act)
         torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"group_norm {(B, N, C)} is not "
+                                 f"deterministic")
         ref = group_norm_ref(x.float(), w, b, eps=eps, act=act)
         err = (out.float() - ref).abs().max().item()
+        plan = gn_plan(B, N, C)
+        names = [re.sub(r"^.*?\b(gn_\w+(<\d+>)?)\(.*$", r"\1", n)
+                 for n in device_kernels(
+                     lambda: group_norm(x, w, b, eps=eps, act=act))]
+        if (len(names) != plan.launches
+                or not all(n.startswith("gn_") for n in names)):
+            raise AssertionError(f"group_norm {(B, N, C)} ran {names}, "
+                                 f"expected {plan.launches} K2 kernels")
         # the library pair takes (B, C, N) and weights in x's dtype
         xt, wl, bl = x.transpose(1, 2).contiguous(), w.to(BF16), b.to(BF16)
 
@@ -283,14 +372,50 @@ def check_group_norm(gen: Gen) -> dict:
         per_elem = 4 + (4 if silu else 0)
         bd = bound(float(per_elem * x.numel()), FP32_FLOPS,
                    nbytes(x, w, b, out))
-        r = row(f"B={B} N={N} C={C} act={act} eps={eps}", err, t, bd)
-        log(f"K2 group_norm {r['shape']}: max_abs_err {err:.3e} (limit "
-            f"{GN_LIMIT}) "
+        wname = "bf16" if wdt == BF16 else "fp32"
+        r = row(f"B={B} N={N} C={C} act={act} eps={eps} weights={wname}",
+                err, t, bd)
+        r["kernels_per_call"] = len(names)
+        log(f"K2 group_norm {r['shape']} ({describe_plan(plan)}; "
+            f"{len(names)} kernel(s) a call: {sorted(set(names))}; two calls "
+            f"bitwise equal): max_abs_err {err:.3e} (limit {GN_LIMIT}) "
             f"{describe(r, 'F.group_norm' + (' then F.silu' if silu else ''))}")
         if not err <= GN_LIMIT:
             raise AssertionError(f"group_norm disagrees: {err}")
         rows.append(r)
     return summarize(rows)
+
+
+class GroupNormCensus:
+    """While open, records every call of the GroupNorm modules under the
+    given roots: (B, N, C, act, eps, weight dtype) -> calls."""
+
+    def __init__(self, *roots: torch.nn.Module):
+        self.modules = [m for root in roots for m in root.modules()
+                        if isinstance(m, GroupNorm)]
+        self.calls: dict = {}
+
+    def hook(self, module, args, output) -> None:
+        x = args[0]
+        B, N, C = ((x.shape[0], x.shape[2] * x.shape[3], x.shape[1])
+                   if x.dim() == 4 else tuple(x.shape))
+        key = (B, N, C, module.act, module.eps,
+               str(module.weight.dtype).replace("torch.", ""))
+        self.calls[key] = self.calls.get(key, 0) + 1
+
+    def __enter__(self) -> "GroupNormCensus":
+        self.handles = [m.register_forward_hook(self.hook)
+                        for m in self.modules]
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for h in self.handles:
+            h.remove()
+
+    def kernels(self) -> int:
+        """Kernel launches of the recorded calls."""
+        return sum(n * gn_plan(*k[:3]).launches
+                   for k, n in self.calls.items())
 
 
 def check_geglu(gen: Gen) -> dict:
@@ -612,6 +737,22 @@ def check_conditioner() -> None:
         raise AssertionError("the conditioner disagrees with the CPU")
 
 
+def check_census(census: GroupNormCensus) -> None:
+    """Log the GroupNorm calls of one 2-image request with K2's plan for
+    each, and fail unless phase 2 checked every kernel instantiation
+    among them (``plan_kernel``)."""
+    covered = {plan_kernel(gn_plan(*shape[:3])) for shape in GN_SHAPES}
+    for (B, N, C, act, eps, wdt), n in sorted(census.calls.items()):
+        p = gn_plan(B, N, C)
+        log(f"K2 census: {n:4d} x (B={B}, N={N}, C={C}) act={act} "
+            f"eps={eps} weights={wdt}: {describe_plan(p)}")
+        if plan_kernel(p) not in covered:
+            raise AssertionError(f"phase 2 does not check K2's plan for "
+                                 f"{(B, N, C)}: {p}")
+    log(f"K2 census of one 2-image request: {sum(census.calls.values())} "
+        f"calls, {census.kernels()} kernel launches")
+
+
 def serve_raw_requests(service: TryOnService, wrappers: dict) -> dict:
     """Phase 5: ConditionService -> TryOnService at full width; returns
     the kernels' launches over the two requests."""
@@ -647,7 +788,11 @@ def serve_raw_requests(service: TryOnService, wrappers: dict) -> dict:
         raw = raw_request(rng, n, h, w)
         torch.cuda.reset_peak_memory_stats()
         ln_before = layer_norm.launches
-        warped, embeds, negative, out, t_cond, total, ln_cond = answer(raw)
+        gn_before = group_norm.launches
+        with GroupNormCensus(service.pipe.unet, service.pipe.vae,
+                             service.pipe.emasc) as census:
+            warped, embeds, negative, out, t_cond, total, ln_cond = answer(
+                raw)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         ok = (warped.shape == (n, h, w, 3) and np.isfinite(warped).all()
               and warped.min() >= -1.0 and warped.max() <= 1.0
@@ -663,7 +808,9 @@ def serve_raw_requests(service: TryOnService, wrappers: dict) -> dict:
             f"{warped.max():.4f}], prompt embeds std {embeds.std():.4f}, "
             f"output in [{out.min():.4f}, {out.max():.4f}] std "
             f"{out.std():.4f}; K5 launches: conditioning "
-            f"{ln_cond - ln_before}, try-on {layer_norm.launches - ln_cond}")
+            f"{ln_cond - ln_before}, try-on {layer_norm.launches - ln_cond}; "
+            f"K2 calls {group_norm.launches - gn_before}, K2 kernel launches "
+            f"{census.kernels()}")
         if not ok:
             raise AssertionError(f"raw request of {n}: bad output")
         if not (ln_cond > ln_before and layer_norm.launches > ln_cond):
@@ -743,6 +890,71 @@ def sweep_geglu_tilings() -> None:
               f"picked): " + ", ".join(cells), flush=True)
 
 
+def sweep_group_norm_plans() -> None:
+    """``--sweep-group-norm``: K2's cluster form under every channel range,
+    cluster size and thread count of which one wave fits the card
+    (``cudaOccupancyMaxActiveClusters``), at the UNet's shapes and the
+    VAE's largest cluster-form one, device microseconds per call from a
+    CUDA graph of 20 calls, fastest first, with ``group_norm_plan``'s pick
+    marked.  Every plan's output is checked against ``group_norm_ref``
+    within ``GN_LIMIT``.  The measurement behind the plan's weights."""
+    lib = _build.library()
+    sms = _build.sm_count(torch.device("cuda", 0))
+    gen = Gen(0)
+    for B, N, C in ((4, 3072, 320), (4, 3072, 640), (4, 768, 640),
+                    (4, 768, 1920), (4, 192, 1280), (4, 48, 2560),
+                    (2, 12288, 512)):
+        pick = group_norm_plan(B, N, C, sms)
+        x = gen.normal(B, N, C)
+        w = gen.normal(C, scale=0.1) + 1.0
+        b = gen.normal(C, scale=0.1)
+        ref = group_norm_ref(x.float(), w, b, eps=1e-5, act="silu")
+        out = torch.empty_like(x)
+        cells = []
+        for channels in range(8, min(C, 256) + 1, 8):
+            cg, V = C // 32, channels // 8
+            if C % channels or channels % cg or V not in CLUSTER_VECTORS:
+                continue
+            for cluster in (1, 2, 4, 8):
+                rows = -(-N // cluster)
+                for most in (4, 8, 16):
+                    threads = 32 * min(most, -(-rows // (32 // V)))
+                    smem = cluster_smem(rows, channels, channels // cg,
+                                        threads, cluster)
+                    if smem > SMEM_LIMIT:
+                        continue
+                    fit = lib.ladi_group_norm_max_clusters(
+                        0, channels, cluster, threads, smem)
+                    if fit < 1 or B * (C // channels) > fit:
+                        continue
+
+                    def call(cluster=cluster, channels=channels, rows=rows,
+                             threads=threads, smem=smem):
+                        _build.check(lib.ladi_group_norm_cluster(
+                            x.data_ptr(), w.data_ptr(), b.data_ptr(), 0,
+                            out.data_ptr(), B, N, C, 32, 1e-5, 1, cluster,
+                            channels, rows, threads, smem,
+                            _build.stream_ptr(x)), "group_norm cluster")
+
+                    call()
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref).abs().max().item()
+                    if not err <= GN_LIMIT:
+                        raise AssertionError(
+                            f"group_norm {(B, N, C)}, {channels} channels x "
+                            f"{cluster} x {threads} threads: error {err}")
+                    mark = "*" if (channels, cluster, threads) == (
+                        pick.channels, pick.cluster, pick.threads) else ""
+                    cells.append((graph_ms(call, 20) * 1e3,
+                                  f"{mark}{channels} ch x {cluster} x "
+                                  f"{threads} thr"))
+        cells.sort()
+        print(f"K2 B={B} N={N} C={C}, device us per call (* = picked, "
+              f"{describe_plan(pick)}): "
+              + ", ".join(f"{name} {us:.2f}" for us, name in cells),
+              flush=True)
+
+
 KERNELS = (
     ("flash_attention", flash_attention, check_attention,
      "ladi_vton_tpu_torch/csrc/flash_attention.cu",
@@ -763,6 +975,9 @@ def main() -> None:
     parser.add_argument("--sweep-geglu", action="store_true",
                         help="time every GEGLU tiling instead of the "
                         "phases, and exit")
+    parser.add_argument("--sweep-group-norm", action="store_true",
+                        help="time every GroupNorm cluster-form plan "
+                        "instead of the phases, and exit")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script measures "
@@ -781,6 +996,9 @@ def main() -> None:
     _build.library()
     if args.sweep_geglu:
         sweep_geglu_tilings()
+        return
+    if args.sweep_group_norm:
+        sweep_group_norm_plans()
         return
     log(f"phase 1: kernels built from ladi_vton_tpu_torch/csrc in "
         f"{build_s:.2f} s, one nvcc per source in parallel (0 = already "
@@ -812,11 +1030,16 @@ def main() -> None:
     wrappers = {name: wrapper for name, wrapper, _, _, _ in KERNELS}
     for wrapper in wrappers.values():
         wrapper.launches = 0
-    for n in (1, 2, 2):
+    census = GroupNormCensus(pipe.unet, pipe.vae, pipe.emasc)
+    for i, n in enumerate((1, 2, 2)):
         req = request(rng, n, 512, 384)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out = service.generate(**req)
+        if i == 1:
+            with census:
+                out = service.generate(**req)
+        else:
+            out = service.generate(**req)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -830,6 +1053,7 @@ def main() -> None:
             raise AssertionError(f"request of {n}: bad output")
     launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
     log(f"launches during the three requests: {launches}")
+    check_census(census)
     missing = [name for name, count in launches.items() if count == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the path: {missing}")

@@ -44,12 +44,17 @@ SIGNATURES = {
     # scale, block_q, block_k, stream
     "ladi_flash_attention_fwd": [P, P, P, P, I, I, I, I, I]
     + [I64] * 12 + [F, I, I, P],
-    # x, workspace, B, N, C, chunks, stream
-    "ladi_group_norm_stats": [P, P, I, I, I, I, P],
-    # workspace, weight, bias, coeffs, B, N, C, G, chunks, eps, stream
-    "ladi_group_norm_finalize": [P, P, P, P, I, I, I, I, I, F, P],
-    # x, coeffs, out, B, N, C, silu, stream
-    "ladi_group_norm_apply": [P, P, P, I, I, I, I, P],
+    # x, weight, bias, weight is fp32, out, B, N, C, G, eps, silu,
+    # cluster, channels per range, rows per CTA, threads, smem, stream
+    "ladi_group_norm_cluster": [P, P, P, I, P, I, I, I, I, F, I, I, I, I, I,
+                                I, P],
+    # x, weight, bias, weight is fp32, workspace, counters, coeffs, out,
+    # B, N, C, G, eps, silu, chunks, rows per chunk, threads, smem, stream
+    "ladi_group_norm_split": [P, P, P, I, P, P, P, P, I, I, I, I, F, I, I,
+                              I, I, I, P],
+    # split, channels per range, cluster, threads, smem -> clusters the
+    # card holds at once
+    "ladi_group_norm_max_clusters": [I, I, I, I, I],
     # x, w1, b1, b1 is fp32, a, M, C, I, accumulator width, stream
     "ladi_geglu_proj": [P, P, P, I, P, I, I, I, I, P],
     # a, w2, b2, b2 is fp32, y, fp32 partials, M, I, C, tile width,

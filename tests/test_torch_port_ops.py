@@ -7,6 +7,9 @@ the port side is what a CPU tensor takes, the plain PyTorch version.
 Each tolerance is stated where it is used.
 """
 
+import math
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +33,7 @@ from ladi_vton_tpu.ops.resize import resize_nearest as jax_nearest
 from ladi_vton_tpu_torch.core.checkpoint import state_dict_from_jax, unet_key_map
 from ladi_vton_tpu_torch.diffusion.schedulers import DDIMScheduler
 from ladi_vton_tpu_torch.models.layers import timestep_embedding
+from ladi_vton_tpu_torch.ops import _build
 from ladi_vton_tpu_torch.ops.attention import dot_product_attention
 from ladi_vton_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -41,7 +45,17 @@ from ladi_vton_tpu_torch.ops.geglu import (
     geglu_out_tiling,
     geglu_proj_tiling,
 )
-from ladi_vton_tpu_torch.ops.group_norm import group_norm
+from ladi_vton_tpu_torch.ops.group_norm import (
+    CLUSTER_VECTORS,
+    MAX_CLUSTER,
+    SMEM_LIMIT,
+    SPLIT_CLUSTER,
+    cluster_smem,
+    cluster_wave,
+    group_norm,
+    group_norm_plan,
+    split_smem,
+)
 from ladi_vton_tpu_torch.ops.layer_norm import layer_norm, layer_norm_ref
 from ladi_vton_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 
@@ -106,12 +120,15 @@ def test_causal_attention_matches_xla():
 # ---------------------------------------------------------------- K2 / K3
 
 
-@pytest.mark.parametrize("act,eps", [("silu", 1e-5), ("none", 1e-6)])
+@pytest.mark.parametrize("act,eps,weights", [("silu", 1e-5, "fp32"),
+                                             ("none", 1e-6, "fp32"),
+                                             ("silu", 1e-5, "bf16")],
+                         ids=["silu-1e-05", "none-1e-06", "silu-1e-05-bf16"])
 @pytest.mark.parametrize("two_pass", [False, True], ids=["one_pass",
                                                           "two_pass"])
 @pytest.mark.parametrize("channels", [128, 320])
 def test_group_norm_matches_pallas_and_xla(channels, two_pass, act, eps,
-                                           monkeypatch):
+                                           weights, monkeypatch):
     if two_pass:
         # small slabs always take the one-pass kernel; switch the size
         # rule off so the two-pass kernels (K3) run with 8-row tiles
@@ -121,24 +138,121 @@ def test_group_norm_matches_pallas_and_xla(channels, two_pass, act, eps,
         np.float32)
     scale = rng.standard_normal(channels).astype(np.float32)
     bias = rng.standard_normal(channels).astype(np.float32)
+    # the towers hold bf16 parameters, which the kernel reads as stored:
+    # both sides take the same bf16 values
+    wj, bj = jnp.asarray(scale), jnp.asarray(bias)
+    wt, bt = T(scale), T(bias)
+    if weights == "bf16":
+        wj, bj = wj.astype(jnp.bfloat16), bj.astype(jnp.bfloat16)
+        wt, bt = wt.to(torch.bfloat16), bt.to(torch.bfloat16)
+        np.testing.assert_array_equal(np.asarray(wj.astype(jnp.float32)),
+                                      wt.float().numpy())
     xj = jnp.asarray(x)
     pallas = np.asarray(jax_gn.group_norm_pallas(
-        xj, jnp.asarray(scale), jnp.asarray(bias), eps=eps, act=act,
-        row_tile=8, interpret=True))
-    xla = np.asarray(jax_gn.group_norm_xla(xj, jnp.asarray(scale),
-                                           jnp.asarray(bias), eps=eps,
-                                           act=act))
+        xj, wj, bj, eps=eps, act=act, row_tile=8, interpret=True))
+    xla = np.asarray(jax_gn.group_norm_xla(xj, wj, bj, eps=eps, act=act))
     before = group_norm.launches
     ours4 = _nhwc(group_norm(_nchw(x).contiguous(
-        memory_format=torch.channels_last), T(scale), T(bias), eps=eps,
-        act=act))
-    ours3 = group_norm(T(x.reshape(2, 64, channels)), T(scale), T(bias),
+        memory_format=torch.channels_last), wt, bt, eps=eps, act=act))
+    ours3 = group_norm(T(x.reshape(2, 64, channels)), wt, bt,
                        eps=eps, act=act).numpy().reshape(x.shape)
     assert group_norm.launches == before  # CPU tensors take the plain path
     np.testing.assert_array_equal(ours4, ours3)
     # same fp32 formula, sums in another order: 1e-5
     np.testing.assert_allclose(ours4, xla, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(ours4, pallas, rtol=1e-5, atol=1e-5)
+
+
+# the GroupNorm calls of the try-on path at 512x384 (phase 4's census on
+# an H100): the UNet at batch 4 (CFG), the VAE encoder at 4 (cloth and
+# masked person of 2 images), the decoder at 2, the VAE mid block at 1
+GN_CENSUS = [(4, 3072, 320), (4, 3072, 640), (4, 3072, 960), (4, 768, 320),
+             (4, 768, 640), (4, 768, 960), (4, 768, 1280), (4, 768, 1920),
+             (4, 192, 640), (4, 192, 1280), (4, 192, 1920), (4, 192, 2560),
+             (4, 48, 1280), (4, 48, 2560), (4, 196608, 128),
+             (4, 49152, 128), (4, 49152, 256), (4, 12288, 256),
+             (4, 12288, 512), (4, 3072, 512), (2, 3072, 512),
+             (2, 12288, 512), (2, 49152, 512), (2, 49152, 256),
+             (2, 196608, 256), (2, 196608, 128), (1, 3072, 512)]
+
+
+@pytest.mark.parametrize("B,N,C", GN_CENSUS,
+                         ids=[f"{b}x{n}x{c}" for b, n, c in GN_CENSUS])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_group_norm_plan(B, N, C, sms):
+    p = group_norm_plan(B, N, C, sms)
+    granule = math.lcm(8, C // 32)
+    assert p.smem <= SMEM_LIMIT == 227 * 1024
+
+    def candidates():
+        # every range and cluster size the cluster form could take, with
+        # whether one wave of its clusters holds the whole tensor
+        for ch in range(granule, min(C, 256) + 1, granule):
+            if C % ch == 0 and ch // 8 in CLUSTER_VECTORS:
+                for cs in (1, 2, 4, MAX_CLUSTER):
+                    rows = -(-N // cs)
+                    threads = 32 * min(8, -(-rows // (32 // (ch // 8))))
+                    smem = cluster_smem(rows, ch, ch // (C // 32), threads, cs)
+                    ctas = B * (C // ch) * cs
+                    yield (smem <= SMEM_LIMIT and ctas <= cluster_wave(
+                        sms, cs, threads, smem))
+
+    if not any(candidates()):
+        # no wave of clusters holds the slabs: two launches, statistics
+        # in whole clusters, every row in one chunk
+        assert p.form == "split" and p.launches == 2
+        assert p.channels == C and p.cluster == SPLIT_CLUSTER
+        assert p.threads <= 512 and p.threads % (C // 8) == 0
+        chunks = p.ctas // B
+        assert chunks % p.cluster == 0 and p.ctas == B * chunks
+        assert p.rows >= 64 and (p.rows - 1) * chunks < N <= chunks * p.rows
+        assert p.smem == split_smem(C, 32, p.threads)
+        return
+    assert p.form == "cluster" and p.launches == 1
+    assert 1 <= p.cluster <= MAX_CLUSTER
+    assert p.threads <= 512 and p.threads % 32 == 0
+    # ranges of whole groups in 16-byte vectors that tile C
+    assert p.channels % granule == 0 and C % p.channels == 0
+    assert p.channels // 8 in CLUSTER_VECTORS
+    ranges = C // p.channels
+    assert p.ctas == B * ranges * p.cluster
+    assert p.ctas <= cluster_wave(sms, p.cluster, p.threads, p.smem)
+    # CTA r of a cluster holds rows [r * rows, (r + 1) * rows): each row
+    # lies in exactly one CTA
+    held = np.zeros(N, np.int64)
+    for r in range(p.cluster):
+        held[r * p.rows:(r + 1) * p.rows] += 1
+    assert (held == 1).all()
+    assert p.smem == cluster_smem(p.rows, p.channels, p.channels // (C // 32),
+                                  p.threads, p.cluster)
+    if sms == 132 and C <= 2560 and N <= 3072 and B == 4:
+        # the UNet's calls fill the card (one wave, asserted above)
+        assert 2 * p.ctas > sms
+
+
+def test_group_norm_plan_at_the_hot_shape():
+    # 4 batch elements x 4 ranges of 80 channels (8 groups; 160-byte rows,
+    # whole sectors) x clusters of 8: 128 CTAs, each with 384 rows (61 KB)
+    # in shared memory
+    p = group_norm_plan(4, 3072, 320)
+    assert (p.form, p.cluster, p.channels, p.rows, p.ctas) == (
+        "cluster", 8, 80, 384, 128)
+    assert p.rows * p.channels * 2 == 61440
+    # the H100 SXM's measured cluster capacity at one CTA per SM
+    assert cluster_wave(132, 4, 512, 200 * 1024) == 120
+    assert cluster_wave(132, 8, 512, 200 * 1024) == 120
+    assert [math.lcm(8, C // 32) for C in (320, 960, 2560, 128)] == [
+        40, 120, 80, 8]
+
+
+def test_group_norm_cluster_vectors_match_the_kernel():
+    # a plan picks V = channels / 8 from CLUSTER_VECTORS; the cluster-form
+    # kernel is built for the V of cluster_kernel()'s cases, and a V missing
+    # there would fail only on the card
+    src = (_build.CSRC / "group_norm.cu").read_text()
+    cases = re.findall(r"case (\d+): return gn_cluster_kernel<(\d+)>;", src)
+    assert cases and all(v == t for v, t in cases)
+    assert sorted(int(v) for v, _ in cases) == sorted(CLUSTER_VECTORS)
 
 
 # ---------------------------------------------------------------- K4
@@ -354,6 +468,15 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         group_norm(x, torch.ones(64), torch.zeros(64))
     with pytest.raises(ValueError, match="bf16"):
         group_norm(x.float(), torch.ones(64), torch.zeros(64))
+    # weight and bias reach the kernel as stored: bf16 or fp32, both alike
+    xc = x.contiguous(memory_format=torch.channels_last)
+    w16 = torch.empty(64, dtype=torch.bfloat16, **meta)
+    with pytest.raises(ValueError, match="weight and bias"):
+        group_norm(xc, w16, torch.empty(64, **meta))
+    with pytest.raises(ValueError, match="weight and bias"):
+        group_norm(xc, w16.half(), w16.half())
+    with pytest.raises(ValueError, match="weight and bias"):
+        group_norm(xc, torch.ones(64), torch.zeros(64))  # on the CPU
     h = torch.empty(4, 96, dtype=torch.bfloat16, **meta)
     w1 = torch.empty(768, 96, dtype=torch.bfloat16, **meta)
     w2 = torch.empty(96, 384, dtype=torch.bfloat16, **meta)

@@ -51,7 +51,7 @@ from ladi_vton_tpu_torch.pipelines.serving import (  # noqa: E402
 # kernel name fragments -> class, first match wins
 CLASSES = (
     ("K1 flash attention", ("flash_fwd",)),
-    ("K2 GroupNorm", ("gn_stats", "gn_finalize", "gn_apply")),
+    ("K2 GroupNorm", ("gn_cluster", "gn_split")),
     ("K4 GEGLU", ("geglu",)),
     ("K5 LayerNorm", ("ln_kernel",)),
     ("convolution", ("conv", "cudnn", "implicit", "winograd", "fft",
