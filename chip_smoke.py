@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --sweep-geglu       # K4's device time per tiling
     python3 chip_smoke.py --sweep-group-norm  # K2's device time per plan
+    python3 chip_smoke.py --sweep-layer-norm  # K5's device time per plan
 
 Phases, each printing its numbers before the last line:
 
@@ -21,8 +22,11 @@ Phases, each printing its numbers before the last line:
    bound: the least time the card could take for the call, with its
    share of the kernel's device time.  K2 runs at every form and cluster
    size of its plan, with bf16 parameters as the towers hold them (one
-   row fp32); each row checks that two calls are bitwise equal and counts
-   the kernels one call runs (torch.profiler);
+   row fp32), and K5 at every plan of the path plus a ragged row count
+   and a width off the path; each of their rows checks that two calls are
+   bitwise equal and counts the kernels one call runs (torch.profiler).
+   K5 is also timed without its programmatic launch, and as the path
+   runs it, behind a residual add, against the add then ``F.layer_norm``;
 3. integration at full width: one level-0 ``Transformer2D`` (C=320,
    64x48, batch 4) and one VAE ``MidBlock`` (512 at 64x48) through the
    kernels on the card and through the plain versions on the CPU, same
@@ -35,8 +39,9 @@ Phases, each printing its numbers before the last line:
    CFG 7.5, batch_size 2, answering three requests of 1, 2 and 2 images;
    each output is checked for shape, finiteness and range, and each
    kernel's launch counter must have risen during the requests; a census
-   of the GroupNorm calls of one 2-image request lists their shapes and
-   K2's plan for each, and fails if phase 2 missed one of those plans;
+   of the GroupNorm and LayerNorm calls of one 2-image request lists their
+   shapes and K2's and K5's plan for each, and fails if phase 2 missed
+   one of those plans;
 5. raw requests: a ``ConditionService`` at full width (ViT-H/14 vision,
    SD-2 text, the SD-2 inversion adapter in bf16; TPS at 256x192 and the
    refinement at 512x384 in fp32; ``num_vstar`` 16) in front of the
@@ -44,9 +49,9 @@ Phases, each printing its numbers before the last line:
    the try-on inputs, for requests of 1 and 2 images; conditioning and
    total seconds and peak memory per request, every output checked, and
    K5 launched in both stages, K2's calls and kernel launches per
-   request logged.  A deterministic word tokenizer stands in
-   for the CLIP BPE tokenizer, whose vocabulary files the repository
-   does not hold.
+   request logged, and K5's census of each request checked as in phase
+   4.  A deterministic word tokenizer stands in for the CLIP BPE
+   tokenizer, whose vocabulary files the repository does not hold.
 
 Phases 2 and 3 compare with TF32 off for matmuls and cuDNN; phases 4
 and 5 serve with PyTorch's defaults (cuDNN TF32 allowed, matmul TF32
@@ -86,7 +91,11 @@ from ladi_vton_tpu_torch.models.clip import (
 )
 from ladi_vton_tpu_torch.models.emasc import EMASC
 from ladi_vton_tpu_torch.models.inversion_adapter import InversionAdapter
-from ladi_vton_tpu_torch.models.layers import GroupNorm, Transformer2D
+from ladi_vton_tpu_torch.models.layers import (
+    GroupNorm,
+    LayerNorm,
+    Transformer2D,
+)
 from ladi_vton_tpu_torch.models.refinement import UNetVanilla
 from ladi_vton_tpu_torch.models.tps import ConvNetTPS
 from ladi_vton_tpu_torch.models.unet_condition import (
@@ -95,6 +104,7 @@ from ladi_vton_tpu_torch.models.unet_condition import (
 )
 from ladi_vton_tpu_torch.models.vae import AutoencoderKL, MidBlock, VAEConfig
 from ladi_vton_tpu_torch.ops import _build
+from ladi_vton_tpu_torch.ops import layer_norm as ln
 from ladi_vton_tpu_torch.ops.attention import attention_ref
 from ladi_vton_tpu_torch.ops.flash_attention import flash_attention
 from ladi_vton_tpu_torch.ops.geglu import (
@@ -113,7 +123,13 @@ from ladi_vton_tpu_torch.ops.group_norm import (
     group_norm_plan,
     group_norm_ref,
 )
-from ladi_vton_tpu_torch.ops.layer_norm import layer_norm, layer_norm_ref
+from ladi_vton_tpu_torch.ops.layer_norm import (
+    LayerNormPlan,
+    grid_for,
+    layer_norm,
+    layer_norm_plan,
+    layer_norm_ref,
+)
 from ladi_vton_tpu_torch.pipelines.condition import Conditioner
 from ladi_vton_tpu_torch.pipelines.serving import ConditionService, TryOnService
 from ladi_vton_tpu_torch.pipelines.tryon import TryOnPipeline
@@ -386,24 +402,25 @@ def check_group_norm(gen: Gen) -> dict:
     return summarize(rows)
 
 
-class GroupNormCensus:
-    """While open, records every call of the GroupNorm modules under the
-    given roots: (B, N, C, act, eps, weight dtype) -> calls."""
+class Census:
+    """While open, records every call of the modules of type ``kind``
+    under the given roots: ``key(module, input)`` -> calls."""
+
+    kind: type
 
     def __init__(self, *roots: torch.nn.Module):
         self.modules = [m for root in roots for m in root.modules()
-                        if isinstance(m, GroupNorm)]
+                        if isinstance(m, self.kind)]
         self.calls: dict = {}
 
+    def key(self, module, x: torch.Tensor) -> tuple:
+        raise NotImplementedError
+
     def hook(self, module, args, output) -> None:
-        x = args[0]
-        B, N, C = ((x.shape[0], x.shape[2] * x.shape[3], x.shape[1])
-                   if x.dim() == 4 else tuple(x.shape))
-        key = (B, N, C, module.act, module.eps,
-               str(module.weight.dtype).replace("torch.", ""))
+        key = self.key(module, args[0])
         self.calls[key] = self.calls.get(key, 0) + 1
 
-    def __enter__(self) -> "GroupNormCensus":
+    def __enter__(self) -> "Census":
         self.handles = [m.register_forward_hook(self.hook)
                         for m in self.modules]
         return self
@@ -412,10 +429,32 @@ class GroupNormCensus:
         for h in self.handles:
             h.remove()
 
+
+class GroupNormCensus(Census):
+    """(B, N, C, act, eps, weight dtype) -> calls of the GroupNorms."""
+
+    kind = GroupNorm
+
+    def key(self, module, x: torch.Tensor) -> tuple:
+        B, N, C = ((x.shape[0], x.shape[2] * x.shape[3], x.shape[1])
+                   if x.dim() == 4 else tuple(x.shape))
+        return (B, N, C, module.act, module.eps,
+                str(module.weight.dtype).replace("torch.", ""))
+
     def kernels(self) -> int:
         """Kernel launches of the recorded calls."""
         return sum(n * gn_plan(*k[:3]).launches
                    for k, n in self.calls.items())
+
+
+class LayerNormCensus(Census):
+    """(rows, C, row stride) -> calls of the LayerNorms."""
+
+    kind = LayerNorm
+
+    def key(self, module, x: torch.Tensor) -> tuple:
+        C = x.shape[-1]
+        return (x.numel() // C, C, x.stride(0) if x.dim() == 2 else C)
 
 
 def check_geglu(gen: Gen) -> dict:
@@ -459,36 +498,110 @@ def check_geglu(gen: Gen) -> dict:
     return summarize(rows)
 
 
+# K5's phase-2 shapes (rows, C, read through the CLS stride): every plan
+# (lanes, vectors, warps) that layer_norm_plan gives the path on an H100
+# (the census of phases 4 and 5 lists the path's calls and checks they are
+# covered): the UNet's three levels and mid block (batch 2B = 4), CLIP
+# text (2 x 77 tokens), CLIP vision and the adapter (2 x 257) and the
+# adapter's CLS rows, read in place through their row stride; then a
+# ragged row count (the last row group holds one row) and a width off the
+# path (1000 channels: 125 vectors over 32 x 4 lanes, three masked)
+LN_SHAPES = [(4 * 3072, 320, False), (4 * 768, 640, False),
+             (4 * 192, 1280, False), (4 * 48, 1280, False),
+             (2 * 77, 1024, False), (2 * 257, 1280, False), (2, 1280, True),
+             (4 * 3072 + 5, 320, False), (77, 1000, False)]
+# the path's (residual add, K5) pairs, timed as ten pairs in one graph
+LN_PAIR_SHAPES = [(4 * 3072, 320), (2 * 257, 1280)]
+
+
+def ln_plan(rows: int, C: int, stride: int) -> LayerNormPlan:
+    return layer_norm_plan(rows, C, stride,
+                           _build.sm_count(torch.device("cuda", 0)))
+
+
+def ln_input(gen: Gen, rows: int, C: int, cls: bool) -> torch.Tensor:
+    if cls:  # x[:, 0, :] of (rows, 257, C)
+        return (gen.normal(rows, 257, C, scale=2.0) + 0.5)[:, 0, :]
+    return gen.normal(rows, C, scale=2.0) + 0.5
+
+
+def ln_plan_key(p: LayerNormPlan) -> tuple:
+    """What a plan runs: the kernel instantiation (lanes, vectors) and its
+    CTA size in warps."""
+    return (p.lanes, p.vectors, p.warps)
+
+
+def describe_ln_plan(p: LayerNormPlan) -> str:
+    return (f"{p.lanes} lanes x {p.vectors} vectors a row, {p.grid} CTAs of "
+            f"{p.warps} warps, {p.groups} row groups of {p.rows_per_warp}")
+
+
 def check_layer_norm(gen: Gen) -> dict:
-    # (rows, C): the UNet's three levels and mid block (batch 2B = 4),
-    # CLIP text (2 x 77 tokens), CLIP vision and the adapter (2 x 257) and
-    # the adapter's CLS rows, read in place through their row stride
-    shapes = [(4 * 3072, 320), (4 * 768, 640), (4 * 192, 1280),
-              (4 * 48, 1280), (2 * 77, 1024), (2 * 257, 1280), (2, 1280)]
     rows = []
-    for M, C in shapes:
-        if M == 2:  # x[:, 0, :] of (2, 257, C)
-            x = (gen.normal(2, 257, C, scale=2.0) + 0.5)[:, 0, :]
-        else:
-            x = gen.normal(M, C, scale=2.0) + 0.5
+    for M, C, cls in LN_SHAPES:
+        x = ln_input(gen, M, C, cls)
         w = gen.normal(C, scale=0.1) + 1.0
         b = gen.normal(C, scale=0.1)
         out = layer_norm(x, w, b)
+        again = layer_norm(x, w, b)
         torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"layer_norm {(M, C)} is not deterministic")
         ref = layer_norm_ref(x.float(), w.float(), b.float())
         err = (out.float() - ref).abs().max().item()
-        t = timings(lambda: layer_norm(x, w, b),
+        plan = ln_plan(M, C, x.stride(0))
+        names = [re.sub(r"^.*?\b(ln_kernel<\d+, \d+>)\(.*$", r"\1", n)
+                 for n in device_kernels(lambda: layer_norm(x, w, b))]
+        if names != [f"ln_kernel<{plan.lanes}, {plan.vectors}>"]:
+            raise AssertionError(f"layer_norm {(M, C)} ran {names}, expected "
+                                 f"one ln_kernel<{plan.lanes}, "
+                                 f"{plan.vectors}>")
+        # timed as the LayerNorm module calls it: weight and bias prepared
+        prepared = ln.prepare(w, b, 1e-5)
+        t = timings(lambda: ln.launch(x, prepared),
                     lambda: layer_norm_ref(x, w, b),
                     lambda: F.layer_norm(x, (C,), w, b, 1e-5), 20, 20)
         # sum, centre, square-and-add, scale, affine
         bd = bound(7.0 * x.numel(), FP32_FLOPS, nbytes(x, w, b, out))
         r = row(f"rows={M} C={C} row stride {x.stride(0)}", err, t, bd)
-        log(f"K5 layer_norm {r['shape']}: max_abs_err {err:.3e} (limit "
+        r["plan"] = describe_ln_plan(plan)
+        log(f"K5 layer_norm {r['shape']} ({r['plan']}; one kernel a call; "
+            f"two calls bitwise equal): max_abs_err {err:.3e} (limit "
             f"{LN_LIMIT}) {describe(r, 'F.layer_norm')}")
         if not err <= LN_LIMIT:
             raise AssertionError(f"layer_norm disagrees: {err}")
         rows.append(r)
-    return summarize(rows)
+    result = summarize(rows)
+    result["pairs"] = layer_norm_pairs(gen)
+    return result
+
+
+def layer_norm_pairs(gen: Gen) -> list:
+    """Device ms of the pair the path runs, a residual add then the
+    LayerNorm of its sum, from a CUDA graph of 100 pairs: with K5 launched
+    programmatically (as the path does), with K5 in plain stream order,
+    and with F.layer_norm; the add alone beside them."""
+    pairs = []
+    for M, C in LN_PAIR_SHAPES:
+        a, r = gen.normal(M, C), gen.normal(M, C)
+        w = gen.normal(C, scale=0.1) + 1.0
+        b = gen.normal(C, scale=0.1)
+        prepared = ln.prepare(w, b, 1e-5)
+        serial = ln.prepare(w, b, 1e-5, pdl=False)
+        t = {"shape": f"rows={M} C={C}",
+             "add_ms": graph_ms(lambda: a + r, 100),
+             "add_k5_ms": graph_ms(lambda: ln.launch(a + r, prepared), 100),
+             "add_k5_serial_ms": graph_ms(lambda: ln.launch(a + r, serial),
+                                          100),
+             "add_library_ms": graph_ms(
+                 lambda: F.layer_norm(a + r, (C,), w, b, 1e-5), 100)}
+        log(f"K5 pair (residual add, LayerNorm) {t['shape']}, device ms per "
+            f"pair in a graph of 100: add then K5 {t['add_k5_ms']:.4f} "
+            f"(without programmatic launch {t['add_k5_serial_ms']:.4f}), add "
+            f"then F.layer_norm {t['add_library_ms']:.4f}, add alone "
+            f"{t['add_ms']:.4f}")
+        pairs.append(t)
+    return pairs
 
 
 def timings(kernel, plain, library, iters: int, plain_iters: int) -> dict:
@@ -753,6 +866,21 @@ def check_census(census: GroupNormCensus) -> None:
         f"calls, {census.kernels()} kernel launches")
 
 
+def check_layer_norm_census(census: LayerNormCensus, what: str) -> None:
+    """Log the LayerNorm calls of ``what`` with K5's plan for each, and
+    fail unless phase 2 checked every plan among them (``ln_plan_key``)."""
+    covered = {ln_plan_key(ln_plan(M, C, 257 * C if cls else C))
+               for M, C, cls in LN_SHAPES}
+    for (rows, C, stride), n in sorted(census.calls.items()):
+        p = ln_plan(rows, C, stride)
+        log(f"K5 census: {n:4d} x (rows={rows}, C={C}, row stride "
+            f"{stride}): {describe_ln_plan(p)}")
+        if ln_plan_key(p) not in covered:
+            raise AssertionError(f"phase 2 does not check K5's plan for "
+                                 f"{(rows, C, stride)}: {p}")
+    log(f"K5 census of {what}: {sum(census.calls.values())} calls")
+
+
 def serve_raw_requests(service: TryOnService, wrappers: dict) -> dict:
     """Phase 5: ConditionService -> TryOnService at full width; returns
     the kernels' launches over the two requests."""
@@ -789,8 +917,11 @@ def serve_raw_requests(service: TryOnService, wrappers: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
         ln_before = layer_norm.launches
         gn_before = group_norm.launches
+        c = cond.conditioner
         with GroupNormCensus(service.pipe.unet, service.pipe.vae,
-                             service.pipe.emasc) as census:
+                             service.pipe.emasc) as census, LayerNormCensus(
+                service.pipe.unet, c.vision, c.adapter,
+                c.text_model) as ln_census:
             warped, embeds, negative, out, t_cond, total, ln_cond = answer(
                 raw)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -815,6 +946,7 @@ def serve_raw_requests(service: TryOnService, wrappers: dict) -> dict:
             raise AssertionError(f"raw request of {n}: bad output")
         if not (ln_cond > ln_before and layer_norm.launches > ln_cond):
             raise AssertionError("K5 was not launched in both stages")
+        check_layer_norm_census(ln_census, f"a raw request of {n} image(s)")
     return {name: wrapper.launches for name, wrapper in wrappers.items()}
 
 
@@ -955,6 +1087,117 @@ def sweep_group_norm_plans() -> None:
               flush=True)
 
 
+def host_us(fn, calls: int = 2000) -> float:
+    """Host microseconds per call of fn over back-to-back calls (the
+    device keeps up at the shapes timed), after a warm-up."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / calls * 1e6
+
+
+def sweep_layer_norm_plans() -> None:
+    """``--sweep-layer-norm``: K5 at the path's seven shapes, device
+    microseconds per call from a CUDA graph of 100 calls: under every
+    warp count a CTA (the plan's lanes and vectors, ``grid_for``'s grid;
+    ``layer_norm_plan``'s pick marked), each output checked against
+    ``layer_norm_ref`` within ``LN_LIMIT``; then the pick as the module
+    runs it, with and without programmatic launch, in the order on, off,
+    off, on; and the path's (residual add, K5) pairs the same way, three
+    times over.  Then the host time of one call at 154 x 1024, part by part:
+    what the wrapper and the module cost beside ``F.layer_norm`` and
+    ``torch.nn.LayerNorm``."""
+    lib = _build.library()
+    sms = _build.sm_count(torch.device("cuda", 0))
+    gen = Gen(0)
+    for M, C, cls in LN_SHAPES[:7]:
+        x = ln_input(gen, M, C, cls)
+        stride = x.stride(0)
+        w = gen.normal(C, scale=0.1) + 1.0
+        b = gen.normal(C, scale=0.1)
+        ref = layer_norm_ref(x.float(), w.float(), b.float())
+        out = torch.empty(M, C, dtype=BF16, device="cuda")
+        pick = ln_plan(M, C, stride)
+        prepared = ln.prepare(w, b, 1e-5)
+        serial = ln.prepare(w, b, 1e-5, pdl=False)
+        cells = []
+        for warps in (1, 2, 4, 8):
+            plan = dataclasses.replace(
+                pick, warps=warps, grid=grid_for(pick.groups, warps, sms))
+
+            def call(plan=plan):
+                _build.check(lib.ladi_layer_norm_fwd(
+                    x.data_ptr(), out.data_ptr(), M, stride, prepared.address,
+                    plan.code, plan.grid, _build.stream_ptr(x)), "layer_norm")
+
+            out.zero_()
+            call()
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            if not err <= LN_LIMIT:
+                raise AssertionError(f"layer_norm {(M, C)} at {warps} warps: "
+                                     f"error {err}")
+            mark = "*" if warps == pick.warps else ""
+            cells.append(f"{mark}{warps} warps x {plan.grid} "
+                         f"{graph_ms(call, 100) * 1e3:.3f}")
+        abba = [graph_ms(lambda p=p: ln.launch(x, p), 100) * 1e3
+                for p in (prepared, serial, serial, prepared)]
+        log(f"K5 rows={M} C={C} row stride {stride}, device us per call (* = "
+            f"picked: {describe_ln_plan(pick)}): " + ", ".join(cells)
+            + f"; the pick with and without programmatic launch (on, off, "
+            f"off, on): " + " ".join(f"{us:.3f}" for us in abba))
+    for M, C in LN_PAIR_SHAPES:
+        a, r = gen.normal(M, C), gen.normal(M, C)
+        w = gen.normal(C, scale=0.1) + 1.0
+        b = gen.normal(C, scale=0.1)
+        prepared = ln.prepare(w, b, 1e-5)
+        serial = ln.prepare(w, b, 1e-5, pdl=False)
+        abba = [graph_ms(lambda p=p: ln.launch(a + r, p), 100) * 1e3
+                for p in (prepared, serial, serial, prepared) * 3]
+        log(f"K5 pair (residual add, LayerNorm) rows={M} C={C}, device us "
+            f"per pair in graphs of 100, with and without programmatic launch "
+            f"(on, off, off, on, three times): "
+            + " ".join(f"{us:.3f}" for us in abba))
+
+    M, C = 2 * 77, 1024
+    x = gen.normal(M, C)
+    w = gen.normal(C, scale=0.1) + 1.0
+    b = gen.normal(C, scale=0.1)
+    prepared = ln.prepare(w, b, 1e-5)
+    module = LayerNorm(C).to(device="cuda", dtype=BF16)
+    library = torch.nn.LayerNorm(C).to(device="cuda", dtype=BF16)
+    plan = ln_plan(M, C, C)
+    out = torch.empty_like(x)
+    fn = lib.ladi_layer_norm_fwd
+    key = (w.data_ptr(), b.data_ptr(), w.dtype, b.dtype, w.device, b.device,
+           1e-5)
+    parts = {
+        "F.layer_norm": lambda: F.layer_norm(x, (C,), w, b, 1e-5),
+        "torch.nn.LayerNorm module": lambda: library(x),
+        "LayerNorm module (the path)": lambda: module(x),
+        "layer_norm(x, w, b) (checks weight and bias)":
+            lambda: layer_norm(x, w, b),
+        "ops.layer_norm.launch (prepared)": lambda: ln.launch(x, prepared),
+        "  the module's key of its parameters":
+            lambda: key == (w.data_ptr(), b.data_ptr(), w.dtype, b.dtype,
+                            w.device, b.device, 1e-5),
+        "  torch.empty_like": lambda: torch.empty_like(
+            x, memory_format=torch.contiguous_format),
+        "  layer_norm_plan (cached)": lambda: layer_norm_plan(M, C, C, sms),
+        "  _build.stream_ptr": lambda: _build.stream_ptr(x),
+        "  the ctypes call (launch included)": lambda: fn(
+            x.data_ptr(), out.data_ptr(), M, C, prepared.address, plan.code,
+            plan.grid, _build.stream_ptr(x)),
+    }
+    log(f"K5 host us per call at rows={M} C={C}: " + ", ".join(
+        f"{name} {host_us(f):.2f}" for name, f in parts.items()))
+
+
 KERNELS = (
     ("flash_attention", flash_attention, check_attention,
      "ladi_vton_tpu_torch/csrc/flash_attention.cu",
@@ -978,6 +1221,10 @@ def main() -> None:
     parser.add_argument("--sweep-group-norm", action="store_true",
                         help="time every GroupNorm cluster-form plan "
                         "instead of the phases, and exit")
+    parser.add_argument("--sweep-layer-norm", action="store_true",
+                        help="time every LayerNorm warp count and the "
+                        "wrapper's host cost instead of the phases, and "
+                        "exit")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script measures "
@@ -999,6 +1246,9 @@ def main() -> None:
         return
     if args.sweep_group_norm:
         sweep_group_norm_plans()
+        return
+    if args.sweep_layer_norm:
+        sweep_layer_norm_plans()
         return
     log(f"phase 1: kernels built from ladi_vton_tpu_torch/csrc in "
         f"{build_s:.2f} s, one nvcc per source in parallel (0 = already "
@@ -1031,12 +1281,13 @@ def main() -> None:
     for wrapper in wrappers.values():
         wrapper.launches = 0
     census = GroupNormCensus(pipe.unet, pipe.vae, pipe.emasc)
+    ln_census = LayerNormCensus(pipe.unet)
     for i, n in enumerate((1, 2, 2)):
         req = request(rng, n, 512, 384)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         if i == 1:
-            with census:
+            with census, ln_census:
                 out = service.generate(**req)
         else:
             out = service.generate(**req)
@@ -1054,6 +1305,7 @@ def main() -> None:
     launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
     log(f"launches during the three requests: {launches}")
     check_census(census)
+    check_layer_norm_census(ln_census, "one 2-image request")
     missing = [name for name, count in launches.items() if count == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the path: {missing}")

@@ -21,7 +21,7 @@ from torch import nn
 from ladi_vton_tpu_torch.ops.attention import dot_product_attention
 from ladi_vton_tpu_torch.ops.geglu import geglu
 from ladi_vton_tpu_torch.ops.group_norm import group_norm
-from ladi_vton_tpu_torch.ops.layer_norm import layer_norm
+from ladi_vton_tpu_torch.ops import layer_norm as ln
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
@@ -73,16 +73,34 @@ class GroupNorm(nn.Module):
 
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis with fp32 statistics
-    (``ops.layer_norm``: kernel K5 on CUDA)."""
+    (``ops.layer_norm``: kernel K5 on CUDA).  Weight and bias are checked
+    for the kernel on the first call on the card, and again only when
+    their storage, dtype or device changes (``ops.layer_norm.prepare``)."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
+        self._prepared = (None, None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, eps=self.eps)
+        w, b = self.weight, self.bias
+        if x.is_cpu:
+            return ln.layer_norm_ref(x, w, b, eps=self.eps)
+        key = (w.data_ptr(), b.data_ptr(), w.dtype, b.dtype, w.device,
+               b.device, self.eps)
+        seen, prepared = self._prepared
+        if key != seen:
+            prepared = ln.prepare(w, b, self.eps)
+            self._prepared = (key, prepared)
+        return ln.launch(x, prepared)
+
+    def __getstate__(self):
+        # a copy or a pickle checks its own parameters again
+        state = super().__getstate__()
+        state["_prepared"] = (None, None)
+        return state
 
 
 class ResnetBlock2D(nn.Module):

@@ -60,8 +60,10 @@ SIGNATURES = {
     # a, w2, b2, b2 is fp32, y, fp32 partials, M, I, C, tile width,
     # splits, stream
     "ladi_geglu_out": [P, P, P, I, P, P, I, I, I, I, I, P],
-    # x, weight, bias, out, rows, C, x row stride, eps, stream
-    "ladi_layer_norm_fwd": [P, P, P, P, I, I, I64, F, P],
+    # x, out, rows, x row stride, prepared weight, bias, C, eps and
+    # launch mode (LadiLnParams), lanes | vectors << 8 | warps << 16, grid,
+    # stream
+    "ladi_layer_norm_fwd": [P, P, I, I64, P, I, I, P],
 }
 
 
@@ -167,7 +169,7 @@ def sm_count(device) -> int:
 def stream_ptr(t) -> int:
     """The raw handle of the current stream on t's device (what
     ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
-    building a Stream object on every launch)."""
+    building a Stream or a device object on every launch)."""
     import torch
 
-    return torch._C._cuda_getCurrentRawStream(t.device.index)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

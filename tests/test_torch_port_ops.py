@@ -32,7 +32,7 @@ from ladi_vton_tpu.ops.resize import resize_bilinear as jax_bilinear
 from ladi_vton_tpu.ops.resize import resize_nearest as jax_nearest
 from ladi_vton_tpu_torch.core.checkpoint import state_dict_from_jax, unet_key_map
 from ladi_vton_tpu_torch.diffusion.schedulers import DDIMScheduler
-from ladi_vton_tpu_torch.models.layers import timestep_embedding
+from ladi_vton_tpu_torch.models.layers import LayerNorm, timestep_embedding
 from ladi_vton_tpu_torch.ops import _build
 from ladi_vton_tpu_torch.ops.attention import dot_product_attention
 from ladi_vton_tpu_torch.ops.flash_attention import (
@@ -56,7 +56,15 @@ from ladi_vton_tpu_torch.ops.group_norm import (
     group_norm_plan,
     split_smem,
 )
-from ladi_vton_tpu_torch.ops.layer_norm import layer_norm, layer_norm_ref
+from ladi_vton_tpu_torch.ops import layer_norm as ln_ops
+from ladi_vton_tpu_torch.ops.layer_norm import (
+    MAX_VECTORS,
+    WARPS,
+    WARPS_PER_SM,
+    layer_norm,
+    layer_norm_plan,
+    layer_norm_ref,
+)
 from ladi_vton_tpu_torch.ops.resize import resize_bilinear, resize_nearest
 
 T = torch.from_numpy
@@ -386,6 +394,155 @@ def test_layer_norm_wrapper_rejects_what_the_kernel_does_not_take():
         layer_norm(x, w, w.float())
     with pytest.raises(ValueError, match="weight"):
         layer_norm(x, torch.empty(640, dtype=torch.bfloat16, **meta), w)
+    with pytest.raises(ValueError, match="weight"):
+        layer_norm(x, torch.ones(320, dtype=torch.bfloat16), w)  # on the CPU
+    # the LayerNorm module checks its parameters on its first call, and
+    # x on every call
+    m = LayerNorm(320).to(**meta)
+    with pytest.raises(ValueError, match="weight"):
+        m(x)  # fp32 parameters
+    m = m.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16"):
+        m(x.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        m(x.transpose(0, 1))
+    with pytest.raises(ValueError, match="channels"):
+        m(torch.empty(4, 77, 640, dtype=torch.bfloat16, **meta))
+    with pytest.raises(ValueError, match="CUDA"):
+        m(x)  # all else holds: a meta tensor is not launched
+    m.bias = torch.nn.Parameter(torch.empty(320, **meta))  # now fp32
+    with pytest.raises(ValueError, match="bias"):
+        m(x)
+
+
+def test_layer_norm_module_checks_its_parameters_once(monkeypatch):
+    calls = []
+    prepare = ln_ops.prepare
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].dtype)
+        return prepare(*args, **kwargs)
+
+    monkeypatch.setattr(ln_ops, "prepare", counted)
+    m = LayerNorm(64).to(device="meta", dtype=torch.bfloat16)
+    x = torch.empty(2, 64, dtype=torch.bfloat16, device="meta")
+    for _ in range(3):
+        with pytest.raises(ValueError, match="CUDA"):
+            m(x)
+    assert calls == [torch.bfloat16]
+    m = m.to(torch.float32)  # the parameters change: checked again
+    with pytest.raises(ValueError, match="weight"):
+        m(x)
+    assert calls == [torch.bfloat16, torch.float32]
+    # a CPU tensor takes the plain version and prepares nothing
+    cpu = LayerNorm(64)
+    xc = torch.randn(3, 64)
+    np.testing.assert_array_equal(cpu(xc).detach().numpy(), layer_norm_ref(
+        xc, cpu.weight, cpu.bias).detach().numpy())
+    assert len(calls) == 2
+
+
+# the path's LayerNorm calls (rows, C, row stride): the UNet's three levels
+# and mid block (batch 4), CLIP text (2 x 77), CLIP vision (2 x 257) and
+# the adapter's CLS rows, read through the stride of (2, 257, 1280)
+LN_PATH = [(12288, 320, 320), (3072, 640, 640), (768, 1280, 1280),
+           (192, 1280, 1280), (154, 1024, 1024), (514, 1280, 1280),
+           (2, 1280, 257 * 1280)]
+
+
+def ln_kernel_cases() -> set:
+    src = (_build.CSRC / "layer_norm.cu").read_text()
+    return {(int(a), int(b))
+            for a, b in re.findall(r"LN_CASE\((\d+), (\d+)\)", src)}
+
+
+@pytest.mark.parametrize("rows", [1, 2, 7, 77, 154, 192, 514, 768, 3072,
+                                  12288, 12288 + 5, 100000])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_layer_norm_plan(rows, sms):
+    cases = ln_kernel_cases()
+    for C in range(8, 1281, 8):
+        p = layer_norm_plan(rows, C, C, sms)
+        nvec = C // 8
+        # lanes: a power of two dividing 32, the fewest that hold the row
+        # in at most MAX_VECTORS vectors each
+        assert 32 % p.lanes == 0 and p.rows_per_warp * p.lanes == 32
+        assert p.vectors <= MAX_VECTORS and p.lanes * p.vectors >= nvec
+        assert p.lanes == 1 or -(-nvec // (p.lanes // 2)) > MAX_VECTORS
+        if C in (320, 640, 1024, 1280):
+            assert p.lanes * p.vectors == nvec  # no idle lane on the path
+        assert (p.lanes, p.vectors) in cases
+        # every row in one row group, every group with one warp: warp k
+        # takes groups k, k + grid * warps, ...
+        assert p.groups == -(-rows // p.rows_per_warp)
+        assert p.warps == WARPS
+        # at most one resident wave, and no CTA without a row group; below
+        # a wave, one CTA per WARPS row groups
+        wave = sms * (WARPS_PER_SM // p.warps)
+        assert 1 <= p.grid <= wave
+        assert (p.grid - 1) * p.warps < p.groups
+        assert p.grid == min(wave, -(-p.groups // p.warps))
+    with pytest.raises(ValueError, match="unsupported C"):
+        layer_norm_plan(rows, 1288, 1288, sms)
+    with pytest.raises(ValueError, match="unsupported C"):
+        layer_norm_plan(rows, 320, 324, sms)
+
+
+def test_layer_norm_plan_at_the_path_shapes():
+    # (lanes, vectors, warps, grid) on an H100 SXM
+    got = [(p.lanes, p.vectors, p.warps, p.grid)
+           for p in (layer_norm_plan(*shape) for shape in LN_PATH)]
+    assert got == [(8, 5, 2, 1056), (16, 5, 2, 768), (32, 5, 2, 384),
+                   (32, 5, 2, 96), (32, 4, 2, 77), (32, 5, 2, 257),
+                   (32, 5, 2, 1)]
+    # the UNet's level 0 is one wave, 16 warps an SM: its 3072 row groups
+    # of four rows over 2112 warps, none of which takes more than two
+    p = layer_norm_plan(12288, 320, 320)
+    assert p.grid * p.warps == 132 * WARPS_PER_SM == 2112
+    assert p.groups == 3072 <= 2 * 2112
+
+
+@pytest.mark.parametrize("rows,C,stride", LN_PATH[1:] + [
+    (12288 + 5, 320, 320), (7, 1000, 1000), (77, 8, 8), (1, 1280, 1280)])
+def test_layer_norm_plan_covers_every_element_once(rows, C, stride):
+    # the kernel's walk, restated: warp k of the grid takes row groups
+    # k, k + grid * warps, ...; in a group, lane l takes row
+    # group * (32 / L) + l // L and vectors l % L + i * L, i < V, those
+    # below C / 8
+    p = layer_norm_plan(rows, C, stride)
+    nvec = C // 8
+    seen = np.zeros((rows, nvec), np.int64)
+    lane_cols: dict = {}
+    total = p.grid * p.warps
+    for cta in range(p.grid):
+        for warp in range(p.warps):
+            k = cta * p.warps + warp
+            for g in range(k, p.groups, total):
+                for lane in range(32):
+                    row = g * p.rows_per_warp + lane // p.lanes
+                    cols = tuple(v for v in (lane % p.lanes + i * p.lanes
+                                             for i in range(p.vectors))
+                                 if v < nvec)
+                    if row < rows:
+                        seen[row, list(cols)] += 1
+                        lane_cols.setdefault((k, lane), set()).add(cols)
+    assert (seen == 1).all()
+    # a lane covers the same columns in every row it takes: the weight and
+    # bias it loads once serve them all
+    assert all(len(c) == 1 for c in lane_cols.values())
+
+
+def test_layer_norm_plan_matches_the_kernel():
+    # every (L, V) a plan can pick is instantiated in csrc/layer_norm.cu
+    # (a missing one would fail only on the card), and the wave the plan
+    # assumes is the kernel's launch bound
+    picked = {ln_ops.lanes_and_vectors(C) for C in range(8, 1281, 8)}
+    assert picked == ln_kernel_cases()
+    src = (_build.CSRC / "layer_norm.cu").read_text()
+    max_warps = int(re.search(r"kMaxWarps = (\d+);", src).group(1))
+    min_blocks = int(re.search(r"kMinBlocks = (\d+);", src).group(1))
+    assert WARPS <= max_warps and WARPS_PER_SM == max_warps * min_blocks
+    assert "__launch_bounds__(kMaxWarps * 32, kMinBlocks)" in src
 
 
 @pytest.mark.parametrize("out_hw", [(8, 6), (37, 29)])

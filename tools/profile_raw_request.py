@@ -16,6 +16,11 @@ then the try-on) reports:
   share (kernel time over wall), the number of kernels, device time by
   kernel class and the heaviest kernels by name.
 
+Then K5's (LayerNorm) calls and device microseconds per shape in the
+conditioning and in the try-on, from a trace of the device alone: a
+shape's calls are told apart by the kernel instantiation, grid and block
+that ``layer_norm_plan`` gives it.
+
 It runs with PyTorch's default math modes (cuDNN TF32 allowed, matmul
 TF32 off), as a user of the port would, and adds one diagnostic stage:
 the refinement alone with cuDNN TF32 off.
@@ -30,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -127,6 +133,43 @@ def measure(fn, label: str) -> dict:
     return result
 
 
+def layer_norm_by_shape(fn, label: str, out: pathlib.Path) -> list:
+    """K5's calls and device time per path shape in one call of fn."""
+    shapes: dict = {}
+    for M, C, cls in chip_smoke.LN_SHAPES[:7]:
+        p = chip_smoke.ln_plan(M, C, 257 * C if cls else C)
+        shapes.setdefault((p.lanes, p.vectors, p.grid, 32 * p.warps),
+                          []).append(f"{M}x{C}" + (" strided" if cls else ""))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    trace = out / "layer_norm_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+    trace.unlink()
+    found: dict = {}
+    for e in events:
+        m = re.search(r"ln_kernel<(\d+), (\d+)>", e.get("name", ""))
+        if e.get("cat") == "kernel" and m:
+            args = e.get("args", {})
+            key = (int(m[1]), int(m[2]), args.get("grid", [0])[0],
+                   args.get("block", [0])[0])
+            calls, us = found.get(key, (0, 0.0))
+            found[key] = (calls + 1, us + e["dur"])
+    rows = []
+    for (lanes, vectors, grid, block), (calls, us) in sorted(
+            found.items(), key=lambda kv: -kv[1][1]):
+        shape = " or ".join(shapes.get((lanes, vectors, grid, block),
+                                       ["not a path shape"]))
+        rows.append({"shape": shape, "lanes": lanes, "vectors": vectors,
+                     "grid": grid, "block": block, "calls": calls,
+                     "us_each": us / calls, "ms": us / 1e3})
+        print(f"    K5 in {label}: {calls:5d} x {shape} (ln_kernel<{lanes}, "
+              f"{vectors}>, {grid} x {block}): {us / calls:.2f} us each, "
+              f"{us / 1e3:.3f} ms", flush=True)
+    return rows
+
+
 @torch.no_grad()
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -190,8 +233,11 @@ def main() -> None:
                measure(try_on, "try-on (TryOnService.generate)")]
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
+    k5 = {"conditioning": layer_norm_by_shape(condition, "conditioning", out),
+          "try-on": layer_norm_by_shape(try_on, "try-on", out)}
     (out / "profile_raw_request.json").write_text(json.dumps(
-        {"card": card, "images": args.images, "stages": results}, indent=1))
+        {"card": card, "images": args.images, "stages": results,
+         "layer_norm_by_shape": k5}, indent=1))
 
 
 if __name__ == "__main__":
