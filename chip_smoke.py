@@ -31,9 +31,12 @@ Phases, each printing its numbers before the last line:
    64x48, batch 4) and one VAE ``MidBlock`` (512 at 64x48) through the
    kernels on the card and through the plain versions on the CPU, same
    weights, relative L2 error against a stated limit; the whole sampler
-   at full SD-2 width on a small 128x128 input (2 DDIM steps, CFG 7.5);
-   the conditioner at full width and 2 layers per CLIP tower on a
-   256x192 image (TPS at 256x192), on the card against the CPU;
+   at full SD-2 width on a small 128x128 input (CFG 7.5) under each
+   scheduler (DDIM, PNDM and LMS 2 steps, DPM-Solver++ 3), and with the
+   cross-attention K/V hoisted, which must equal the inline form; a
+   tiled decode (16x16 latent, tiles of 8); the conditioner at full
+   width and 2 layers per CLIP tower on a 256x192 image (TPS at
+   256x192), on the card against the CPU;
 4. the main path: a ``TryOnService`` at full SD-2 width (31-channel UNet,
    SD-2 VAE, EMASC) with seeded random bf16 weights, 512x384, DDIM-50,
    CFG 7.5, batch_size 2, answering three requests of 1, 2 and 2 images;
@@ -50,8 +53,20 @@ Phases, each printing its numbers before the last line:
    total seconds and peak memory per request, every output checked, and
    K5 launched in both stages, K2's calls and kernel launches per
    request logged, and K5's census of each request checked as in phase
-   4.  A deterministic word tokenizer stands in for the CLIP BPE
-   tokenizer, whose vocabulary files the repository does not hold.
+   4.  The port's CLIP BPE tokenizer reads a synthetic vocabulary
+   (``synthetic_tokenizer``): the SD-2 one is not in the repository;
+6. the zoo path: phase 4's and 5's modules written as the reference's
+   files (the four ``.pth`` releases; an SD-2 directory with ``vae/``
+   as ``.safetensors`` and ``text_encoder/``; a CLIP vision directory),
+   loaded back through ``ladi_vton_tpu_torch.hub.zoo`` onto the card
+   and checked tensor for tensor, a 9-channel UNet release widened by
+   the zoo's conv_in surgery, then phase 5's 2-image raw request served
+   from the loaded modules under DDIM-50 (bitwise equal to phase 5's
+   answer) and under DPM-Solver++-20, PNDM-50 and LMS-50 (shape,
+   finiteness, range; seconds and peak memory logged), with every
+   kernel's launch counter rising; last, the VAE's encode and decode at
+   512x384 untiled and tiled with the JAX defaults, timed, and the
+   tiled calls under the K2 census.
 
 Phases 2 and 3 compare with TF32 off for matmuls and cuDNN; phases 4
 and 5 serve with PyTorch's defaults (cuDNN TF32 allowed, matmul TF32
@@ -60,8 +75,9 @@ the fp32 refinement through FFT convolutions that take ~60x longer and
 a ~20 GiB workspace (``tools/profile_raw_request.py``).
 
 The line before the last is ``{"kernels": [...]}``, with the launches
-of phase 5, the first (hottest) shape's times and, under ``shapes``,
-every shape's; the last is ``{"ok": true, "device": {...}}``.  Any failed
+of phase 5 (and phase 6's as ``zoo_launches``), the first (hottest)
+shape's times and, under ``shapes``, every shape's; the last is
+``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero without that line; it also
 refuses to run without CUDA.
 """
@@ -72,17 +88,24 @@ import argparse
 import dataclasses
 import functools
 import json
+import pathlib
 import re
+import shutil
+import struct
 import subprocess
 import sys
+import tempfile
 import time
-import zlib
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ladi_vton_tpu_torch.diffusion.schedulers import DDIMScheduler
+from ladi_vton_tpu_torch.diffusion.schedulers import (
+    DDIMScheduler,
+    make_scheduler,
+)
+from ladi_vton_tpu_torch.hub import zoo
 from ladi_vton_tpu_torch.models.clip import (
     CLIPTextModel,
     CLIPVisionModel,
@@ -133,6 +156,10 @@ from ladi_vton_tpu_torch.ops.layer_norm import (
 from ladi_vton_tpu_torch.pipelines.condition import Conditioner
 from ladi_vton_tpu_torch.pipelines.serving import ConditionService, TryOnService
 from ladi_vton_tpu_torch.pipelines.tryon import TryOnPipeline
+from ladi_vton_tpu_torch.utils.tokenizer import (
+    CLIPTokenizer,
+    _bytes_to_unicode,
+)
 
 BF16 = torch.bfloat16
 
@@ -157,7 +184,14 @@ IMAGE_MEAN_LIMIT = 2e-2
 # layers: a few bf16 roundings each
 WARPED_LIMIT = 1e-2
 EMBEDS_LIMIT = 5e-2
+# the whole VAE decoder, bf16 against fp32: a few bf16 roundings in each
+# of its ~30 layers
+DECODE_LIMIT = 5e-2
 NUM_VSTAR = 16
+# phase 3's small sampler: (scheduler, steps) on the card and the CPU
+SMALL_SAMPLES = (("ddim", 2), ("pndm", 2), ("lms", 2), ("dpm", 3))
+# phase 6's raw requests through the zoo-loaded modules
+ZOO_REQUESTS = (("ddim", 50), ("dpm", 20), ("pndm", 50), ("lms", 50))
 # K4's rows x C -> 2I -> C at the UNet's three widths and its mid block,
 # batch 2B = 4
 GEGLU_SHAPES = [(4 * 3072, 320), (4 * 768, 640), (4 * 192, 1280),
@@ -186,6 +220,26 @@ def bound(flops: float, rate: float, moved: int) -> dict:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def save_safetensors(tensors: dict, path) -> None:
+    """Write CPU-copyable tensors as a ``.safetensors`` file: the JSON
+    header's length (8 bytes, little-endian), the header (padded to 8
+    bytes), then each tensor's raw bytes."""
+    names = {dtype: name for name, dtype in zoo.SAFETENSORS_DTYPES.items()}
+    header, chunks, offset = {}, [], 0
+    for name, t in tensors.items():
+        t = t.detach().cpu().contiguous()
+        data = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(data)]}
+        chunks.append(data)
+        offset += len(data)
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        f.writelines(chunks)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -297,7 +351,8 @@ def check_attention(gen: Gen) -> dict:
 # (clusters of 2, V = 1) and at 64x48 (clusters of 1, V = 2), the VAE mid
 # block of one image (clusters of 4, V = 2), the decoder at 128x96
 # (clusters of 2 holding 192 KB of rows each), at 256x192 and the encoder
-# and decoder at 512x384 (split form)
+# and decoder at 512x384 (split form), and the encoder's second block on
+# the tiled encode's partial 128x384 tile (clusters of 8, V = 2)
 GN_SHAPES = [(4, 3072, 320, True, 1e-5, BF16),
              (4, 3072, 320, False, 1e-6, torch.float32),
              (4, 3072, 960, True, 1e-5, BF16), (4, 768, 640, True, 1e-5, BF16),
@@ -310,7 +365,8 @@ GN_SHAPES = [(4, 3072, 320, True, 1e-5, BF16),
              (2, 12288, 512, True, 1e-6, BF16),
              (2, 49152, 512, True, 1e-6, BF16),
              (4, 196608, 128, True, 1e-6, BF16),
-             (2, 196608, 256, True, 1e-6, BF16)]
+             (2, 196608, 256, True, 1e-6, BF16),
+             (2, 12288, 128, True, 1e-6, BF16)]
 
 
 def device_kernels(fn) -> list:
@@ -715,63 +771,106 @@ def request(rng: np.random.Generator, n: int, h: int, w: int) -> dict:
 
 @torch.no_grad()
 def check_small_sample(pipe: TryOnPipeline) -> None:
-    """The sampler at full width on a 128x128 input: card vs CPU."""
+    """The sampler at full width on a 128x128 input, card vs CPU, under
+    each scheduler (a few steps: PNDM's plan of 2 runs the UNet 3 times,
+    DPM-Solver++ at 3 steps takes one second-order step), then DDIM with
+    the cross-attention K/V hoisted against the inline form on the card.
+    Both devices prepare once; the schedulers share the prepared
+    inputs."""
     cpu_pipe = TryOnPipeline(
         unet=cpu_copy(pipe.unet, lambda: UNet2DCondition(sd2_unet_config(31))),
         vae=cpu_copy(pipe.vae, lambda: AutoencoderKL(VAEConfig())),
         emasc=cpu_copy(pipe.emasc, EMASC), scheduler=DDIMScheduler())
     req = request(np.random.default_rng(5), 1, 128, 128)
-    args = dict(image=req["image"], mask_image=req["inpaint_mask"],
-                pose_map=req["pose_map"], warped_cloth=req["warped_cloth"],
-                prompt_embeds=req["prompt_embeds"],
-                negative_prompt_embeds=req["negative_prompt_embeds"])
+    t = {k: torch.from_numpy(req[k]) for k in (
+        "image", "inpaint_mask", "pose_map", "warped_cloth", "prompt_embeds",
+        "negative_prompt_embeds")}
     noise = {k: torch.from_numpy(np.random.default_rng(6 + i)
                                  .standard_normal((1, 16, 16, 4))
                                  .astype(np.float32))
              for i, k in enumerate(("latents", "masked", "cloth"))}
-    results = []
+    prepared = {}
     for p in (pipe, cpu_pipe):
-        t = {k: torch.from_numpy(v) for k, v in args.items()}
-        prepared = p.prepare(image=t["image"], mask_image=t["mask_image"],
-                             pose_map=t["pose_map"],
-                             warped_cloth=t["warped_cloth"], noise=noise)
-        inter = prepared.pop("intermediate")
-        lat = p.denoise(prepared, prompt_embeds=t["prompt_embeds"],
-                        negative_prompt_embeds=t["negative_prompt_embeds"],
-                        num_inference_steps=2, guidance_scale=7.5)
-        results.append((lat.float().cpu(), p.decode(lat, inter).cpu()))
-    (lat_gpu, img_gpu), (lat_cpu, img_cpu) = results
-    lat_err = rel_l2(lat_gpu, lat_cpu)
-    img_err = float((img_gpu - img_cpu).abs().mean())
-    log(f"integration sampler SD-2 width 128x128 DDIM-2 CFG 7.5: latents "
-        f"rel_l2 {lat_err:.3e} (limit {LATENT_LIMIT}), image mean abs "
-        f"{img_err:.3e} (limit {IMAGE_MEAN_LIMIT})")
-    if not (torch.isfinite(img_gpu).all() and lat_err <= LATENT_LIMIT
-            and img_err <= IMAGE_MEAN_LIMIT):
-        raise AssertionError("the sampler disagrees with the CPU")
+        prepared[p] = p.prepare(image=t["image"], mask_image=t["inpaint_mask"],
+                                pose_map=t["pose_map"],
+                                warped_cloth=t["warped_cloth"], noise=noise)
+
+    def denoise(p: TryOnPipeline, steps: int, **change) -> torch.Tensor:
+        inputs = {k: v for k, v in prepared[p].items() if k != "intermediate"}
+        return dataclasses.replace(p, **change).denoise(
+            inputs, prompt_embeds=t["prompt_embeds"],
+            negative_prompt_embeds=t["negative_prompt_embeds"],
+            num_inference_steps=steps, guidance_scale=7.5)
+
+    for name, steps in SMALL_SAMPLES:
+        lats, images = [], []
+        for p in (pipe, cpu_pipe):
+            lat = denoise(p, steps, scheduler=make_scheduler(name))
+            lats.append(lat.float().cpu())
+            images.append(p.decode(lat, prepared[p]["intermediate"]).cpu())
+        lat_err = rel_l2(*lats)
+        img_err = float((images[0] - images[1]).abs().mean())
+        log(f"integration sampler SD-2 width 128x128 {name}-{steps} CFG 7.5: "
+            f"latents rel_l2 {lat_err:.3e} (limit {LATENT_LIMIT}), image mean "
+            f"abs {img_err:.3e} (limit {IMAGE_MEAN_LIMIT})")
+        if not (torch.isfinite(images[0]).all() and lat_err <= LATENT_LIMIT
+                and img_err <= IMAGE_MEAN_LIMIT):
+            raise AssertionError(f"the sampler under {name} disagrees with "
+                                 f"the CPU")
+        if name == "ddim":
+            inline = lats[0]
+    hoisted = denoise(pipe, 2, hoist_context_kv=True).float().cpu()
+    diff = float((hoisted - inline).abs().max())
+    log(f"integration sampler ddim-2 with the cross-attention K/V hoisted: "
+        f"max abs difference from the inline form {diff:.3e} (limit 0: the "
+        f"same products of the same inputs)")
+    if diff != 0.0:
+        raise AssertionError("the hoisted K/V sampler disagrees with the "
+                             "inline one")
 
 
-class WordTokenizer:
-    """A deterministic stand-in for the CLIP BPE tokenizer: start id
-    49406, one id per word (``$`` is 259, every other word a hash in
-    [1, 49405] that skips 259), end id 49407, padding 0, 77 ids."""
+@torch.no_grad()
+def check_tiled_decode(vae: AutoencoderKL) -> None:
+    """``tiled_decode`` at full VAE width on a 16x16 latent with tiles of
+    8 (stride 6: tiles of 8, 8 and 4 latent pixels a side, blended over
+    16 pixels), the card's bf16 VAE against its fp32 twin on the CPU."""
+    z = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (1, 4, 16, 16)).astype(np.float32))
+    out = vae.tiled_decode(z.cuda(), tile=8).cpu()
+    ref = cpu_copy(vae, lambda: AutoencoderKL(VAEConfig())).tiled_decode(
+        z, tile=8)
+    err = rel_l2(out, ref)
+    log(f"integration tiled decode SD-2 VAE width, 16x16 latent, tile 8: "
+        f"rel_l2 {err:.3e} (limit {DECODE_LIMIT})")
+    if not (out.shape == (1, 3, 128, 128) and torch.isfinite(out).all()
+            and err <= DECODE_LIMIT):
+        raise AssertionError("the tiled decode disagrees with the CPU")
 
-    def __call__(self, texts) -> np.ndarray:
-        ids = np.zeros((len(texts), 77), np.int64)
-        for i, text in enumerate(texts):
-            words = [259 if w == "$" else self.word_id(w)
-                     for w in text.split()][:75]
-            ids[i, :len(words) + 2] = [49406, *words, 49407]
-        return ids
 
-    @staticmethod
-    def word_id(word: str) -> int:
-        i = 1 + zlib.crc32(word.encode()) % 49404
-        return i + 1 if i >= 259 else i
+def synthetic_tokenizer(root: pathlib.Path) -> CLIPTokenizer:
+    """Write a CLIP BPE vocabulary made as the repository's tests make
+    one (every byte symbol alone and at a word's end, so ``$</w>`` is id
+    259; one merge, ``t o</w>``; the specials 49406 and 49407: every id
+    inside the text tower's 49408) into ``root``, and load it with the
+    port's tokenizer.  The SD-2 vocabulary is not in the repository."""
+    symbols = list(_bytes_to_unicode().values())
+    vocab = {s: i for i, s in enumerate(symbols)}
+    for s in symbols:
+        vocab[s + "</w>"] = len(vocab)
+    vocab["to</w>"] = len(vocab)
+    vocab["<|startoftext|>"] = 49406
+    vocab["<|endoftext|>"] = 49407
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "vocab.json").write_text(json.dumps(vocab))
+    (root / "merges.txt").write_text("#version: 0.2\nt o</w>\n")
+    tokenizer = CLIPTokenizer.from_dir(root)
+    if tokenizer.encode(" $ ") != [259]:
+        raise AssertionError("the synthetic vocabulary lost '$' -> 259")
+    return tokenizer
 
 
-def conditioner(device: str, image_size: tuple, clip_layers=None
-                ) -> Conditioner:
+def conditioner(device: str, image_size: tuple, tokenizer,
+                clip_layers=None) -> Conditioner:
     """The conditioning towers at full width with seeded random weights:
     TPS and refinement in fp32, the CLIP towers and the adapter in bf16;
     ``clip_layers`` cuts the depth of both CLIP towers."""
@@ -788,7 +887,7 @@ def conditioner(device: str, image_size: tuple, clip_layers=None
                               std=1e-3)
         return module
 
-    empty_ids = torch.from_numpy(WordTokenizer()([""])[0])
+    empty_ids = torch.from_numpy(tokenizer([""])[0].astype(np.int64))
     return Conditioner(
         tps=seeded(tps, 20, device),
         refinement=seeded(UNetVanilla, 21, device),
@@ -828,13 +927,13 @@ def raw_request(rng: np.random.Generator, n: int, h: int, w: int) -> dict:
 
 
 @torch.no_grad()
-def check_conditioner() -> None:
+def check_conditioner(tokenizer) -> None:
     h, w = 256, 192
-    cond = conditioner("cuda", (h, w), clip_layers=2)
+    cond = conditioner("cuda", (h, w), tokenizer, clip_layers=2)
     raw = raw_request(np.random.default_rng(7), 1, h, w)
     results = []
     for c, device in ((cond, "cuda"), (cpu_conditioner(cond), "cpu")):
-        service = ConditionService(c, WordTokenizer(), batch_size=1,
+        service = ConditionService(c, tokenizer, batch_size=1,
                                    num_vstar=NUM_VSTAR, device=device)
         results.append([torch.from_numpy(a) for a in service.run(
             cloth=raw["cloth"], pose_map=raw["pose_map"],
@@ -850,10 +949,11 @@ def check_conditioner() -> None:
         raise AssertionError("the conditioner disagrees with the CPU")
 
 
-def check_census(census: GroupNormCensus) -> None:
-    """Log the GroupNorm calls of one 2-image request with K2's plan for
-    each, and fail unless phase 2 checked every kernel instantiation
-    among them (``plan_kernel``)."""
+def check_census(census: GroupNormCensus,
+                 what: str = "one 2-image request") -> None:
+    """Log the GroupNorm calls of ``what`` with K2's plan for each, and
+    fail unless phase 2 checked every kernel instantiation among them
+    (``plan_kernel``)."""
     covered = {plan_kernel(gn_plan(*shape[:3])) for shape in GN_SHAPES}
     for (B, N, C, act, eps, wdt), n in sorted(census.calls.items()):
         p = gn_plan(B, N, C)
@@ -862,8 +962,8 @@ def check_census(census: GroupNormCensus) -> None:
         if plan_kernel(p) not in covered:
             raise AssertionError(f"phase 2 does not check K2's plan for "
                                  f"{(B, N, C)}: {p}")
-    log(f"K2 census of one 2-image request: {sum(census.calls.values())} "
-        f"calls, {census.kernels()} kernel launches")
+    log(f"K2 census of {what}: {sum(census.calls.values())} calls, "
+        f"{census.kernels()} kernel launches")
 
 
 def check_layer_norm_census(census: LayerNormCensus, what: str) -> None:
@@ -881,33 +981,54 @@ def check_layer_norm_census(census: LayerNormCensus, what: str) -> None:
     log(f"K5 census of {what}: {sum(census.calls.values())} calls")
 
 
-def serve_raw_requests(service: TryOnService, wrappers: dict) -> dict:
+def answer(cond: ConditionService, service: TryOnService, raw: dict,
+           seed: int) -> dict:
+    """One raw request through both services, the try-on's draws from a
+    generator seeded with ``seed``: the outputs, the conditioning and
+    total seconds (host clock, synchronised) and the K5 launch count
+    between the stages."""
+    t0 = time.perf_counter()
+    warped, embeds, negative = cond.run(
+        cloth=raw["cloth"], pose_map=raw["pose_map"], im_mask=raw["im_mask"],
+        categories=raw["categories"])
+    torch.cuda.synchronize()
+    t_cond = time.perf_counter() - t0
+    ln_cond = layer_norm.launches
+    out = service.generate(
+        image=raw["image"], inpaint_mask=raw["inpaint_mask"],
+        pose_map=raw["pose_map"], warped_cloth=warped, prompt_embeds=embeds,
+        negative_prompt_embeds=negative,
+        generator=torch.Generator(service.pipe.device).manual_seed(seed))
+    torch.cuda.synchronize()
+    return {"warped": warped, "embeds": embeds, "negative": negative,
+            "out": out, "t_cond": t_cond,
+            "total": time.perf_counter() - t0, "ln_cond": ln_cond}
+
+
+def check_raw_output(r: dict, n: int, h: int, w: int, what: str) -> None:
+    warped, embeds, negative, out = (r[k] for k in (
+        "warped", "embeds", "negative", "out"))
+    if not (warped.shape == (n, h, w, 3) and np.isfinite(warped).all()
+            and warped.min() >= -1.0 and warped.max() <= 1.0
+            and embeds.shape == negative.shape == (n, 77, 1024)
+            and np.isfinite(embeds).all() and np.isfinite(negative).all()
+            and out.shape == (n, h, w, 3) and np.isfinite(out).all()
+            and out.min() >= 0.0 and out.max() <= 1.0):
+        raise AssertionError(f"{what}: bad output")
+
+
+def serve_raw_requests(service: TryOnService, wrappers: dict,
+                       tokenizer) -> tuple:
     """Phase 5: ConditionService -> TryOnService at full width; returns
-    the kernels' launches over the two requests."""
+    the kernels' launches over the two requests, the conditioner, and the
+    2-image request (its inputs, seed and outputs) for phase 6."""
     h, w = service.height, service.width
-    cond = ConditionService(conditioner("cuda", (h, w)), WordTokenizer(),
+    cond = ConditionService(conditioner("cuda", (h, w), tokenizer), tokenizer,
                             batch_size=service.batch_size,
                             num_vstar=NUM_VSTAR)
     rng = np.random.default_rng(1)
-
-    def answer(raw: dict):
-        t0 = time.perf_counter()
-        warped, embeds, negative = cond.run(
-            cloth=raw["cloth"], pose_map=raw["pose_map"],
-            im_mask=raw["im_mask"], categories=raw["categories"])
-        torch.cuda.synchronize()
-        t_cond = time.perf_counter() - t0
-        ln_cond = layer_norm.launches
-        out = service.generate(
-            image=raw["image"], inpaint_mask=raw["inpaint_mask"],
-            pose_map=raw["pose_map"], warped_cloth=warped,
-            prompt_embeds=embeds, negative_prompt_embeds=negative)
-        torch.cuda.synchronize()
-        return (warped, embeds, negative, out, t_cond,
-                time.perf_counter() - t0, ln_cond)
-
     t0 = time.perf_counter()
-    answer(raw_request(rng, 2, h, w))
+    answer(cond, service, raw_request(rng, 2, h, w), seed=100)
     log(f"phase 5: warmup raw request (2 images) "
         f"{time.perf_counter() - t0:.3f} s")
     for wrapper in wrappers.values():
@@ -922,32 +1043,220 @@ def serve_raw_requests(service: TryOnService, wrappers: dict) -> dict:
                              service.pipe.emasc) as census, LayerNormCensus(
                 service.pipe.unet, c.vision, c.adapter,
                 c.text_model) as ln_census:
-            warped, embeds, negative, out, t_cond, total, ln_cond = answer(
-                raw)
+            r = answer(cond, service, raw, seed=100 + n)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        ok = (warped.shape == (n, h, w, 3) and np.isfinite(warped).all()
-              and warped.min() >= -1.0 and warped.max() <= 1.0
-              and embeds.shape == negative.shape == (n, 77, 1024)
-              and np.isfinite(embeds).all() and np.isfinite(negative).all()
-              and out.shape == (n, h, w, 3) and np.isfinite(out).all()
-              and out.min() >= 0.0 and out.max() <= 1.0)
         log(f"raw request of {n} image(s) ({', '.join(raw['categories'])}) "
-            f"at {h}x{w}: conditioning {t_cond:.3f} s, total {total:.3f} s "
-            f"(DDIM-{service.num_inference_steps}, CFG "
-            f"{service.guidance_scale}, batch {service.batch_size}), peak device "
-            f"memory {peak:.2f} GiB, warped cloth in [{warped.min():.4f}, "
-            f"{warped.max():.4f}], prompt embeds std {embeds.std():.4f}, "
-            f"output in [{out.min():.4f}, {out.max():.4f}] std "
-            f"{out.std():.4f}; K5 launches: conditioning "
-            f"{ln_cond - ln_before}, try-on {layer_norm.launches - ln_cond}; "
-            f"K2 calls {group_norm.launches - gn_before}, K2 kernel launches "
+            f"at {h}x{w}: conditioning {r['t_cond']:.3f} s, total "
+            f"{r['total']:.3f} s (DDIM-{service.num_inference_steps}, CFG "
+            f"{service.guidance_scale}, batch {service.batch_size}), peak "
+            f"device memory {peak:.2f} GiB, warped cloth in "
+            f"[{r['warped'].min():.4f}, {r['warped'].max():.4f}], prompt "
+            f"embeds std {r['embeds'].std():.4f}, output in "
+            f"[{r['out'].min():.4f}, {r['out'].max():.4f}] std "
+            f"{r['out'].std():.4f}; K5 launches: conditioning "
+            f"{r['ln_cond'] - ln_before}, try-on "
+            f"{layer_norm.launches - r['ln_cond']}; K2 calls "
+            f"{group_norm.launches - gn_before}, K2 kernel launches "
             f"{census.kernels()}")
-        if not ok:
-            raise AssertionError(f"raw request of {n}: bad output")
-        if not (ln_cond > ln_before and layer_norm.launches > ln_cond):
+        check_raw_output(r, n, h, w, f"raw request of {n}")
+        if not (r["ln_cond"] > ln_before
+                and layer_norm.launches > r["ln_cond"]):
             raise AssertionError("K5 was not launched in both stages")
         check_layer_norm_census(ln_census, f"a raw request of {n} image(s)")
-    return {name: wrapper.launches for name, wrapper in wrappers.items()}
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    return launches, cond.conditioner, {"raw": raw, "seed": 100 + n, **r}
+
+
+def module_state(module: torch.nn.Module) -> dict:
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
+def write_checkpoints(root: pathlib.Path, pipe: TryOnPipeline,
+                      cond: Conditioner) -> None:
+    """Phase 6, step 1: the seeded full-width modules of phases 4 and 5
+    as the reference's files, in the dtype each holds: the four releases
+    under ``ladi/`` (the UNet 31 channels wide, as the released file is),
+    an SD-2 directory (``vae/`` as ``.safetensors``, ``text_encoder/``
+    as ``.bin``) and a CLIP vision directory (``.safetensors``), each
+    with its ``config.json``.  The tokenizer files are already under
+    ``sd2/tokenizer``."""
+    ladi, sd2, clip = root / "ladi", root / "sd2", root / "clip_vision"
+    for d in (ladi, sd2 / "vae", sd2 / "text_encoder", clip):
+        d.mkdir(parents=True, exist_ok=True)
+    torch.save(module_state(pipe.unet), ladi / "unet_vitonhd.pth")
+    torch.save(module_state(pipe.emasc), ladi / "emasc_vitonhd.pth")
+    torch.save(module_state(cond.adapter),
+               ladi / "inversion_adapter_vitonhd.pth")
+    torch.save({"tps": module_state(cond.tps),
+                "refinement": module_state(cond.refinement)},
+               ladi / "warping_vitonhd.pth")
+    save_safetensors(module_state(pipe.vae),
+                     sd2 / "vae" / "diffusion_pytorch_model.safetensors")
+    (sd2 / "vae" / "config.json").write_text(json.dumps(
+        {"_class_name": "AutoencoderKL",
+         **dataclasses.asdict(pipe.vae.config)}))
+    torch.save(module_state(cond.text_model),
+               sd2 / "text_encoder" / "pytorch_model.bin")
+    (sd2 / "text_encoder" / "config.json").write_text(json.dumps(
+        {"architectures": ["CLIPTextModel"],
+         **dataclasses.asdict(cond.text_model.config)}))
+    save_safetensors(module_state(cond.vision), clip / "model.safetensors")
+    (clip / "config.json").write_text(json.dumps(
+        {"architectures": ["CLIPVisionModelWithProjection"],
+         "vision_config": dataclasses.asdict(cond.vision.config)}))
+
+
+def check_same_state(ours: torch.nn.Module, ref: torch.nn.Module,
+                     what: str) -> None:
+    a, b = ours.state_dict(), ref.state_dict()
+    if list(a) != list(b) or not all(
+            a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in b):
+        raise AssertionError(f"the zoo's {what} differs from the module "
+                             f"written")
+
+
+@torch.no_grad()
+def check_conv_in_surgery(root: pathlib.Path, unet: UNet2DCondition) -> None:
+    """Phase 6: the UNet release cut back to the stock 9 input channels,
+    through the zoo: channels 0-8 as written, 9-30 zero, the rest
+    equal."""
+    stock = root / "stock"
+    stock.mkdir()
+    state = module_state(unet)
+    torch.save({**state, "conv_in.weight": state["conv_in.weight"][:, :9]
+                .clone()}, stock / "unet_vitonhd.pth")
+    widened = zoo.extended_unet(checkpoint_dir=stock, dtype=BF16,
+                                device=unet.conv_in.weight.device)
+    (stock / "unet_vitonhd.pth").unlink()
+    ours, ref = widened.state_dict(), unet.state_dict()
+    w, w_ref = ours.pop("conv_in.weight"), ref.pop("conv_in.weight")
+    ok = (w.shape == w_ref.shape and torch.equal(w[:, :9], w_ref[:, :9])
+          and not w[:, 9:].any() and list(ours) == list(ref)
+          and all(torch.equal(ours[k], ref[k]) for k in ref))
+    log(f"phase 6: a 9-channel UNet release widened by the zoo to "
+        f"{w.shape[1]} input channels: channels 0-8 as written, 9-"
+        f"{w.shape[1] - 1} zero, every other tensor equal: {ok}")
+    if not ok:
+        raise AssertionError("the conv_in surgery is wrong")
+
+
+@torch.no_grad()
+def tiled_vae(vae: AutoencoderKL) -> None:
+    """Phase 6: encode and decode at 512x384, batch 2, untiled and tiled
+    with the JAX defaults (tile 512 for the encode, 64 latent pixels for
+    the decode, overlap 0.25): seconds (host clock, synchronised, after a
+    warm-up call) and peak device memory above what was allocated before
+    the call; then both tiled calls under the K2 census."""
+    rng = np.random.default_rng(11)
+    dev = vae.quant_conv.weight.device
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 3, 512, 384)).astype(
+        np.float32)).to(dev)
+    z = torch.from_numpy(rng.standard_normal((2, 4, 64, 48)).astype(
+        np.float32)).to(dev)
+    calls = (
+        ("encode", lambda: vae.encode(x)[0], (2, 8, 64, 48)),
+        ("tiled encode (tile 512, overlap 0.25)",
+         lambda: vae.tiled_encode(x, tile=512, overlap=0.25), (2, 8, 64, 48)),
+        ("decode", lambda: vae.decode(z), (2, 3, 512, 384)),
+        ("tiled decode (tile 64, overlap 0.25)",
+         lambda: vae.tiled_decode(z, tile=64, overlap=0.25),
+         (2, 3, 512, 384)))
+    for name, fn, shape in calls:
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        log(f"VAE {name} at 512x384, batch 2, bf16: {dt:.4f} s, peak device "
+            f"memory above the resident {base / 2 ** 30:.2f} GiB: "
+            f"{peak:.3f} GiB, output {tuple(out.shape)} {out.dtype}")
+        if tuple(out.shape) != shape or not torch.isfinite(out).all():
+            raise AssertionError(f"VAE {name}: bad output")
+    with GroupNormCensus(vae) as census:
+        vae.tiled_encode(x, tile=512, overlap=0.25)
+        vae.tiled_decode(z, tile=64, overlap=0.25)
+    check_census(census, "the tiled encode and decode")
+
+
+@torch.no_grad()
+def zoo_path(root: pathlib.Path, pipe: TryOnPipeline, cond: Conditioner,
+             record: dict, wrappers: dict) -> dict:
+    """Phase 6: write the checkpoints, load them through the port's zoo,
+    and serve phase 5's 2-image raw request from the loaded modules under
+    DDIM-50 (bitwise equal to phase 5's answer) and under the other
+    schedulers; then the conv_in surgery and the tiled VAE.  Returns the
+    kernels' launches over the four requests."""
+    t0 = time.perf_counter()
+    write_checkpoints(root, pipe, cond)
+    free = shutil.disk_usage(root).free / 2 ** 30
+    log(f"phase 6: reference-layout checkpoints written in "
+        f"{time.perf_counter() - t0:.2f} s ({free:.1f} GiB free there)")
+    ladi, sd2 = root / "ladi", str(root / "sd2")
+    t0 = time.perf_counter()
+    tokenizer = CLIPTokenizer.from_dir(root / "sd2" / "tokenizer")
+    on = dict(dtype=BF16, device=pipe.device)
+    zpipe = TryOnPipeline(
+        unet=zoo.extended_unet(checkpoint_dir=ladi, **on),
+        vae=zoo.sd2_vae(sd2, **on), scheduler=make_scheduler("ddim"),
+        emasc=zoo.emasc(checkpoint_dir=ladi, **on))
+    tps, refinement = zoo.warping_module(checkpoint_dir=ladi,
+                                         device=pipe.device)
+    zcond = dataclasses.replace(
+        cond, tps=tps, refinement=refinement,
+        vision=zoo.clip_vit_h_vision(str(root / "clip_vision"), **on),
+        adapter=zoo.inversion_adapter(checkpoint_dir=ladi, **on),
+        text_model=zoo.sd2_text_encoder(sd2, **on),
+        empty_ids=torch.from_numpy(tokenizer([""])[0].astype(np.int64)))
+    torch.cuda.synchronize()
+    log(f"phase 6: every module loaded through ladi_vton_tpu_torch.hub.zoo "
+        f"onto the card in {time.perf_counter() - t0:.2f} s")
+    for what, ours, ref in (
+            ("UNet", zpipe.unet, pipe.unet), ("VAE", zpipe.vae, pipe.vae),
+            ("EMASC", zpipe.emasc, pipe.emasc), ("TPS", tps, cond.tps),
+            ("refinement", refinement, cond.refinement),
+            ("vision tower", zcond.vision, cond.vision),
+            ("adapter", zcond.adapter, cond.adapter),
+            ("text encoder", zcond.text_model, cond.text_model)):
+        check_same_state(ours, ref, what)
+    check_conv_in_surgery(root, pipe.unet)
+
+    h, w = 512, 384
+    csvc = ConditionService(zcond, tokenizer, batch_size=2,
+                            num_vstar=NUM_VSTAR, device=pipe.device)
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    for name, steps in ZOO_REQUESTS:
+        service = TryOnService(
+            dataclasses.replace(zpipe, scheduler=make_scheduler(name)),
+            batch_size=2, height=h, width=w, num_inference_steps=steps,
+            guidance_scale=7.5, context_dim=1024, seed=0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        r = answer(csvc, service, record["raw"], record["seed"])
+        peak = torch.cuda.max_memory_allocated()
+        log(f"zoo raw request of 2 images at {h}x{w}, {name}-{steps}, CFG "
+            f"7.5, batch 2: conditioning {r['t_cond']:.3f} s, total "
+            f"{r['total']:.3f} s, peak device memory {peak / 2 ** 30:.2f} GiB "
+            f"({(peak - base) / 2 ** 30:.2f} GiB above the resident weights), "
+            f"output in [{r['out'].min():.4f}, {r['out'].max():.4f}] std "
+            f"{r['out'].std():.4f}")
+        check_raw_output(r, 2, h, w, f"zoo raw request under {name}")
+        if name == "ddim":
+            same = all(np.array_equal(r[k], record[k])
+                       for k in ("warped", "embeds", "negative", "out"))
+            log(f"zoo raw request under ddim-50: warped cloth, embeddings "
+                f"and image bitwise equal to phase 5's: {same}")
+            if not same:
+                raise AssertionError("the zoo-loaded modules answer phase "
+                                     "5's request differently")
+    launches = {n: wrapper.launches for n, wrapper in wrappers.items()}
+    tiled_vae(zpipe.vae)
+    return launches
 
 
 def sweep_geglu_tilings() -> None:
@@ -1261,12 +1570,31 @@ def main() -> None:
         results[name] = check(gen)
     log("phase 2: every kernel agrees with its plain version")
 
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+        launches, zoo_launches = run_phases(pathlib.Path(work), gen)
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": source,
+         "replaces": replaces, "launches": launches[name],
+         "zoo_launches": zoo_launches[name], **results[name]}
+        for name, _, _, source, replaces in KERNELS]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def run_phases(work: pathlib.Path, gen: Gen) -> tuple:
+    """Phases 3 to 6, with the files they write under ``work``; returns
+    the kernels' launches on phase 5's and phase 6's paths."""
+    t0 = time.perf_counter()
+    tokenizer = synthetic_tokenizer(work / "sd2" / "tokenizer")
     check_blocks(gen)
     pipe = full_width_pipeline()
     check_small_sample(pipe)
-    check_conditioner()
-    log("phase 3: full-width blocks, the sampler and the conditioner agree "
-        "with the CPU")
+    check_tiled_decode(pipe.vae)
+    check_conditioner(tokenizer)
+    log(f"phase 3: full-width blocks, the sampler under each scheduler and "
+        f"with hoisted K/V, the tiled decode and the conditioner agree with "
+        f"the CPU ({time.perf_counter() - t0:.1f} s)")
 
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
     service = TryOnService(pipe, batch_size=2, height=512, width=384,
@@ -1310,21 +1638,23 @@ def main() -> None:
     if missing:
         raise AssertionError(f"kernels never launched on the path: {missing}")
 
-    launches = serve_raw_requests(service, wrappers)
+    launches, cond, record = serve_raw_requests(service, wrappers,
+                                                tokenizer)
     log(f"launches during the two raw requests: {launches}")
     missing = [name for name, count in launches.items() if count == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the raw-request "
                              f"path: {missing}")
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces, "launches": launches[name],
-         **results[name]}
-        for name, _, _, source, replaces in KERNELS]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    t0 = time.perf_counter()
+    zoo_launches = zoo_path(work, pipe, cond, record, wrappers)
+    log(f"launches during phase 6's four raw requests: {zoo_launches}")
+    missing = [name for name, count in zoo_launches.items() if count == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the zoo path: "
+                             f"{missing}")
+    log(f"phase 6: the zoo path ({time.perf_counter() - t0:.1f} s)")
+    return launches, zoo_launches
 
 
 if __name__ == "__main__":

@@ -7,7 +7,9 @@ HWIO -> OIHW, dense kernels (in, out) -> (out, in), ``scale`` ->
 ``weight``.  It is a jax-free copy of the naming rules of
 ``ladi_vton_tpu/core/checkpoint.py export_torch_state``; the key maps
 below mirror that module's ``*_torch_key_map`` functions; the VAE and
-EMASC keys need no map (``key_map=None``), as their identity maps say.
+the nonlinear EMASC keys need no map (``key_map=None``), as their
+identity maps say, and ``emasc_key_map("linear")`` gives the linear
+EMASC the reference's names.
 
 BatchNorm statistics travel in flax's ``batch_stats`` collection beside
 ``params``; both are merged into one state dict, and every BatchNorm gets
@@ -78,6 +80,18 @@ def clip_vision_key_map(key: str) -> str:
                  key)
     return key.replace(".mlp_fc1.", ".mlp.fc1.").replace(".mlp_fc2.",
                                                          ".mlp.fc2.")
+
+
+def emasc_key_map(kind: str = "nonlinear") -> Callable[[str], str]:
+    """Exported flax EMASC keys -> the reference EMASC of ``kind``.  The
+    export names every stage ``conv.<i>.0.*``; the reference's linear
+    stage is a bare conv, ``conv.<i>.*`` (its nonlinear stages keep
+    ``conv.<i>.0/2.*``)."""
+    if kind == "nonlinear":
+        return lambda key: key
+    if kind == "linear":
+        return lambda key: re.sub(r"^conv\.(\d+)\.0\.", r"conv.\1.", key)
+    raise ValueError(f"EMASC kind {kind!r}")
 
 
 def inversion_adapter_key_map(key: str) -> str:

@@ -3,9 +3,11 @@
 Counterpart of ``ladi_vton_tpu/models/emasc.py``.  Per-scale adapters map
 VAE-encoder features of the masked person into decoder injection
 features: ``linear`` is one 3x3 conv, ``nonlinear`` conv-SiLU-conv.  Keys
-are ``conv.<i>.0.*`` (and ``conv.<i>.2.*``), the layout the JAX
-package's export writes.  ``mask_features`` multiplies each feature by
-(1 - mask) at its own resolution.  Tensors are NCHW.
+are the reference module's: ``conv.<i>.*`` for the linear kind and
+``conv.<i>.0.*`` / ``conv.<i>.2.*`` for the nonlinear one (the JAX
+package's export writes ``conv.<i>.0.*`` for both; ``core.checkpoint
+emasc_key_map`` renames them).  ``mask_features`` multiplies each feature
+by (1 - mask) at its own resolution.  Tensors are NCHW.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ class EMASC(nn.Module):
         k, pad = kernel_size, kernel_size // 2
         if kind == "linear":
             def stage(i, o):
-                return nn.Sequential(nn.Conv2d(i, o, k, padding=pad))
+                return nn.Conv2d(i, o, k, padding=pad)
         elif kind == "nonlinear":
             def stage(i, o):
                 return nn.Sequential(nn.Conv2d(i, i, k, padding=pad),
@@ -42,7 +44,7 @@ class EMASC(nn.Module):
         if len(features) != len(self.conv):
             raise ValueError(f"expected {len(self.conv)} features, "
                              f"got {len(features)}")
-        dtype = self.conv[0][0].weight.dtype
+        dtype = next(self.parameters()).dtype
         return [stage(f.to(dtype).contiguous(
             memory_format=torch.channels_last))
             for stage, f in zip(self.conv, features)]

@@ -208,16 +208,24 @@ class CrossAttention(nn.Module):
                                      nn.Dropout(0.0)])
 
     def forward(self, x: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context: Optional[torch.Tensor] = None,
+                kv: Optional[tuple] = None) -> torch.Tensor:
+        """``kv``: this layer's (to_k(context), to_v(context)), computed
+        ahead (``UNet2DCondition.precompute_context_kv``)."""
         context = x if context is None else context
         B, Sq, _ = x.shape
         Sk = context.shape[1]
         H, D = self.heads, self.dim_head
+        if kv is None:
+            kv = self.project_kv(context)
         q = self.to_q(x).view(B, Sq, H, D)
-        k = self.to_k(context).view(B, Sk, H, D)
-        v = self.to_v(context).view(B, Sk, H, D)
+        k = kv[0].view(B, Sk, H, D)
+        v = kv[1].view(B, Sk, H, D)
         out = dot_product_attention(q, k, v).reshape(B, Sq, H * D)
         return self.to_out[0](out)
+
+    def project_kv(self, context: torch.Tensor) -> tuple:
+        return self.to_k(context), self.to_v(context)
 
 
 class GEGLUProj(nn.Module):
@@ -256,9 +264,10 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(dim)
         self.ff = FeedForwardGEGLU(dim)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                kv: Optional[tuple] = None) -> torch.Tensor:
         x = x + self.attn1(self.norm1(x))
-        x = x + self.attn2(self.norm2(x), context)
+        x = x + self.attn2(self.norm2(x), context, kv)
         return x + self.ff(self.norm3(x))
 
 
@@ -277,8 +286,11 @@ class Transformer2D(nn.Module):
             for _ in range(depth)])
         self.proj_out = nn.Linear(inner, in_channels)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, context: torch.Tensor,
+                kv_iter=None) -> torch.Tensor:
+        """``kv_iter`` yields the hoisted cross-attention K/V of each
+        block in call order, or is None to project them here."""
         h = self.proj_in(_rows(self.norm(x)))
         for block in self.transformer_blocks:
-            h = block(h, context)
+            h = block(h, context, None if kv_iter is None else next(kv_iter))
         return x + _unrows(self.proj_out(h), x)

@@ -6,17 +6,21 @@ denoiser with LaDI-VTON's 31-channel input (4 noisy latent + 1 mask +
 channel plan and heads (C / head_dim: 5, 10, 20 and 20 in the mid block)
 follow the JAX module; names are diffusers' ``UNet2DConditionModel``
 keys.  Inputs and activations are NCHW in channels-last memory.
+``precompute_context_kv`` computes the cross-attention K/V projections
+of a context once, and ``forward(..., context_kv=...)`` takes them in
+place of projecting the context at every call.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
 from ladi_vton_tpu_torch.models.layers import (
+    BasicTransformerBlock,
     Downsample2D,
     GroupNorm,
     ResnetBlock2D,
@@ -65,12 +69,12 @@ class CrossAttnDownBlock(nn.Module):
             [Downsample2D(out_channels, out_channels, padding=1)]
             if add_downsample else [])
 
-    def forward(self, x, temb, context):
+    def forward(self, x, temb, context, kv_iter=None):
         skips = []
         for i, resnet in enumerate(self.resnets):
             x = resnet(x, temb)
             if len(self.attentions):
-                x = self.attentions[i](x, context)
+                x = self.attentions[i](x, context, kv_iter)
             skips.append(x)
         for down in self.downsamplers:
             x = down(x)
@@ -92,13 +96,13 @@ class CrossAttnUpBlock(nn.Module):
         self.upsamplers = nn.ModuleList(
             [Upsample2D(out_channels, out_channels)] if add_upsample else [])
 
-    def forward(self, x, skips, temb, context):
+    def forward(self, x, skips, temb, context, kv_iter=None):
         for i, resnet in enumerate(self.resnets):
             x = torch.cat([x, skips.pop().to(x.dtype)], dim=1).contiguous(
                 memory_format=torch.channels_last)
             x = resnet(x, temb)
             if len(self.attentions):
-                x = self.attentions[i](x, context)
+                x = self.attentions[i](x, context, kv_iter)
         for up in self.upsamplers:
             x = up(x)
         return x
@@ -114,9 +118,9 @@ class UNetMidBlockCrossAttn(nn.Module):
         self.attentions = nn.ModuleList([
             Transformer2D(heads, head_dim, channels, ctx)])
 
-    def forward(self, x, temb, context):
+    def forward(self, x, temb, context, kv_iter=None):
         x = self.resnets[0](x, temb)
-        x = self.attentions[0](x, context)
+        x = self.attentions[0](x, context, kv_iter)
         return self.resnets[1](x, temb)
 
 
@@ -166,9 +170,22 @@ class UNet2DCondition(nn.Module):
         self.conv_norm_out = GroupNorm(ch[0], 32, eps, act="silu")
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
 
+    def precompute_context_kv(self, encoder_hidden_states: torch.Tensor
+                              ) -> list[tuple]:
+        """Every cross-attention's (to_k, to_v) projection of the context,
+        in call order, for hoisting out of the denoise loop: the same
+        products the forward computes inline (the JAX package's
+        ``precompute_context_kv``)."""
+        context = encoder_hidden_states.to(self.conv_in.weight.dtype)
+        return [m.attn2.project_kv(context) for m in self.modules()
+                if isinstance(m, BasicTransformerBlock)]
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+                encoder_hidden_states: torch.Tensor,
+                context_kv: Optional[Sequence[tuple]] = None
+                ) -> torch.Tensor:
         dtype = self.conv_in.weight.dtype
+        kv_iter = iter(context_kv) if context_kv is not None else None
         t_feat = timestep_embedding(timesteps,
                                     self.config.block_out_channels[0])
         temb = self.time_embedding(t_feat.to(dtype))
@@ -177,10 +194,13 @@ class UNet2DCondition(nn.Module):
             sample.to(dtype).contiguous(memory_format=torch.channels_last))
         skips = [h]
         for block in self.down_blocks:
-            h, block_skips = block(h, temb, context)
+            h, block_skips = block(h, temb, context, kv_iter)
             skips.extend(block_skips)
-        h = self.mid_block(h, temb, context)
+        h = self.mid_block(h, temb, context, kv_iter)
         for block in self.up_blocks:
-            h = block(h, skips, temb, context)
+            h = block(h, skips, temb, context, kv_iter)
+        if kv_iter is not None and next(kv_iter, None) is not None:
+            raise ValueError("context_kv has more entries than the UNet has "
+                             "cross-attentions")
         h = self.conv_out(self.conv_norm_out(h))
         return h.float()

@@ -6,8 +6,11 @@ every down block), and the decoder adds externally supplied features
 (the EMASC outputs) before each up block, plus the ``int_layers`` 1/0
 cases around conv_out.  Tensors are NCHW in channels-last memory; names
 are diffusers' ``AutoencoderKL`` keys of the reference's fork (VAE
-attention as ``query``/``key``/``value``/``proj_attn``).  Tiled encode
-and decode are not ported yet.
+attention as ``query``/``key``/``value``/``proj_attn``).
+``tiled_encode`` and ``tiled_decode`` are the memory escape hatch:
+overlapping tiles, partial ones at the edges included, each encoded or
+decoded alone (no EMASC taps) and blended at the seams with linear
+ramps, in fp32.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -187,6 +191,55 @@ class AutoencoderKL(nn.Module):
                int_layers: Optional[Sequence[int]] = None) -> torch.Tensor:
         z = self.post_quant_conv(self._in(z))
         return self.decoder(z, intermediate_features, int_layers)
+
+    def tiled_encode(self, x: torch.Tensor, *, tile: int = 512,
+                     overlap: float = 0.25) -> torch.Tensor:
+        """Moments of x (B, C, H, W) from overlapping ``tile`` x ``tile``
+        pixel tiles, blended over ``tile / 8 * overlap`` latent pixels;
+        fp32."""
+        stride = int(tile * (1 - overlap))
+        rows = [[self.encode(x[:, :, i:i + tile, j:j + tile])[0]
+                 for j in range(0, x.shape[3], stride)]
+                for i in range(0, x.shape[2], stride)]
+        return _blend_tiles(rows, int(tile // 8 * overlap))
+
+    def tiled_decode(self, z: torch.Tensor, *, tile: int = 64,
+                     overlap: float = 0.25) -> torch.Tensor:
+        """Decode of z (B, latent, h, w) from overlapping ``tile`` x
+        ``tile`` latent tiles, blended over ``tile * 8 * overlap`` pixels;
+        fp32."""
+        stride = int(tile * (1 - overlap))
+        rows = [[self.decode(z[:, :, i:i + tile, j:j + tile])
+                 for j in range(0, z.shape[3], stride)]
+                for i in range(0, z.shape[2], stride)]
+        return _blend_tiles(rows, int(tile * 8 * overlap))
+
+
+def _ramp(n: int, device) -> torch.Tensor:
+    return torch.as_tensor(np.linspace(0.0, 1.0, n, endpoint=False),
+                           dtype=torch.float32, device=device)
+
+
+def _blend_tiles(rows, blend: int) -> torch.Tensor:
+    """Join a grid of NCHW tiles: each row left to right (axis 3), then
+    the rows top to bottom (axis 2), crossfading ``blend`` pixels at each
+    seam with a linear ramp (the JAX package blends NHWC on axes 2 and
+    1)."""
+    def join(parts, axis: int) -> torch.Tensor:
+        out = parts[0]
+        for t in parts[1:]:
+            if blend <= 0:
+                out = t
+                continue
+            b = min(blend, t.shape[axis], out.shape[axis])
+            w = _ramp(b, t.device).reshape((b,) + (1,) * (3 - axis))
+            seam = (out.narrow(axis, out.shape[axis] - b, b) * (1 - w)
+                    + t.narrow(axis, 0, b) * w)
+            out = torch.cat([out.narrow(axis, 0, out.shape[axis] - b), seam,
+                             t.narrow(axis, b, t.shape[axis] - b)], dim=axis)
+        return out
+
+    return join([join([t.float() for t in cols], 3) for cols in rows], 2)
 
 
 class DiagonalGaussian:

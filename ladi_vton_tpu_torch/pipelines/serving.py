@@ -7,9 +7,12 @@ sample), run, and returned unpadded as float32 numpy arrays.  A raw
 try-on request goes through both: ``ConditionService.run`` turns cloth,
 pose, masked person and category into warped cloth and prompt
 embeddings, which ``TryOnService.generate`` takes with the person image
-and inpainting mask.  Each try-on request without an explicit generator
-gets its own, seeded from (seed, request count) in place of the JAX
-``fold_in``.
+and inpainting mask.  The try-on runs under whichever scheduler its
+pipeline holds (``diffusion.schedulers.make_scheduler``); the prompts
+are tokenized by the caller's tokenizer, the port's
+``utils.tokenizer.CLIPTokenizer`` for the SD-2 vocabulary.  Each try-on
+request without an explicit generator gets its own, seeded from (seed,
+request count) in place of the JAX ``fold_in``.
 """
 
 from __future__ import annotations

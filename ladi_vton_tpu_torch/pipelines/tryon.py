@@ -7,11 +7,20 @@ stages, eagerly:
 1. ``prepare``: one batched VAE encode of warped cloth plus masked image
    (with the EMASC feature taps), latent sampling, EMASC and
    ``mask_features``;
-2. ``denoise``: DDIM steps of the 31-channel UNet under classifier-free
+2. ``denoise``: the sampler's plan of UNet calls under classifier-free
    guidance (batch 2B; the uncond half has zeroed pose and cloth), with
    the warped-cloth gate ``step_i >= cloth_gate_from``; the JAX
-   ``lax.scan`` is a Python loop here;
+   ``lax.scan`` is a Python loop over the plan here, and every scheduler
+   (DDIM, PNDM, LMS, DPM-Solver++) is driven through the JAX package's
+   loop protocol (``init_loop_state`` / ``scale_input`` / ``loop_step``)
+   with the step index and timestep as device tensors;
 3. ``decode``: the EMASC-aware VAE decode, fp32 clipped to [0, 1].
+
+The options of the JAX pipeline: ``warped_cloth=None`` (the reference's
+``cloth_input_type='none'``: no cloth channels, a 27-channel UNet),
+``no_pose``, ``emasc=None`` (decode without injection), a ``latents=``
+override, and ``hoist_context_kv`` (the cross-attention K/V projections
+of the prompt computed once, before the loop).
 
 Public inputs and outputs are NHWC, as in the JAX package; the towers run
 NCHW in channels-last memory.  Random draws come from an explicit
@@ -22,11 +31,10 @@ tensors) so a test can hand it the JAX package's draws.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
-from ladi_vton_tpu_torch.diffusion.schedulers import DDIMScheduler
 from ladi_vton_tpu_torch.models.emasc import EMASC, mask_features
 from ladi_vton_tpu_torch.models.unet_condition import UNet2DCondition
 from ladi_vton_tpu_torch.models.vae import AutoencoderKL, DiagonalGaussian
@@ -54,7 +62,8 @@ def prepare_mask_and_masked_image(image: torch.Tensor, mask: torch.Tensor):
 def cloth_gate_start(num_inference_steps: int,
                      cloth_cond_rate: float) -> float:
     """First denoise-loop index at which warped-cloth conditioning is
-    zeroed (computed from ``num_inference_steps``, as the reference)."""
+    zeroed.  Computed from ``num_inference_steps``, as the reference
+    does, not from the plan's length: a PNDM plan is one step longer."""
     return cloth_cond_rate * num_inference_steps
 
 
@@ -62,8 +71,9 @@ def cloth_gate_start(num_inference_steps: int,
 class TryOnPipeline:
     unet: UNet2DCondition
     vae: AutoencoderKL
-    emasc: EMASC
-    scheduler: DDIMScheduler
+    scheduler: Any  # DDIM | PNDM | LMS | DPMSolverMultistep
+    emasc: Optional[EMASC] = None
+    hoist_context_kv: bool = False
 
     @property
     def device(self) -> torch.device:
@@ -73,20 +83,26 @@ class TryOnPipeline:
     def sample(self, *, image: torch.Tensor, mask_image: torch.Tensor,
                pose_map: torch.Tensor, prompt_embeds: torch.Tensor,
                negative_prompt_embeds: torch.Tensor,
-               warped_cloth: torch.Tensor,
+               warped_cloth: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
                noise: Optional[dict] = None, num_inference_steps: int = 50,
-               guidance_scale: float = 7.5,
-               cloth_cond_rate: float = 1.0) -> torch.Tensor:
+               guidance_scale: float = 7.5, cloth_cond_rate: float = 1.0,
+               no_pose: bool = False,
+               latents: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Generate try-on images: float32 NHWC in [0, 1].
 
         image (B,H,W,3) in [-1,1]; mask_image (B,H,W,1), 1 = inpaint;
-        pose_map (B,H,W,18); warped_cloth (B,H,W,3) in [-1,1]; prompt
-        embeds (B,77,D).
+        pose_map (B,H,W,18); warped_cloth (B,H,W,3) in [-1,1] or None;
+        prompt embeds (B,77,D); latents (B,H/8,W/8,4) replaces the
+        initial N(0, 1) draw.
         """
         prepared = self.prepare(image=image, mask_image=mask_image,
                                 pose_map=pose_map, warped_cloth=warped_cloth,
-                                generator=generator, noise=noise)
+                                generator=generator, noise=noise,
+                                no_pose=no_pose)
+        if latents is not None:
+            prepared["latents"] = _nchw(latents).to(self.device,
+                                                    torch.float32)
         intermediate = prepared.pop("intermediate")
         latents = self.denoise(
             prepared, prompt_embeds=prompt_embeds,
@@ -105,11 +121,11 @@ class TryOnPipeline:
                 for k in NOISE_KEYS}
 
     @torch.no_grad()
-    def prepare(self, *, image, mask_image, pose_map, warped_cloth,
-                generator=None, noise=None) -> dict:
+    def prepare(self, *, image, mask_image, pose_map, warped_cloth=None,
+                generator=None, noise=None, no_pose: bool = False) -> dict:
         dev = self.device
-        image, mask_image, pose_map, warped_cloth = (
-            t.to(dev) for t in (image, mask_image, pose_map, warped_cloth))
+        image, mask_image, pose_map = (
+            t.to(dev) for t in (image, mask_image, pose_map))
         B, H, W, _ = image.shape
         lh, lw = H // VAE_SCALE, W // VAE_SCALE
         sf = self.vae.config.scaling_factor
@@ -117,18 +133,27 @@ class TryOnPipeline:
 
         mask, masked_image = prepare_mask_and_masked_image(image, mask_image)
         pose_lat = resize_bilinear(_nchw(pose_map), (lh, lw))
-        # one batched encoder pass for cloth + masked image; the cloth
-        # half's feature taps are simply unused
-        both = torch.cat([warped_cloth.to(masked_image.dtype), masked_image])
-        moments2, feats2 = self.vae.encode(_nchw(both))
-        cloth_moments, moments = moments2.chunk(2, dim=0)
-        feats = [f[B:] for f in feats2]
-        cloth_latents = DiagonalGaussian(cloth_moments).sample(
-            draws["cloth"]) * sf
+        if no_pose:
+            pose_lat = torch.zeros_like(pose_lat)
+        if warped_cloth is not None:
+            # one batched encoder pass for cloth + masked image; the cloth
+            # half's feature taps are simply unused
+            both = torch.cat([warped_cloth.to(dev, masked_image.dtype),
+                              masked_image])
+            moments2, feats2 = self.vae.encode(_nchw(both))
+            cloth_moments, moments = moments2.chunk(2, dim=0)
+            feats = [f[B:] for f in feats2]
+            cloth_latents = DiagonalGaussian(cloth_moments).sample(
+                draws["cloth"]) * sf
+        else:
+            cloth_latents = None
+            moments, feats = self.vae.encode(_nchw(masked_image))
         masked_latents = DiagonalGaussian(moments).sample(draws["masked"]) * sf
         mask_lat = resize_nearest(_nchw(mask), (lh, lw))
-        adapted = self.emasc([feats[i] for i in EMASC_INT_LAYERS])
-        intermediate = mask_features(adapted, _nchw(mask_image))
+        intermediate = None
+        if self.emasc is not None:
+            adapted = self.emasc([feats[i] for i in EMASC_INT_LAYERS])
+            intermediate = mask_features(adapted, _nchw(mask_image))
         return {
             "latents": draws["latents"],
             "mask_lat": mask_lat,
@@ -145,8 +170,11 @@ class TryOnPipeline:
                 cloth_cond_rate: float = 1.0) -> torch.Tensor:
         dev = self.device
         do_cfg = guidance_scale > 1.0
-        timesteps = self.scheduler.set_timesteps(num_inference_steps)
+        timesteps = self.scheduler.set_timesteps(num_inference_steps,
+                                                 device=dev)
+        steps = torch.arange(len(timesteps), device=dev)
         gate_from = cloth_gate_start(num_inference_steps, cloth_cond_rate)
+        # scaled after set_timesteps: LMS knows its sigma_max only then
         latents = prepared["latents"] * self.scheduler.init_noise_sigma
         mask_in = prepared["mask_lat"]
         masked_in = prepared["masked_latents"]
@@ -158,27 +186,37 @@ class TryOnPipeline:
             masked_in = torch.cat([masked_in] * 2)
             pose_in = torch.cat([torch.zeros_like(pose_in), pose_in])
             context = torch.cat([negative_prompt_embeds.to(dev), context])
-            cloth_in = torch.cat([torch.zeros_like(cloth_in), cloth_in])
+            if cloth_in is not None:
+                cloth_in = torch.cat([torch.zeros_like(cloth_in), cloth_in])
+        context_kv = (self.unet.precompute_context_kv(context)
+                      if self.hoist_context_kv else None)
 
-        for step_i, t in enumerate(timesteps):
-            lmi = torch.cat([latents] * 2) if do_cfg else latents
-            cloth = (torch.zeros_like(lmi) if step_i >= gate_from
-                     else cloth_in.to(lmi.dtype))
-            model_in = torch.cat([lmi, mask_in.to(lmi.dtype),
-                                  masked_in.to(lmi.dtype),
-                                  pose_in.to(lmi.dtype), cloth], dim=1)
-            tt = torch.full((model_in.shape[0],), t, dtype=torch.int64,
-                            device=dev)
-            noise_pred = self.unet(model_in, tt, context)
+        state = self.scheduler.init_loop_state(latents)
+        for i in range(len(timesteps)):
+            step, t = steps[i], timesteps[i]
+            scaled = self.scheduler.scale_input(latents, step, t)
+            lmi = torch.cat([scaled] * 2) if do_cfg else scaled
+            parts = [lmi, mask_in.to(lmi.dtype), masked_in.to(lmi.dtype),
+                     pose_in.to(lmi.dtype)]
+            if cloth_in is not None:
+                parts.append(torch.zeros_like(lmi) if i >= gate_from
+                             else cloth_in.to(lmi.dtype))
+            model_in = torch.cat(parts, dim=1)
+            noise_pred = self.unet(model_in, t.expand(model_in.shape[0]),
+                                   context, context_kv=context_kv)
             if do_cfg:
                 uncond, text = noise_pred.chunk(2)
                 noise_pred = uncond + guidance_scale * (text - uncond)
-            latents = self.scheduler.step(noise_pred, t, latents,
-                                          num_inference_steps)
+            state, latents = self.scheduler.loop_step(state, noise_pred, step,
+                                                      t, latents)
         return latents
 
     @torch.no_grad()
-    def decode(self, latents: torch.Tensor, intermediate) -> torch.Tensor:
+    def decode(self, latents: torch.Tensor,
+               intermediate=None) -> torch.Tensor:
         z = latents / self.vae.config.scaling_factor
-        decoded = self.vae.decode(z, intermediate, EMASC_INT_LAYERS)
+        if self.emasc is not None and intermediate is not None:
+            decoded = self.vae.decode(z, intermediate, EMASC_INT_LAYERS)
+        else:
+            decoded = self.vae.decode(z)
         return _nhwc((decoded.float() / 2 + 0.5).clamp(0.0, 1.0))

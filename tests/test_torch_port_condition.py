@@ -26,8 +26,10 @@ from flax.traverse_util import flatten_dict, unflatten_dict
 import ladi_vton_tpu.core.checkpoint as jax_ckpt
 from ladi_vton_tpu.diffusion.text import encode_text_word_embedding as jax_encode
 from ladi_vton_tpu.diffusion.text import splice_word_embeddings as jax_splice
+from ladi_vton_tpu.hub.convert import convert_emasc
 from ladi_vton_tpu.models import clip as jclip
 from ladi_vton_tpu.models import tps as jtps
+from ladi_vton_tpu.models.emasc import EMASC as JaxEMASC
 from ladi_vton_tpu.models.inversion_adapter import InversionAdapter as JaxAdapter
 from ladi_vton_tpu.models.refinement import UNetVanilla as JaxUNetVanilla
 from ladi_vton_tpu.ops.grid_sample import grid_sample as jax_grid_sample
@@ -39,6 +41,7 @@ from ladi_vton_tpu_torch.diffusion.text import (
     splice_word_embeddings,
 )
 from ladi_vton_tpu_torch.models import clip, tps
+from ladi_vton_tpu_torch.models.emasc import EMASC
 from ladi_vton_tpu_torch.models.inversion_adapter import InversionAdapter
 from ladi_vton_tpu_torch.models.refinement import UNetVanilla
 from ladi_vton_tpu_torch.ops.grid_sample import grid_sample
@@ -380,6 +383,32 @@ def test_state_dict_from_jax_matches_export_torch_state(tower):
     for key, value in ref.items():
         assert ours[key].shape == value.shape, key
         np.testing.assert_array_equal(ours[key].numpy(), value.numpy())
+
+
+@pytest.mark.parametrize("kind", ["nonlinear", "linear"])
+def test_state_dict_from_jax_matches_export_for_both_emasc_kinds(kind):
+    """The export writes ``conv.<i>.0.*`` for both kinds; the port's map
+    gives the linear kind the reference's ``conv.<i>.*``, which the JAX
+    package's own reader (``convert_emasc``) takes back to the same flax
+    variables."""
+    jemasc = JaxEMASC(in_channels=(8, 16), out_channels=(16, 8), kind=kind)
+    variables, flat = random_variables(
+        jemasc, [jnp.zeros((1, 4, 4, 8)), jnp.zeros((1, 4, 4, 16))],
+        seed=81)
+    port_map = ckpt.emasc_key_map(kind)
+    ours = ckpt.state_dict_from_jax(flat, port_map)
+    ref = jax_ckpt.export_torch_state(variables, None,
+                                      key_map=jax_ckpt.emasc_torch_key_map)
+    assert sorted(ours) == sorted(port_map(k) for k in ref)
+    for key, value in ref.items():
+        np.testing.assert_array_equal(ours[port_map(key)].numpy(),
+                                      value.numpy())
+    EMASC((8, 16), (16, 8), kind=kind).load_state_dict(ours, strict=True)
+    back = flatten_dict(convert_emasc({k: v.numpy() for k, v in ours.items()},
+                                      kind=kind))
+    assert sorted(back) == sorted(flat)
+    for path, value in flat.items():
+        np.testing.assert_array_equal(back[path], value)
 
 
 # ---------------------------------------------------------------- stage

@@ -1,7 +1,7 @@
 """The port runs where there is no JAX.
 
-The machine with the GPU has PyTorch but no jax, flax, PIL, cv2 or
-``regex``.  These tests import the whole port and ``chip_smoke`` in a
+The machine with the GPU has PyTorch but no jax, flax, PIL, cv2,
+``regex`` or ``safetensors``.  These tests import the whole port and ``chip_smoke`` in a
 subprocess whose import system refuses those packages (and the JAX
 package itself), check the same statically, and check that
 ``chip_smoke.py`` refuses to run without CUDA or without the repository.
@@ -17,7 +17,8 @@ import textwrap
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "ladi_vton_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "PIL", "cv2", "regex", "ladi_vton_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "PIL", "cv2", "regex", "safetensors",
+           "ladi_vton_tpu")
 
 
 def _run(code: str, cwd: pathlib.Path, *args: str):

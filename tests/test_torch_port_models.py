@@ -24,7 +24,11 @@ from ladi_vton_tpu.models.unet_condition import UNet2DCondition as JaxUNet
 from ladi_vton_tpu.models.unet_condition import UNetConfig as JaxUNetConfig
 from ladi_vton_tpu.models.vae import AutoencoderKL as JaxVAE
 from ladi_vton_tpu.models.vae import VAEConfig as JaxVAEConfig
-from ladi_vton_tpu_torch.core.checkpoint import state_dict_from_jax, unet_key_map
+from ladi_vton_tpu_torch.core.checkpoint import (
+    emasc_key_map,
+    state_dict_from_jax,
+    unet_key_map,
+)
 from ladi_vton_tpu_torch.models.emasc import EMASC, mask_features
 from ladi_vton_tpu_torch.models.layers import Transformer2D
 from ladi_vton_tpu_torch.models.unet_condition import UNet2DCondition, UNetConfig
@@ -147,6 +151,39 @@ def test_vae_decode_with_injection_matches_jax(vae_pair, int_layers):
                                atol=ATOL)
 
 
+def test_vae_tiled_encode_matches_jax(vae_pair):
+    """Tiles of 32 pixels at a stride of 24 over 56x48, the last row and
+    column of tiles partial (8 and 24 pixels), blended over 1 latent
+    pixel."""
+    jvae, params, vae = vae_pair
+    x = np.random.default_rng(23).uniform(-1, 1, (1, 56, 48, 3)).astype(
+        np.float32)
+    ref = jax.jit(lambda p, a: jvae.apply(p, a, tile=32, overlap=0.25,
+                                          method="tiled_encode"))(
+        params, jnp.asarray(x))
+    with torch.no_grad():
+        ours = vae.tiled_encode(_nchw(x), tile=32, overlap=0.25)
+    assert ours.shape == (1, 8, 7, 6) and ours.dtype == torch.float32
+    np.testing.assert_allclose(_nhwc(ours), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_vae_tiled_decode_matches_jax(vae_pair):
+    """Latent tiles of 4 at a stride of 3 over 7x6 (tiles of 1 and 3
+    latent pixels at the edges), blended over 8 pixels."""
+    jvae, params, vae = vae_pair
+    z = np.random.default_rng(24).standard_normal((1, 7, 6, 4)).astype(
+        np.float32)
+    ref = jax.jit(lambda p, a: jvae.apply(p, a, tile=4, overlap=0.25,
+                                          method="tiled_decode"))(
+        params, jnp.asarray(z))
+    with torch.no_grad():
+        ours = vae.tiled_decode(_nchw(z), tile=4, overlap=0.25)
+    assert ours.shape == (1, 3, 56, 48) and ours.dtype == torch.float32
+    np.testing.assert_allclose(_nhwc(ours), np.asarray(ref), rtol=RTOL,
+                               atol=ATOL)
+
+
 @pytest.mark.parametrize("kind", ["nonlinear", "linear"])
 def test_emasc_and_mask_features_match_jax(kind):
     jemasc = JaxEMASC(in_channels=EMASC_IN, out_channels=EMASC_OUT,
@@ -158,7 +195,8 @@ def test_emasc_and_mask_features_match_jax(kind):
     params, flat = random_params(jemasc, [jnp.asarray(f) for f in feats],
                                  seed=31)
     emasc = EMASC(EMASC_IN, EMASC_OUT, kind=kind)
-    emasc.load_state_dict(state_dict_from_jax(flat), strict=True)
+    emasc.load_state_dict(state_dict_from_jax(flat, emasc_key_map(kind)),
+                          strict=True)
     mask = (rng.uniform(size=(1, 64, 64, 1)) > 0.5).astype(np.float32)
     ref = jax_mask_features(
         jemasc.apply(params, [jnp.asarray(f) for f in feats]),

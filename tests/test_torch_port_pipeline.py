@@ -1,13 +1,22 @@
 """The port's try-on slice as a whole against the JAX package, on the CPU.
 
-``TryOnPipeline.sample`` at 64x64, B=1, 2 DDIM steps, CFG 7.5, with warped
-cloth and EMASC, on the tiny towers of ``bench.py``'s CPU mode with the
-same random parameters on both sides.  The JAX pipeline's three normal
-draws (``jax.random.split(rng, 3)``: initial latents, masked-image
-latents, cloth latents) are reproduced here and handed to the port's
-``prepare``.  Then the same request goes through the port's
+``TryOnPipeline.sample`` at 64x64, B=1, CFG 7.5, with warped cloth and
+EMASC, on the tiny towers of ``bench.py``'s CPU mode with the same random
+parameters on both sides: under each scheduler (2 steps; PNDM runs the
+UNet 3 times), and with each option of the JAX pipeline
+(``warped_cloth=None`` with a 27-channel UNet, ``no_pose``,
+``emasc=None``, a ``latents=`` override and ``hoist_context_kv``).  The
+JAX pipeline's three normal draws (``jax.random.split(rng, 3)``: initial
+latents, masked-image latents, cloth latents) are reproduced here and
+handed to the port's ``prepare``.  The JAX side runs as
+``jit_sample(split=True)`` does, prepare, denoise and decode jitted
+apart; the jitted stages are shared between cases where a case does not
+change them.  Then the same request goes through the port's
 ``TryOnService``.
 """
+
+import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -16,7 +25,7 @@ import pytest
 import torch
 from flax.traverse_util import flatten_dict, unflatten_dict
 
-from ladi_vton_tpu.diffusion.schedulers import DDIMScheduler as JaxDDIM
+from ladi_vton_tpu.diffusion import schedulers as jax_schedulers
 from ladi_vton_tpu.models.emasc import EMASC as JaxEMASC
 from ladi_vton_tpu.models.unet_condition import UNet2DCondition as JaxUNet
 from ladi_vton_tpu.models.unet_condition import UNetConfig as JaxUNetConfig
@@ -24,7 +33,7 @@ from ladi_vton_tpu.models.vae import AutoencoderKL as JaxVAE
 from ladi_vton_tpu.models.vae import VAEConfig as JaxVAEConfig
 from ladi_vton_tpu.pipelines.tryon import TryOnPipeline as JaxTryOnPipeline
 from ladi_vton_tpu_torch.core.checkpoint import state_dict_from_jax, unet_key_map
-from ladi_vton_tpu_torch.diffusion.schedulers import DDIMScheduler
+from ladi_vton_tpu_torch.diffusion.schedulers import make_scheduler
 from ladi_vton_tpu_torch.models.emasc import EMASC
 from ladi_vton_tpu_torch.models.unet_condition import UNet2DCondition, UNetConfig
 from ladi_vton_tpu_torch.models.vae import AutoencoderKL, VAEConfig
@@ -36,7 +45,8 @@ from ladi_vton_tpu_torch.pipelines.tryon import (
 
 H = W = 64
 CTX = 64
-UNET = dict(in_channels=31, block_out_channels=(32, 64, 64, 64), head_dim=8,
+STEPS = 2
+UNET = dict(block_out_channels=(32, 64, 64, 64), head_dim=8,
             cross_attention_dim=CTX)
 VAE = dict(block_out_channels=(32, 32, 64, 64))
 EMASC_IN = (32, 32, 32, 32, 64)
@@ -61,27 +71,51 @@ def random_params(module, *init_args, seed: int):
     return unflatten_dict(flat), flat
 
 
+def unet_pair(in_channels: int, seed: int):
+    junet = JaxUNet(JaxUNetConfig(in_channels=in_channels, **UNET),
+                    attn_impl="xla")
+    params, flat = random_params(
+        junet, jnp.zeros((1, H // 8, W // 8, in_channels)), jnp.asarray([0]),
+        jnp.zeros((1, 7, CTX)), seed=seed)
+    unet = UNet2DCondition(UNetConfig(in_channels=in_channels, **UNET))
+    unet.load_state_dict(state_dict_from_jax(flat, unet_key_map), strict=True)
+    return junet, params, unet
+
+
+class JaxStages:
+    """A JAX pipeline's prepare, denoise and decode, jitted apart as
+    ``jit_sample(split=True)`` jits them, each compiled once per static
+    option and shared by every case that reuses it."""
+
+    def __init__(self, jpipe):
+        self.jpipe = jpipe
+        self.jits = {}
+
+    def jit(self, name: str, **static):
+        key = (name, tuple(sorted(static.items())))
+        if key not in self.jits:
+            self.jits[key] = jax.jit(functools.partial(
+                getattr(self.jpipe, name), **static))
+        return self.jits[key]
+
+
 @pytest.fixture(scope="module")
 def pipelines():
-    junet = JaxUNet(JaxUNetConfig(**UNET), attn_impl="xla")
+    junet, pu, unet = unet_pair(31, seed=40)
     jvae = JaxVAE(JaxVAEConfig(**VAE))
     jemasc = JaxEMASC(in_channels=EMASC_IN, out_channels=EMASC_OUT)
-    pu, fu = random_params(junet, jnp.zeros((1, H // 8, W // 8, 31)),
-                           jnp.asarray([0]), jnp.zeros((1, 7, CTX)), seed=40)
     pv, fv = random_params(jvae, jnp.zeros((1, H, W, 3)), seed=41)
     pe, fe = random_params(jemasc, [jnp.zeros((1, 8, 8, c))
                                     for c in EMASC_IN], seed=42)
     jpipe = JaxTryOnPipeline(unet=junet, vae=jvae, emasc=jemasc,
-                             scheduler=JaxDDIM())
-    unet = UNet2DCondition(UNetConfig(**UNET))
-    unet.load_state_dict(state_dict_from_jax(fu, unet_key_map), strict=True)
+                             scheduler=jax_schedulers.DDIMScheduler())
     vae = AutoencoderKL(VAEConfig(**VAE))
     vae.load_state_dict(state_dict_from_jax(fv), strict=True)
     emasc = EMASC(EMASC_IN, EMASC_OUT)
     emasc.load_state_dict(state_dict_from_jax(fe), strict=True)
     pipe = TryOnPipeline(unet=unet, vae=vae, emasc=emasc,
-                         scheduler=DDIMScheduler())
-    return jpipe, {"unet": pu, "vae": pv, "emasc": pe}, pipe
+                         scheduler=make_scheduler("ddim"))
+    return JaxStages(jpipe), {"unet": pu, "vae": pv, "emasc": pe}, pipe
 
 
 def _request(seed: int, n: int = 1) -> dict:
@@ -108,6 +142,35 @@ def _jax_noise(rng, n: int) -> dict:
                             ("cloth", k_cloth))}
 
 
+def jax_sample(stages: JaxStages, denoise: JaxStages, params, req, rng, *,
+               no_pose=False, latents=None) -> np.ndarray:
+    """``TryOnPipeline.sample`` of the JAX package, stage by stage:
+    ``stages`` prepares and decodes, ``denoise`` (a pipeline that differs
+    at most in its scheduler, UNet or hoisting) denoises."""
+    a = {k: (None if v is None else jnp.asarray(v)) for k, v in req.items()}
+    prepared = stages.jit("prepare", no_pose=no_pose)(
+        params, image=a["image"], mask_image=a["mask_image"],
+        pose_map=a["pose_map"], warped_cloth=a["warped_cloth"], rng=rng)
+    if latents is not None:
+        prepared["latents"] = jnp.asarray(latents)
+    intermediate = prepared.pop("intermediate")
+    lat = denoise.jit("denoise", num_inference_steps=STEPS,
+                      guidance_scale=7.5)(
+        params, prepared, prompt_embeds=a["prompt_embeds"],
+        negative_prompt_embeds=a["negative_prompt_embeds"])
+    return np.asarray(stages.jit("decode")(params, lat, intermediate))
+
+
+def port_sample(pipe, req, rng, **options) -> np.ndarray:
+    out = pipe.sample(**{k: (None if v is None else torch.from_numpy(v))
+                         for k, v in req.items()},
+                      noise=_jax_noise(rng, 1), num_inference_steps=STEPS,
+                      guidance_scale=7.5, **options).numpy()
+    assert out.shape == (1, H, W, 3) and out.dtype == np.float32
+    assert np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1
+    return out
+
+
 def test_prepare_mask_and_masked_image():
     image = torch.ones(1, 4, 4, 3)
     mask = torch.tensor([0.1, 0.6, 0.4, 0.9]).reshape(1, 1, 4, 1).expand(
@@ -117,25 +180,83 @@ def test_prepare_mask_and_masked_image():
     assert mi[0, 0, :, 0].tolist() == [1, 0, 1, 0]
 
 
-def test_sample_matches_jax_pipeline(pipelines):
-    jpipe, params, pipe = pipelines
+# fp32 differences of ~1e-6 in the UNet's output grow by the CFG factor
+# 7.5 over two steps and through the decoder (7.5e-6 seen under DDIM):
+# 1e-4 on the [0, 1] image, 1/39 of one 8-bit grey level, under every
+# scheduler and option (2.9e-5 seen, under DPM-Solver++)
+ATOL = 1e-4
+
+
+@pytest.mark.parametrize("scheduler", ["ddim", "pndm", "lms", "dpm"])
+def test_sample_matches_jax_pipeline(pipelines, scheduler):
+    stages, params, pipe = pipelines
     req = _request(50)
     rng = jax.random.key(51)
-    sampler = jpipe.jit_sample(split=True, num_inference_steps=2,
-                               guidance_scale=7.5)
-    ref = np.asarray(sampler(
-        params, *(jnp.asarray(req[k]) for k in (
-            "image", "mask_image", "pose_map", "warped_cloth",
-            "prompt_embeds", "negative_prompt_embeds")), rng))
-    ours = pipe.sample(**{k: torch.from_numpy(v) for k, v in req.items()},
-                       noise=_jax_noise(rng, 1), num_inference_steps=2,
-                       guidance_scale=7.5).numpy()
-    assert ours.shape == (1, H, W, 3) and ours.dtype == np.float32
-    assert np.isfinite(ours).all() and ours.min() >= 0 and ours.max() <= 1
-    # fp32 differences of ~1e-6 in the UNet's output grow by the CFG
-    # factor 7.5 over two DDIM steps and through the decoder (7.5e-6
-    # seen): 1e-4 on the [0, 1] image, 1/39 of one 8-bit grey level
-    np.testing.assert_allclose(ours, ref, rtol=0, atol=1e-4)
+    denoise = (stages if scheduler == "ddim" else JaxStages(
+        dataclasses.replace(stages.jpipe,
+                            scheduler=jax_schedulers.make_scheduler(
+                                scheduler))))
+    ref = jax_sample(stages, denoise, params, req, rng)
+    ours = port_sample(dataclasses.replace(
+        pipe, scheduler=make_scheduler(scheduler)), req, rng)
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("option", ["no_pose", "latents", "no_emasc",
+                                    "hoist_context_kv", "no_warped_cloth"])
+def test_sample_options_match_jax_pipeline(pipelines, option):
+    stages, params, pipe = pipelines
+    req = _request(52)
+    rng = jax.random.key(53)
+    jax_kw, port_kw = {}, {}
+    denoise = stages
+    if option == "no_pose":
+        jax_kw["no_pose"] = port_kw["no_pose"] = True
+    elif option == "latents":
+        lat = np.random.default_rng(54).standard_normal(
+            (1, H // 8, W // 8, 4)).astype(np.float32)
+        jax_kw["latents"] = lat
+        port_kw["latents"] = torch.from_numpy(lat)
+    elif option == "no_emasc":
+        stages = denoise = JaxStages(dataclasses.replace(stages.jpipe,
+                                                         emasc=None))
+        params = {k: v for k, v in params.items() if k != "emasc"}
+        pipe = dataclasses.replace(pipe, emasc=None)
+    elif option == "hoist_context_kv":
+        denoise = JaxStages(dataclasses.replace(stages.jpipe,
+                                                hoist_context_kv=True))
+        pipe = dataclasses.replace(pipe, hoist_context_kv=True)
+    else:  # the reference's cloth_input_type='none': a 27-channel UNet
+        junet, pu, unet = unet_pair(27, seed=55)
+        denoise = JaxStages(dataclasses.replace(stages.jpipe, unet=junet))
+        params = {**params, "unet": pu}
+        pipe = dataclasses.replace(pipe, unet=unet)
+        req["warped_cloth"] = None
+    ref = jax_sample(stages, denoise, params, req, rng, **jax_kw)
+    ours = port_sample(pipe, req, rng, **port_kw)
+    np.testing.assert_allclose(ours, ref, rtol=0, atol=ATOL)
+    if option == "hoist_context_kv":
+        inline = port_sample(dataclasses.replace(pipe, hoist_context_kv=False),
+                             req, rng)
+        np.testing.assert_array_equal(ours, inline)
+
+
+def test_unet_takes_hoisted_context_kv_as_inline(pipelines):
+    _, _, pipe = pipelines
+    rng = np.random.default_rng(56)
+    x = torch.from_numpy(rng.standard_normal((2, 31, 8, 8)).astype(
+        np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((2, 77, CTX)).astype(
+        np.float32))
+    t = torch.tensor([981, 981])
+    with torch.no_grad():
+        kv = pipe.unet.precompute_context_kv(ctx)
+        assert len(kv) == 16  # 3 down blocks x 2, the mid block, 3 up x 3
+        np.testing.assert_array_equal(
+            pipe.unet(x, t, ctx, context_kv=kv).numpy(),
+            pipe.unet(x, t, ctx).numpy())
+        with pytest.raises(ValueError, match="more entries"):
+            pipe.unet(x, t, ctx, context_kv=kv + kv[:1])
 
 
 def test_service_request_matches_pipeline(pipelines):

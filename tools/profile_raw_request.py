@@ -38,6 +38,7 @@ import pathlib
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -187,8 +188,10 @@ def main() -> None:
     service = TryOnService(chip_smoke.full_width_pipeline(), batch_size=2,
                            height=512, width=384, num_inference_steps=50,
                            guidance_scale=7.5, context_dim=1024, seed=0)
+    tokenizer = chip_smoke.synthetic_tokenizer(
+        pathlib.Path(tempfile.mkdtemp(prefix="profile_tokenizer_")))
     cond = ConditionService(
-        chip_smoke.conditioner("cuda", (512, 384)), chip_smoke.WordTokenizer(),
+        chip_smoke.conditioner("cuda", (512, 384), tokenizer), tokenizer,
         batch_size=2, num_vstar=chip_smoke.NUM_VSTAR)
     raw = chip_smoke.raw_request(np.random.default_rng(1), args.images, 512,
                                  384)
@@ -196,7 +199,7 @@ def main() -> None:
     pose, cloth, mask = (torch.from_numpy(
         pad_batch(raw[k], cond.batch_size)).cuda()
         for k in ("pose_map", "cloth", "im_mask"))
-    ids = torch.from_numpy(pad_batch(chip_smoke.WordTokenizer()(
+    ids = torch.from_numpy(pad_batch(tokenizer(
         cond.prompts(raw["categories"])), cond.batch_size)).cuda()
     ref_in = torch.cat([mask, pose, cloth], dim=-1).permute(0, 3, 1, 2)
     state = {}
