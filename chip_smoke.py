@@ -66,7 +66,22 @@ Phases, each printing its numbers before the last line:
    finiteness, range; seconds and peak memory logged), with every
    kernel's launch counter rising; last, the VAE's encode and decode at
    512x384 untiled and tiled with the JAX defaults, timed, and the
-   tiled calls under the K2 census.
+   tiled calls under the K2 census;
+7. the CLIs: a DressCode (one category) and a VITON-HD test split of 2
+   pairs each, written at the datasets' 1024x768 by the port's PNG writer
+   under the datasets' file names (``data/synthetic.py``), with the
+   warped-cloth and CLIP-feature caches; ``cli.inference.main`` over each
+   (DDIM-50, CFG 7.5, batch 2, 512x384, PNG output) and ``cli.eval.main``
+   over each (DPM-Solver++-20, the cached warped cloths and CLIP
+   features), from phase 6's reference-layout files (the ``*_vitonhd``
+   releases linked under the ``*_dresscode`` names); every saved image
+   must equal, bit for bit, what the zoo-loaded ``Conditioner`` and
+   ``TryOnPipeline`` give when called directly on the same batch with the
+   same seed, and a last ``inference`` run with the default JPEG output
+   must write files whose markers parse.  Each run logs the main's wall
+   seconds and images per second (host clock), the loader's seconds per
+   batch and the launch counts of every kernel (K2's by form), each of
+   which must be above zero.
 
 Phases 2 and 3 compare with TF32 off for matmuls and cuDNN; phases 4
 and 5 serve with PyTorch's defaults (cuDNN TF32 allowed, matmul TF32
@@ -75,9 +90,9 @@ the fp32 refinement through FFT convolutions that take ~60x longer and
 a ~20 GiB workspace (``tools/profile_raw_request.py``).
 
 The line before the last is ``{"kernels": [...]}``, with the launches
-of phase 5 (and phase 6's as ``zoo_launches``), the first (hottest)
-shape's times and, under ``shapes``, every shape's; the last is
-``{"ok": true, "device": {...}}``.  Any failed
+of phase 5 (phase 6's as ``zoo_launches``, phase 7's five CLI runs' as
+``mains_launches``), the first (hottest) shape's times and, under
+``shapes``, every shape's; the last is ``{"ok": true, "device": {...}}``.  Any failed
 check raises, so the script exits non-zero without that line; it also
 refuses to run without CUDA.
 """
@@ -88,6 +103,7 @@ import argparse
 import dataclasses
 import functools
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -101,10 +117,21 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ladi_vton_tpu_torch.cli import eval as eval_cli
+from ladi_vton_tpu_torch.cli import inference as inference_cli
+from ladi_vton_tpu_torch.core.rng import batch_generator
+from ladi_vton_tpu_torch.data import (
+    BatchLoader,
+    DressCodeDataset,
+    VitonHDDataset,
+    imageio,
+    synthetic,
+)
 from ladi_vton_tpu_torch.diffusion.schedulers import (
     DDIMScheduler,
     make_scheduler,
 )
+from ladi_vton_tpu_torch.diffusion.text import encode_text_word_embedding
 from ladi_vton_tpu_torch.hub import zoo
 from ladi_vton_tpu_torch.models.clip import (
     CLIPTextModel,
@@ -154,7 +181,11 @@ from ladi_vton_tpu_torch.ops.layer_norm import (
     layer_norm_ref,
 )
 from ladi_vton_tpu_torch.pipelines.condition import Conditioner
-from ladi_vton_tpu_torch.pipelines.serving import ConditionService, TryOnService
+from ladi_vton_tpu_torch.pipelines.serving import (
+    ConditionService,
+    TryOnService,
+    category_prompts,
+)
 from ladi_vton_tpu_torch.pipelines.tryon import TryOnPipeline
 from ladi_vton_tpu_torch.utils.tokenizer import (
     CLIPTokenizer,
@@ -1189,7 +1220,8 @@ def zoo_path(root: pathlib.Path, pipe: TryOnPipeline, cond: Conditioner,
     and serve phase 5's 2-image raw request from the loaded modules under
     DDIM-50 (bitwise equal to phase 5's answer) and under the other
     schedulers; then the conv_in surgery and the tiled VAE.  Returns the
-    kernels' launches over the four requests."""
+    kernels' launches over the four requests, and the loaded pipeline and
+    conditioner."""
     t0 = time.perf_counter()
     write_checkpoints(root, pipe, cond)
     free = shutil.disk_usage(root).free / 2 ** 30
@@ -1256,7 +1288,225 @@ def zoo_path(root: pathlib.Path, pipe: TryOnPipeline, cond: Conditioner,
                                      "5's request differently")
     launches = {n: wrapper.launches for n, wrapper in wrappers.items()}
     tiled_vae(zpipe.vae)
-    return launches
+    return launches, zpipe, zcond
+
+
+# phase 7: the source size of both datasets, the model's size, and the
+# settings of each CLI run
+SOURCE_SIZE = (1024, 768)
+RELEASES = ("unet", "emasc", "inversion_adapter", "warping")
+
+
+def reset_counts(wrappers: dict) -> None:
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    group_norm.forms.update(cluster=0, split=0)
+
+
+def main_counts(wrappers: dict) -> dict:
+    """The kernels' launch counts since ``reset_counts``, K2's by form."""
+    counts = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    counts.update({f"group_norm_{form}": n
+                   for form, n in group_norm.forms.items()})
+    return counts
+
+
+def write_datasets(root: pathlib.Path) -> dict:
+    """Phase 7, step 1: a DressCode (one category, 2 pairs) and a VITON-HD
+    (2 pairs) test split at the datasets' 1024x768, with the warped-cloth
+    and CLIP-feature caches, written with the port's PNG writer under the
+    datasets' file names."""
+    return {
+        "dresscode": synthetic.write_dresscode(
+            root / "dc" / "dresscode", category="upper_body", n_pairs=2,
+            size=SOURCE_SIZE, seed=70),
+        "vitonhd": synthetic.write_vitonhd(
+            root / "vh" / "vitonhd", n_pairs=2, size=SOURCE_SIZE, seed=71),
+    }
+
+
+def main_runs(work: pathlib.Path, roots: dict, out: pathlib.Path,
+              device: str = "cuda") -> list:
+    """(label, main, argv, direct-path kind or None) of phase 7's runs."""
+    ladi, sd2 = work / "ladi", work / "sd2"
+    runs = []
+    for dataset in ("dresscode", "vitonhd"):
+        data = [f"--{dataset}_dataroot", str(roots[dataset])]
+        if dataset == "dresscode":
+            data += ["--category", "upper_body"]
+        common = ["--dataset", dataset, *data, "--test_order", "paired",
+                  "--batch_size", "2", "--num_workers", "2", "--seed", "7",
+                  "--device", device]
+        runs.append((f"inference {dataset}", inference_cli.main, common + [
+            "--output_dir", str(out / f"inference_{dataset}"),
+            "--checkpoint_dir", str(ladi), "--sd2_model_dir", str(sd2),
+            "--clip_vision_dir", str(work / "clip_vision"),
+            "--tokenizer_dir", str(sd2 / "tokenizer"),
+            "--num_inference_steps", "50", "--guidance_scale", "7.5",
+            "--use_png"], "inference"))
+        runs.append((f"eval {dataset}", eval_cli.main, common + [
+            "--output_dir", str(out / f"eval_{dataset}"), "--save_name",
+            "run", "--unet_dir", str(ladi),
+            "--unet_name", f"unet_{dataset}.pth", "--emasc_dir", str(ladi),
+            "--emasc_name", f"emasc_{dataset}.pth",
+            "--inversion_adapter_dir", str(ladi),
+            "--inversion_adapter_name", f"inversion_adapter_{dataset}.pth",
+            "--sd2_model_dir", str(sd2), "--scheduler", "dpm",
+            "--num_inference_steps", "20", "--use_clip_cloth_features",
+            "--use_png"], "eval"))
+    dresscode = runs[0]
+    runs.append(("inference dresscode, JPEG output", inference_cli.main,
+                  [a.replace("inference_dresscode", "inference_jpeg")
+                   for a in dresscode[2] if a != "--use_png"], None))
+    return runs
+
+
+def to_device(x, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device, dtype)
+
+
+@torch.no_grad()
+def direct_images(kind: str, argv: list, pipe: TryOnPipeline,
+                  cond: Conditioner, tokenizer) -> list:
+    """What the port's Conditioner and TryOnPipeline, called directly,
+    give for each batch of a main's run: (batch, uint8 images)."""
+    args = (inference_cli if kind == "inference" else eval_cli).parse_args(
+        argv)
+    keys = ["image", "pose_map", "inpaint_mask", "im_mask", "category",
+            "im_name", "cloth"]
+    if kind == "eval":
+        keys += ["warped_cloth", "clip_cloth_features"]
+    size = (args.height, args.width)
+    if args.dataset == "dresscode":
+        dataset = DressCodeDataset(args.dresscode_dataroot, phase="test",
+                                   order=args.test_order, outputlist=keys,
+                                   category=(args.category,), size=size)
+    else:
+        dataset = VitonHDDataset(args.vitonhd_dataroot, phase="test",
+                                 order=args.test_order, outputlist=keys,
+                                 size=size)
+    pipe = dataclasses.replace(pipe, scheduler=make_scheduler(args.scheduler))
+    dev = pipe.device
+    empty = cond.empty_ids.to(dev)
+    out = []
+    loader = BatchLoader(dataset, args.batch_size, num_workers=0,
+                         pad_last=True)
+    for step, b in enumerate(loader):
+        ids = to_device(np.asarray(tokenizer(category_prompts(
+            b["category"], NUM_VSTAR))), dev, torch.long)
+        if kind == "inference":
+            warped, ehs, neg = cond(to_device(b["pose_map"], dev),
+                                    to_device(b["cloth"], dev),
+                                    to_device(b["im_mask"], dev), ids)
+        else:
+            ptes = cond.adapter(to_device(b["clip_cloth_features"], dev,
+                                          cond.dtype))
+            ehs, _ = encode_text_word_embedding(cond.text_model, ids, ptes,
+                                                NUM_VSTAR)
+            neg, _ = cond.text_model(empty.expand_as(ids))
+            warped = to_device(b["warped_cloth"], dev)
+        images = pipe.sample(
+            image=to_device(b["image"], dev),
+            mask_image=to_device(b["inpaint_mask"], dev),
+            pose_map=to_device(b["pose_map"], dev), warped_cloth=warped,
+            prompt_embeds=ehs, negative_prompt_embeds=neg,
+            generator=batch_generator(args.seed, step, dev),
+            num_inference_steps=args.num_inference_steps,
+            guidance_scale=args.guidance_scale)
+        u8 = torch.round(images.float().clamp(0.0, 1.0) * 255.0)
+        out.append((b, u8.to(torch.uint8).cpu().numpy()))
+    return out
+
+
+def check_saved(save_dir: pathlib.Path, direct: list, label: str) -> int:
+    """Every image a main saved equals the direct path's, bit for bit;
+    returns how many were compared."""
+    compared = 0
+    for batch, images in direct:
+        for img, name, cat in zip(images, batch["im_name"],
+                                  batch["category"]):
+            saved = imageio.open_image(
+                save_dir / cat / name.replace(".jpg", ".png")).pixels
+            if not np.array_equal(saved, img):
+                raise AssertionError(
+                    f"{label}: {cat}/{name} differs from the direct path "
+                    f"(max abs difference "
+                    f"{np.abs(saved.astype(int) - img).max()})")
+            compared += 1
+    files = list(save_dir.rglob("*.png"))
+    if len(files) != len({(c, n) for b, _ in direct
+                          for c, n in zip(b["category"], b["im_name"])}):
+        raise AssertionError(f"{label}: {len(files)} files saved")
+    return compared
+
+
+def check_jpegs(save_dir: pathlib.Path, label: str) -> int:
+    files = sorted(save_dir.rglob("*.jpg"))
+    for path in files:
+        markers = imageio.jpeg_markers(path.read_bytes())
+        if not (markers[0] == 0xD8 and markers[-1] == 0xD9
+                and {0xDB, 0xC0} <= set(markers)):
+            raise AssertionError(f"{label}: {path.name} markers {markers}")
+    if not files:
+        raise AssertionError(f"{label}: no JPEG written")
+    return len(files)
+
+
+def mains_path(work: pathlib.Path, pipe: TryOnPipeline, cond: Conditioner,
+               wrappers: dict, smi: str) -> dict:
+    """Phase 7: the CLIs over DressCode and VITON-HD trees at 1024x768,
+    from phase 6's reference-layout checkpoints; every saved image held
+    bitwise to the direct path.  Returns the kernels' launches summed
+    over the mains."""
+    t0 = time.perf_counter()
+    roots = write_datasets(work / "data")
+    ladi = work / "ladi"
+    for name in RELEASES:
+        for suffix in (".pth", ".config.json"):
+            src = ladi / f"{name}_vitonhd{suffix}"
+            link = ladi / f"{name}_dresscode{suffix}"
+            if src.exists() and not link.exists():
+                os.symlink(src, link)
+    log(f"phase 7: DressCode and VITON-HD test splits written at "
+        f"{SOURCE_SIZE[0]}x{SOURCE_SIZE[1]} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tokenizer = CLIPTokenizer.from_dir(work / "sd2" / "tokenizer")
+    out = work / "out"
+    total = {}
+    for label, main_fn, argv, kind in main_runs(work, roots, out):
+        torch.cuda.synchronize()
+        reset_counts(wrappers)
+        t_main = time.perf_counter()
+        stats = main_fn(argv)
+        torch.cuda.synchronize()
+        t_main = time.perf_counter() - t_main
+        counts = main_counts(wrappers)
+        log(f"phase 7 {label}: main {t_main:.3f} s wall with the weights' "
+            f"load ({stats['images'] / t_main:.4f} images/s), its batch "
+            f"loop {stats['seconds']:.3f} s ({stats['images']} images in "
+            f"{stats['batches']} batches, {stats['images_per_second']:.4f} "
+            f"images/s), loader {stats['loader_seconds_per_batch']:.3f} s "
+            f"per batch, host clock; launches {counts} [{smi}]")
+        missing = [k for k, n in counts.items() if n == 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched: "
+                                 f"{missing}")
+        for name in wrappers:
+            total[name] = total.get(name, 0) + counts[name]
+        save = pathlib.Path(argv[argv.index("--output_dir") + 1])
+        if kind == "eval":
+            save = save / "run"
+        save = save / "paired"
+        if kind is None:
+            log(f"phase 7 {label}: {check_jpegs(save, label)} JPEG files, "
+                f"markers SOI, DQT, SOF0, DHT, SOS, EOI")
+            continue
+        n = check_saved(save, direct_images(kind, argv, pipe, cond,
+                                            tokenizer), label)
+        log(f"phase 7 {label}: {n} saved images bitwise equal to the "
+            f"direct Conditioner/TryOnPipeline path")
+    log(f"phase 7: the CLIs ({time.perf_counter() - t0:.1f} s)")
+    return total
 
 
 def sweep_geglu_tilings() -> None:
@@ -1571,20 +1821,22 @@ def main() -> None:
     log("phase 2: every kernel agrees with its plain version")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        launches, zoo_launches = run_phases(pathlib.Path(work), gen)
+        launches, zoo_launches, mains_launches = run_phases(
+            pathlib.Path(work), gen, smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces, "launches": launches[name],
-         "zoo_launches": zoo_launches[name], **results[name]}
+         "zoo_launches": zoo_launches[name],
+         "mains_launches": mains_launches[name], **results[name]}
         for name, _, _, source, replaces in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def run_phases(work: pathlib.Path, gen: Gen) -> tuple:
-    """Phases 3 to 6, with the files they write under ``work``; returns
-    the kernels' launches on phase 5's and phase 6's paths."""
+def run_phases(work: pathlib.Path, gen: Gen, smi: str) -> tuple:
+    """Phases 3 to 7, with the files they write under ``work``; returns
+    the kernels' launches on phase 5's, phase 6's and phase 7's paths."""
     t0 = time.perf_counter()
     tokenizer = synthetic_tokenizer(work / "sd2" / "tokenizer")
     check_blocks(gen)
@@ -1647,14 +1899,17 @@ def run_phases(work: pathlib.Path, gen: Gen) -> tuple:
                              f"path: {missing}")
 
     t0 = time.perf_counter()
-    zoo_launches = zoo_path(work, pipe, cond, record, wrappers)
+    zoo_launches, zpipe, zcond = zoo_path(work, pipe, cond, record, wrappers)
     log(f"launches during phase 6's four raw requests: {zoo_launches}")
     missing = [name for name, count in zoo_launches.items() if count == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the zoo path: "
                              f"{missing}")
     log(f"phase 6: the zoo path ({time.perf_counter() - t0:.1f} s)")
-    return launches, zoo_launches
+
+    mains_launches = mains_path(work, zpipe, zcond, wrappers, smi)
+    log(f"launches during phase 7's five CLI runs: {mains_launches}")
+    return launches, zoo_launches, mains_launches
 
 
 if __name__ == "__main__":

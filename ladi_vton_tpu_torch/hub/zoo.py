@@ -193,6 +193,9 @@ def _build(factory: Callable[[], torch.nn.Module], state: dict, *, dtype,
                            f"available; pass device='cpu'")
     with torch.device(device):
         module = factory()
+    # buffers a factory makes from numpy (TPS's kernels) ignore the
+    # default device
+    module.to(device)
     if dtype is not None:
         module.to(dtype)
     module.load_state_dict(state, strict=True)

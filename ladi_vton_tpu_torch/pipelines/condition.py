@@ -46,6 +46,16 @@ def _resize(x: torch.Tensor, out_hw) -> torch.Tensor:
     return _nhwc(resize_bilinear(_nchw(x), tuple(out_hw)))
 
 
+def clip_pixels(cloth: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The vision tower's input from an NHWC cloth in [-1, 1]: resized to
+    224x224, in [0, 1], normalised with CLIP's mean and std; NCHW in
+    ``dtype``."""
+    clip_in = _resize((cloth + 1.0) * 0.5, CLIP_SIZE).clamp(0.0, 1.0)
+    mean = clip_in.new_tensor(CLIP_MEAN)
+    std = clip_in.new_tensor(CLIP_STD)
+    return _nchw(((clip_in - mean) / std).to(dtype))
+
+
 @dataclasses.dataclass(frozen=True)
 class Conditioner:
     """``(pose_map, cloth, im_mask, input_ids) -> (warped_cloth,
@@ -101,12 +111,7 @@ class Conditioner:
     @torch.no_grad()
     def embeddings(self, cloth, input_ids):
         """(prompt_embeds, negative_prompt_embeds) in the towers' dtype."""
-        dtype = self.dtype
-        clip_in = _resize((cloth + 1.0) * 0.5, CLIP_SIZE).clamp(0.0, 1.0)
-        mean = clip_in.new_tensor(CLIP_MEAN)
-        std = clip_in.new_tensor(CLIP_STD)
-        clip_in = ((clip_in - mean) / std).to(dtype)
-        ptes = self.adapter(self.vision(_nchw(clip_in)))
+        ptes = self.adapter(self.vision(clip_pixels(cloth, self.dtype)))
         ehs, _ = encode_text_word_embedding(self.text_model, input_ids, ptes,
                                             self.num_vstar)
         uncond_ids = self.empty_ids.to(input_ids.device).expand_as(input_ids)

@@ -23,15 +23,18 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ladi_vton_tpu_torch.core.rng import request_seed
+from ladi_vton_tpu_torch.data.labels import CATEGORY_PROMPT_TEXT
 from ladi_vton_tpu_torch.pipelines.condition import Conditioner
 from ladi_vton_tpu_torch.pipelines.tryon import TryOnPipeline
 
-# prompt text per garment category (ladi_vton_tpu/data/labels.py)
-CATEGORY_PROMPT_TEXT = {
-    "dresses": "a dress",
-    "upper_body": "an upper body garment",
-    "lower_body": "a lower body garment",
-}
+
+def category_prompts(categories, num_vstar: int) -> list[str]:
+    """The try-on prompt of each garment category, with ``num_vstar``
+    ``$`` placeholders for the inversion adapter's pseudo-words
+    (reference src/inference.py:281-283)."""
+    return [f"a photo of a model wearing {CATEGORY_PROMPT_TEXT[str(c)]} "
+            f"{' $ ' * num_vstar}" for c in categories]
 
 
 def pad_batch(x: np.ndarray, batch_size: int) -> np.ndarray:
@@ -43,12 +46,6 @@ def pad_batch(x: np.ndarray, batch_size: int) -> np.ndarray:
     if n < batch_size:
         x = np.concatenate([x] + [x[-1:]] * (batch_size - n))
     return x
-
-
-def request_seed(seed: int, count: int) -> int:
-    """A 63-bit generator seed derived from (service seed, request)."""
-    state = np.random.SeedSequence([seed, count]).generate_state(2, np.uint32)
-    return (int(state[0]) << 31) ^ int(state[1])
 
 
 class TryOnService:
@@ -123,9 +120,7 @@ class ConditionService:
         self._lock = threading.Lock()
 
     def prompts(self, categories) -> list[str]:
-        return [f"a photo of a model wearing "
-                f"{CATEGORY_PROMPT_TEXT[str(c)]} {' $ ' * self.num_vstar}"
-                for c in categories]
+        return category_prompts(categories, self.num_vstar)
 
     def _pad(self, x, dtype) -> torch.Tensor:
         x = pad_batch(np.asarray(x, dtype), self.batch_size)

@@ -1,7 +1,8 @@
 """The port runs where there is no JAX.
 
 The machine with the GPU has PyTorch but no jax, flax, PIL, cv2,
-``regex`` or ``safetensors``.  These tests import the whole port and ``chip_smoke`` in a
+``regex``, ``safetensors`` or ``tqdm``.  These tests import the whole
+port (its data layer and CLIs by name) and ``chip_smoke`` in a
 subprocess whose import system refuses those packages (and the JAX
 package itself), check the same statically, and check that
 ``chip_smoke.py`` refuses to run without CUDA or without the repository.
@@ -18,7 +19,13 @@ import textwrap
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "ladi_vton_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "PIL", "cv2", "regex", "safetensors",
-           "ladi_vton_tpu")
+           "tqdm", "ladi_vton_tpu")
+# the data layer and the CLIs, which stand in for PIL, cv2 and tqdm
+DATA_AND_CLI = ("data", "data.agnostic", "data.dresscode", "data.features",
+                "data.imageio", "data.labels", "data.loader", "data.native",
+                "data.raster", "data.resample", "data.synthetic",
+                "data.vitonhd", "cli", "cli.eval", "cli.inference",
+                "pipelines.drivers", "core.dtypes", "core.rng")
 
 
 def _run(code: str, cwd: pathlib.Path, *args: str):
@@ -53,11 +60,15 @@ def test_port_and_chip_smoke_import_without_jax():
         loaded = sorted(m for m in sys.modules
                         if m.split(".")[0] in BLOCKED)
         assert not loaded, loaded
-        print(len(names))
+        print(" ".join(names))
     """)
     proc = _run(code, ROOT, "-c")
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20
+    names = proc.stdout.split()
+    assert len(names) >= 45
+    missing = [m for m in DATA_AND_CLI
+               if f"ladi_vton_tpu_torch.{m}" not in names]
+    assert not missing, missing
 
 
 def _imported_roots(path: pathlib.Path) -> set:
