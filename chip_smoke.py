@@ -81,7 +81,31 @@ Phases, each printing its numbers before the last line:
    must write files whose markers parse.  Each run logs the main's wall
    seconds and images per second (host clock), the loader's seconds per
    batch and the launch counts of every kernel (K2's by form), each of
-   which must be above zero.
+   which must be above zero;
+8. serving: ``make_http_server`` over a ``MicroBatcher`` around phase
+   6's zoo-loaded modules (batch 4, DDIM-50, CFG 7.5), on a free port: a
+   2-image raw request through /condition and /tryon with the port's
+   ``TryOnClient``, then three concurrent /tryon requests of 1, 1 and 2
+   images started 1 s apart (one group of 4 in that order), and a
+   malformed payload (400); every answer bitwise equal to the services
+   called directly (a fresh service of the same seed), /healthz counting
+   2 batches, 4 requests and 6 samples, every kernel launched, the
+   seconds of each request against the direct calls.  Then ``python -m
+   ladi_vton_tpu_torch.cli.serve --enable_condition --port 0`` as a
+   process from phase 6's files: its answer to the raw request bitwise
+   equal to the in-process one (the same seed, request 0), and SIGINT
+   ends it with exit code 0;
+9. the metrics: seeded metric weights written from the port's
+   ``InceptionV3`` and ``LPIPS``; Inception (pool3, logits; 4 at
+   299x299), LPIPS and SSIM on the card (fp32, TF32 off) against the CPU;
+   then on the card ``cli.generate_fid_stats`` over phase 7's trees,
+   ``cli.val_metrics`` over phase 7's PNG and JPEG runs (the JPEGs read by
+   the port's decoder, within a stated PSNR of the pixels written),
+   ``cli.inference --compute_metrics`` (its JSON equal to
+   ``val_metrics``' over its folder) and
+   ``cli.compute_cloth_clip_features`` over the VITON-HD test split (each
+   feature equal to the zoo-loaded tower called directly, K5 launched),
+   each main's seconds logged.
 
 Phases 2 and 3 compare with TF32 off for matmuls and cuDNN; phases 4
 and 5 serve with PyTorch's defaults (cuDNN TF32 allowed, matmul TF32
@@ -91,10 +115,12 @@ a ~20 GiB workspace (``tools/profile_raw_request.py``).
 
 The line before the last is ``{"kernels": [...]}``, with the launches
 of phase 5 (phase 6's as ``zoo_launches``, phase 7's five CLI runs' as
-``mains_launches``), the first (hottest) shape's times and, under
-``shapes``, every shape's; the last is ``{"ok": true, "device": {...}}``.  Any failed
-check raises, so the script exits non-zero without that line; it also
-refuses to run without CUDA.
+``mains_launches``, phase 8's served requests as ``serve_launches``,
+phase 9's metric mains as ``metrics_launches``), the first (hottest)
+shape's times and, under ``shapes``, every shape's; the last is
+``{"ok": true, "device": {...}}``.  Any failed check raises, so the
+script exits non-zero without that line; it also refuses to run without
+CUDA.
 """
 
 from __future__ import annotations
@@ -102,31 +128,42 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import io
 import json
 import os
 import pathlib
 import re
 import shutil
+import signal
 import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ladi_vton_tpu_torch.cli import compute_cloth_clip_features as clip_main
 from ladi_vton_tpu_torch.cli import eval as eval_cli
+from ladi_vton_tpu_torch.cli import generate_fid_stats as stats_main
 from ladi_vton_tpu_torch.cli import inference as inference_cli
+from ladi_vton_tpu_torch.cli import val_metrics as val_main
+from ladi_vton_tpu_torch.client import TryOnClient
 from ladi_vton_tpu_torch.core.rng import batch_generator
 from ladi_vton_tpu_torch.data import (
     BatchLoader,
     DressCodeDataset,
     VitonHDDataset,
     imageio,
+    native,
     synthetic,
 )
+from ladi_vton_tpu_torch.data.features import ClothFeatureCache
 from ladi_vton_tpu_torch.diffusion.schedulers import (
     DDIMScheduler,
     make_scheduler,
@@ -180,11 +217,21 @@ from ladi_vton_tpu_torch.ops.layer_norm import (
     layer_norm_plan,
     layer_norm_ref,
 )
-from ladi_vton_tpu_torch.pipelines.condition import Conditioner
+from ladi_vton_tpu_torch.metrics.compute import (
+    MetricModels,
+    _gt_image_paths,
+    _load_batch,
+)
+from ladi_vton_tpu_torch.metrics.fid import StatsCache, frechet_distance
+from ladi_vton_tpu_torch.metrics.inception import InceptionV3
+from ladi_vton_tpu_torch.metrics.lpips import LPIPS
+from ladi_vton_tpu_torch.pipelines.condition import Conditioner, clip_pixels
 from ladi_vton_tpu_torch.pipelines.serving import (
     ConditionService,
+    MicroBatcher,
     TryOnService,
     category_prompts,
+    make_http_server,
 )
 from ladi_vton_tpu_torch.pipelines.tryon import TryOnPipeline
 from ladi_vton_tpu_torch.utils.tokenizer import (
@@ -1453,11 +1500,11 @@ def check_jpegs(save_dir: pathlib.Path, label: str) -> int:
 
 
 def mains_path(work: pathlib.Path, pipe: TryOnPipeline, cond: Conditioner,
-               wrappers: dict, smi: str) -> dict:
+               wrappers: dict, smi: str) -> tuple:
     """Phase 7: the CLIs over DressCode and VITON-HD trees at 1024x768,
     from phase 6's reference-layout checkpoints; every saved image held
     bitwise to the direct path.  Returns the kernels' launches summed
-    over the mains."""
+    over the mains, and the trees' roots."""
     t0 = time.perf_counter()
     roots = write_datasets(work / "data")
     ladi = work / "ladi"
@@ -1506,7 +1553,519 @@ def mains_path(work: pathlib.Path, pipe: TryOnPipeline, cond: Conditioner,
         log(f"phase 7 {label}: {n} saved images bitwise equal to the "
             f"direct Conditioner/TryOnPipeline path")
     log(f"phase 7: the CLIs ({time.perf_counter() - t0:.1f} s)")
-    return total
+    return total, roots
+
+
+# phase 8: the in-process server's batch, the batcher's delay and the
+# spacing of its three concurrent requests (far enough apart to arrive in
+# order, well inside the delay, so they form one group of 4 in that
+# order), the services' seed, and the limits on waiting
+SERVE_BATCH = 4
+SERVE_DELAY_MS = 5000.0
+SERVE_SPACING_S = 1.0
+SERVE_SEED = 21
+SERVE_TIMEOUT_S = 300.0
+SERVE_START_TIMEOUT_S = 300.0
+SERVE_EXIT_TIMEOUT_S = 60.0
+REPO = pathlib.Path(__file__).resolve().parent
+
+
+def served_request(rng: np.random.Generator, n: int, h: int,
+                   w: int) -> dict:
+    """A /tryon request as a client sends one: pose heatmaps zero but for
+    a blob per keypoint, so the ``.npz`` body compresses as a real one."""
+    req = request(rng, n, h, w)
+    pose = np.zeros((n, h, w, 18), np.float32)
+    yy, xx = np.mgrid[:h, :w]
+    for i in range(n):
+        for k in range(18):
+            y, x = rng.integers(0, h), rng.integers(0, w)
+            blob = np.exp(-((yy - y) ** 2 + (xx - x) ** 2) / 81.0)
+            pose[i, ..., k] = np.where(blob > 1e-3, blob, 0.0)
+    req["pose_map"] = pose
+    return req
+
+
+def start_server(service, cond, delay_ms: float):
+    batcher = MicroBatcher(service, max_delay_ms=delay_ms)
+    server = make_http_server(batcher, port=0, condition_service=cond)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address[:2]
+    return batcher, server, thread, f"http://{host}:{port}"
+
+
+def tryon_arrays(raw: dict, cond_out: tuple) -> dict:
+    warped, embeds, negative = cond_out
+    return dict(image=raw["image"], inpaint_mask=raw["inpaint_mask"],
+                pose_map=raw["pose_map"], warped_cloth=warped,
+                prompt_embeds=embeds, negative_prompt_embeds=negative)
+
+
+def client_raw(client: TryOnClient, raw: dict) -> dict:
+    """A raw request through /condition then /tryon, host clock."""
+    t0 = time.perf_counter()
+    c = client.condition(cloth=raw["cloth"], pose_map=raw["pose_map"],
+                         im_mask=raw["im_mask"], categories=raw["categories"])
+    t_cond = time.perf_counter() - t0
+    cond_out = (c["warped_cloth"], c["prompt_embeds"],
+                c["negative_prompt_embeds"])
+    out = client.tryon(**tryon_arrays(raw, cond_out))
+    return {"cond": cond_out, "out": out, "t_cond": t_cond,
+            "total": time.perf_counter() - t0}
+
+
+def direct_raw(cond: ConditionService, service: TryOnService,
+               raw: dict) -> dict:
+    """The same raw request through the services called directly."""
+    t0 = time.perf_counter()
+    cond_out = cond.run(cloth=raw["cloth"], pose_map=raw["pose_map"],
+                        im_mask=raw["im_mask"], categories=raw["categories"])
+    torch.cuda.synchronize()
+    t_cond = time.perf_counter() - t0
+    out = service.generate(**tryon_arrays(raw, cond_out))
+    torch.cuda.synchronize()
+    return {"cond": cond_out, "out": out, "t_cond": t_cond,
+            "total": time.perf_counter() - t0}
+
+
+def npz_seconds(arrays: dict) -> tuple:
+    """Host seconds and megabytes of one compressed ``.npz`` body, the wire
+    format both clients and servers write."""
+    buf = io.BytesIO()
+    t0 = time.perf_counter()
+    np.savez_compressed(buf, **arrays)
+    return time.perf_counter() - t0, len(buf.getvalue()) / 2 ** 20
+
+
+def bitwise(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+
+
+def same_answer(a: dict, b: dict) -> bool:
+    return all(bitwise(x, y) for x, y in zip(a["cond"] + (a["out"],),
+                                             b["cond"] + (b["out"],)))
+
+
+def post_status(url: str, body: bytes) -> int:
+    try:
+        with urllib.request.urlopen(urllib.request.Request(
+                url, data=body, method="POST"), timeout=60) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def serve_concurrently(client: TryOnClient, group: list) -> tuple:
+    """The group's /tryon requests, each from its own thread, started
+    SERVE_SPACING_S apart: (answers, seconds of each, errors)."""
+    answers, seconds, errors = [None] * len(group), [0.0] * len(group), []
+
+    def send(i):
+        try:
+            t0 = time.perf_counter()
+            answers[i] = client.tryon(**group[i])
+            seconds[i] = time.perf_counter() - t0
+        except Exception as e:
+            errors.append(e)
+
+    threads = []
+    for i in range(len(group)):
+        if i:
+            time.sleep(SERVE_SPACING_S)
+        threads.append(threading.Thread(target=send, args=(i,)))
+        threads[-1].start()
+    for t in threads:
+        t.join(SERVE_TIMEOUT_S)
+    return answers, seconds, errors
+
+
+def serving_path(work: pathlib.Path, pipe: TryOnPipeline, cond: Conditioner,
+                 wrappers: dict, smi: str) -> tuple:
+    """Phase 8, in process: ``make_http_server`` over a ``MicroBatcher``
+    around phase 6's zoo-loaded modules (batch 4, DDIM-50), answering a
+    2-image raw request through the port's client and a group of three
+    concurrent requests, each held bitwise to the services called
+    directly.  Returns the kernels' launches over the served requests,
+    and the raw request and its answer for the ``cli.serve`` process."""
+    h, w = cond.image_size
+    tokenizer = CLIPTokenizer.from_dir(work / "sd2" / "tokenizer")
+
+    def services():
+        return (TryOnService(pipe, batch_size=SERVE_BATCH, height=h, width=w,
+                             num_inference_steps=50, guidance_scale=7.5,
+                             context_dim=pipe.unet.config.cross_attention_dim,
+                             seed=SERVE_SEED),
+                ConditionService(cond, tokenizer, batch_size=SERVE_BATCH,
+                                 num_vstar=NUM_VSTAR, device=pipe.device))
+
+    rng = np.random.default_rng(80)
+    raw = raw_request(rng, 2, h, w)
+    group = [served_request(rng, n, h, w) for n in (1, 1, 2)]
+    service, csvc = services()
+    torch.cuda.synchronize()
+    reset_counts(wrappers)
+    batcher, server, thread, url = start_server(service, csvc,
+                                                SERVE_DELAY_MS)
+    try:
+        client = TryOnClient(url, timeout_s=SERVE_TIMEOUT_S)
+        served = client_raw(client, raw)
+        t0 = time.perf_counter()
+        answers, seconds, errors = serve_concurrently(client, group)
+        t_group = time.perf_counter() - t0
+        if errors or any(a is None for a in answers):
+            raise AssertionError(f"concurrent requests failed: {errors}")
+        bad = post_status(url + "/tryon", b"not an npz")
+        health = client.healthz()
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        thread.join(SERVE_TIMEOUT_S)
+    torch.cuda.synchronize()
+    launches = main_counts(wrappers)
+    log(f"phase 8: launches over the served requests {launches}")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched serving: {missing}")
+    if bad != 400:
+        raise AssertionError(f"a malformed payload answered {bad}, not 400")
+    counts = {k: health[k] for k in ("batches_done", "requests_done",
+                                     "samples_done", "errors")}
+    log(f"phase 8: /healthz after the requests {counts}; a malformed "
+        f"payload answered {bad}")
+    if counts != {"batches_done": 2, "requests_done": 4, "samples_done": 6,
+                  "errors": 0}:
+        raise AssertionError(f"/healthz counts {counts}")
+
+    # the services called directly: a fresh TryOnService of the same seed
+    # draws for request 0 (the raw request), then request 1 (the group)
+    ref_service, _ = services()
+    direct = direct_raw(csvc, ref_service, raw)
+    same = same_answer(served, direct)
+    log(f"phase 8: raw request of 2 images over HTTP (/condition "
+        f"{served['t_cond']:.3f} s, with /tryon {served['total']:.3f} s, "
+        f"batch {SERVE_BATCH} after the batcher's {SERVE_DELAY_MS:.0f} ms "
+        f"wait for a fuller group) against the services called directly "
+        f"(conditioning {direct['t_cond']:.3f} s, total "
+        f"{direct['total']:.3f} s): bitwise equal {same} [{smi}]")
+    if not same:
+        raise AssertionError("the served raw request differs from the "
+                             "services called directly")
+    bodies = {
+        "/condition request": {k: raw[k] for k in ("cloth", "pose_map",
+                                                   "im_mask")},
+        "/condition answer": dict(zip(("warped_cloth", "prompt_embeds",
+                                       "negative_prompt_embeds"),
+                                      direct["cond"])),
+        "/tryon request": tryon_arrays(raw, direct["cond"]),
+        "/tryon answer": {"images": direct["out"]},
+        "a 2-image request of the group": group[2]}
+    log("phase 8: .npz bodies encoded on this host: " + ", ".join(
+        f"{k} {t:.3f} s for {mb:.1f} MiB" for k, (t, mb) in
+        ((k, npz_seconds(v)) for k, v in bodies.items())))
+    stacked = {k: np.concatenate([g[k] for g in group]) for k in group[0]}
+    t0 = time.perf_counter()
+    out = ref_service.generate(**stacked)
+    torch.cuda.synchronize()
+    t_direct = time.perf_counter() - t0
+    offsets = np.cumsum([0] + [g["image"].shape[0] for g in group])
+    same = all(bitwise(a, out[offsets[i]:offsets[i + 1]])
+               for i, a in enumerate(answers))
+    log(f"phase 8: three concurrent /tryon requests of 1, 1 and 2 images, "
+        f"started {SERVE_SPACING_S:.1f} s apart: "
+        f"{', '.join(f'{s:.3f}' for s in seconds)} s each, "
+        f"{t_group:.3f} s in all, as one batch of 4; the group called "
+        f"directly {t_direct:.3f} s; bitwise equal {same} [{smi}]")
+    if not same:
+        raise AssertionError("the group's answers differ from one direct "
+                             "generate of the group")
+    return launches, raw, served
+
+
+def serve_process(work: pathlib.Path, raw: dict, served: dict,
+                  smi: str) -> None:
+    """Phase 8, as a process: ``python -m ladi_vton_tpu_torch.cli.serve``
+    on the card from phase 6's reference-layout files; the raw request's
+    answer must equal the in-process one (the same seed, request 0), and
+    SIGINT must end it with exit code 0."""
+    argv = [sys.executable, "-m", "ladi_vton_tpu_torch.cli.serve",
+            "--dataset", "vitonhd", "--checkpoint_dir", str(work / "ladi"),
+            "--sd2_model_dir", str(work / "sd2"), "--enable_condition",
+            "--clip_vision_dir", str(work / "clip_vision"),
+            "--batch_size", str(SERVE_BATCH), "--seed", str(SERVE_SEED),
+            "--num_inference_steps", "50", "--guidance_scale", "7.5",
+            "--max_delay_ms", "5", "--no_warmup", "--port", "0"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                       if p])
+    torch.cuda.empty_cache()
+    errors = work / "serve.stderr"
+    t0 = time.perf_counter()
+    with open(errors, "w") as err:
+        proc = subprocess.Popen(argv, cwd=REPO, env=env, stderr=err,
+                                stdout=subprocess.PIPE, text=True)
+    lines: list = []
+    reader = threading.Thread(
+        target=lambda: lines.extend(iter(proc.stdout.readline, "")),
+        daemon=True)
+    reader.start()
+    try:
+        url = None
+        while url is None and time.perf_counter() - t0 < \
+                SERVE_START_TIMEOUT_S and proc.poll() is None:
+            url = next((ln.split()[3] for ln in list(lines)
+                        if ln.startswith("serving try-on on ")), None)
+            time.sleep(0.1)
+        if url is None:
+            raise AssertionError(
+                f"cli.serve did not come up (exit {proc.poll()}): "
+                f"{''.join(lines)}{errors.read_text()[-4000:]}")
+        t_up = time.perf_counter() - t0
+        client = TryOnClient(url, timeout_s=SERVE_TIMEOUT_S)
+        if not client.healthz()["condition"]:
+            raise AssertionError("cli.serve mounted no /condition")
+        answer = client_raw(client, raw)
+        same = same_answer(answer, served)
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGINT)
+        code = proc.wait(timeout=SERVE_EXIT_TIMEOUT_S)
+        t_exit = time.perf_counter() - t1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=SERVE_EXIT_TIMEOUT_S)
+    log(f"phase 8: cli.serve up in {t_up:.1f} s (interpreter, weights "
+        f"from the files, no warmup); its raw request of 2 images "
+        f"(/condition {answer['t_cond']:.3f} s, with /tryon "
+        f"{answer['total']:.3f} s, its first request) bitwise equal to "
+        f"the in-process answer: {same}; SIGINT -> exit {code} in "
+        f"{t_exit:.2f} s [{smi}]")
+    if not same:
+        raise AssertionError("cli.serve answers the raw request differently "
+                             "from the in-process server")
+    if code != 0:
+        raise AssertionError(f"cli.serve exited {code} on SIGINT: "
+                             f"{errors.read_text()[-4000:]}")
+
+
+# phase 9: the card (TF32 off) against the CPU, max |card - CPU| over the
+# largest |CPU| value, for each metric tower; the PSNR of the decoder's
+# read of the port's quality-95 JPEGs against the pixels written: 4:2:0
+# chroma costs noise-like images (the random-weight outputs) some 25 dB,
+# while wrong tables, shifted blocks or swapped channels fall well below
+# 20
+METRIC_TOWER_LIMIT = 1e-3
+JPEG_PSNR_LIMIT = 20.0
+
+
+def write_metric_weights(root: pathlib.Path, seed: int = 90) -> pathlib.Path:
+    """Seeded random metric weights from the port's own modules, in the
+    files the metrics read (``inception.pth``: pytorch-fid's names,
+    ``lpips_alex.pth``: the lpips package's).  Convolutions get He
+    initialisation, so the features neither vanish nor blow up through
+    the towers' depth."""
+    torch.manual_seed(seed)
+    inception, lpips = InceptionV3(), LPIPS()
+    for module in (inception, lpips.net):
+        for m in module.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                torch.nn.init.kaiming_normal_(m.weight, nonlinearity="relu")
+    for lin in lpips.lins:
+        lin.model[1].weight.data.normal_().abs_().mul_(0.1)
+    root.mkdir(parents=True, exist_ok=True)
+    torch.save(inception.state_dict(), root / "inception.pth")
+    torch.save(lpips.state_dict(), root / "lpips_alex.pth")
+    return root
+
+
+def rel_max(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def check_metric_towers(weights: pathlib.Path, smi: str) -> None:
+    """Inception (pool3, logits; 4 at 299x299), LPIPS and SSIM (2 at
+    512x384) on the card with TF32 off against the CPU, same inputs."""
+    rng = np.random.default_rng(91)
+    x = rng.uniform(-1, 1, (4, 299, 299, 3)).astype(np.float32)
+    a = rng.uniform(0, 1, (2, 512, 384, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    card, cpu = MetricModels(weights, "cuda"), MetricModels(weights, "cpu")
+    first, warm = {}, {}
+    for name, fn in (
+            ("Inception 4 x 299x299", lambda: card.inception_features(x)),
+            ("LPIPS 2 x 512x384", lambda: card.lpips_distance(a, b)),
+            ("SSIM 2 x 512x384", lambda: card.ssim(a, b))):
+        for times in (first, warm):  # the first call starts cuDNN up
+            t0 = time.perf_counter()
+            fn()  # each returns host numbers: synchronised
+            times[name] = time.perf_counter() - t0
+    pool, logits = card.inception_features(x)
+    pool_cpu, logits_cpu = cpu.inception_features(x)
+    errors = {
+        "inception pool3": rel_max(pool, pool_cpu),
+        "inception logits": rel_max(logits, logits_cpu),
+        "lpips": rel_max(card.lpips_distance(a, b),
+                         cpu.lpips_distance(a, b)),
+        "ssim": rel_max(card.ssim(a, b), cpu.ssim(a, b)),
+    }
+    log(f"phase 9: metric towers on the card (fp32, TF32 off) against the "
+        f"CPU, max relative error (limit {METRIC_TOWER_LIMIT:g}): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errors.items())
+        + "; on the card, first and warm calls: " + ", ".join(
+            f"{k} {first[k] * 1e3:.1f} and {warm[k] * 1e3:.1f} ms"
+            for k in warm) + f"; pool3 std {pool.std():.4f} [{smi}]")
+    worst = max(errors.values())
+    if not worst <= METRIC_TOWER_LIMIT:
+        raise AssertionError(f"a metric tower disagrees with the CPU: "
+                             f"{errors}")
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
+    return float("inf") if mse == 0 else float(
+        10 * np.log10(255.0 ** 2 / mse))
+
+
+def timed(label: str, fn, argv: list, smi: str):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn(argv)
+    torch.cuda.synchronize()
+    log(f"phase 9 {label}: {time.perf_counter() - t0:.3f} s [{smi}]")
+    return result
+
+
+def check_jpeg_reads(jpeg_dir: pathlib.Path, png_dir: pathlib.Path) -> None:
+    """The decoder reads the port's own JPEGs (no sidecar) close to the
+    pixels written: the PNG run wrote the same images losslessly."""
+    values = []
+    for path in sorted(jpeg_dir.rglob("*.jpg")):
+        data = path.read_bytes()
+        pixels = native.jpeg_decode(data)
+        if pixels is None or imageio.sidecar_path(path).exists():
+            raise AssertionError(f"{path.name}: not read by the decoder")
+        written = imageio.open_image(png_dir / path.parent.name
+                                     / path.with_suffix(".png").name).pixels
+        values.append(psnr(pixels, written))
+    log(f"phase 9: the decoder's read of {len(values)} quality-95 JPEGs of "
+        f"the port's writer against the pixels written: PSNR "
+        f"{', '.join(f'{v:.2f}' for v in values)} dB (limit "
+        f"{JPEG_PSNR_LIMIT:g})")
+    if not values or min(values) < JPEG_PSNR_LIMIT:
+        raise AssertionError(f"JPEG PSNR {values}")
+
+
+def check_clip_features(target: pathlib.Path, root: pathlib.Path,
+                        vision) -> int:
+    """Every stored feature equals the zoo-loaded tower called directly on
+    the same batch, rounded to float16 as the main rounds it."""
+    cache = ClothFeatureCache(target, "test")
+    dataset = VitonHDDataset(str(root), phase="test", order="paired",
+                             outputlist=("cloth", "c_name"))
+    n = 0
+    for b in BatchLoader(dataset, 2, num_workers=0, pad_last=True):
+        cloth = to_device(b["cloth"], next(vision.parameters()).device)
+        with torch.no_grad():
+            out = vision(clip_pixels(cloth, BF16)).float().cpu().numpy()
+        for name, feat in zip(b["c_name"], out):
+            if not np.array_equal(cache.get(name),
+                                  feat.astype(np.float16).astype(
+                                      np.float32)):
+                raise AssertionError(f"CLIP feature of {name} differs from "
+                                     f"the tower called directly")
+            n += 1
+    return n
+
+
+def metrics_path(work: pathlib.Path, roots: dict, cond: Conditioner,
+                 wrappers: dict, smi: str) -> dict:
+    """Phase 9: the metric towers against the CPU, then the metric mains
+    over phase 7's trees and outputs on the card: ``generate_fid_stats``,
+    ``val_metrics`` over the PNG and the JPEG run (the JPEGs through the
+    decoder), ``inference --compute_metrics`` (its JSON equal to
+    ``val_metrics``' over its folder) and ``compute_cloth_clip_features``
+    (each feature equal to the tower called directly).  Returns the
+    kernels' launches over the mains."""
+    weights = write_metric_weights(work / "metric_weights")
+    os.environ["LADI_VTON_METRIC_WEIGHTS"] = str(weights)
+    check_metric_towers(weights, smi)
+    out, dc, vh = work / "out", roots["dresscode"], roots["vitonhd"]
+    reset_counts(wrappers)
+    written = timed("generate_fid_stats", stats_main.main, [
+        "--dresscode_dataroot", str(dc), "--vitonhd_dataroot", str(vh),
+        "--weights_dir", str(weights)], smi)
+    if written != ["dresscode_upper_body", "vitonhd_all"]:
+        raise AssertionError(f"generate_fid_stats wrote {written}")
+
+    def val_argv(folder: pathlib.Path) -> list:
+        return ["--gen_folder", str(folder), "--dataset", "dresscode",
+                "--dresscode_dataroot", str(dc), "--test_order", "paired",
+                "--category", "upper_body", "--workers", "2"]
+
+    png_dir = out / "inference_dresscode" / "paired"
+    jpeg_dir = out / "inference_jpeg" / "paired"
+    m_png = timed("val_metrics over the PNG run", val_main.main,
+                  val_argv(png_dir), smi)
+    m_jpeg = timed("val_metrics over the JPEG run (the decoder)",
+                   val_main.main, val_argv(jpeg_dir), smi)
+    log(f"phase 9: metrics of the PNG run {m_png}; of the JPEG run {m_jpeg}")
+    gt = _gt_image_paths(str(dc), "dresscode", "upper_body", "paired")
+    paths = sorted(map(str, (png_dir / "upper_body").glob("*.png")))
+    t0 = time.perf_counter()
+    _load_batch(paths + [gt[n] for n in sorted(gt)], (512, 384))
+    log(f"phase 9: reading and resizing the run's {len(paths)} images and "
+        f"their {len(gt)} ground truths (1024x768) on the host, one "
+        f"thread: {time.perf_counter() - t0:.3f} s")
+    mu, sigma, _ = StatsCache(dc.parent / "fid_stats").load(
+        "dresscode_upper_body")
+    t0 = time.perf_counter()
+    frechet_distance(mu, sigma, mu, sigma)
+    log(f"phase 9: one frechet_distance of 2048-d stats on the host (scipy "
+        f"sqrtm, the eps branch when the first root is not finite): "
+        f"{time.perf_counter() - t0:.3f} s [{smi}]")
+    check_jpeg_reads(jpeg_dir, png_dir)
+
+    dresscode_run = main_runs(work, roots, out)[0]
+    argv = [a.replace("inference_dresscode", "inference_metrics")
+            for a in dresscode_run[2]] + ["--compute_metrics"]
+    timed("inference --compute_metrics (DDIM-50, 2 images)",
+          inference_cli.main, argv, smi)
+    metrics_dir = out / "inference_metrics" / "paired"
+    written = json.loads((metrics_dir / "metrics_paired_upper_body.json")
+                         .read_text())
+    again = timed("val_metrics over its folder", val_main.main,
+                  val_argv(metrics_dir), smi)
+    same = json.dumps(written, sort_keys=True) == json.dumps(
+        again, sort_keys=True)
+    log(f"phase 9: inference --compute_metrics wrote {written}; "
+        f"val_metrics over the same folder equal: {same}; equal to the PNG "
+        f"run's (the same images): {m_png == written}")
+    if not same:
+        raise AssertionError("inference --compute_metrics and val_metrics "
+                             "disagree over one folder")
+
+    ln_before = layer_norm.launches
+    target = timed("compute_cloth_clip_features (VITON-HD test split)",
+                   clip_main.main, [
+                       "--dataset", "vitonhd", "--vitonhd_dataroot",
+                       str(vh), "--phase", "test", "--batch_size", "2",
+                       "--num_workers", "2", "--clip_vision_dir",
+                       str(work / "clip_vision"), "--cache_root",
+                       str(work / "clip_cache")], smi)
+    ln_clip = layer_norm.launches - ln_before
+    launches = main_counts(wrappers)
+    n = check_clip_features(target, vh, cond.vision)
+    log(f"phase 9: {n} CLIP cloth features equal to the zoo-loaded tower "
+        f"called directly; K5 launches in the main {ln_clip}")
+    if ln_clip == 0:
+        raise AssertionError("compute_cloth_clip_features launched no K5")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in phase 9: {missing}")
+    return launches
 
 
 def sweep_geglu_tilings() -> None:
@@ -1821,22 +2380,22 @@ def main() -> None:
     log("phase 2: every kernel agrees with its plain version")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        launches, zoo_launches, mains_launches = run_phases(
-            pathlib.Path(work), gen, smi)
+        counts = run_phases(pathlib.Path(work), gen, smi)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
-         "replaces": replaces, "launches": launches[name],
-         "zoo_launches": zoo_launches[name],
-         "mains_launches": mains_launches[name], **results[name]}
+         "replaces": replaces,
+         **{key: by_kernel[name] for key, by_kernel in counts.items()},
+         **results[name]}
         for name, _, _, source, replaces in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def run_phases(work: pathlib.Path, gen: Gen, smi: str) -> tuple:
-    """Phases 3 to 7, with the files they write under ``work``; returns
-    the kernels' launches on phase 5's, phase 6's and phase 7's paths."""
+def run_phases(work: pathlib.Path, gen: Gen, smi: str) -> dict:
+    """Phases 3 to 9, with the files they write under ``work``; returns
+    the kernels' launches on phase 5's (``launches``), 6's, 7's, 8's and
+    9's paths, by phase."""
     t0 = time.perf_counter()
     tokenizer = synthetic_tokenizer(work / "sd2" / "tokenizer")
     check_blocks(gen)
@@ -1907,9 +2466,23 @@ def run_phases(work: pathlib.Path, gen: Gen, smi: str) -> tuple:
                              f"{missing}")
     log(f"phase 6: the zoo path ({time.perf_counter() - t0:.1f} s)")
 
-    mains_launches = mains_path(work, zpipe, zcond, wrappers, smi)
+    mains_launches, roots = mains_path(work, zpipe, zcond, wrappers, smi)
     log(f"launches during phase 7's five CLI runs: {mains_launches}")
-    return launches, zoo_launches, mains_launches
+
+    t0 = time.perf_counter()
+    serve_launches, raw, served = serving_path(work, zpipe, zcond, wrappers,
+                                               smi)
+    serve_process(work, raw, served, smi)
+    log(f"phase 8: serving ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    metrics_launches = metrics_path(work, roots, zcond, wrappers, smi)
+    log(f"launches during phase 9's metric mains: {metrics_launches}")
+    log(f"phase 9: the metrics ({time.perf_counter() - t0:.1f} s)")
+    return {"launches": launches, "zoo_launches": zoo_launches,
+            "mains_launches": mains_launches,
+            "serve_launches": serve_launches,
+            "metrics_launches": metrics_launches}
 
 
 if __name__ == "__main__":

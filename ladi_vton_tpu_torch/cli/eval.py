@@ -28,6 +28,7 @@ from ladi_vton_tpu_torch.cli.inference import (
     SCHEDULERS,
     check_args,
     make_loader,
+    score_saved,
     tokenizer_dir,
 )
 from ladi_vton_tpu_torch.core.dtypes import default_policy
@@ -92,7 +93,8 @@ def parse_args(argv=None):
     p.add_argument("--guidance_scale", default=7.5, type=float)
     p.add_argument("--use_clip_cloth_features", action="store_true")
     p.add_argument("--compute_metrics", default=False, action="store_true",
-                   help="Not ported yet: raises.")
+                   help="Score the saved images and write metrics_<order>_"
+                        "<category>.json beside them.")
     p.add_argument("--sd2_model_dir", type=str, required=False)
     p.add_argument("--clip_vision_dir", type=str, required=False)
     p.add_argument("--tokenizer_dir", type=str, default=None)
@@ -195,13 +197,16 @@ def main(argv=None) -> dict:
                                 tuple(outputlist), size=size)
 
     save_dir = os.path.join(args.output_dir, args.save_name, args.test_order)
-    return generate_images_from_tryon_pipe(
+    stats = generate_images_from_tryon_pipe(
         pipe, text_model, tokenizer, make_loader(dataset, args), save_dir,
         inversion_adapter=adapter, vision=vision,
         text_usage=args.text_usage, num_vstar=args.num_vstar,
         seed=args.seed, num_inference_steps=args.num_inference_steps,
         guidance_scale=args.guidance_scale, use_png=args.use_png,
         cloth_input_type=args.cloth_input_type)
+    if args.compute_metrics:
+        score_saved(args, save_dir, device)
+    return stats
 
 
 if __name__ == "__main__":

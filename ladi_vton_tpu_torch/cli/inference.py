@@ -21,9 +21,12 @@ there is no card raises).  ``--allow_tf32`` sets cuBLAS's TF32 switch, as
 the reference does; cuDNN's stays on, PyTorch's default.  The flash
 attention kernel is the default on the card, so
 ``--enable_xformers_memory_efficient_attention`` changes nothing.
-``--compute_metrics`` (metrics are not ported yet) and
-``--tensor_parallel`` above 1 (distribution is not ported yet) raise
-before any work.  A batch's noise comes from a generator seeded with
+``--tensor_parallel`` above 1 (distribution is not ported yet) raises
+before any work.  ``--compute_metrics`` scores the saved images once the
+saver has flushed (``metrics.compute.compute_metrics`` on ``--device``,
+weights from ``$LADI_VTON_METRIC_WEIGHTS``) and writes
+``metrics_<order>_<category>.json`` into the save directory, as the JAX
+main does.  A batch's noise comes from a generator seeded with
 ``request_seed(--seed, batch index)``, not the JAX ``fold_in`` stream.
 """
 
@@ -36,7 +39,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ladi_vton_tpu_torch.core.dtypes import default_policy
+from ladi_vton_tpu_torch.core.dtypes import default_policy, resolve_device
 from ladi_vton_tpu_torch.core.rng import batch_generator, set_seed
 from ladi_vton_tpu_torch.data import (
     BatchLoader,
@@ -91,7 +94,9 @@ def parse_args(argv=None):
     parser.add_argument("--guidance_scale", default=7.5, type=float)
     parser.add_argument("--compute_metrics", default=False,
                         action="store_true",
-                        help="Not ported yet: raises.")
+                        help="Score the saved images (FID, KID, IS, SSIM, "
+                             "LPIPS) and write metrics_<order>_<category>"
+                             ".json beside them.")
     parser.add_argument("--checkpoint_dir", type=str, default=None,
                         help="Directory with {unet,emasc,inversion_adapter,"
                              "warping}_<dataset>.pth")
@@ -122,18 +127,11 @@ def check_args(args) -> torch.device:
         raise ValueError("VitonHD dataroot must be provided")
     if args.dataset == "dresscode" and args.dresscode_dataroot is None:
         raise ValueError("DressCode dataroot must be provided")
-    if args.compute_metrics:
-        raise NotImplementedError(
-            "--compute_metrics: the metrics are not ported to the PyTorch "
-            "package yet (ROADMAP.md P10); run without it")
     if args.tensor_parallel != 1:
         raise NotImplementedError(
             f"--tensor_parallel {args.tensor_parallel}: tensor parallelism "
             f"is not ported to the PyTorch package yet (ROADMAP.md P12)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: CUDA is not available; "
-                           f"pass --device cpu to run on the CPU")
+    device = resolve_device(args.device)
     if args.allow_tf32:
         torch.backends.cuda.matmul.allow_tf32 = True
     return device
@@ -141,6 +139,19 @@ def check_args(args) -> torch.device:
 
 def tokenizer_dir(args) -> Path:
     return Path(args.tokenizer_dir or Path(args.sd2_model_dir) / "tokenizer")
+
+
+def score_saved(args, save_dir: str, device: torch.device) -> None:
+    """``--compute_metrics``: the JAX mains' metrics JSON of the saved
+    images (cli/inference.py:237-248 there)."""
+    from ladi_vton_tpu_torch.cli.val_metrics import write_metrics
+    from ladi_vton_tpu_torch.metrics.compute import compute_metrics
+
+    metrics = compute_metrics(save_dir, args.test_order, args.dataset,
+                              args.category, ["all"],
+                              args.dresscode_dataroot,
+                              args.vitonhd_dataroot, device=device)
+    write_metrics(metrics, save_dir, args.test_order, args.category)
 
 
 def make_loader(dataset, args) -> BatchLoader:
@@ -209,8 +220,11 @@ def main(argv=None) -> dict:
             guidance_scale=args.guidance_scale)
 
     save_dir = os.path.join(args.output_dir, args.test_order)
-    return run_batches(make_loader(dataset, args), step_fn, save_dir,
-                       use_png=args.use_png, what="inference")
+    stats = run_batches(make_loader(dataset, args), step_fn, save_dir,
+                        use_png=args.use_png, what="inference")
+    if args.compute_metrics:
+        score_saved(args, save_dir, device)
+    return stats
 
 
 if __name__ == "__main__":

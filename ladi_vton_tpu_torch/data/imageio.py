@@ -8,11 +8,16 @@
     ``data/native.py``).  A P image keeps its palette indices as its
     pixels, as ``np.asarray(PIL.Image.open(path))`` gives them, and its
     palette beside them.  Anything else raises.
-  - a JPEG is read from its decoded sidecar ``<file>.png`` (for example
+  - a baseline JPEG (sequential Huffman, 8 bits, 1 or 3 components,
+    luma sampled 1x1, 2x1 or 2x2) is decoded here by the host C++
+    (``csrc/host/jpeg_decode.cpp``), to the pixels PIL gives: libjpeg's
+    integer IDCT, fancy upsampling and fixed-point YCbCr -> RGB.
+  - any other JPEG (progressive, arithmetic-coded, 12-bit, Adobe/CMYK) is
+    read from its decoded sidecar ``<file>.png`` (for example
     ``000000_0.jpg.png``), which holds the pixels PIL decodes from it,
     written losslessly by ``tools/decode_images.py`` where PIL is
-    installed.  A JPEG without one raises, naming the tool: the port has
-    no JPEG decoder of its own, and no silent fallback.
+    installed.  Such a JPEG without one raises, naming the tool: no
+    silent fallback.
 * ``write_png`` writes L, LA, P, RGB or RGBA, choosing each row's filter
   by the smallest sum of absolute signed bytes (libpng's heuristic).
 * ``write_jpeg`` writes a baseline JPEG of an RGB image as PIL saves one
@@ -142,11 +147,15 @@ def open_image(path) -> Image:
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data)
     if data.startswith(JPEG_SOI):
+        pixels = native.jpeg_decode(data)
+        if pixels is not None:
+            return Image(pixels, "L" if pixels.ndim == 2 else "RGB")
         side = sidecar_path(path)
         if not side.exists():
             raise FileNotFoundError(
-                f"{path} is a JPEG and has no decoded sidecar {side.name}; "
-                f"the port reads JPEG pixels from sidecars: run "
+                f"{path} is a JPEG the port's decoder does not read "
+                f"(progressive, arithmetic-coded, 12-bit or Adobe/CMYK) and "
+                f"has no decoded sidecar {side.name}: run "
                 f"`python {DECODE_TOOL} <dataset root>` once where PIL is "
                 f"installed")
         return decode_png(side.read_bytes())

@@ -1,9 +1,10 @@
-"""ctypes binding of the data layer's host C++ (``csrc/host/preprocess.cpp``).
+"""ctypes binding of the data layer's host C++ (``csrc/host/*.cpp``:
+``preprocess.cpp`` and the baseline JPEG decoder ``jpeg_decode.cpp``).
 
 The library is compiled at first use with the host C++ compiler (``$CXX``,
 else ``g++`` or ``c++``) into ``build/host/<hash>/`` at the repository
 root (git-ignored), keyed, as ``ops._build`` keys the kernels, by a hash
-of the source, the flags and the compiler, so an edited source rebuilds
+of the sources, the flags and the compiler, so an edited source rebuilds
 and an unchanged one loads at once.  A failed build raises: there is no
 numpy fallback on the path (``data/raster.py`` holds the numpy versions
 the tests compare with).
@@ -23,8 +24,8 @@ from typing import Optional
 
 import numpy as np
 
-SOURCE = (Path(__file__).resolve().parents[1] / "csrc" / "host"
-          / "preprocess.cpp")
+HOST_CSRC = Path(__file__).resolve().parents[1] / "csrc" / "host"
+SOURCES = (HOST_CSRC / "preprocess.cpp", HOST_CSRC / "jpeg_decode.cpp")
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "host"
 CXX_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 LIB_NAME = "libladi_host.so"
@@ -36,14 +37,16 @@ def _compiler() -> str:
             return shutil.which(name)
     raise RuntimeError("no host C++ compiler (g++ or c++, or $CXX) found: "
                        "it is needed to build "
-                       "ladi_vton_tpu_torch/csrc/host/preprocess.cpp")
+                       "ladi_vton_tpu_torch/csrc/host/*.cpp")
 
 
 def build() -> Path:
     """Compile the library unless the hashed build exists; its path."""
     cxx = _compiler()
     h = hashlib.sha256(" ".join((cxx,) + CXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
+    for src in SOURCES:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     lib = out_dir / LIB_NAME
     if lib.exists():
@@ -53,11 +56,12 @@ def build() -> Path:
     # worker process) never sees a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, str(SOURCE)],
+    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp,
+                           *(str(s) for s in SOURCES)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"building {SOURCE.name} with {cxx} failed "
+        raise RuntimeError(f"building {HOST_CSRC} with {cxx} failed "
                            f"({proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, lib)
     return lib
@@ -80,6 +84,11 @@ def library() -> ctypes.CDLL:
     lib.jpeg_encode_blocks.argtypes = [i16p, c_long, u8p, u8p, u16p, u8p,
                                        u16p, u8p, u8p, c_long]
     lib.jpeg_encode_blocks.restype = c_long
+    lib.jpeg_decode_header.argtypes = [ctypes.c_char_p, c_long,
+                                       ctypes.POINTER(c_int)]
+    lib.jpeg_decode_header.restype = c_int
+    lib.jpeg_decode.argtypes = [ctypes.c_char_p, c_long, u8p, c_long]
+    lib.jpeg_decode.restype = c_int
     for name in ("keypoint_heatmaps", "draw_polyline", "box_dilate"):
         getattr(lib, name).restype = None
     return lib
@@ -145,3 +154,25 @@ def jpeg_encode_blocks(blocks: np.ndarray, comp: np.ndarray,
     if n < 0:
         raise RuntimeError("JPEG: the entropy-coded segment overflowed")
     return out[:n].tobytes()
+
+
+JPEG_UNSUPPORTED, JPEG_MALFORMED = 1, 2
+
+
+def jpeg_decode(data: bytes) -> Optional[np.ndarray]:
+    """PIL's pixels of a baseline JPEG: (H, W) uint8 for one component,
+    (H, W, 3) RGB for three; None for a JPEG the decoder does not read
+    (``csrc/host/jpeg_decode.cpp`` lists what it reads).  A damaged file
+    raises."""
+    lib = library()
+    dims = (ctypes.c_int * 3)()
+    err = lib.jpeg_decode_header(data, len(data), dims)
+    if err == 0:
+        h, w, c = dims
+        out = np.empty((h, w, c) if c > 1 else (h, w), np.uint8)
+        err = lib.jpeg_decode(data, len(data), out, out.size)
+        if err == 0:
+            return out
+    if err == JPEG_UNSUPPORTED:
+        return None
+    raise ValueError("JPEG: damaged or truncated file")

@@ -22,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 import types
 from pathlib import Path
@@ -133,9 +134,23 @@ def build() -> tuple[Path, float]:
     return out_dir, seconds
 
 
-@functools.lru_cache(maxsize=None)
+_library = None
+_library_lock = threading.Lock()
+
+
 def library() -> types.SimpleNamespace:
-    """The entry points of all kernel libraries (built on first call)."""
+    """The entry points of all kernel libraries (built on first call).
+    Threads that reach it together (a server's first requests) wait for
+    one build and one load; later calls take no lock."""
+    global _library
+    if _library is None:
+        with _library_lock:
+            if _library is None:
+                _library = _load_library()
+    return _library
+
+
+def _load_library() -> types.SimpleNamespace:
     out_dir, _ = build()
     found = {}
     for src in _sources():

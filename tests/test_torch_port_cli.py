@@ -14,11 +14,12 @@ directly on the same dataset batch with a generator seeded with
 ``request_seed(seed, batch index)``.  The JAX pipeline's parity is held
 by ``test_torch_port_pipeline.py`` and ``test_torch_port_condition.py``.
 
-Also: the refusals (``--compute_metrics``, ``--tensor_parallel 2``,
-``--device cuda`` without a card), the ``pad_last`` de-duplication of the
-saver, the JPEG default output, and ``extract_save_vae_images`` against
-the JAX driver with the same posterior noise fed to both (uint8 images
-within one level: fp32 on both sides, summed in other orders).
+Also: the refusals (``--tensor_parallel 2``, with or without
+``--compute_metrics``, and ``--device cuda`` without a card), the
+``pad_last`` de-duplication of the saver, the JPEG default output, and
+``extract_save_vae_images`` against the JAX driver with the same
+posterior noise fed to both (uint8 images within one level: fp32 on both
+sides, summed in other orders).
 """
 
 import dataclasses
@@ -355,7 +356,7 @@ def test_eval_main_equals_the_direct_path(tree, data, case, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--compute_metrics"], "P10"),
+    (["--compute_metrics", "--tensor_parallel", "2"], "P12"),
     (["--tensor_parallel", "2"], "P12")])
 def test_refusals_before_any_work(data, flags, match, tmp_path):
     base = _common(data, "vitonhd", tmp_path / "out")

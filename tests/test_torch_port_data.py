@@ -135,7 +135,8 @@ def test_a_jpeg_without_its_sidecar_raises(trees, tmp_path):
 
     src = trees["vitonhd"] / "test" / "image" / "000000_00.jpg"
     lone = tmp_path / "lone.jpg"
-    lone.write_bytes(src.read_bytes())
+    # a baseline JPEG decodes without its sidecar; a progressive one not
+    Image.open(src).save(lone, "JPEG", quality=95, progressive=True)
     with pytest.raises(FileNotFoundError, match="tools/decode_images.py"):
         imageio.open_image(lone)
 
@@ -209,7 +210,7 @@ def test_host_library_matches_raster_and_cv2():
 def test_a_failed_host_build_raises(monkeypatch, tmp_path):
     broken = tmp_path / "broken.cpp"
     broken.write_text("this is not C++\n")
-    monkeypatch.setattr(native, "SOURCE", broken)
+    monkeypatch.setattr(native, "SOURCES", (broken,))
     monkeypatch.setattr(native, "BUILD_ROOT", tmp_path / "build")
     with pytest.raises(RuntimeError, match="failed"):
         native.build()

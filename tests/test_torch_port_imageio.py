@@ -13,7 +13,8 @@
   PSNR of its decode against the source is at most 0.1 dB below the PSNR
   of PIL's own file (the test prints both and the largest pixel
   difference between the two decodes).
-* A JPEG without its decoded sidecar raises, naming the tool.
+* A JPEG the port's decoder does not read (progressive) is read from its
+  decoded sidecar only, and raises without one, naming the tool.
 * ``dense_uv``'s resize (``F.interpolate``) against ``cv2.resize``
   (INTER_LINEAR) on float32 data in [0, 1], within 5e-5: the two
   interpolate between the same source pixels, but cv2 rounds its source
@@ -194,7 +195,7 @@ def test_a_jpeg_is_read_from_its_sidecar_only(tmp_path):
     rgb = np.random.default_rng(5).integers(0, 256, (12, 10, 3),
                                             dtype=np.uint8)
     path = tmp_path / "x.jpg"
-    Image.fromarray(rgb).save(path, "JPEG", quality=95)
+    Image.fromarray(rgb).save(path, "JPEG", quality=95, progressive=True)
     with pytest.raises(FileNotFoundError, match="tools/decode_images.py"):
         imageio.open_image(path)
     Image.open(path).save(imageio.sidecar_path(path), "PNG")

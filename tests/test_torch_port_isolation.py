@@ -20,12 +20,17 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "ladi_vton_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "PIL", "cv2", "regex", "safetensors",
            "tqdm", "ladi_vton_tpu")
-# the data layer and the CLIs, which stand in for PIL, cv2 and tqdm
+# the data layer and the CLIs, which stand in for PIL, cv2 and tqdm; the
+# serving front end, the client and the metrics
 DATA_AND_CLI = ("data", "data.agnostic", "data.dresscode", "data.features",
                 "data.imageio", "data.labels", "data.loader", "data.native",
                 "data.raster", "data.resample", "data.synthetic",
                 "data.vitonhd", "cli", "cli.eval", "cli.inference",
-                "pipelines.drivers", "core.dtypes", "core.rng")
+                "pipelines.drivers", "core.dtypes", "core.rng", "client",
+                "cli.serve", "cli.val_metrics", "cli.generate_fid_stats",
+                "cli.compute_cloth_clip_features", "pipelines.serving",
+                "metrics", "metrics.compute", "metrics.fid",
+                "metrics.inception", "metrics.lpips", "metrics.ssim")
 
 
 def _run(code: str, cwd: pathlib.Path, *args: str):

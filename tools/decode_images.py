@@ -2,14 +2,17 @@
 
     python tools/decode_images.py <dataset root> [<more roots>] [--force]
 
-The port (``ladi_vton_tpu_torch``) reads images without PIL, and has no
-JPEG decoder of its own.  This tool walks each root, and the warped-cloth
-and CLIP-feature cache the datasets read beside it (``<root>/../cache``,
-their default ``cache_root``), and writes beside every file with JPEG
-content a lossless PNG of the pixels exactly as ``PIL.Image.open``
-decodes them: ``000000_0.jpg`` gets ``000000_0.jpg.png``.  The port's
-``data/imageio.py`` reads those sidecars in place of the JPEGs, so its
-datasets give the JAX package's pixels bit for bit.
+The port (``ladi_vton_tpu_torch``) reads images without PIL.  Its own
+decoder reads baseline JPEGs (the datasets' and the mains' own files)
+bit for bit as PIL does; a progressive, arithmetic-coded, 12-bit or
+Adobe/CMYK JPEG needs a sidecar.  This tool walks each root, and the
+warped-cloth and CLIP-feature cache the datasets read beside it
+(``<root>/../cache``, their default ``cache_root``), and writes beside
+every file with JPEG content a lossless PNG of the pixels exactly as
+``PIL.Image.open`` decodes them: ``000000_0.jpg`` gets
+``000000_0.jpg.png``.  The port's ``data/imageio.py`` reads a sidecar
+in place of a JPEG its decoder does not read, so its datasets give the
+JAX package's pixels bit for bit.
 
 Run it once where PIL is installed, then copy the tree (sidecars
 included) to the machine that runs the port; it decodes in one process
