@@ -5,6 +5,7 @@
     python3 chip_smoke.py --sweep-geglu       # K4's device time per tiling
     python3 chip_smoke.py --sweep-group-norm  # K2's device time per plan
     python3 chip_smoke.py --sweep-layer-norm  # K5's device time per plan
+    python3 chip_smoke.py --training-only     # phase 2's gradients, phase 10
 
 Phases, each printing its numbers before the last line:
 
@@ -26,7 +27,15 @@ Phases, each printing its numbers before the last line:
    and a width off the path; each of their rows checks that two calls are
    bitwise equal and counts the kernels one call runs (torch.profiler).
    K5 is also timed without its programmatic launch, and as the path
-   runs it, behind a residual add, against the add then ``F.layer_norm``;
+   runs it, behind a residual add, against the add then ``F.layer_norm``.
+   Then each kernel's gradient at the trainers' shapes (batch 1 at
+   512x384): the wrapper with inputs that need a gradient runs its
+   autograd Function (the kernel's forward, the plain version's recompute
+   as the backward), every input must get a finite gradient, each within
+   a stated relative L2 of fp32 autograd of the plain version on the same
+   bf16 inputs, and the forward plus backward is timed against the
+   library's (SDPA, ``F.group_norm`` then SiLU, ``F.linear``-gelu-
+   ``F.linear``, ``F.layer_norm``);
 3. integration at full width: one level-0 ``Transformer2D`` (C=320,
    64x48, batch 4) and one VAE ``MidBlock`` (512 at 64x48) through the
    kernels on the card and through the plain versions on the CPU, same
@@ -105,7 +114,28 @@ Phases, each printing its numbers before the last line:
    ``val_metrics``' over its folder) and
    ``cli.compute_cloth_clip_features`` over the VITON-HD test split (each
    feature equal to the zoo-loaded tower called directly, K5 launched),
-   each main's seconds logged.
+   each main's seconds logged;
+10. training: the VTO loss and its UNet gradient at full SD-2 width on one
+   128x128 image, on the card (bf16 autocast, fp32 parameters, the kernels'
+   Functions) against the CPU (fp32), same weights and draws (loss within
+   a stated relative limit, each part of the UNet's gradient to a stated
+   cosine similarity); the VTO step alone at 512x384, batch 1, timed with
+   and without gradient checkpointing (seconds, peak memory, launches a
+   step); then the four trainers at 512x384 from 1024x768
+   synthetic train splits of both datasets (``data/synthetic.py``) and
+   phase 6's files (the stock UNet written under ``sd2/unet``, a seeded
+   torchvision-layout VGG19): ``train_vto`` two steps, resumed for a
+   third, resumed again for two more with ``--gradient_checkpointing`` and
+   ``--async_checkpointing``; ``train_emasc`` (DressCode, every
+   category), ``train_inversion_adapter`` and ``train_tps`` (one epoch of
+   each phase, then the extraction).  Every update must see a finite
+   gradient on every trained parameter and its first move them, the
+   losses be finite, each kernel the step runs be launched, the GroupNorm
+   and LayerNorm census of ``train_vto`` and ``train_emasc`` be covered by
+   phase 2; the checkpoints are kept two and resumed, the ``.pth`` exports
+   load back through the zoo, and ``cli.eval`` reads the warped cloths
+   ``train_tps`` extracted with the trained exports.  Each run logs its
+   step seconds, peak memory and launches.
 
 Phases 2 and 3 compare with TF32 off for matmuls and cuDNN; phases 4
 and 5 serve with PyTorch's defaults (cuDNN TF32 allowed, matmul TF32
@@ -116,8 +146,10 @@ a ~20 GiB workspace (``tools/profile_raw_request.py``).
 The line before the last is ``{"kernels": [...]}``, with the launches
 of phase 5 (phase 6's as ``zoo_launches``, phase 7's five CLI runs' as
 ``mains_launches``, phase 8's served requests as ``serve_launches``,
-phase 9's metric mains as ``metrics_launches``), the first (hottest)
-shape's times and, under ``shapes``, every shape's; the last is
+phase 9's metric mains as ``metrics_launches``, phase 10's training
+runs as ``train_launches``), the first (hottest) shape's times and, under
+``shapes``, every shape's, and under ``grad`` the gradient rows; the last
+is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without that line; it also refuses to run without
 CUDA.
@@ -126,6 +158,7 @@ CUDA.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import io
@@ -152,6 +185,12 @@ from ladi_vton_tpu_torch.cli import compute_cloth_clip_features as clip_main
 from ladi_vton_tpu_torch.cli import eval as eval_cli
 from ladi_vton_tpu_torch.cli import generate_fid_stats as stats_main
 from ladi_vton_tpu_torch.cli import inference as inference_cli
+from ladi_vton_tpu_torch.cli import train_emasc as train_emasc_cli
+from ladi_vton_tpu_torch.cli import (
+    train_inversion_adapter as train_adapter_cli,
+)
+from ladi_vton_tpu_torch.cli import train_tps as train_tps_cli
+from ladi_vton_tpu_torch.cli import train_vto as train_vto_cli
 from ladi_vton_tpu_torch.cli import val_metrics as val_main
 from ladi_vton_tpu_torch.client import TryOnClient
 from ladi_vton_tpu_torch.core.rng import batch_generator
@@ -190,6 +229,7 @@ from ladi_vton_tpu_torch.models.unet_condition import (
     sd2_unet_config,
 )
 from ladi_vton_tpu_torch.models.vae import AutoencoderKL, MidBlock, VAEConfig
+from ladi_vton_tpu_torch.models.vgg import VGG19Features
 from ladi_vton_tpu_torch.ops import _build
 from ladi_vton_tpu_torch.ops import layer_norm as ln
 from ladi_vton_tpu_torch.ops.attention import attention_ref
@@ -234,6 +274,15 @@ from ladi_vton_tpu_torch.pipelines.serving import (
     make_http_server,
 )
 from ladi_vton_tpu_torch.pipelines.tryon import TryOnPipeline
+from ladi_vton_tpu_torch.train import steps as steps_mod
+from ladi_vton_tpu_torch.train.steps import (
+    VTOStepConfig,
+    make_optimizer,
+    make_vto_loss,
+    make_vto_train_step,
+    precision,
+    vto_draws,
+)
 from ladi_vton_tpu_torch.utils.tokenizer import (
     CLIPTokenizer,
     _bytes_to_unicode,
@@ -444,7 +493,13 @@ GN_SHAPES = [(4, 3072, 320, True, 1e-5, BF16),
              (2, 49152, 512, True, 1e-6, BF16),
              (4, 196608, 128, True, 1e-6, BF16),
              (2, 196608, 256, True, 1e-6, BF16),
-             (2, 12288, 128, True, 1e-6, BF16)]
+             (2, 12288, 128, True, 1e-6, BF16),
+             # the trainers' batches of 1 and 2 (phase 10): the concats of
+             # 960 and 1920 channels in clusters of 8 at V = 15, the VAE
+             # encoder's 128-channel blocks of one image in clusters of 8
+             # at V = 1
+             (1, 3072, 960, True, 1e-5, BF16),
+             (1, 49152, 128, True, 1e-6, BF16)]
 
 
 def device_kernels(fn) -> list:
@@ -736,6 +791,118 @@ def layer_norm_pairs(gen: Gen) -> list:
             f"{t['add_ms']:.4f}")
         pairs.append(t)
     return pairs
+
+
+# phase 2's gradient rows, at the trainers' shapes (batch 1 at 512x384):
+# each wrapper with inputs that need a gradient takes its autograd Function
+# (the kernel's forward, the plain version's recompute as the backward);
+# its gradients on bf16 inputs against fp32 autograd of the plain version
+# on the same values: relative L2 of each input's gradient, limit below
+# (bf16 outputs and gradients, whose half ulp is 2e-3 relative, summed
+# over thousands of rows for the weights)
+GRAD_LIMIT = 3e-2
+
+
+def grad_row(gen: Gen, what: str, function, plain, library,
+             inputs: list, lib_inputs: list = None) -> dict:
+    """One gradient row: errors, every input's gradient finite, and the
+    CUDA-event ms of the Function's forward plus backward against the
+    library's (on its own layout of the same inputs)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = function(*leaves)
+    g = gen.normal(*out.shape)
+    out.backward(g)
+    refs = [t.detach().float().requires_grad_(True) for t in inputs]
+    plain(*refs).backward(g.float())
+    torch.cuda.synchronize()
+    errs = []
+    for t, r in zip(leaves, refs):
+        if t.grad is None or not torch.isfinite(t.grad).all():
+            raise AssertionError(f"{what}: an input got no finite gradient")
+        errs.append(rel_l2(t.grad.float(), r.grad))
+    lib_leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (lib_inputs or inputs)]
+
+    def fwd_bwd(fn, args):
+        # the library's output has its own layout: the cotangent's values,
+        # reshaped to it, time the same work
+        def run():
+            for t in args:
+                t.grad = None
+            y = fn(*args)
+            y.backward(g.reshape(y.shape))
+        return run
+
+    return {"shape": what, "grad_rel_l2": max(errs),
+            "fwd_bwd_ms": cuda_ms(fwd_bwd(function, leaves), 10),
+            "library_fwd_bwd_ms": cuda_ms(fwd_bwd(library, lib_leaves), 10)}
+
+
+def check_gradients(gen: Gen) -> dict:
+    """Phase 2's gradient rows of every kernel, by kernel name."""
+    rows = {"flash_attention": [], "group_norm": [], "geglu": [],
+            "layer_norm": []}
+    # (B, Sq, Sk, H, D): the UNet's level-0 and level-1 self-attention,
+    # its cross-attention, the VAE mid block (EMASC trains through it)
+    for B, Sq, Sk, H, D in ((1, 3072, 3072, 5, 64), (1, 768, 768, 10, 64),
+                            (1, 3072, 77, 5, 64), (1, 3072, 3072, 1, 512)):
+        q, k, v = (gen.normal(B, S, H, D) for S in (Sq, Sk, Sk))
+        rows["flash_attention"].append(grad_row(
+            gen, f"B={B} Sq={Sq} Sk={Sk} H={H} D={D}", flash_attention,
+            attention_ref,
+            lambda q, k, v: F.scaled_dot_product_attention(q, k, v),
+            [q, k, v], [t.transpose(1, 2) for t in (q, k, v)]))
+    # (B, N, C, eps): the level-0 resnet, a 960-channel concat, the VAE
+    # decoder's 512x384 block (split form)
+    for B, N, C, eps in ((1, 3072, 320, 1e-5), (1, 3072, 960, 1e-5),
+                         (1, 196608, 128, 1e-6)):
+        x = gen.normal(B, N, C)
+        w = gen.normal(C, scale=0.1) + 1.0
+        b = gen.normal(C, scale=0.1)
+
+        def library(xt, w, b, eps=eps):
+            return F.silu(F.group_norm(xt, 32, w, b, eps))
+
+        rows["group_norm"].append(grad_row(
+            gen, f"B={B} N={N} C={C} act=silu",
+            lambda x, w, b, eps=eps: group_norm(x, w, b, eps=eps,
+                                                act="silu"),
+            lambda x, w, b, eps=eps: group_norm_ref(x, w, b, eps=eps,
+                                                    act="silu"),
+            library, [x, w, b], [x.transpose(1, 2).contiguous(), w, b]))
+    for M, C in ((3072, 320), (768, 640)):
+        inner = 4 * C
+        args = [gen.normal(M, C), gen.normal(2 * inner, C, scale=C ** -0.5),
+                gen.normal(2 * inner, scale=0.1),
+                gen.normal(C, inner, scale=inner ** -0.5),
+                gen.normal(C, scale=0.1)]
+
+        def library(x, w1, b1, w2, b2):
+            h, gate = F.linear(x, w1, b1).chunk(2, dim=-1)
+            return F.linear(h * F.gelu(gate), w2, b2)
+
+        rows["geglu"].append(grad_row(gen, f"rows={M} C={C} I={inner}",
+                                      geglu, geglu_ref, library, args))
+    for M, C in ((3072, 320), (77, 1024)):
+        args = [gen.normal(M, C, scale=2.0) + 0.5,
+                gen.normal(C, scale=0.1) + 1.0, gen.normal(C, scale=0.1)]
+        rows["layer_norm"].append(grad_row(
+            gen, f"rows={M} C={C}", layer_norm, layer_norm_ref,
+            lambda x, w, b, C=C: F.layer_norm(x, (C,), w, b, 1e-5), args))
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"{name} gradient {r['shape']} (kernel forward, recompute "
+                f"backward): grad_rel_l2 {r['grad_rel_l2']:.3e} (limit "
+                f"{GRAD_LIMIT}), every input a finite gradient; forward + "
+                f"backward {r['fwd_bwd_ms']:.4f} ms, library forward + "
+                f"backward {r['library_fwd_bwd_ms']:.4f} ms (CUDA events, "
+                f"back to back)")
+            if not r["grad_rel_l2"] <= GRAD_LIMIT:
+                raise AssertionError(f"{name} gradient disagrees: {r}")
+    return {name: {"fwd_bwd_ms": rs[0]["fwd_bwd_ms"],
+                   "library_fwd_bwd_ms": rs[0]["library_fwd_bwd_ms"],
+                   "grad_rel_l2": max(r["grad_rel_l2"] for r in rs),
+                   "shapes": rs} for name, rs in rows.items()}
 
 
 def timings(kernel, plain, library, iters: int, plain_iters: int) -> dict:
@@ -2316,6 +2483,454 @@ def sweep_layer_norm_plans() -> None:
         f"{name} {host_us(f):.2f}" for name, f in parts.items()))
 
 
+# phase 10: training.  The card-vs-CPU step at full SD-2 width on a small
+# input: the loss within TRAIN_LOSS_LIMIT relative, each tower part's
+# gradient at least TRAIN_GRAD_COS cosine similarity (bf16 compute with
+# fp32 parameters against fp32; the gradient's bf16 rounding and the
+# kernels' bf16 outputs)
+TRAIN_STEP_SIZE = (128, 128)
+TRAIN_LOSS_LIMIT = 3e-2
+TRAIN_GRAD_COS = 0.98
+TRAIN_SIZE = (512, 384)
+# the kernels each main's step runs: the EMASC step runs the VAE (GroupNorm,
+# its mid block's attention) and no transformer; TPS and the refinement
+# run none
+TRAIN_KERNELS = {"vto": ("flash_attention", "group_norm", "geglu",
+                         "layer_norm"),
+                 "inversion_adapter": ("flash_attention", "group_norm",
+                                       "geglu", "layer_norm"),
+                 "emasc": ("flash_attention", "group_norm"), "tps": ()}
+
+
+class GlobalCensus(Census):
+    """A census of every module of ``kind`` that runs while open, built
+    inside the mains (a global forward hook)."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        def hook(module, args, output):
+            if isinstance(module, self.kind):
+                self.hook(module, args, output)
+        self.handles = [
+            torch.nn.modules.module.register_module_forward_hook(hook)]
+        return self
+
+
+class GlobalGroupNormCensus(GlobalCensus, GroupNormCensus):
+    pass
+
+
+class GlobalLayerNormCensus(GlobalCensus, LayerNormCensus):
+    pass
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu().flatten(), b.double().cpu().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def train_batch(rng: np.random.Generator, tokenizer, h: int, w: int) -> dict:
+    mask = np.zeros((1, h, w, 1), np.float32)
+    mask[:, h // 8: h - h // 16, w // 6: w - w // 6] = 1.0
+    image = rng.uniform(-1, 1, (1, h, w, 3)).astype(np.float32)
+    ids = tokenizer(category_prompts(["upper_body"], NUM_VSTAR))
+    return {"image": torch.from_numpy(image),
+            "im_mask": torch.from_numpy(image * (1 - mask)),
+            "inpaint_mask": torch.from_numpy(mask),
+            "pose_map": torch.from_numpy(
+                rng.uniform(0, 1, (1, h, w, 18)).astype(np.float32)),
+            "warped_cloth": torch.from_numpy(
+                rng.uniform(-1, 1, (1, h, w, 3)).astype(np.float32)),
+            "input_ids": torch.from_numpy(np.asarray(ids).astype(np.int64)),
+            "clip_cloth_features": torch.from_numpy(rng.standard_normal(
+                (1, 257, 1280)).astype(np.float32))}
+
+
+def check_train_step(zpipe: TryOnPipeline, zcond: Conditioner, tokenizer,
+                     wrappers: dict, smi: str) -> None:
+    """Phase 10, step 1: the VTO loss and its gradients at full SD-2 width
+    (31-channel UNet trained in fp32, the VAE, text encoder and adapter
+    frozen) on one 128x128 image (the UNet's three downsamples need a
+    latent side divisible by 8), on the card (bf16 autocast, the kernels'
+    Functions) against the CPU (fp32), with the same weights and draws."""
+    h, w = TRAIN_STEP_SIZE
+    batch = train_batch(np.random.default_rng(100), tokenizer, h, w)
+    draws = vto_draws(batch, torch.Generator().manual_seed(101))
+    config = VTOStepConfig(num_vstar=NUM_VSTAR)
+    empty = torch.from_numpy(tokenizer([""])[0].astype(np.int64))
+    unet = UNet2DCondition(sd2_unet_config(31)).to("cuda")
+    unet.load_state_dict(zpipe.unet.state_dict())
+    tcfg = zcond.text_model.config
+    cpu = {"unet": cpu_copy(unet, lambda: UNet2DCondition(
+               sd2_unet_config(31))),
+           "vae": cpu_copy(zpipe.vae, lambda: AutoencoderKL(VAEConfig())),
+           "text_model": cpu_copy(zcond.text_model,
+                                  lambda: CLIPTextModel(tcfg)),
+           "inversion_adapter": cpu_copy(
+               zcond.adapter, lambda: InversionAdapter(num_encoder_layers=1))}
+    card = {"unet": unet, "vae": zpipe.vae, "text_model": zcond.text_model,
+            "inversion_adapter": zcond.adapter}
+    results = {}
+    for where, towers in (("cuda", card), ("cpu", cpu)):
+        for name, m in towers.items():
+            m.requires_grad_(name == "unet")
+        loss_fn = make_vto_loss(config=config, empty_prompt_ids=empty.to(
+            where), **towers)
+        reset_counts(wrappers)
+        t0 = time.perf_counter()
+        with precision(torch.device(where), BF16 if where == "cuda"
+                       else torch.float32):
+            loss, _ = loss_fn({k: v.to(where) for k, v in batch.items()},
+                              {k: v.to(where) for k, v in draws.items()})
+        loss.backward()
+        if where == "cuda":
+            torch.cuda.synchronize()
+            counts = main_counts(wrappers)
+            missing = [k for k in TRAIN_KERNELS["vto"] if not counts[k]]
+            if missing:
+                raise AssertionError(f"the card's step never launched "
+                                     f"{missing}")
+        results[where] = (float(loss), {
+            k: p.grad.detach().float().cpu()
+            for k, p in towers["unet"].named_parameters()},
+            time.perf_counter() - t0)
+        towers["unet"].requires_grad_(False)
+    (l_card, g_card, t_card), (l_cpu, g_cpu, t_cpu) = (results["cuda"],
+                                                       results["cpu"])
+    rel = abs(l_card - l_cpu) / abs(l_cpu)
+    parts = {}
+    for part in ("conv_in", "time_embedding", "down_blocks", "mid_block",
+                 "up_blocks", "conv_norm_out", "conv_out"):
+        keys = [k for k in g_cpu if k.startswith(part + ".")]
+        parts[part] = cosine(torch.cat([g_card[k].flatten() for k in keys]),
+                             torch.cat([g_cpu[k].flatten() for k in keys]))
+    finite = all(torch.isfinite(g).all() for g in g_card.values())
+    log(f"phase 10: the VTO step at full SD-2 width on one {h}x{w} image, "
+        f"card (bf16 autocast, fp32 parameters) {t_card:.2f} s against CPU "
+        f"(fp32) {t_cpu:.2f} s: loss {l_card:.6f} vs {l_cpu:.6f}, relative "
+        f"error {rel:.3e} (limit {TRAIN_LOSS_LIMIT}); UNet gradient cosine "
+        f"by part {({k: round(v, 5) for k, v in parts.items()})} (limit "
+        f"{TRAIN_GRAD_COS}); card gradients finite: {finite}; launches "
+        f"{counts}")
+    if not (rel <= TRAIN_LOSS_LIMIT and finite
+            and min(parts.values()) >= TRAIN_GRAD_COS):
+        raise AssertionError("the card's training step disagrees with the "
+                             "CPU's")
+    del cpu
+    unet.requires_grad_(True)
+    time_train_steps(unet, card, config, empty.to("cuda"), tokenizer,
+                     wrappers, smi)
+    del unet, card
+    torch.cuda.empty_cache()
+
+
+def time_train_steps(unet: UNet2DCondition, towers: dict, config,
+                     empty: torch.Tensor, tokenizer, wrappers: dict,
+                     smi: str) -> None:
+    """Phase 10: the VTO train step alone (loss, backward, clip, AdamW) at
+    512x384, batch 1, from batches already on the card, without and with
+    gradient checkpointing: seconds per step (CUDA-synchronised host
+    clock, steps 2-4 of four), peak device memory over the steps, and
+    each kernel's launches per step.  The mains' own step seconds also
+    hold their data loading."""
+    h, w = TRAIN_SIZE
+    rng = np.random.default_rng(102)
+    for ckpt in (False, True):
+        unet.gradient_checkpointing = ckpt
+        opt = make_optimizer(list(unet.parameters()), 1e-5, warmup_steps=0)
+        step = make_vto_train_step(
+            optimizer=opt, config=config,
+            autocast=lambda: precision(torch.device("cuda"), BF16),
+            empty_prompt_ids=empty, **towers)
+        batches = []
+        for i in range(4):
+            b = train_batch(rng, tokenizer, h, w)
+            batches.append(({k: v.to("cuda") for k, v in b.items()}, {
+                k: v.to("cuda") for k, v in vto_draws(
+                    b, torch.Generator().manual_seed(i)).items()}))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i, (batch, draws) in enumerate(batches):
+            if i == 1:
+                reset_counts(wrappers)
+            t0 = time.perf_counter()
+            loss = step(batch, draws)["loss"]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if not torch.isfinite(loss):
+                raise AssertionError("a timed train step's loss is not "
+                                     "finite")
+        counts = {k: v / 3 for k, v in main_counts(wrappers).items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"phase 10: the VTO train step alone at {h}x{w}, batch 1, "
+            f"gradient checkpointing {ckpt}: {np.mean(times[1:]):.3f} s a "
+            f"step (steps {[round(t, 3) for t in times]}, the first with "
+            f"its warm-up), peak device memory {peak:.2f} GiB over the "
+            f"steps, launches a step {counts} [{smi}]")
+        del opt, step, batches
+        unet.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+    unet.gradient_checkpointing = False
+
+
+def write_train_data(root: pathlib.Path) -> dict:
+    """Phase 10: DressCode (every category) and VITON-HD, each with a test
+    split of one pair and a train split of two pairs a category, at the
+    datasets' 1024x768, with captions, warped cloths and CLIP features."""
+    return {
+        "dresscode": synthetic.write_dresscode(
+            root / "dc" / "dresscode", n_pairs=1, train_pairs=2,
+            size=SOURCE_SIZE, seed=80, categories=("dresses", "upper_body",
+                                                   "lower_body")),
+        "vitonhd": synthetic.write_vitonhd(
+            root / "vh" / "vitonhd", n_pairs=1, train_pairs=2,
+            size=SOURCE_SIZE, seed=81),
+    }
+
+
+def write_stock_unet(sd2: pathlib.Path, unet: UNet2DCondition) -> None:
+    """The SD-2-inpainting UNet the trainers start from: phase 6's release
+    cut to its stock 9 input channels, under ``sd2/unet``."""
+    (sd2 / "unet").mkdir(parents=True, exist_ok=True)
+    state = module_state(unet)
+    state["conv_in.weight"] = state["conv_in.weight"][:, :9].clone()
+    torch.save(state, sd2 / "unet" / "diffusion_pytorch_model.bin")
+    (sd2 / "unet" / "config.json").write_text(json.dumps(
+        {"_class_name": "UNet2DConditionModel",
+         **dataclasses.asdict(dataclasses.replace(unet.config,
+                                                  in_channels=9))}))
+
+
+class GradientWatch:
+    """Wraps ``train.steps.Optimizer.step`` while open: before every update
+    every trained parameter must hold a finite gradient, and the first
+    update of each optimizer must move every parameter whose gradient is
+    not exactly zero (``zero_grads`` counts those that are)."""
+
+    def __init__(self):
+        self.updates = 0
+        self.zero_grads = 0
+        self.seen = set()
+
+    def __enter__(self):
+        original = self.original = steps_mod.Optimizer.step
+        watch = self
+
+        def step(opt):
+            bad = [p for p in opt.params
+                   if p.grad is None or not torch.isfinite(p.grad).all()]
+            if bad:
+                raise AssertionError(f"{len(bad)} of {len(opt.params)} "
+                                     f"trained parameters without a finite "
+                                     f"gradient")
+            first = id(opt) not in watch.seen
+            watch.seen.add(id(opt))
+            # host copies: the watch adds nothing to the peak device memory
+            before = ([p.detach().to("cpu", copy=True) for p in opt.params]
+                      if first else None)
+            norm = original(opt)
+            watch.updates += 1
+            if first:
+                zero = [bool(not p.grad.any()) for p in opt.params]
+                still = sum(torch.equal(b, p.detach().cpu()) and not z
+                            for b, p, z in zip(before, opt.params, zero))
+                watch.zero_grads += sum(zero)
+                if still:
+                    raise AssertionError(f"{still} of {len(before)} "
+                                         f"parameters did not move")
+            return norm
+
+        steps_mod.Optimizer.step = step
+        return self
+
+    def __exit__(self, *exc):
+        steps_mod.Optimizer.step = self.original
+
+
+def metric_lines(path: pathlib.Path) -> list:
+    return [json.loads(x) for x in path.read_text().splitlines()]
+
+
+def train_runs(work: pathlib.Path, roots: dict, out: pathlib.Path) -> list:
+    """(label, kind, main, argv) of phase 10's runs."""
+    sd2, ladi = work / "sd2", work / "ladi"
+    size = ["--height", str(TRAIN_SIZE[0]), "--width", str(TRAIN_SIZE[1])]
+
+    def common(dataset: str, name: str, steps_: int, every: int) -> list:
+        return ["--dataset", dataset, f"--{dataset}_dataroot",
+                str(roots[dataset]), "--output_dir", str(out / name),
+                "--sd2_model_dir", str(sd2), "--train_batch_size", "1",
+                "--test_batch_size", "1", "--num_workers", "2",
+                "--num_workers_test", "2", "--max_train_steps", str(steps_),
+                "--checkpointing_steps", str(every), "--lr_warmup_steps",
+                "0", "--report_to", "none", "--test_order", "paired",
+                "--seed", "9", "--device", "cuda", *size]
+
+    vto = ["--clip_vision_dir", str(work / "clip_vision"),
+           "--inversion_adapter_dir", str(ladi), "--tokenizer_dir",
+           str(sd2 / "tokenizer")]
+    return [
+        ("train_vto", "vto", train_vto_cli.main,
+         common("vitonhd", "vto", 2, 2) + vto),
+        ("train_vto resumed", "vto", train_vto_cli.main,
+         common("vitonhd", "vto", 3, 2) + vto
+         + ["--resume_from_checkpoint", "latest"]),
+        ("train_vto resumed --gradient_checkpointing", "vto",
+         train_vto_cli.main, common("vitonhd", "vto", 5, 10) + vto
+         + ["--resume_from_checkpoint", "latest",
+            "--gradient_checkpointing", "--async_checkpointing"]),
+        ("train_emasc", "emasc", train_emasc_cli.main,
+         common("dresscode", "emasc", 2, 2)
+         + ["--vgg_weights", str(work / "vgg19.pth")]),
+        ("train_inversion_adapter", "inversion_adapter",
+         train_adapter_cli.main, common("vitonhd", "adapter", 2, 2)
+         + ["--clip_vision_dir", str(work / "clip_vision"),
+            "--tokenizer_dir", str(sd2 / "tokenizer")]),
+        ("train_tps", "tps", train_tps_cli.main,
+         ["--dataset", "vitonhd", "--vitonhd_dataroot",
+          str(roots["vitonhd"]), "--checkpoints_dir", str(out / "tps"),
+          "--exp_name", "warp", "-b", "2", "-j", "2", "--epochs_tps", "1",
+          "--epochs_refinement", "1", "--vgg_weights",
+          str(work / "vgg19.pth"), "--device", "cuda", *size]),
+    ]
+
+
+def training_path(work: pathlib.Path, zpipe: TryOnPipeline,
+                  zcond: Conditioner, tokenizer, wrappers: dict,
+                  smi: str) -> dict:
+    """Phase 10: the card-vs-CPU step, then the four trainers at full width
+    (512x384 from 1024x768) from phase 6's reference-layout files; every
+    check of the docstring.  Returns the kernels' launches summed over the
+    mains."""
+    t_phase = time.perf_counter()
+    check_train_step(zpipe, zcond, tokenizer, wrappers, smi)
+    t0 = time.perf_counter()
+    roots = write_train_data(work / "train_data")
+    write_stock_unet(work / "sd2", zpipe.unet)
+    torch.manual_seed(90)
+    torch.save(VGG19Features().state_dict(), work / "vgg19.pth")
+    free = shutil.disk_usage(work).free / 2 ** 30
+    log(f"phase 10: train splits, the stock UNet and a VGG19 written in "
+        f"{time.perf_counter() - t0:.1f} s; {free:.1f} GiB free on disk")
+    out = work / "train"
+    # phase 9 scored its runs; here the validation images are written and
+    # their scoring skipped (no metric weights, a FileNotFoundError the
+    # trainers tolerate): FID over one or three images says nothing
+    os.environ.pop("LADI_VTON_METRIC_WEIGHTS", None)
+    total = {name: 0 for name in wrappers}
+    gn_census, ln_census = GlobalGroupNormCensus(), GlobalLayerNormCensus()
+    for label, kind, main_fn, argv in train_runs(work, roots, out):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(wrappers)
+        census = (gn_census, ln_census) if label in (
+            "train_vto", "train_emasc") else ()
+        jsonl = (out / "tps" / "warp" / "metrics.jsonl" if kind == "tps"
+                 else pathlib.Path(argv[argv.index("--output_dir") + 1])
+                 / "metrics.jsonl")
+        before = len(metric_lines(jsonl)) if jsonl.exists() else 0
+        t0 = time.perf_counter()
+        with GradientWatch() as watch, contextlib.ExitStack() as stack:
+            for c in census:
+                stack.enter_context(c)
+            result = main_fn(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = main_counts(wrappers)
+        for name in wrappers:
+            total[name] += counts[name]
+        lines = metric_lines(jsonl)[before:]
+        if kind == "tps":
+            losses = [x["train/loss"] for x in lines]
+            per_step = ""
+        else:
+            losses = [x["loss"] for x in lines]
+            per_step = (f", step seconds "
+                        f"{[round(1 / x['steps_per_sec'], 3) for x in lines]}"
+                        f" (host clock, each with its batch's loading; the "
+                        f"first of a run includes its warm-up)")
+        log(f"phase 10 {label}: {seconds:.1f} s wall, result {result}, "
+            f"{watch.updates} update(s) ({watch.zero_grads} parameter(s) "
+            f"with an exactly zero gradient), losses {losses}{per_step}, "
+            f"peak device memory {peak:.2f} GiB, launches {counts}, "
+            f"{({k: round(v / max(len(lines), 1), 1) for k, v in counts.items()})} "
+            f"a logged step [{smi}]")
+        if not all(np.isfinite(losses)) or not watch.updates:
+            raise AssertionError(f"{label}: no finite training")
+        missing = [k for k in TRAIN_KERNELS[kind] if not counts[k]]
+        if missing:
+            raise AssertionError(f"{label}: kernels never launched: "
+                                 f"{missing}")
+    check_census(gn_census, "the train_vto and train_emasc runs")
+    check_layer_norm_census(ln_census, "the train_vto and train_emasc runs")
+    check_train_outputs(out, roots, work)
+    log(f"phase 10: training ({time.perf_counter() - t_phase:.1f} s)")
+    return total
+
+
+def training_only(work: pathlib.Path, smi: str) -> None:
+    """``--training-only``: phase 10 over phase 6's files written from
+    freshly seeded full-width modules."""
+    tokenizer = synthetic_tokenizer(work / "sd2" / "tokenizer")
+    pipe = full_width_pipeline()
+    cond = conditioner("cuda", (512, 384), tokenizer)
+    write_checkpoints(work, pipe, cond)
+    wrappers = {name: wrapper for name, wrapper, _, _, _ in KERNELS}
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    log(f"launches during phase 10's training runs: "
+        f"{training_path(work, pipe, cond, tokenizer, wrappers, smi)}")
+
+
+def check_train_outputs(out: pathlib.Path, roots: dict,
+                        work: pathlib.Path) -> None:
+    """Checkpoints kept and resumed, the exports loaded back through the
+    zoo, and ``cli.eval`` over the warped cloths ``train_tps`` extracted,
+    with the trained exports."""
+    kept = sorted(p.name for p in (out / "vto").glob("checkpoint-*"))
+    lines = metric_lines(out / "vto" / "metrics.jsonl")
+    if kept != ["checkpoint-3", "checkpoint-5"] or [
+            x["step"] for x in lines] != [1, 2, 3, 4, 5]:
+        raise AssertionError(f"train_vto's checkpoints {kept} or steps "
+                             f"{[x['step'] for x in lines]}")
+    on = dict(device="cuda", dtype=BF16)
+    zoo.extended_unet(checkpoint=str(out / "vto" / "unet_2.pth"), **on)
+    zoo.emasc(checkpoint=str(out / "emasc" / "emasc_2.pth"), **on)
+    zoo.inversion_adapter(checkpoint=str(
+        out / "adapter" / "inversion_adapter_2.pth"), **on)
+    zoo.warping_module(checkpoint=str(out / "tps" / "warp"
+                                      / "warping_vitonhd.pth"),
+                       device="cuda")
+    log("phase 10: checkpoints 3 and 5 of train_vto kept (keep 2), steps "
+        "1-5 over three runs (two resumed from latest, the last "
+        "asynchronous with gradient checkpointing); the unet, emasc, "
+        "inversion_adapter and warping exports loaded back through the zoo")
+    cache = roots["vitonhd"].parent / "cache"
+    warped = sorted(p.name for p in (cache / "warped_cloths" / "vitonhd"
+                                     / "upper_body").iterdir())
+    save = out / "eval"
+    stats = eval_cli.main([
+        "--dataset", "vitonhd", "--vitonhd_dataroot", str(roots["vitonhd"]),
+        "--output_dir", str(save), "--save_name", "trained",
+        "--test_order", "paired", "--unet_dir", str(out / "vto"),
+        "--emasc_dir", str(out / "emasc"), "--inversion_adapter_dir",
+        str(out / "adapter"), "--sd2_model_dir", str(work / "sd2"),
+        "--clip_vision_dir", str(work / "clip_vision"), "--batch_size", "1",
+        "--num_workers", "2", "--scheduler", "dpm", "--num_inference_steps",
+        "5", "--use_png", "--device", "cuda"])
+    images = list((save / "trained" / "paired").rglob("*.png"))
+    if not images or stats["images"] != len(images):
+        raise AssertionError(f"cli.eval after training wrote {images}")
+    log(f"phase 10: train_tps extracted {len(warped)} warped cloths "
+        f"(train and test, paired) under {cache}; cli.eval read them with "
+        f"the trained unet, emasc and adapter exports and saved "
+        f"{len(images)} image(s)")
+
+
 KERNELS = (
     ("flash_attention", flash_attention, check_attention,
      "ladi_vton_tpu_torch/csrc/flash_attention.cu",
@@ -2343,6 +2958,10 @@ def main() -> None:
                         help="time every LayerNorm warp count and the "
                         "wrapper's host cost instead of the phases, and "
                         "exit")
+    parser.add_argument("--training-only", action="store_true",
+                        help="phase 2's gradient rows and phase 10 alone "
+                        "(its files written from freshly seeded modules), "
+                        "then exit without the result lines")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script measures "
@@ -2374,10 +2993,18 @@ def main() -> None:
         f"{build_dir / 'nvcc.log'}")
 
     gen = Gen(0)
+    if args.training_only:
+        check_gradients(gen)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+            training_only(pathlib.Path(work), smi)
+        return
     results = {}
     for name, _, check, _, _ in KERNELS:
         results[name] = check(gen)
-    log("phase 2: every kernel agrees with its plain version")
+    for name, grad in check_gradients(gen).items():
+        results[name]["grad"] = grad
+    log("phase 2: every kernel agrees with its plain version, and so do "
+        "its gradients")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         counts = run_phases(pathlib.Path(work), gen, smi)
@@ -2479,10 +3106,15 @@ def run_phases(work: pathlib.Path, gen: Gen, smi: str) -> dict:
     metrics_launches = metrics_path(work, roots, zcond, wrappers, smi)
     log(f"launches during phase 9's metric mains: {metrics_launches}")
     log(f"phase 9: the metrics ({time.perf_counter() - t0:.1f} s)")
+
+    train_launches = training_path(work, zpipe, zcond, tokenizer, wrappers,
+                                   smi)
+    log(f"launches during phase 10's training runs: {train_launches}")
     return {"launches": launches, "zoo_launches": zoo_launches,
             "mains_launches": mains_launches,
             "serve_launches": serve_launches,
-            "metrics_launches": metrics_launches}
+            "metrics_launches": metrics_launches,
+            "train_launches": train_launches}
 
 
 if __name__ == "__main__":

@@ -15,11 +15,22 @@ BatchNorm statistics travel in flax's ``batch_stats`` collection beside
 ``params``; both are merged into one state dict, and every BatchNorm gets
 the ``num_batches_tracked`` counter (0) that torch's own state dicts
 carry, so the towers load with ``strict=True``.
+
+The trainers' side is below: ``CheckpointManager`` (the port's own
+training checkpoints), the host generators' states, and
+``export_module``, the reference-layout ``.pth`` exports that both
+packages' zoos load.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import random
 import re
+import shutil
+import threading
+from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
@@ -167,3 +178,155 @@ def state_dict_from_jax(flat: dict, key_map: Optional[Callable[[str], str]]
         state[key[:-len("running_var")] + "num_batches_tracked"] = (
             torch.tensor(0, dtype=torch.long))
     return state
+
+
+# ------------------------------------------------- training checkpoints
+
+
+class CheckpointManager:
+    """Training checkpoints as ``checkpoint-{step}/`` directories, the
+    counterpart of ``ladi_vton_tpu/core/checkpoint.py CheckpointManager``
+    in the port's own format: each holds ``state.pt``, a ``torch.save`` of
+    the dict the trainer gives (trainable state dicts, optimizer and
+    schedule count, step, generator states), read back with
+    ``weights_only=True``.  The JAX package's orbax directories are not
+    read; the two packages share the ``.pth`` exports.
+
+    A write goes to a hidden temporary directory that is renamed into
+    place when complete, so a ``checkpoint-{step}`` directory is always
+    whole; the last ``keep`` are kept.  ``async_save`` copies the state
+    to host memory, returns, and writes on one background thread; the
+    next save, ``wait`` and ``restore`` wait for it first.  Old
+    checkpoints are collected only before a write starts and after it has
+    finished, never counting the one in flight, so a crash mid-write
+    still leaves ``keep`` finished checkpoints.
+    """
+
+    def __init__(self, directory, *, keep: int = 2, async_save: bool = False):
+        self.directory = Path(directory).absolute()
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self.async_save = async_save
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def _step_dirs(self) -> list:
+        out = []
+        for p in self.directory.iterdir():
+            m = re.fullmatch(r"checkpoint-(\d+)", p.name)
+            if m and p.is_dir():
+                out.append((int(m.group(1)), p))
+        return sorted(out)
+
+    def latest_step(self) -> Optional[int]:
+        dirs = self._step_dirs()
+        return dirs[-1][0] if dirs else None
+
+    def _gc(self) -> None:
+        dirs = self._step_dirs()
+        for _, old in dirs[:max(0, len(dirs) - self.keep)]:
+            shutil.rmtree(old, ignore_errors=True)
+
+    def _write(self, step: int, state: dict) -> None:
+        final = self.directory / f"checkpoint-{step}"
+        tmp = self.directory / f".checkpoint-{step}.tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+        torch.save(state, tmp / "state.pt")
+        if final.exists():
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+
+    def _run(self, step: int, state: dict) -> None:
+        try:
+            self._write(step, state)
+        except BaseException as e:  # re-raised by wait()
+            self._error = e
+
+    def save(self, step: int, state: dict) -> None:
+        self.wait()
+        if not self.async_save:
+            self._write(step, state)
+            self._gc()
+            return
+        snapshot = _to_host(state)
+        self._thread = threading.Thread(target=self._run,
+                                        args=(step, snapshot), daemon=False)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Block until an in-flight write is on disk (raising its error),
+        then collect old checkpoints."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+            if self._error is not None:
+                error, self._error = self._error, None
+                raise error
+        self._gc()
+
+    def restore(self, step="latest") -> dict:
+        """The state dict of ``checkpoint-{step}`` (``"latest"``: the
+        newest), on the CPU; FileNotFoundError where there is none."""
+        self.wait()
+        if step == "latest":
+            step = self.latest_step()
+            if step is None:
+                raise FileNotFoundError(
+                    f"no checkpoints under {self.directory}")
+        path = self.directory / f"checkpoint-{int(step)}" / "state.pt"
+        if not path.exists():
+            raise FileNotFoundError(f"no checkpoint-{step} under "
+                                    f"{self.directory}")
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def _to_host(tree):
+    """A copy of ``tree`` whose tensors live in CPU memory."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    return tree
+
+
+def rng_state() -> dict:
+    """The host generators' states (python, numpy, torch), in a form
+    ``torch.load(weights_only=True)`` reads."""
+    kind, keys, pos, has_gauss, cached = np.random.get_state()
+    return {"python": random.getstate(), "torch": torch.get_rng_state(),
+            "numpy": [kind, torch.from_numpy(keys.astype(np.int64)), pos,
+                      has_gauss, cached]}
+
+
+def set_rng_state(state: dict) -> None:
+    kind, keys, pos, has_gauss, cached = state["numpy"]
+    np.random.set_state((kind, keys.numpy().astype(np.uint32), pos,
+                         has_gauss, cached))
+    python = state["python"]
+    random.setstate((python[0], tuple(python[1]), python[2]))
+    torch.set_rng_state(state["torch"])
+
+
+def export_module(module: torch.nn.Module, path,
+                  config: Optional[dict] = None) -> Path:
+    """A tower's ``.pth`` in the reference layout (its state dict, on the
+    CPU, fp32 where floating), written atomically, with the architecture
+    as a ``.config.json`` sidecar the zoos read."""
+    path = Path(path)
+    state = {k: (v.detach().float() if v.is_floating_point() else v.detach()
+                 ).cpu().clone() for k, v in module.state_dict().items()}
+    save_atomic(state, path)
+    if config is not None:
+        path.with_suffix(".config.json").write_text(json.dumps(config))
+    return path
+
+
+def save_atomic(obj, path) -> None:
+    """``torch.save`` to a temporary file beside ``path``, then rename."""
+    path = Path(path)
+    tmp = path.with_name(f".{path.name}.tmp")
+    torch.save(obj, tmp)
+    os.replace(tmp, path)

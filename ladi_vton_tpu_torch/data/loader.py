@@ -11,7 +11,9 @@ With ``num_workers`` > 0 the items are read by that many worker
 processes of a ``torch.utils.data.DataLoader``, each building whole
 batches ahead; with 0 they are read in the calling process.
 ``multiprocessing_context`` goes to the ``DataLoader`` (its default is
-``fork`` on Linux).
+``fork`` on Linux).  ``start_at(epoch, skip)`` positions the next
+iteration at that epoch's permutation, its first ``skip`` batches left
+out, so a resumed trainer reads the batches an uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -50,6 +52,11 @@ class BatchLoader:
         self.pad_last = pad_last
         self.multiprocessing_context = multiprocessing_context
         self._epoch = 0
+        self._skip = 0
+
+    def start_at(self, epoch: int, skip: int = 0) -> None:
+        self._epoch = epoch
+        self._skip = skip
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -78,8 +85,9 @@ class BatchLoader:
         return batches
 
     def __iter__(self) -> Iterator[dict]:
-        batches = self._batch_indices()
+        batches = self._batch_indices()[self._skip:]
         self._epoch += 1
+        self._skip = 0
         if self.num_workers == 0:
             for idx in batches:
                 yield collate([self.dataset[i] for i in idx])

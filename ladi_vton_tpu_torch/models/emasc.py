@@ -20,6 +20,16 @@ from torch import nn
 from ladi_vton_tpu_torch.ops.resize import resize_bilinear
 
 
+def emasc_channels(vae_config) -> tuple:
+    """(in_channels, out_channels) of the EMASC for a VAE architecture, as
+    the JAX package's ``emasc_channels`` derives them: the five encoder
+    taps (conv_in's output and the inputs of down blocks 0..2: b0, b0, b0,
+    b1, b2) and the decoder's injection points (b0, b1, b2, b3, b3); for
+    the SD-2 VAE the reference's plan."""
+    b = tuple(vae_config.block_out_channels)
+    return (b[0], b[0], b[0], b[1], b[2]), (b[0], b[1], b[2], b[3], b[3])
+
+
 class EMASC(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (128, 128, 128, 256, 512),
                  out_channels: Sequence[int] = (128, 256, 512, 512, 512),

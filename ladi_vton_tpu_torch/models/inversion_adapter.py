@@ -13,6 +13,8 @@ it in place through that stride (``ops.layer_norm``).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
@@ -26,6 +28,11 @@ class InversionAdapter(nn.Module):
                  dropout: float = 0.5,
                  vision_config: CLIPVisionConfig = CLIPVisionConfig()):
         super().__init__()
+        # the architecture, as the exports' ``.config.json`` sidecar holds it
+        self.config = {"input_dim": input_dim, "hidden_dim": hidden_dim,
+                       "output_dim": output_dim,
+                       "num_encoder_layers": num_encoder_layers,
+                       "vision_config": dataclasses.asdict(vision_config)}
         self.encoder_layers = nn.ModuleList([
             encoder_layer(vision_config, causal=False)
             for _ in range(num_encoder_layers)])

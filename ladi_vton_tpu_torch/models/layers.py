@@ -22,6 +22,9 @@ from ladi_vton_tpu_torch.ops.attention import dot_product_attention
 from ladi_vton_tpu_torch.ops.geglu import geglu
 from ladi_vton_tpu_torch.ops.group_norm import group_norm
 from ladi_vton_tpu_torch.ops import layer_norm as ln
+from ladi_vton_tpu_torch.ops._autograd import through_function
+
+BF16 = torch.bfloat16
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int) -> torch.Tensor:
@@ -75,7 +78,9 @@ class LayerNorm(nn.Module):
     """LayerNorm over the last axis with fp32 statistics
     (``ops.layer_norm``: kernel K5 on CUDA).  Weight and bias are checked
     for the kernel on the first call on the card, and again only when
-    their storage, dtype or device changes (``ops.layer_norm.prepare``)."""
+    their storage, dtype or device changes (``ops.layer_norm.prepare``);
+    a call that needs a gradient, or runs under autocast, takes
+    ``ops.layer_norm.LayerNormFn`` with weight and bias as its inputs."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -88,19 +93,54 @@ class LayerNorm(nn.Module):
         w, b = self.weight, self.bias
         if x.is_cpu:
             return ln.layer_norm_ref(x, w, b, eps=self.eps)
+        if through_function(x, w, b):
+            # fp32 parameters are cast to bf16 in the Function, and
+            # prepared there
+            prepared = (self._prepare(w, b) if w.dtype == b.dtype == BF16
+                        else None)
+            return ln.LayerNormFn.apply(x, w, b, float(self.eps), prepared)
+        return ln.launch(x, self._prepare(w, b))
+
+    def _prepare(self, w: torch.Tensor, b: torch.Tensor) -> ln.Prepared:
         key = (w.data_ptr(), b.data_ptr(), w.dtype, b.dtype, w.device,
                b.device, self.eps)
         seen, prepared = self._prepared
         if key != seen:
             prepared = ln.prepare(w, b, self.eps)
             self._prepared = (key, prepared)
-        return ln.launch(x, prepared)
+        return prepared
 
     def __getstate__(self):
         # a copy or a pickle checks its own parameters again
         state = super().__getstate__()
         state["_prepared"] = (None, None)
         return state
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training mode is flax's ``nn.BatchNorm``
+    (momentum 0.9), as the JAX package trains TPS and the refinement:
+    the batch is normalised with its mean and its biased variance
+    E[x^2] - mean^2 in fp32, and the running statistics move toward those
+    same two values (``nn.BatchNorm2d`` moves ``running_var`` toward the
+    unbiased variance).  Eval mode is ``nn.BatchNorm2d``'s; names and
+    state dict are too."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps) * self.weight.float()
+        out = ((xf - mean[None, :, None, None]) * scale[None, :, None, None]
+               + self.bias.float()[None, :, None, None])
+        return out.to(x.dtype)
 
 
 class ResnetBlock2D(nn.Module):

@@ -3,8 +3,9 @@
 Counterpart of ``ladi_vton_tpu/models/refinement.py`` (the reference's
 ``UNet`` of ``unet_parts``): a 4-down/4-up UNet with bilinear
 upsampling that refines the grid-sampled cloth from masked person (3),
-pose (18) and warped cloth (3) to 3 channels.  NCHW; BatchNorm in eval
-mode with eps 1e-5.  Module names follow the reference
+pose (18) and warped cloth (3) to 3 channels.  NCHW; BatchNorm (eps 1e-5) in
+eval mode on the try-on path, flax's in train mode
+(``models.layers.BatchNorm2d``).  Module names follow the reference
 (``inc.double_conv.N``, ``downK.maxpool_conv.1.double_conv.N``,
 ``upK.conv.double_conv.N``, ``outc.conv``).
 """
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ladi_vton_tpu_torch.models.layers import BatchNorm2d
 from ladi_vton_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -29,9 +31,9 @@ class DoubleConv(nn.Module):
         mid = mid_channels or out_channels
         self.double_conv = nn.Sequential(
             nn.Conv2d(in_channels, mid, 3, padding=1, bias=False),
-            nn.BatchNorm2d(mid), nn.ReLU(),
+            BatchNorm2d(mid), nn.ReLU(),
             nn.Conv2d(mid, out_channels, 3, padding=1, bias=False),
-            nn.BatchNorm2d(out_channels), nn.ReLU())
+            BatchNorm2d(out_channels), nn.ReLU())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.double_conv(x)

@@ -10,7 +10,9 @@ Towers take NCHW tensors.  Module names are the reference's
 (``extractionA.model.N``, ``loc_net.regression.conv.N``,
 ``loc_net.regression.linear``), so ``core.checkpoint.tps_key_map`` carries
 a converted JAX state dict over with ``load_state_dict(strict=True)``.
-BatchNorm runs in eval mode (running statistics, eps 1e-5).
+BatchNorm (eps 1e-5) uses its running statistics in eval mode, as the
+try-on path runs it; in train mode it follows flax's ``nn.BatchNorm``
+(``models.layers.BatchNorm2d``), as the JAX package trains it.
 
 The TPS system is inverted once on the host in float64, as the JAX
 module does.  Its two products at run time are numerically sensitive
@@ -26,6 +28,8 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+
+from ladi_vton_tpu_torch.models.layers import BatchNorm2d
 
 
 def _tps_radial_np(dist_sq: np.ndarray) -> np.ndarray:
@@ -108,14 +112,14 @@ class FeatureExtraction(nn.Module):
 
     def __init__(self, input_nc: int, ngf: int = 64, n_layers: int = 3):
         super().__init__()
-        layers = [_conv(input_nc, ngf, 4, 2), nn.ReLU(), nn.BatchNorm2d(ngf)]
+        layers = [_conv(input_nc, ngf, 4, 2), nn.ReLU(), BatchNorm2d(ngf)]
         ch = ngf
         for i in range(n_layers):
             out_ch = min(2 ** (i + 1) * ngf, 512)
             layers += [_conv(ch, out_ch, 4, 2), nn.ReLU(),
-                       nn.BatchNorm2d(out_ch)]
+                       BatchNorm2d(out_ch)]
             ch = out_ch
-        layers += [_conv(ch, 512, 3, 1), nn.ReLU(), nn.BatchNorm2d(512),
+        layers += [_conv(ch, 512, 3, 1), nn.ReLU(), BatchNorm2d(512),
                    _conv(512, 512, 3, 1), nn.ReLU()]
         self.model = nn.Sequential(*layers)
 
@@ -154,11 +158,11 @@ class FeatureRegression(nn.Module):
         super().__init__()
         self.conv = nn.Sequential(
             nn.Conv2d(input_nc, 512, 4, stride=2, padding=1),
-            nn.BatchNorm2d(512), nn.ReLU(),
+            BatchNorm2d(512), nn.ReLU(),
             nn.Conv2d(512, 256, 4, stride=2, padding=1),
-            nn.BatchNorm2d(256), nn.ReLU(),
-            nn.Conv2d(256, 128, 3, padding=1), nn.BatchNorm2d(128), nn.ReLU(),
-            nn.Conv2d(128, 64, 3, padding=1), nn.BatchNorm2d(64), nn.ReLU())
+            BatchNorm2d(256), nn.ReLU(),
+            nn.Conv2d(256, 128, 3, padding=1), BatchNorm2d(128), nn.ReLU(),
+            nn.Conv2d(128, 64, 3, padding=1), BatchNorm2d(64), nn.ReLU())
         self.linear = nn.Linear(flat_features, output_dim)
         with torch.no_grad():
             self.linear.weight.zero_()

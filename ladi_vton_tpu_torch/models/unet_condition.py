@@ -18,6 +18,7 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ladi_vton_tpu_torch.models.layers import (
     BasicTransformerBlock,
@@ -169,6 +170,14 @@ class UNet2DCondition(nn.Module):
 
         self.conv_norm_out = GroupNorm(ch[0], 32, eps, act="silu")
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+        self.gradient_checkpointing = False
+
+    def _run(self, block, *args):
+        """``block(*args)``, checkpointed where the forward records
+        gradients and ``gradient_checkpointing`` is set."""
+        if self.gradient_checkpointing and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
 
     def precompute_context_kv(self, encoder_hidden_states: torch.Tensor
                               ) -> list[tuple]:
@@ -185,6 +194,10 @@ class UNet2DCondition(nn.Module):
                 context_kv: Optional[Sequence[tuple]] = None
                 ) -> torch.Tensor:
         dtype = self.conv_in.weight.dtype
+        if (context_kv is not None and self.gradient_checkpointing
+                and torch.is_grad_enabled()):
+            raise ValueError("context_kv cannot be replayed by a "
+                             "checkpointed forward")
         kv_iter = iter(context_kv) if context_kv is not None else None
         t_feat = timestep_embedding(timesteps,
                                     self.config.block_out_channels[0])
@@ -194,11 +207,18 @@ class UNet2DCondition(nn.Module):
             sample.to(dtype).contiguous(memory_format=torch.channels_last))
         skips = [h]
         for block in self.down_blocks:
-            h, block_skips = block(h, temb, context, kv_iter)
+            h, block_skips = self._run(block, h, temb, context, kv_iter)
             skips.extend(block_skips)
-        h = self.mid_block(h, temb, context, kv_iter)
+        h = self._run(self.mid_block, h, temb, context, kv_iter)
         for block in self.up_blocks:
-            h = block(h, skips, temb, context, kv_iter)
+            # the block pops its skips from a list of its own, so that a
+            # checkpointed replay finds them again
+            n = len(block.resnets)
+            mine = skips[-n:]
+            del skips[-n:]
+            h = self._run(
+                lambda h, *s, block=block: block(h, list(s), temb, context,
+                                                 kv_iter), h, *mine)
         if kv_iter is not None and next(kv_iter, None) is not None:
             raise ValueError("context_kv has more entries than the UNet has "
                              "cross-attentions")

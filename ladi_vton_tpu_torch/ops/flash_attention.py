@@ -12,6 +12,13 @@ the projections need no copy; the head dimension must be contiguous and
 the base and strides 16-byte aligned.  The output is a new contiguous
 (B, S, H, D) tensor.  ``flash_tiling`` picks the kernel's tiling from
 the head dimension.
+
+Where a gradient is wanted (or autocast is on), the call goes through
+``FlashAttention``, a ``torch.autograd.Function`` (``ops._autograd``):
+its forward is the kernel's launch, and its backward recomputes
+``attention_ref`` and differentiates it, the design of the JAX
+package's ``custom_vjp`` (``_flash_bwd``).  The recompute is that
+design, not a fallback: the forward on the card is always the kernel.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Optional
 import torch
 
 from ladi_vton_tpu_torch.ops import _build
+from ladi_vton_tpu_torch.ops._autograd import recompute_grads, through_function
 from ladi_vton_tpu_torch.ops.attention import attention_ref
 
 SUPPORTED_HEAD_DIMS = (64, 512)
@@ -55,13 +63,9 @@ def _check(name: str, t: torch.Tensor, ref: torch.Tensor) -> None:
                          f"with strides in multiples of 8 elements")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """Non-causal attention over (B, S, H, D) tensors."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, scale=scale)
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            scale: float) -> torch.Tensor:
+    """The kernel on CUDA tensors (checked here); counts the launch."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(name, t, q)
     B, Sq, H, D = q.shape
@@ -86,6 +90,39 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """K1 with a gradient: the kernel forward, the gradients of q, k and v
+    from a recompute of ``attention_ref`` (JAX ``_flash_bwd``)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, q, k, v, scale: float):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _launch(q, k, v, scale)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad_out):
+        def ref(q, k, v):
+            return attention_ref(q, k, v, scale=ctx.scale)
+
+        return (*recompute_grads(ref, ctx.saved_tensors,
+                                 ctx.needs_input_grad[:3], grad_out), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Non-causal attention over (B, S, H, D) tensors."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, scale=scale)
+    if through_function(q, k, v):
+        return FlashAttention.apply(q, k, v, float(scale))
+    return _launch(q, k, v, scale)
 
 
 flash_attention.launches = 0

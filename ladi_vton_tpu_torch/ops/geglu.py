@@ -13,6 +13,14 @@ otherwise launches the hand-written Hopper kernels of ``csrc/geglu.cu``
 (see its header); the biases go to them as they are stored, bf16 or
 fp32, and ``geglu_proj_tiling`` and ``geglu_out_tiling`` pick the tile
 widths and the second product's contraction split.
+
+Where a gradient is wanted (or autocast is on), the call goes through
+``GEGLU``, a ``torch.autograd.Function`` (``ops._autograd``): its
+forward is the kernels' launch, and its backward recomputes
+``geglu_ref`` and differentiates it for x, w1, b1, w2 and b2, the
+design of the JAX package's ``custom_vjp`` (``_geglu_bwd``).  The
+recompute is that design, not a fallback: the forward on the card is
+always the kernels.
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ladi_vton_tpu_torch.ops import _build
+from ladi_vton_tpu_torch.ops._autograd import recompute_grads, through_function
 
 
 def geglu_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -96,11 +105,9 @@ def geglu_out_tiling(rows: int, C: int, inner: int,
     return best[1], best[2]
 
 
-def geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-          w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Dispatch over (..., C): plain on a CPU tensor, kernels on CUDA."""
-    if x.device.type == "cpu":
-        return geglu_ref(x, w1, b1, w2, b2)
+def _launch(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+            w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """The kernels on CUDA tensors (checked here); counts the launch."""
     C = x.shape[-1]
     I2 = w1.shape[0]
     inner = I2 // 2
@@ -141,6 +148,34 @@ def geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         splits, stream), "geglu out")
     geglu.launches += 1
     return y.reshape(x.shape)
+
+
+class GEGLU(torch.autograd.Function):
+    """K4 with a gradient: the kernels' forward, the gradients of x, w1,
+    b1, w2 and b2 from a recompute of ``geglu_ref`` (JAX ``_geglu_bwd``).
+    """
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return _launch(x, w1, b1, w2, b2)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad_out):
+        return recompute_grads(geglu_ref, ctx.saved_tensors,
+                               ctx.needs_input_grad, grad_out)
+
+
+def geglu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+          w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Dispatch over (..., C): plain on a CPU tensor, kernels on CUDA."""
+    if x.device.type == "cpu":
+        return geglu_ref(x, w1, b1, w2, b2)
+    if through_function(x, w1, b1, w2, b2):
+        return GEGLU.apply(x, w1, b1, w2, b2)
+    return _launch(x, w1, b1, w2, b2)
 
 
 geglu.launches = 0

@@ -14,6 +14,14 @@ stored, bf16 or fp32.
 Inputs are (B, N, C) rows, or 4-D NCHW tensors that the kernel reads as
 (B, H*W, C) rows: on CUDA they must be in ``torch.channels_last`` memory
 format, which the towers keep.  The output has the input's layout.
+
+Where a gradient is wanted (or autocast is on), the call goes through
+``GroupNormFn``, a ``torch.autograd.Function`` (``ops._autograd``) for
+both forms: its forward is the kernel's launch, and its backward
+recomputes ``group_norm_ref`` and differentiates it for x, weight and
+bias, the design of the JAX package's ``custom_vjp``
+(``_gn_pallas_bwd``).  The recompute is that design, not a fallback:
+the forward on the card is always the kernel.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import math
 import torch
 
 from ladi_vton_tpu_torch.ops import _build
+from ladi_vton_tpu_torch.ops._autograd import recompute_grads, through_function
 
 MAX_CHANNELS = 4096
 # the most dynamic shared memory a block may take on sm_90 (227 KB)
@@ -233,15 +242,9 @@ def _split_counters(device: torch.device, stream: int,
     return t
 
 
-def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
-               num_groups: int = 32, eps: float = 1e-6,
-               act: str = "none") -> torch.Tensor:
-    """Dispatch: plain on a CPU tensor, the Hopper kernel on CUDA."""
-    if act not in ("none", "silu"):
-        raise ValueError(f"group_norm: unknown act {act!r}")
-    if x.device.type == "cpu":
-        return group_norm_ref(x, weight, bias, num_groups=num_groups,
-                              eps=eps, act=act)
+def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            num_groups: int, eps: float, act: str) -> torch.Tensor:
+    """The kernel on CUDA tensors (checked here); counts the launch."""
     if x.dtype != torch.bfloat16:
         raise ValueError(f"group_norm: the kernel takes bf16, got {x.dtype}")
     if x.dim() == 4:
@@ -294,6 +297,45 @@ def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
     group_norm.launches += 1
     group_norm.forms[plan.form] += 1
     return _unrows(out, x)
+
+
+class GroupNormFn(torch.autograd.Function):
+    """K2/K3 with a gradient: the kernel's forward, the gradients of x,
+    weight and bias from a recompute of ``group_norm_ref`` (JAX
+    ``_gn_pallas_bwd``)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, x, weight, bias, num_groups: int, eps: float,
+                act: str):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.options = dict(num_groups=num_groups, eps=eps, act=act)
+        return _launch(x, weight, bias, num_groups, eps, act)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad_out):
+        def ref(x, weight, bias):
+            return group_norm_ref(x, weight, bias, **ctx.options)
+
+        return (*recompute_grads(ref, ctx.saved_tensors,
+                                 ctx.needs_input_grad[:3], grad_out),
+                None, None, None)
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
+               num_groups: int = 32, eps: float = 1e-6,
+               act: str = "none") -> torch.Tensor:
+    """Dispatch: plain on a CPU tensor, the Hopper kernel on CUDA."""
+    if act not in ("none", "silu"):
+        raise ValueError(f"group_norm: unknown act {act!r}")
+    if x.device.type == "cpu":
+        return group_norm_ref(x, weight, bias, num_groups=num_groups,
+                              eps=eps, act=act)
+    if through_function(x, weight, bias):
+        return GroupNormFn.apply(x, weight, bias, num_groups, float(eps),
+                                 act)
+    return _launch(x, weight, bias, num_groups, eps, act)
 
 
 group_norm.launches = 0

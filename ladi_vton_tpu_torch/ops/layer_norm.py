@@ -19,6 +19,15 @@ arguments that do not change between calls; ``layer_norm`` prepares on
 every call, the ``LayerNorm`` module of ``models/layers.py`` once for as
 long as its parameters stay where they are (``launch`` then checks only
 what depends on x).
+
+Where a gradient is wanted (or autocast is on), the call goes through
+``LayerNormFn``, a ``torch.autograd.Function`` (``ops._autograd``) that
+takes weight and bias as tensor inputs, so their gradients reach them:
+its forward is the kernel's launch, and its backward recomputes
+``layer_norm_ref`` and differentiates it for x, weight and bias, the
+design of the JAX package's ``custom_vjp`` (``_ln_pallas_bwd``).  The
+recompute is that design, not a fallback: the forward on the card is
+always the kernel.
 """
 
 from __future__ import annotations
@@ -26,10 +35,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
 from ladi_vton_tpu_torch.ops import _build
+from ladi_vton_tpu_torch.ops._autograd import recompute_grads, through_function
 
 MAX_CHANNELS = 1280
 # the most 16-byte vectors a lane holds (the kernel's V)
@@ -193,12 +204,45 @@ def launch(x: torch.Tensor, p: Prepared) -> torch.Tensor:
     return out
 
 
+def _launch(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            eps: float, prepared: Optional[Prepared] = None) -> torch.Tensor:
+    """The kernel, with weight and bias as ``prepared`` (the ``LayerNorm``
+    module's, made from these same tensors) or prepared for this call."""
+    return launch(x, prepared or prepare(weight, bias, eps))
+
+
+class LayerNormFn(torch.autograd.Function):
+    """K5 with a gradient: the kernel's forward, the gradients of x,
+    weight and bias from a recompute of ``layer_norm_ref`` (JAX
+    ``_ln_pallas_bwd``)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, x, weight, bias, eps: float,
+                prepared: Optional[Prepared] = None):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.eps = eps
+        return _launch(x, weight, bias, eps, prepared)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad_out):
+        def ref(x, weight, bias):
+            return layer_norm_ref(x, weight, bias, eps=ctx.eps)
+
+        return (*recompute_grads(ref, ctx.saved_tensors,
+                                 ctx.needs_input_grad[:3], grad_out),
+                None, None)
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, *,
                eps: float = 1e-5) -> torch.Tensor:
     """Dispatch: plain on a CPU tensor, the Hopper kernel otherwise."""
     if x.is_cpu:
         return layer_norm_ref(x, weight, bias, eps=eps)
-    return launch(x, prepare(weight, bias, eps))
+    if through_function(x, weight, bias):
+        return LayerNormFn.apply(x, weight, bias, float(eps))
+    return _launch(x, weight, bias, eps)
 
 
 layer_norm.launches = 0

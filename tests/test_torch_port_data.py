@@ -13,9 +13,11 @@ against ``cv2.resize``, within 5e-5, as ``test_torch_port_imageio.py``
 states).  Also: ``BatchLoader`` against the
 JAX loader (order, ``shuffle``, ``pad_last``, collation, worker
 processes), the host C++ against ``data/raster.py`` and ``cv2.dilate``,
-and ``tools/decode_images.py``'s idempotence.
+``tools/decode_images.py``'s idempotence, and the synthetic train split
+(pairs, warped cloths, CLIP features, captions) read by both packages.
 """
 
+import random
 import sys
 from pathlib import Path
 
@@ -66,11 +68,14 @@ def pil_png(path, pixels, mode, palette=None) -> None:
     im.save(path, "PNG")
 
 
-def make_trees(base: Path, size=SOURCE, n_pairs=2, clip_shape=(5, 8)) -> dict:
-    """DressCode and VITON-HD test splits with PIL-written files and
-    their sidecars; {"dresscode": root, "vitonhd": root}."""
+def make_trees(base: Path, size=SOURCE, n_pairs=2, clip_shape=(5, 8),
+               train_pairs=0) -> dict:
+    """DressCode and VITON-HD test splits (and train splits of
+    ``train_pairs``) with PIL-written files and their sidecars;
+    {"dresscode": root, "vitonhd": root}."""
     kw = dict(size=size, n_pairs=n_pairs, clip_shape=clip_shape,
-              write_image=pil_jpeg, write_png=pil_png)
+              write_image=pil_jpeg, write_png=pil_png,
+              train_pairs=train_pairs)
     roots = {
         "dresscode": synthetic.write_dresscode(base / "dc" / "dresscode",
                                                seed=3, **kw),
@@ -127,6 +132,39 @@ def test_dataset_items_equal_the_jax_datasets(trees, name, keys, order):
         _assert_items_equal(a, b)
         assert a["image"].shape == SIZE + (3,)
         # the masks are not trivial: something to inpaint, something kept
+        assert 0 < a["inpaint_mask"].mean() < 1
+
+
+@pytest.fixture(scope="module")
+def train_trees(tmp_path_factory):
+    return make_trees(tmp_path_factory.mktemp("port_train_data"),
+                      n_pairs=1, train_pairs=2)
+
+
+@pytest.mark.parametrize("name,keys", [("dresscode", DRESSCODE_KEYS),
+                                       ("vitonhd", VITONHD_KEYS)])
+def test_train_split_items_equal_the_jax_datasets(train_trees, name, keys):
+    """The synthetic train split (its pair list, warped cloths, CLIP
+    features and noun-chunk captions) read by both packages' datasets:
+    every key equal, the captions' train-time shuffle from the same
+    ``random`` state."""
+    kw = dict(phase="train", order="paired", outputlist=keys, size=SIZE,
+              caption_file=str(train_trees[name] / "captions.json"))
+    if name == "dresscode":
+        kw["category"] = ("upper_body",)
+        ours = DressCodeDataset(str(train_trees[name]), **kw)
+        ref = JaxDressCode(str(train_trees[name]), **kw)
+    else:
+        ours = VitonHDDataset(str(train_trees[name]), **kw)
+        ref = JaxVitonHD(str(train_trees[name]), **kw)
+    assert len(ours) == len(ref) == 2
+    for i in range(2):
+        random.seed(i)
+        a = ours[i]
+        random.seed(i)
+        b = ref[i]
+        _assert_items_equal(a, b)
+        assert a["captions"] and a["clip_cloth_features"].shape == (5, 8)
         assert 0 < a["inpaint_mask"].mean() < 1
 
 

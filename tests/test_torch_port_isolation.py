@@ -1,7 +1,7 @@
 """The port runs where there is no JAX.
 
-The machine with the GPU has PyTorch but no jax, flax, PIL, cv2,
-``regex``, ``safetensors`` or ``tqdm``.  These tests import the whole
+The machine with the GPU has PyTorch but no jax, flax, optax, orbax, PIL,
+cv2, ``regex``, ``safetensors`` or ``tqdm``.  These tests import the whole
 port (its data layer and CLIs by name) and ``chip_smoke`` in a
 subprocess whose import system refuses those packages (and the JAX
 package itself), check the same statically, and check that
@@ -18,10 +18,11 @@ import textwrap
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "ladi_vton_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "flax", "PIL", "cv2", "regex", "safetensors",
-           "tqdm", "ladi_vton_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "cv2", "regex",
+           "safetensors", "tqdm", "ladi_vton_tpu")
 # the data layer and the CLIs, which stand in for PIL, cv2 and tqdm; the
-# serving front end, the client and the metrics
+# serving front end, the client and the metrics; the trainers, which stand
+# in for optax and orbax
 DATA_AND_CLI = ("data", "data.agnostic", "data.dresscode", "data.features",
                 "data.imageio", "data.labels", "data.loader", "data.native",
                 "data.raster", "data.resample", "data.synthetic",
@@ -30,7 +31,11 @@ DATA_AND_CLI = ("data", "data.agnostic", "data.dresscode", "data.features",
                 "cli.serve", "cli.val_metrics", "cli.generate_fid_stats",
                 "cli.compute_cloth_clip_features", "pipelines.serving",
                 "metrics", "metrics.compute", "metrics.fid",
-                "metrics.inception", "metrics.lpips", "metrics.ssim")
+                "metrics.inception", "metrics.lpips", "metrics.ssim",
+                "train", "train.steps", "train.tps_steps", "train.runner",
+                "models.vgg", "pipelines.inpaint", "cli.train_vto",
+                "cli.train_emasc", "cli.train_inversion_adapter",
+                "cli.train_tps", "ops._autograd")
 
 
 def _run(code: str, cwd: pathlib.Path, *args: str):
