@@ -6,6 +6,7 @@
     python3 chip_smoke.py --sweep-group-norm  # K2's device time per plan
     python3 chip_smoke.py --sweep-layer-norm  # K5's device time per plan
     python3 chip_smoke.py --training-only     # phase 2's gradients, phase 10
+    python3 chip_smoke.py --distributed-only  # phase 2's TP rows, phase 11
 
 Phases, each printing its numbers before the last line:
 
@@ -35,7 +36,10 @@ Phases, each printing its numbers before the last line:
    a stated relative L2 of fp32 autograd of the plain version on the same
    bf16 inputs, and the forward plus backward is timed against the
    library's (SDPA, ``F.group_norm`` then SiLU, ``F.linear``-gelu-
-   ``F.linear``, ``F.layer_norm``);
+   ``F.linear``, ``F.layer_norm``).  Last, K1 and K4 at the shapes a
+   tensor-parallel UNet (model 2, batch 4) gives them: K1 on half the
+   heads of levels 1 and 2 and the mid block, K4 at half the inner
+   width of each level, each row as above;
 3. integration at full width: one level-0 ``Transformer2D`` (C=320,
    64x48, batch 4) and one VAE ``MidBlock`` (512 at 64x48) through the
    kernels on the card and through the plain versions on the CPU, same
@@ -124,18 +128,52 @@ Phases, each printing its numbers before the last line:
    step); then the four trainers at 512x384 from 1024x768
    synthetic train splits of both datasets (``data/synthetic.py``) and
    phase 6's files (the stock UNet written under ``sd2/unet``, a seeded
-   torchvision-layout VGG19): ``train_vto`` two steps, resumed for a
-   third, resumed again for two more with ``--gradient_checkpointing`` and
-   ``--async_checkpointing``; ``train_emasc`` (DressCode, every
-   category), ``train_inversion_adapter`` and ``train_tps`` (one epoch of
-   each phase, then the extraction).  Every update must see a finite
-   gradient on every trained parameter and its first move them, the
-   losses be finite, each kernel the step runs be launched, the GroupNorm
-   and LayerNorm census of ``train_vto`` and ``train_emasc`` be covered by
-   phase 2; the checkpoints are kept two and resumed, the ``.pth`` exports
-   load back through the zoo, and ``cli.eval`` reads the warped cloths
-   ``train_tps`` extracted with the trained exports.  Each run logs its
-   step seconds, peak memory and launches.
+   torchvision-layout VGG19): ``train_vto`` two steps, resumed for two
+   more with ``--gradient_checkpointing`` and ``--async_checkpointing``;
+   ``train_emasc``
+   (DressCode, every category; three steps with an asynchronous
+   checkpoint each, so that keeping two deletes the first),
+   ``train_inversion_adapter`` and
+   ``train_tps`` (one epoch of each phase, then the extraction).  Every
+   update must see a finite gradient on every trained parameter and its
+   first move them, the losses be finite, each kernel the step runs be
+   launched, the GroupNorm and LayerNorm census of ``train_vto`` and
+   ``train_emasc`` be covered by phase 2; ``train_vto``'s checkpoints are
+   resumed and each trainer keeps its last two, the ``.pth`` exports load
+   back through the zoo, and
+   ``cli.eval`` reads the warped cloths ``train_tps`` extracted with the
+   trained exports.  Each run logs its step seconds, peak memory and
+   launches;
+11. distribution, after this process lets go of the card (it holds a
+   fraction of a GiB when the ranks start) and of phase 10's checkpoints:
+   ranks as processes with torchrun's variables (``parallel.launch``),
+   two sharing the card over gloo (NCCL refuses two ranks on one
+   device), each killed with the others on a failure or a timeout.
+   (a) the full-width VTO step (512x384, fp32 UNet and AdamW, frozen
+   bf16 towers) over two ranks at a global batch of 2 against this
+   process's step at batch 2 on the same batch and draws: the loss and
+   each UNet part's reduced gradient within stated limits, and the same
+   step with the gradient ``all_reduce`` left out (a planted fault)
+   outside the gradient's limit; then under ZeRO-1, its updates bitwise
+   the unsharded ones and each rank holding half of the AdamW state;
+   step seconds and peak memory a rank.
+   (b) one rank over NCCL: the step over its group of one bitwise the
+   step without a group.  (c) data 1 x model 2: the tensor-parallel UNet
+   forward (batch 4, 64x48 latents) against the unsharded one, each of
+   the two also against an fp32 CPU forward of the same weights, and the
+   forward with ``reduce_from_model`` left out (a planted fault) outside
+   the limit; K1's and K4's calls counted and their shard shapes held to
+   phase 2's tensor-parallel rows; one tensor-parallel step's loss and
+   its gradient, gathered to the reference layout, by UNet part against
+   (a)'s.  (d) the mains over two ranks: ``train_vto
+   --shard_optimizer_states`` two steps, then from ``checkpoint-1``
+   alone, resumed, its ``unet_2.pth`` bitwise the first run's, and the
+   peak memory of each run, its checkpoints included, below (a)'s
+   unsharded step's;
+   ``train_vto --tensor_parallel 2``, its gathered ``unet_2.pth``
+   loaded through the zoo; ``cli.inference`` over phase 7's VITON-HD
+   split against phase 7's images.  (e) ``dryrun_multichip(2)`` on the
+   card, every kernel launched in its tensor-parallel step.
 
 Phases 2 and 3 compare with TF32 off for matmuls and cuDNN; phases 4
 and 5 serve with PyTorch's defaults (cuDNN TF32 allowed, matmul TF32
@@ -147,8 +185,10 @@ The line before the last is ``{"kernels": [...]}``, with the launches
 of phase 5 (phase 6's as ``zoo_launches``, phase 7's five CLI runs' as
 ``mains_launches``, phase 8's served requests as ``serve_launches``,
 phase 9's metric mains as ``metrics_launches``, phase 10's training
-runs as ``train_launches``), the first (hottest) shape's times and, under
-``shapes``, every shape's, and under ``grad`` the gradient rows; the last
+runs as ``train_launches``, phase 11's ranks summed as
+``dist_launches``), the first (hottest) shape's times and, under
+``shapes``, every shape's, under ``tp_shapes`` K1's and K4's
+tensor-parallel rows, and under ``grad`` the gradient rows; the last
 is
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero without that line; it also refuses to run without
@@ -161,6 +201,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import os
@@ -323,6 +364,15 @@ ZOO_REQUESTS = (("ddim", 50), ("dpm", 20), ("pndm", 50), ("lms", 50))
 # batch 2B = 4
 GEGLU_SHAPES = [(4 * 3072, 320), (4 * 768, 640), (4 * 192, 1280),
                 (4 * 48, 1280)]
+# the shapes a tensor-parallel UNet at model 2 gives the kernels at batch
+# 4 (phase 11's forward): K1 (B, Sq, Sk, H, D) on half the heads where
+# they divide (levels 1 and 2 and the mid block, self- and
+# cross-attention; level 0's 5 heads stay whole), K4 (rows, C, I / 2) at
+# the three widths and the mid block
+ATTN_TP_SHAPES = [(4, 768, 768, 5, 64), (4, 768, 77, 5, 64),
+                  (4, 192, 192, 10, 64), (4, 192, 77, 10, 64),
+                  (4, 48, 48, 10, 64), (4, 48, 77, 10, 64)]
+GEGLU_TP_SHAPES = [(M, C, 2 * C) for M, C in GEGLU_SHAPES]
 
 
 # the least time the card could take for a call: the larger of its bytes
@@ -432,6 +482,30 @@ class Gen:
         return (x * scale).to(dtype)
 
 
+def attention_row(gen: Gen, B: int, Sq: int, Sk: int, H: int,
+                  D: int) -> dict:
+    """K1 at one shape against its plain version: error, times, bound."""
+    q = gen.normal(B, Sq, H, D)
+    k = gen.normal(B, Sk, H, D)
+    v = gen.normal(B, Sk, H, D)
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    ref = attention_ref(q.float(), k.float(), v.float())
+    err = (out.float() - ref).abs().max().item()
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    t = timings(lambda: flash_attention(q, k, v),
+                lambda: attention_ref(q, k, v),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh), 10, 3)
+    b = bound(4.0 * B * H * Sq * Sk * D, BF16_TENSOR_FLOPS,
+              nbytes(q, k, v, out))
+    r = row(f"B={B} Sq={Sq} Sk={Sk} H={H} D={D}", err, t, b)
+    log(f"K1 flash_attention {r['shape']}: max_abs_err {err:.3e} (limit "
+        f"{ATTN_LIMIT}) {describe(r, 'F.scaled_dot_product_attention')}")
+    if not err <= ATTN_LIMIT:
+        raise AssertionError(f"flash_attention disagrees: {err}")
+    return r
+
+
 def check_attention(gen: Gen) -> dict:
     # (B, Sq, Sk, H, D): UNet self-attention at the three levels at batch
     # 2B = 8 and at the path's batch 4 (service batch 2 with CFG),
@@ -442,28 +516,7 @@ def check_attention(gen: Gen) -> dict:
               (8, 192, 192, 20, 64), (4, 192, 192, 20, 64),
               (8, 3072, 77, 5, 64), (8, 48, 48, 20, 64),
               (4, 3072, 3072, 1, 512)]
-    rows = []
-    for B, Sq, Sk, H, D in shapes:
-        q = gen.normal(B, Sq, H, D)
-        k = gen.normal(B, Sk, H, D)
-        v = gen.normal(B, Sk, H, D)
-        out = flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        ref = attention_ref(q.float(), k.float(), v.float())
-        err = (out.float() - ref).abs().max().item()
-        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        t = timings(lambda: flash_attention(q, k, v),
-                    lambda: attention_ref(q, k, v),
-                    lambda: F.scaled_dot_product_attention(qh, kh, vh), 10, 3)
-        b = bound(4.0 * B * H * Sq * Sk * D, BF16_TENSOR_FLOPS,
-                  nbytes(q, k, v, out))
-        r = row(f"B={B} Sq={Sq} Sk={Sk} H={H} D={D}", err, t, b)
-        log(f"K1 flash_attention {r['shape']}: max_abs_err {err:.3e} (limit "
-            f"{ATTN_LIMIT}) {describe(r, 'F.scaled_dot_product_attention')}")
-        if not err <= ATTN_LIMIT:
-            raise AssertionError(f"flash_attention disagrees: {err}")
-        rows.append(r)
-    return summarize(rows)
+    return summarize([attention_row(gen, *shape) for shape in shapes])
 
 
 # K2's phase-2 shapes (B, N, C, silu, eps, weight and bias dtype): every
@@ -646,45 +699,66 @@ class LayerNormCensus(Census):
         return (x.numel() // C, C, x.stride(0) if x.dim() == 2 else C)
 
 
+def geglu_row(gen: Gen, M: int, C: int, inner: int) -> dict:
+    """K4 at rows x C -> 2 inner -> C against its plain version, with bf16
+    and with fp32 biases: error, times, bound."""
+    x = gen.normal(M, C)
+    w1 = gen.normal(2 * inner, C, scale=C ** -0.5)
+    b1 = gen.normal(2 * inner, scale=0.1)
+    w2 = gen.normal(C, inner, scale=inner ** -0.5)
+    b2 = gen.normal(C, scale=0.1)
+    b1f = gen.normal(2 * inner, scale=0.1, dtype=torch.float32)
+    b2f = gen.normal(C, scale=0.1, dtype=torch.float32)
+    errs = []
+    for bias1, bias2 in ((b1, b2), (b1f, b2f)):
+        out = geglu(x, w1, bias1, w2, bias2)
+        torch.cuda.synchronize()
+        ref = geglu_ref(x.float(), w1.float(), bias1.float(), w2.float(),
+                        bias2.float())
+        errs.append((out.float() - ref).abs().max().item())
+    err = max(errs)
+
+    def library():
+        h, gate = F.linear(x, w1, b1).chunk(2, dim=-1)
+        return F.linear(h * F.gelu(gate), w2, b2)
+
+    t = timings(lambda: geglu(x, w1, b1, w2, b2),
+                lambda: geglu_ref(x, w1, b1, w2, b2), library, 20, 20)
+    b = bound(2.0 * M * C * 2 * inner + 2.0 * M * inner * C,
+              BF16_TENSOR_FLOPS, nbytes(x, w1, b1, w2, b2, out))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    r = row(f"rows={M} C={C} I={inner}", err, t, b)
+    log(f"K4 geglu {r['shape']} (first product width "
+        f"{geglu_proj_tiling(M, C, inner, sms)}, second width and splits "
+        f"{geglu_out_tiling(M, C, inner, sms)}): max_abs_err bf16 "
+        f"biases {errs[0]:.3e}, fp32 biases {errs[1]:.3e} (limit "
+        f"{GEGLU_LIMIT}) {describe(r, 'F.linear, gate, F.linear')}")
+    if not err <= GEGLU_LIMIT:
+        raise AssertionError(f"geglu disagrees: {errs}")
+    return r
+
+
 def check_geglu(gen: Gen) -> dict:
     # the UNet's biases are bf16, and each shape also runs fp32 biases
-    rows = []
-    for M, C in GEGLU_SHAPES:
-        inner = 4 * C
-        x = gen.normal(M, C)
-        w1 = gen.normal(2 * inner, C, scale=C ** -0.5)
-        b1 = gen.normal(2 * inner, scale=0.1)
-        w2 = gen.normal(C, inner, scale=inner ** -0.5)
-        b2 = gen.normal(C, scale=0.1)
-        b1f = gen.normal(2 * inner, scale=0.1, dtype=torch.float32)
-        b2f = gen.normal(C, scale=0.1, dtype=torch.float32)
-        errs = []
-        for bias1, bias2 in ((b1, b2), (b1f, b2f)):
-            out = geglu(x, w1, bias1, w2, bias2)
-            torch.cuda.synchronize()
-            ref = geglu_ref(x.float(), w1.float(), bias1.float(), w2.float(),
-                            bias2.float())
-            errs.append((out.float() - ref).abs().max().item())
-        err = max(errs)
-        def library():
-            h, gate = F.linear(x, w1, b1).chunk(2, dim=-1)
-            return F.linear(h * F.gelu(gate), w2, b2)
+    return summarize([geglu_row(gen, M, C, 4 * C) for M, C in GEGLU_SHAPES])
 
-        t = timings(lambda: geglu(x, w1, b1, w2, b2),
-                    lambda: geglu_ref(x, w1, b1, w2, b2), library, 20, 20)
-        b = bound(2.0 * M * C * 2 * inner + 2.0 * M * inner * C,
-                  BF16_TENSOR_FLOPS, nbytes(x, w1, b1, w2, b2, out))
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        r = row(f"rows={M} C={C} I={inner}", err, t, b)
-        log(f"K4 geglu {r['shape']} (first product width "
-            f"{geglu_proj_tiling(M, C, inner, sms)}, second width and splits "
-            f"{geglu_out_tiling(M, C, inner, sms)}): max_abs_err bf16 "
-            f"biases {errs[0]:.3e}, fp32 biases {errs[1]:.3e} (limit "
-            f"{GEGLU_LIMIT}) {describe(r, 'F.linear, gate, F.linear')}")
-        if not err <= GEGLU_LIMIT:
-            raise AssertionError(f"geglu disagrees: {errs}")
-        rows.append(r)
-    return summarize(rows)
+
+def check_tensor_parallel_rows(gen: Gen, results: dict) -> dict:
+    """Phase 2's rows at the shapes a tensor-parallel UNet (model 2) gives
+    K1 and K4 (``ATTN_TP_SHAPES``, ``GEGLU_TP_SHAPES``), under each
+    kernel's ``tp_shapes``; returns the shapes checked, for phase 11's
+    census."""
+    log("phase 2: K1 on each model rank's heads and K4 on its slice of the "
+        "inner width (tensor parallelism at model 2)")
+    attn = [attention_row(gen, *shape) for shape in ATTN_TP_SHAPES]
+    ff = [geglu_row(gen, M, C, inner) for M, C, inner in GEGLU_TP_SHAPES]
+    for name, rows in (("flash_attention", attn), ("geglu", ff)):
+        entry = results.setdefault(name, {})
+        entry["tp_shapes"] = rows
+        entry["max_abs_err"] = max([entry.get("max_abs_err", 0.0)]
+                                   + [r["err"] for r in rows])
+    return {"flash_attention": [list(s) for s in ATTN_TP_SHAPES],
+            "geglu": [list(s) for s in GEGLU_TP_SHAPES]}
 
 
 # K5's phase-2 shapes (rows, C, read through the CLS stride): every plan
@@ -2775,16 +2849,14 @@ def train_runs(work: pathlib.Path, roots: dict, out: pathlib.Path) -> list:
     return [
         ("train_vto", "vto", train_vto_cli.main,
          common("vitonhd", "vto", 2, 2) + vto),
-        ("train_vto resumed", "vto", train_vto_cli.main,
-         common("vitonhd", "vto", 3, 2) + vto
-         + ["--resume_from_checkpoint", "latest"]),
         ("train_vto resumed --gradient_checkpointing", "vto",
-         train_vto_cli.main, common("vitonhd", "vto", 5, 10) + vto
+         train_vto_cli.main, common("vitonhd", "vto", 4, 10) + vto
          + ["--resume_from_checkpoint", "latest",
             "--gradient_checkpointing", "--async_checkpointing"]),
         ("train_emasc", "emasc", train_emasc_cli.main,
-         common("dresscode", "emasc", 2, 2)
-         + ["--vgg_weights", str(work / "vgg19.pth")]),
+         common("dresscode", "emasc", 3, 1)
+         + ["--vgg_weights", str(work / "vgg19.pth"),
+            "--async_checkpointing"]),
         ("train_inversion_adapter", "inversion_adapter",
          train_adapter_cli.main, common("vitonhd", "adapter", 2, 2)
          + ["--clip_vision_dir", str(work / "clip_vision"),
@@ -2893,21 +2965,25 @@ def check_train_outputs(out: pathlib.Path, roots: dict,
     with the trained exports."""
     kept = sorted(p.name for p in (out / "vto").glob("checkpoint-*"))
     lines = metric_lines(out / "vto" / "metrics.jsonl")
-    if kept != ["checkpoint-3", "checkpoint-5"] or [
-            x["step"] for x in lines] != [1, 2, 3, 4, 5]:
+    kept_emasc = sorted(p.name for p in (out / "emasc").glob("checkpoint-*"))
+    if kept_emasc != ["checkpoint-2", "checkpoint-3"]:
+        raise AssertionError(f"train_emasc kept {kept_emasc}")
+    if kept != ["checkpoint-2", "checkpoint-4"] or [
+            x["step"] for x in lines] != [1, 2, 3, 4]:
         raise AssertionError(f"train_vto's checkpoints {kept} or steps "
                              f"{[x['step'] for x in lines]}")
     on = dict(device="cuda", dtype=BF16)
     zoo.extended_unet(checkpoint=str(out / "vto" / "unet_2.pth"), **on)
-    zoo.emasc(checkpoint=str(out / "emasc" / "emasc_2.pth"), **on)
+    zoo.emasc(checkpoint=str(out / "emasc" / "emasc_3.pth"), **on)
     zoo.inversion_adapter(checkpoint=str(
         out / "adapter" / "inversion_adapter_2.pth"), **on)
     zoo.warping_module(checkpoint=str(out / "tps" / "warp"
                                       / "warping_vitonhd.pth"),
                        device="cuda")
-    log("phase 10: checkpoints 3 and 5 of train_vto kept (keep 2), steps "
-        "1-5 over three runs (two resumed from latest, the last "
-        "asynchronous with gradient checkpointing); the unet, emasc, "
+    log("phase 10: checkpoints 2 and 4 of train_vto kept, steps 1-4 over "
+        "two runs (the second resumed from latest, asynchronous, with "
+        "gradient checkpointing); train_emasc's checkpoints 1, 2 and 3 "
+        "written asynchronously and 2 and 3 kept (keep 2); the unet, emasc, "
         "inversion_adapter and warping exports loaded back through the zoo")
     cache = roots["vitonhd"].parent / "cache"
     warped = sorted(p.name for p in (cache / "warped_cloths" / "vitonhd"
@@ -2929,6 +3005,680 @@ def check_train_outputs(out: pathlib.Path, roots: dict,
         f"(train and test, paired) under {cache}; cli.eval read them with "
         f"the trained unet, emasc and adapter exports and saved "
         f"{len(images)} image(s)")
+
+
+# phase 11: distribution on the card.  Two ranks share the one card over
+# gloo (NCCL takes one rank a card), one rank runs over NCCL; every rank
+# is a process of ``parallel.launch`` with torchrun's variables, killed
+# with the others where one fails or the phase's time runs out.  Limits:
+# the two-rank data-parallel step's loss within DIST_LOSS_LIMIT relative
+# of the one process's at the same global batch, its reduced gradient at
+# least DIST_GRAD_COS cosine similarity by UNet part (batch 1 a rank
+# against batch 2: cuBLAS and cuDNN pick other algorithms, in bf16; the
+# bf16 step's gradient itself agrees with fp32 autograd only to 0.99895
+# by part in phase 10's card-against-CPU check); the
+# tensor-parallel forward (bf16) within TP_FORWARD_LIMIT relative L2 of
+# the unsharded UNet's, BLOCK_LIMIT's allowance for a few bf16 roundings
+# a layer (each of the two bf16 forwards is about 1e-2 from an fp32
+# forward of the same weights, and the two round differently; in fp32 on
+# the CPU the tensor-parallel UNet holds to the JAX UNet at rtol 2e-3,
+# atol 2e-4, tests/test_torch_port_tp.py), its step's loss within
+# DIST_LOSS_LIMIT and its gathered gradient within DIST_GRAD_COS by
+# part.  Each limit is held against a planted fault in the same run:
+# the two-rank step with its gradient all_reduce left out must fall
+# below DIST_GRAD_COS, and the tensor-parallel forward with its partial
+# sums left unreduced above TP_FORWARD_LIMIT; both forwards are also
+# read against an fp32 CPU forward of the same weights, which shows how
+# much of their difference each one's bf16 rounding makes.  The two-rank
+# inference images within DIST_IMAGE_LIMIT mean absolute difference of
+# the one process's ([0, 1] pixels; bf16 sampling over DDIM-50 with CFG
+# 7.5 at another batch per call, as IMAGE_MEAN_LIMIT for bf16 against
+# fp32)
+DIST_LOSS_LIMIT = 1e-3
+DIST_GRAD_COS = 0.998
+TP_FORWARD_LIMIT = BLOCK_LIMIT
+DIST_IMAGE_LIMIT = IMAGE_MEAN_LIMIT
+DIST_TIMEOUT_S = 600
+DIST_BATCH = 2
+TP_FORWARD = (4, 64, 48)  # batch, latent height and width
+UNET_PARTS = ("conv_in", "time_embedding", "down_blocks", "mid_block",
+              "up_blocks", "conv_norm_out", "conv_out")
+DIST_SEEDS = {"unet": 10, "vae": 11, "adapter": 23, "text": 24}
+
+
+def dist_towers(device) -> dict:
+    """The full-width VTO step's towers from their seeds, alike in every
+    process on the card: the 31-channel UNet in fp32, the VAE, the SD-2
+    text encoder and the adapter frozen in bf16."""
+    towers = {
+        "unet": seeded(lambda: UNet2DCondition(sd2_unet_config(31)),
+                       DIST_SEEDS["unet"], device),
+        "vae": seeded(lambda: AutoencoderKL(VAEConfig()), DIST_SEEDS["vae"],
+                      device, BF16),
+        "text_model": seeded(lambda: CLIPTextModel(sd2_text_config()),
+                             DIST_SEEDS["text"], device, BF16),
+        "inversion_adapter": seeded(
+            lambda: InversionAdapter(num_encoder_layers=1),
+            DIST_SEEDS["adapter"], device, BF16)}
+    for name, module in towers.items():
+        module.requires_grad_(name == "unet")
+    return towers
+
+
+def dist_step(towers: dict, inputs: dict, device, mesh=None,
+              zero: bool = False):
+    """(optimizer, step) of the VTO train step over ``mesh``: AdamW 1e-5,
+    clip 1.0, bf16 autocast."""
+    opt = make_optimizer(list(towers["unet"].parameters()), 1e-5,
+                         warmup_steps=0, mesh=mesh,
+                         shard_optimizer_states=zero)
+    loss = make_vto_loss(config=VTOStepConfig(num_vstar=NUM_VSTAR),
+                         empty_prompt_ids=inputs["empty"].to(device),
+                         **towers)
+    return opt, steps_mod.build_train_step(
+        loss, opt, autocast=lambda: precision(torch.device(device), BF16),
+        mesh=mesh)
+
+
+def on_card(tree: dict, device) -> dict:
+    return {k: v.to(device) for k, v in tree.items()}
+
+
+def unet_grads(unet: torch.nn.Module) -> dict:
+    return {k: p.grad for k, p in unet.named_parameters()}
+
+
+def grads_by_part(grads: dict) -> dict:
+    """A UNet's gradient (name -> tensor), one flat bf16 host vector a
+    part, in name order."""
+    return {part: torch.cat([grads[k].detach().flatten().to("cpu", BF16)
+                             for k in sorted(grads)
+                             if k.startswith(part + ".")])
+            for part in UNET_PARTS}
+
+
+def cosines(grads: dict, ref: dict) -> dict:
+    """The cosine similarity of a UNet's gradient to ``ref`` by part."""
+    ours = grads_by_part(grads)
+    return {part: cosine(ours[part].float(), ref[part].float())
+            for part in UNET_PARTS}
+
+
+@contextlib.contextmanager
+def planted(module, name: str, fault):
+    """``module.<name>`` replaced by ``fault`` inside the block: a planted
+    fault, which a check's limit must tell from the sound run."""
+    real = getattr(module, name)
+    setattr(module, name, fault)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def host_params(module: torch.nn.Module) -> dict:
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in module.state_dict().items()}
+
+
+def same_params(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def rank_setup(deterministic: bool = True,
+               cudnn_tf32: bool = False) -> torch.device:
+    """A rank's card and the settings of phase 11's comparisons: matmul
+    TF32 off, cuDNN's as asked (the mains run with PyTorch's default, on);
+    deterministic cuDNN where a check is bitwise."""
+    from ladi_vton_tpu_torch.core import distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    torch.backends.cudnn.deterministic = deterministic
+    torch.backends.cudnn.benchmark = False
+    return distributed.local_device("cuda")
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def dist_reference(work: pathlib.Path, tokenizer) -> dict:
+    """Phase 11a, in this process: the one-process VTO step at full width,
+    512x384, global batch 2; its inputs, loss and gradient by part are
+    written under ``work`` for the ranks, and the card is released."""
+    h, w = TRAIN_SIZE
+    rng = np.random.default_rng(111)
+    rows = [train_batch(rng, tokenizer, h, w) for _ in range(DIST_BATCH)]
+    batch = {k: torch.cat([r[k] for r in rows]) for k in rows[0]}
+    inputs = {"batch": batch,
+              "draws": vto_draws(batch, torch.Generator().manual_seed(112)),
+              "empty": torch.from_numpy(
+                  tokenizer([""])[0].astype(np.int64))}
+    torch.save(inputs, work / "inputs.pt")
+    torch.cuda.reset_peak_memory_stats()
+    towers = dist_towers("cuda")
+    _, step = dist_step(towers, inputs, "cuda")
+    t0 = time.perf_counter()
+    loss = float(step(on_card(batch, "cuda"),
+                      on_card(inputs["draws"], "cuda"))["loss"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    torch.save({"loss": loss,
+                "grads": grads_by_part(unet_grads(towers["unet"]))},
+               work / "reference.pt")
+    log(f"phase 11a: the one-process VTO step at {h}x{w}, batch "
+        f"{DIST_BATCH}: loss {loss:.6f}, {seconds:.3f} s (with its "
+        f"warm-up), peak device memory {peak_gib():.2f} GiB")
+    del towers, step
+    torch.cuda.empty_cache()
+    return {"loss": loss}
+
+
+def dp_rank(work: str) -> dict:
+    """Phase 11a on each of two ranks: two data-parallel steps (one row of
+    the global batch a rank), then the same two under ZeRO-1 from the same
+    state; the first step's loss and the cosine of its reduced gradient by
+    part against the one process's, whether ZeRO-1's updates are bitwise
+    the unsharded ones, the AdamW elements held, each step's seconds, peak
+    memory and the second step's launches; then a planted fault, the first
+    step with the gradient ``all_reduce`` left out, and its cosines."""
+    from ladi_vton_tpu_torch.core.mesh import MeshSpec, make_mesh, shard_batch
+
+    dev = rank_setup()
+    work = pathlib.Path(work)
+    inputs = torch.load(work / "inputs.pt", weights_only=True)
+    mesh = make_mesh(MeshSpec())
+    rows = mesh.rows(DIST_BATCH)
+    batch = on_card(shard_batch(mesh, inputs["batch"]), dev)
+    draws = on_card({k: v[rows] for k, v in inputs["draws"].items()}, dev)
+    wrappers = {name: fn for name, fn, _, _, _ in KERNELS}
+    ref = torch.load(work / "reference.pt", weights_only=True)["grads"]
+    out = {}
+    for zero in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        towers = dist_towers(dev)
+        opt, step = dist_step(towers, inputs, dev, mesh, zero)
+        tag = "zero1" if zero else "dp"
+        seconds, losses = [], []
+        for i in range(2):
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            losses.append(float(step(batch, draws)["loss"]))
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if i == 0 and not zero:
+                out["cosine"] = cosines(unet_grads(towers["unet"]), ref)
+        out[tag] = {"loss": losses[0], "seconds": seconds,
+                    "peak_gib": peak_gib(), "launches": main_counts(wrappers),
+                    "adam_numel": opt.local_state_numel()}
+        if zero:
+            out["zero1_bitwise"] = same_params(updated,
+                                               host_params(towers["unet"]))
+        else:
+            updated = host_params(towers["unet"])
+        del towers, opt, step
+        torch.cuda.empty_cache()
+    towers = dist_towers(dev)
+    _, step = dist_step(towers, inputs, dev, mesh)
+    with planted(steps_mod, "reduce_gradients", lambda params, mesh: None):
+        step(batch, draws)
+    out["fault_cosine"] = cosines(unet_grads(towers["unet"]), ref)
+    return out
+
+
+def nccl_rank(work: str) -> dict:
+    """Phase 11b on one rank over NCCL: the step without a mesh, then over
+    the NCCL group of one rank (its ``all_reduce`` runs), from the same
+    state; whether the losses and the updated UNets are bitwise equal."""
+    import torch.distributed as dist
+
+    from ladi_vton_tpu_torch.core.mesh import MeshSpec, make_mesh
+
+    dev = rank_setup()
+    inputs = torch.load(pathlib.Path(work) / "inputs.pt", weights_only=True)
+    batch = on_card(inputs["batch"], dev)
+    draws = on_card(inputs["draws"], dev)
+    results = []
+    for mesh in (None, make_mesh(MeshSpec())):
+        towers = dist_towers(dev)
+        _, step = dist_step(towers, inputs, dev, mesh)
+        loss = float(step(batch, draws)["loss"])
+        results.append((loss, host_params(towers["unet"])))
+        del towers, step
+        torch.cuda.empty_cache()
+    return {"backend": dist.get_backend(), "world": dist.get_world_size(),
+            "loss": results[1][0],
+            "bitwise": results[0][0] == results[1][0]
+            and same_params(results[0][1], results[1][1])}
+
+
+def tp_inputs() -> tuple:
+    """Phase 11c's UNet forward inputs, bf16 on the host: latents, steps
+    and text context."""
+    B, lh, lw = TP_FORWARD
+    g = torch.Generator().manual_seed(113)
+    x = torch.randn((B, 31, lh, lw), generator=g).to(BF16)
+    ctx = torch.randn((B, 77, 1024), generator=g).to(BF16)
+    return x, torch.tensor([981, 500, 250, 1]), ctx
+
+
+def tp_reference(work: pathlib.Path) -> None:
+    """Phase 11c's fp32 reference, in this process: the bf16 UNet the
+    ranks seed, its weights in an fp32 CPU twin, whose forward on
+    ``tp_inputs`` is written under ``work``."""
+    def factory():
+        return UNet2DCondition(sd2_unet_config(31))
+
+    t0 = time.perf_counter()
+    unet = seeded(factory, DIST_SEEDS["unet"], "cuda", BF16)
+    twin = cpu_copy(unet, factory)
+    del unet
+    torch.cuda.empty_cache()
+    x, t, ctx = tp_inputs()
+    with torch.no_grad():
+        torch.save(twin(x.float(), t, ctx.float()), work / "tp_fp32.pt")
+    log(f"phase 11c: the fp32 CPU twin of the bf16 UNet and its forward "
+        f"(batch {TP_FORWARD[0]}, {TP_FORWARD[1]}x{TP_FORWARD[2]} latents) "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+
+def tp_rank(work: str) -> dict:
+    """Phase 11c on each of two ranks at data 1 x model 2: the full-width
+    UNet's forward (bf16, batch 4, 64x48 latents) unsharded and tensor
+    parallel, with the K1 and K4 calls of the parallel one counted and
+    their shapes recorded, each against the fp32 CPU forward; the
+    parallel one with its partial sums left unreduced (a planted fault);
+    then one tensor-parallel VTO step (fp32 parameters) on the global
+    batch, its loss and its gradient gathered to the reference layout."""
+    from ladi_vton_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from ladi_vton_tpu_torch.parallel import tp
+
+    dev = rank_setup(deterministic=False)
+    work = pathlib.Path(work)
+    mesh = make_mesh(MeshSpec(data=1, model=2))
+    x, t, ctx = (v.to(dev) for v in tp_inputs())
+    unet = seeded(lambda: UNet2DCondition(sd2_unet_config(31)),
+                  DIST_SEEDS["unet"], dev, BF16)
+    with torch.no_grad():
+        full = unet(x, t, ctx)
+    tp.unet_tp(unet, mesh)
+    shapes = {"flash_attention": set(), "geglu": set()}
+
+    def attn_hook(module, args, kwargs):
+        q = args[0]
+        context = args[1] if len(args) > 1 else kwargs.get("context")
+        sk = q.shape[1] if context is None else context.shape[1]
+        shapes["flash_attention"].add(
+            (q.shape[0], q.shape[1], sk, module.heads, module.dim_head))
+
+    def ff_hook(module, args):
+        x_in = args[0]
+        shapes["geglu"].add((x_in.numel() // x_in.shape[-1],
+                             x_in.shape[-1], module.inner_local))
+
+    hooks = [m.register_forward_pre_hook(attn_hook, with_kwargs=True)
+             for m in unet.modules() if isinstance(m, tp.TPCrossAttention)]
+    hooks += [m.register_forward_pre_hook(ff_hook) for m in unet.modules()
+              if isinstance(m, tp.TPFeedForwardGEGLU)]
+    wrappers = {name: fn for name, fn, _, _, _ in KERNELS}
+    reset_counts(wrappers)
+    with torch.no_grad():
+        sharded = unet(x, t, ctx)
+    torch.cuda.synchronize()
+    launches = main_counts(wrappers)
+    for h in hooks:
+        h.remove()
+    with planted(tp, "reduce_from_model", lambda y, mesh: y.float()), \
+            torch.no_grad():
+        unreduced = unet(x, t, ctx)
+    fp32 = torch.load(work / "tp_fp32.pt", weights_only=True)
+    q = unet.down_blocks[1].attentions[0].transformer_blocks[0].attn1.to_q
+    out = {"forward_rel_l2": rel_l2(sharded.float(), full.float()),
+           "full_vs_fp32": rel_l2(full.float(), fp32),
+           "tp_vs_fp32": rel_l2(sharded.float(), fp32),
+           "fault_rel_l2": rel_l2(unreduced.float(), full.float()),
+           "forward_launches": launches,
+           "shapes": {k: sorted(v) for k, v in shapes.items()},
+           "to_q": tuple(q.weight.shape)}
+    del unet, full, sharded, unreduced
+    torch.cuda.empty_cache()
+
+    inputs = torch.load(work / "inputs.pt", weights_only=True)
+    torch.cuda.reset_peak_memory_stats()
+    towers = dist_towers(dev)
+    tp.unet_tp(towers["unet"], mesh)
+    _, step = dist_step(towers, inputs, dev, mesh)
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    out["loss"] = float(step(on_card(inputs["batch"], dev),
+                             on_card(inputs["draws"], dev))["loss"])
+    torch.cuda.synchronize()
+    out.update(step_seconds=time.perf_counter() - t0, peak_gib=peak_gib(),
+               step_launches=main_counts(wrappers))
+    grads = tp.gather_unet_state(towers["unet"], mesh,
+                                 unet_grads(towers["unet"]))
+    out["cosine"] = cosines(grads, torch.load(
+        work / "reference.pt", weights_only=True)["grads"])
+    return out
+
+
+def run_main(module: str, argv: list) -> dict:
+    """A CLI main on a rank (phase 11d), with cuDNN deterministic so that
+    a resumed run can be held bitwise to an uninterrupted one; its result,
+    kernel launches and peak memory."""
+    import importlib
+
+    rank_setup(cudnn_tf32=True)
+    wrappers = {name: fn for name, fn, _, _, _ in KERNELS}
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    result = importlib.import_module(module).main(argv)
+    torch.cuda.synchronize()
+    return {"result": result, "launches": main_counts(wrappers),
+            "peak_gib": peak_gib()}
+
+
+def ranks(target: str, n: int, args: tuple, label: str, out: pathlib.Path,
+          backend: str = "gloo") -> tuple:
+    """``chip_smoke.<target>(*args)`` on ``n`` ranks; (results, seconds).
+    Each rank's output is kept under ``out/<label>``."""
+    from ladi_vton_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    results = spawn(f"chip_smoke:{target}", n, args, timeout=DIST_TIMEOUT_S,
+                    backend=backend, log_dir=out / label.replace(" ", "_"))
+    return results, time.perf_counter() - t0
+
+
+def add_launches(total: dict, counts: dict) -> None:
+    for name in total:
+        total[name] += counts.get(name, 0)
+
+
+def mean_abs_png(a: pathlib.Path, b: pathlib.Path) -> tuple:
+    """The PNGs under two directories: (relative paths of a, of b, the
+    mean absolute difference of the pixels over [0, 1])."""
+    files_a = sorted(p.relative_to(a) for p in a.rglob("*.png"))
+    files_b = sorted(p.relative_to(b) for p in b.rglob("*.png"))
+    diffs = [np.abs(imageio.open_image(a / f).pixels.astype(np.float64)
+                    - imageio.open_image(b / f).pixels) / 255.0
+             for f in files_a if f in files_b]
+    return files_a, files_b, float(np.mean([d.mean() for d in diffs]))
+
+
+def inference_argv(work: pathlib.Path, roots: dict,
+                   out: pathlib.Path) -> list:
+    """Phase 7's ``cli.inference`` run over the VITON-HD split (batch 2,
+    DDIM-50, CFG 7.5, PNG output) into ``out``."""
+    sd2 = work / "sd2"
+    return ["--dataset", "vitonhd", "--vitonhd_dataroot",
+            str(roots["vitonhd"]), "--test_order", "paired",
+            "--batch_size", "2", "--num_workers", "2", "--seed", "7",
+            "--device", "cuda", "--output_dir", str(out),
+            "--checkpoint_dir", str(work / "ladi"),
+            "--sd2_model_dir", str(sd2),
+            "--clip_vision_dir", str(work / "clip_vision"),
+            "--tokenizer_dir", str(sd2 / "tokenizer"),
+            "--num_inference_steps", "50", "--guidance_scale", "7.5",
+            "--use_png"]
+
+
+def distributed_only(work: pathlib.Path, checked: dict, smi: str) -> dict:
+    """``--distributed-only``: the files phase 11 reads, written from
+    freshly seeded full-width modules (phase 6's releases and SD-2 and
+    CLIP directories, the stock UNet, phase 7's test splits and phase
+    10's train splits), the one-process inference run over the VITON-HD
+    split as a process, then phase 11."""
+    tokenizer = synthetic_tokenizer(work / "sd2" / "tokenizer")
+    pipe = full_width_pipeline()
+    cond = conditioner("cuda", (512, 384), tokenizer)
+    write_checkpoints(work, pipe, cond)
+    write_stock_unet(work / "sd2", pipe.unet)
+    del pipe, cond
+    torch.cuda.empty_cache()
+    roots = write_datasets(work)
+    train_roots = write_train_data(work / "train_data")
+    single = work / "out" / "inference_vitonhd"
+    (r,), seconds = ranks("run_main", 1, (
+        "ladi_vton_tpu_torch.cli.inference",
+        inference_argv(work, roots, single)), "inference single",
+        work / "out")
+    log(f"phase 11: the one-process inference over the VITON-HD split, "
+        f"{r['result']['images']} images in {seconds:.1f} s wall")
+    return distributed_path(work, roots, train_roots, single / "paired",
+                            tokenizer, checked, smi)
+
+
+def dist_mains(work: pathlib.Path, roots: dict, train_roots: dict,
+               single_inference: pathlib.Path, out: pathlib.Path,
+               total: dict, smi: str, dp_peak: float) -> None:
+    """Phase 11d: the mains as two ranks with torchrun's variables.
+    ``cli.train_vto --shard_optimizer_states`` two steps with a checkpoint
+    each, then again from ``checkpoint-1`` alone, resumed: the second
+    ``unet_2.pth`` bitwise the first's, and each run's peak memory a rank,
+    its checkpoints included, below ``dp_peak`` (phase 11a's unsharded
+    step's); ``cli.train_vto --tensor_parallel
+    2`` two steps, its gathered ``unet_2.pth`` loaded through the zoo;
+    ``cli.inference`` over phase 7's VITON-HD split against the one
+    process's images (``single_inference``)."""
+    sd2 = work / "sd2"
+    vto = ["--dataset", "vitonhd", "--vitonhd_dataroot",
+           str(train_roots["vitonhd"]), "--sd2_model_dir", str(sd2),
+           "--train_batch_size", str(DIST_BATCH), "--test_batch_size", "1",
+           "--num_workers", "2", "--num_workers_test", "2",
+           "--max_train_steps", "2", "--lr_warmup_steps", "0",
+           "--report_to", "none", "--test_order", "paired", "--seed", "9",
+           "--device", "cuda", "--dist_backend", "gloo",
+           "--height", str(TRAIN_SIZE[0]), "--width", str(TRAIN_SIZE[1]),
+           "--clip_vision_dir", str(work / "clip_vision"),
+           "--inversion_adapter_dir", str(work / "ladi"),
+           "--tokenizer_dir", str(sd2 / "tokenizer")]
+    runs = out / "mains"
+    full, part, tp_out = (runs / "zero1", runs / "zero1_resumed",
+                          runs / "tp")
+    module = "ladi_vton_tpu_torch.cli.train_vto"
+
+    def run(label: str, argv: list) -> list:
+        results, seconds = ranks("run_main", 2, (module, argv), label, runs)
+        for r in results:
+            add_launches(total, r["launches"])
+        lines = metric_lines(pathlib.Path(argv[argv.index("--output_dir")
+                                               + 1]) / "metrics.jsonl")
+        log(f"phase 11d {label}: {seconds:.1f} s wall for two ranks on one "
+            f"card, step {[r['result'] for r in results]}, losses "
+            f"{[x['loss'] for x in lines]}, step seconds "
+            f"{[round(1 / x['steps_per_sec'], 3) for x in lines]} (host "
+            f"clock, each with its batch's loading), peak device memory over "
+            f"the run, its checkpoints included, "
+            f"{[round(r['peak_gib'], 2) for r in results]} GiB a rank, "
+            f"launches {[r['launches'] for r in results]} [{smi}]")
+        if any(r["result"] != 2 for r in results):
+            raise AssertionError(f"{label}: the ranks ended at "
+                                 f"{[r['result'] for r in results]}")
+        if "--shard_optimizer_states" in argv and any(
+                r["peak_gib"] >= dp_peak for r in results):
+            raise AssertionError(f"{label}: a rank's peak is not below the "
+                                 f"unsharded step's {dp_peak:.2f} GiB")
+        return lines
+
+    zero = vto + ["--checkpointing_steps", "1", "--shard_optimizer_states"]
+    lines = run("train_vto --shard_optimizer_states",
+                zero + ["--output_dir", str(full)])
+    # the first run's checkpoint-1 alone, moved (each is 10.5 GB)
+    part.mkdir(parents=True)
+    shutil.move(str(full / "checkpoint-1"), part / "checkpoint-1")
+    shutil.rmtree(full / "checkpoint-2")
+    resumed = run("train_vto --shard_optimizer_states resumed",
+                  zero + ["--output_dir", str(part),
+                          "--resume_from_checkpoint", "latest"])
+    a = torch.load(full / "unet_2.pth", weights_only=True)
+    b = torch.load(part / "unet_2.pth", weights_only=True)
+    if not same_params(a, b) or resumed[-1]["loss"] != lines[-1]["loss"]:
+        raise AssertionError("the resumed ZeRO-1 run differs from the "
+                             "uninterrupted one")
+    del a, b
+    shutil.rmtree(full)
+    shutil.rmtree(part)
+    run("train_vto --tensor_parallel 2", vto + [
+        "--output_dir", str(tp_out), "--checkpointing_steps", "2",
+        "--tensor_parallel", "2"])
+    unet = zoo.extended_unet(checkpoint=str(tp_out / "unet_2.pth"),
+                             device="cuda", dtype=BF16)
+    q = unet.down_blocks[1].attentions[0].transformer_blocks[0].attn1.to_q
+    log(f"phase 11d: the resumed ZeRO-1 run's unet_2.pth is bitwise the "
+        f"uninterrupted run's, its step-2 loss {resumed[-1]['loss']}; the "
+        f"tensor-parallel run's gathered unet_2.pth loads through the zoo "
+        f"(to_q {tuple(q.weight.shape)}, "
+        f"{sum(p.numel() for p in unet.parameters())} parameters)")
+    del unet
+    torch.cuda.empty_cache()
+    shutil.rmtree(tp_out)
+
+    two = runs / "inference"
+    results, seconds = ranks("run_main", 2, (
+        "ladi_vton_tpu_torch.cli.inference",
+        inference_argv(work, roots, two) + ["--dist_backend", "gloo"]),
+        "inference", runs)
+    for r in results:
+        add_launches(total, r["launches"])
+    ours, ref, diff = mean_abs_png(two / "paired", single_inference)
+    log(f"phase 11d inference over two ranks (data 2, batch 2, DDIM-50): "
+        f"{seconds:.1f} s wall, {[r['result']['images'] for r in results]} "
+        f"images, {len(ours)} files; mean absolute difference from the one "
+        f"process's images {diff:.3e} (limit {DIST_IMAGE_LIMIT}); launches "
+        f"{[r['launches'] for r in results]} [{smi}]")
+    if ours != ref or not len(ours) or not diff <= DIST_IMAGE_LIMIT:
+        raise AssertionError("the two-rank inference differs from the one "
+                             "process's")
+
+
+def distributed_path(work: pathlib.Path, roots: dict, train_roots: dict,
+                     single_inference: pathlib.Path, tokenizer,
+                     checked: dict, smi: str) -> dict:
+    """Phase 11: the data-parallel, ZeRO-1, NCCL and tensor-parallel steps,
+    the mains over ranks and the dry run, with the files of phases 6, 7
+    and 10 under ``work``; every check of the comment above.  Returns the
+    kernels' launches summed over every rank of the phase."""
+    t_phase = time.perf_counter()
+    out = work / "dist"
+    out.mkdir()
+    log(f"phase 11: this process holds "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of the card "
+        f"before the ranks start; two ranks share the one card over gloo "
+        f"(NCCL refuses two ranks on one device) and one rank runs over "
+        f"NCCL, without gradient checkpointing")
+    total = {name: 0 for name, _, _, _, _ in KERNELS}
+    ref = dist_reference(out, tokenizer)
+
+    results, seconds = ranks("dp_rank", 2, (str(out),), "dp", out)
+    for r in results:
+        for tag in ("dp", "zero1"):
+            add_launches(total, r[tag]["launches"])
+        log(f"phase 11a rank {results.index(r)}: data-parallel steps "
+            f"{[round(x, 3) for x in r['dp']['seconds']]} s (the first with "
+            f"its warm-up), first loss "
+            f"{r['dp']['loss']:.6f} against {ref['loss']:.6f}, gradient "
+            f"cosine by part "
+            f"{({k: round(v, 6) for k, v in r['cosine'].items()})}, peak "
+            f"device memory {r['dp']['peak_gib']:.2f} GiB, AdamW "
+            f"elements {r['dp']['adam_numel']}; ZeRO-1 steps "
+            f"{[round(x, 3) for x in r['zero1']['seconds']]} s, peak "
+            f"{r['zero1']['peak_gib']:.2f} GiB, AdamW elements "
+            f"{r['zero1']['adam_numel']}, updates bitwise the unsharded "
+            f"ones: {r['zero1_bitwise']}; launches of a step "
+            f"{r['dp']['launches']}; planted fault, no gradient all_reduce: "
+            f"cosine by part "
+            f"{({k: round(v, 6) for k, v in r['fault_cosine'].items()})} "
+            f"(limit {DIST_GRAD_COS}) [{smi}]")
+        rel = abs(r["dp"]["loss"] - ref["loss"]) / abs(ref["loss"])
+        half = r["zero1"]["adam_numel"] / r["dp"]["adam_numel"]
+        if not (rel <= DIST_LOSS_LIMIT and r["zero1_bitwise"]
+                and min(r["cosine"].values()) >= DIST_GRAD_COS
+                and 0.3 < half < 0.7):
+            raise AssertionError(f"phase 11a: rank {results.index(r)} "
+                                 f"disagrees (loss {rel:.3e} relative, ZeRO "
+                                 f"state share {half:.3f})")
+        if min(r["fault_cosine"].values()) >= DIST_GRAD_COS:
+            raise AssertionError("phase 11a: the gradient limit does not "
+                                 "tell a step without its all_reduce")
+    dp_peak = max(r["dp"]["peak_gib"] for r in results)
+    log(f"phase 11a: two ranks in {seconds:.1f} s wall")
+
+    (r,), seconds = ranks("nccl_rank", 1, (str(out),), "nccl", out,
+                          backend="nccl")
+    log(f"phase 11b: one rank over {r['backend']} (world {r['world']}): "
+        f"loss {r['loss']:.6f}, the step and its update bitwise the one "
+        f"without a process group: {r['bitwise']} ({seconds:.1f} s wall)")
+    if r["backend"] != "nccl" or not r["bitwise"]:
+        raise AssertionError("phase 11b: the NCCL step differs")
+
+    tp_reference(out)
+    results, seconds = ranks("tp_rank", 2, (str(out),), "tp", out)
+    for i, r in enumerate(results):
+        add_launches(total, r["forward_launches"])
+        add_launches(total, r["step_launches"])
+        rel = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+        missing = {name: [s for s in r["shapes"][name]
+                          if list(s) not in checked[name]]
+                   for name in r["shapes"]}
+        log(f"phase 11c rank {i}: the tensor-parallel UNet forward (batch "
+            f"{TP_FORWARD[0]}, {TP_FORWARD[1]}x{TP_FORWARD[2]} latents, "
+            f"bf16) against the unsharded one: relative L2 "
+            f"{r['forward_rel_l2']:.3e} (limit {TP_FORWARD_LIMIT}); "
+            f"against the fp32 CPU forward, the unsharded "
+            f"{r['full_vs_fp32']:.3e} and the tensor-parallel "
+            f"{r['tp_vs_fp32']:.3e}; planted fault, the partial sums "
+            f"unreduced: {r['fault_rel_l2']:.3e}; its "
+            f"launches {r['forward_launches']}, K1 at "
+            f"{r['shapes']['flash_attention']}, K4 at "
+            f"{r['shapes']['geglu']}; to_q {r['to_q']}; the "
+            f"tensor-parallel step {r['step_seconds']:.3f} s (with its "
+            f"warm-up), loss {r['loss']:.6f} ({rel:.3e} relative, limit "
+            f"{DIST_LOSS_LIMIT}), gathered gradient cosine by part "
+            f"{({k: round(v, 6) for k, v in r['cosine'].items()})}, peak "
+            f"{r['peak_gib']:.2f} GiB, launches {r['step_launches']} "
+            f"[{smi}]")
+        if any(missing.values()):
+            raise AssertionError(f"phase 2 does not check the shard shapes "
+                                 f"{missing}")
+        if not (r["forward_rel_l2"] <= TP_FORWARD_LIMIT
+                and rel <= DIST_LOSS_LIMIT
+                and min(r["cosine"].values()) >= DIST_GRAD_COS
+                and r["forward_launches"]["flash_attention"]
+                and r["forward_launches"]["geglu"]):
+            raise AssertionError(f"phase 11c: rank {i} disagrees")
+        if r["fault_rel_l2"] <= TP_FORWARD_LIMIT:
+            raise AssertionError("phase 11c: the forward's limit does not "
+                                 "tell unreduced partial sums")
+    log(f"phase 11c: two ranks in {seconds:.1f} s wall")
+
+    dist_mains(work, roots, train_roots, single_inference, out, total, smi,
+               dp_peak)
+
+    from ladi_vton_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    results = dryrun_multichip(2, "cuda", timeout=DIST_TIMEOUT_S,
+                               log_dir=out / "dryrun")
+    for r in results:
+        for counts in r["launches"].values():
+            add_launches(total, counts)
+    log(f"phase 11e: dryrun_multichip(2) on the card in "
+        f"{time.perf_counter() - t0:.1f} s: losses "
+        f"{[(r['loss1'], r['loss2'], r['loss4']) for r in results]}, "
+        f"launches by phase {[r['launches'] for r in results]}")
+    missing = [name for name in ("flash_attention", "group_norm", "geglu",
+                                 "layer_norm")
+               if not all(r["launches"]["4"][name] for r in results)]
+    if missing:
+        raise AssertionError(f"the dry run's TP step never launched "
+                             f"{missing}")
+    missing = [name for name, n in total.items() if not n]
+    if missing:
+        raise AssertionError(f"kernels never launched in phase 11: {missing}")
+    log(f"phase 11: distribution ({time.perf_counter() - t_phase:.1f} s)")
+    return total
 
 
 KERNELS = (
@@ -2962,6 +3712,10 @@ def main() -> None:
                         help="phase 2's gradient rows and phase 10 alone "
                         "(its files written from freshly seeded modules), "
                         "then exit without the result lines")
+    parser.add_argument("--distributed-only", action="store_true",
+                        help="phase 2's tensor-parallel rows and phase 11 "
+                        "alone (its files written from freshly seeded "
+                        "modules), then exit without the result lines")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script measures "
@@ -2998,16 +3752,23 @@ def main() -> None:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
             training_only(pathlib.Path(work), smi)
         return
+    if args.distributed_only:
+        checked = check_tensor_parallel_rows(gen, {})
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+            log(f"launches during phase 11: "
+                f"{distributed_only(pathlib.Path(work), checked, smi)}")
+        return
     results = {}
     for name, _, check, _, _ in KERNELS:
         results[name] = check(gen)
     for name, grad in check_gradients(gen).items():
         results[name]["grad"] = grad
+    checked = check_tensor_parallel_rows(gen, results)
     log("phase 2: every kernel agrees with its plain version, and so do "
         "its gradients")
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
-        counts = run_phases(pathlib.Path(work), gen, smi)
+        counts = run_phases(pathlib.Path(work), gen, smi, checked)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source,
          "replaces": replaces,
@@ -3019,10 +3780,11 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-def run_phases(work: pathlib.Path, gen: Gen, smi: str) -> dict:
-    """Phases 3 to 9, with the files they write under ``work``; returns
-    the kernels' launches on phase 5's (``launches``), 6's, 7's, 8's and
-    9's paths, by phase."""
+def run_phases(work: pathlib.Path, gen: Gen, smi: str, checked: dict) -> dict:
+    """Phases 3 to 11, with the files they write under ``work``; returns
+    the kernels' launches on phase 5's (``launches``), 6's, 7's, 8's, 9's,
+    10's and 11's paths, by phase.  ``checked``: the tensor-parallel
+    shapes phase 2 checked."""
     t0 = time.perf_counter()
     tokenizer = synthetic_tokenizer(work / "sd2" / "tokenizer")
     check_blocks(gen)
@@ -3110,11 +3872,24 @@ def run_phases(work: pathlib.Path, gen: Gen, smi: str) -> dict:
     train_launches = training_path(work, zpipe, zcond, tokenizer, wrappers,
                                    smi)
     log(f"launches during phase 10's training runs: {train_launches}")
+
+    # phase 11's ranks need the card: this process lets go of its modules,
+    # and of phase 10's checkpoints on disk
+    del pipe, service, cond, record, zpipe, zcond, raw, served
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work / "train", ignore_errors=True)
+    dist_launches = distributed_path(
+        work, roots, {"vitonhd": work / "train_data" / "vh" / "vitonhd"},
+        work / "out" / "inference_vitonhd" / "paired", tokenizer, checked,
+        smi)
+    log(f"launches during phase 11: {dist_launches}")
     return {"launches": launches, "zoo_launches": zoo_launches,
             "mains_launches": mains_launches,
             "serve_launches": serve_launches,
             "metrics_launches": metrics_launches,
-            "train_launches": train_launches}
+            "train_launches": train_launches,
+            "dist_launches": dist_launches}
 
 
 if __name__ == "__main__":

@@ -14,8 +14,9 @@ the warped cloths come from the dataset's cache (``--cloth_input_type
 warped``), the cloth's CLIP features from the feature cache with
 ``--use_clip_cloth_features`` (else from the vision tower), and the
 batches run through ``pipelines.drivers.generate_images_from_tryon_pipe``.
-``--device``, ``--allow_tf32``, ``--compute_metrics`` and
-``--tensor_parallel`` behave as in ``cli.inference``.
+``--device``, ``--allow_tf32``, ``--compute_metrics``,
+``--tensor_parallel``, ``--dist_backend`` and the ranks' mesh behave as
+in ``cli.inference``.
 """
 
 from __future__ import annotations
@@ -26,9 +27,11 @@ from pathlib import Path
 
 from ladi_vton_tpu_torch.cli.inference import (
     SCHEDULERS,
+    add_dist_flag,
     check_args,
+    finish,
     make_loader,
-    score_saved,
+    setup_mesh,
     tokenizer_dir,
 )
 from ladi_vton_tpu_torch.core.dtypes import default_policy
@@ -36,6 +39,7 @@ from ladi_vton_tpu_torch.core.rng import set_seed
 from ladi_vton_tpu_torch.data import DressCodeDataset, VitonHDDataset
 from ladi_vton_tpu_torch.diffusion.schedulers import make_scheduler
 from ladi_vton_tpu_torch.hub import zoo
+from ladi_vton_tpu_torch.parallel.tp import unet_tp
 from ladi_vton_tpu_torch.pipelines.drivers import (
     generate_images_from_tryon_pipe,
 )
@@ -104,9 +108,11 @@ def parse_args(argv=None):
     p.add_argument("--width", type=int, default=384,
                    help="Generation width (reference fixes 384)")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="Only 1: tensor parallelism is not ported yet.")
+                   help="Ranks of the model axis the UNet's attentions and "
+                        "feed-forwards split over.")
     p.add_argument("--device", type=str, default="cuda",
                    help="Where the models run: cuda (default) or cpu.")
+    add_dist_flag(p)
     return p.parse_args(argv)
 
 
@@ -138,7 +144,7 @@ def build_dataset(args, phase: str, order: str, outputlist, size=(512, 384)):
 def main(argv=None) -> dict:
     """Run the CLI; returns ``drivers.run_batches``' numbers."""
     args = parse_args(argv)
-    device = check_args(args)
+    device, mesh = setup_mesh(args, check_args(args))
     if args.emasc_type != "none" and args.emasc_dir and (
             args.emasc_padding != args.emasc_kernel // 2):
         raise ValueError(
@@ -150,6 +156,7 @@ def main(argv=None) -> dict:
     unet = zoo.extended_unet(
         args.dataset,
         checkpoint=_latest_pth(args.unet_dir, "unet", args.unet_name), **on)
+    unet_tp(unet, mesh)
     text_model = zoo.sd2_text_encoder(args.sd2_model_dir, **on)
     tokenizer = CLIPTokenizer.from_dir(tokenizer_dir(args))
 
@@ -203,9 +210,8 @@ def main(argv=None) -> dict:
         text_usage=args.text_usage, num_vstar=args.num_vstar,
         seed=args.seed, num_inference_steps=args.num_inference_steps,
         guidance_scale=args.guidance_scale, use_png=args.use_png,
-        cloth_input_type=args.cloth_input_type)
-    if args.compute_metrics:
-        score_saved(args, save_dir, device)
+        cloth_input_type=args.cloth_input_type, mesh=mesh)
+    finish(args, save_dir, device)
     return stats
 
 

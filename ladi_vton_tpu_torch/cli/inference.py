@@ -21,8 +21,16 @@ there is no card raises).  ``--allow_tf32`` sets cuBLAS's TF32 switch, as
 the reference does; cuDNN's stays on, PyTorch's default.  The flash
 attention kernel is the default on the card, so
 ``--enable_xformers_memory_efficient_attention`` changes nothing.
-``--tensor_parallel`` above 1 (distribution is not ported yet) raises
-before any work.  ``--compute_metrics`` scores the saved images once the
+
+Over ranks (``python -m torch.distributed.run --nproc_per_node N -m
+ladi_vton_tpu_torch.cli.inference ...``) the ranks form a data x model
+mesh (``core.mesh``, ``model`` = ``--tensor_parallel``): ``--batch_size``
+is rounded up to a multiple of ``data``, each data rank conditions,
+samples and saves its rows of every batch with its rows of the global
+batch's noise, and model rank 0 writes; ``--tensor_parallel N`` splits
+the UNet's attentions and feed-forwards over ``model``
+(``parallel.tp``).  ``--dist_backend`` is NCCL on the card and gloo on
+the CPU.  ``--compute_metrics`` scores the saved images once the
 saver has flushed (``metrics.compute.compute_metrics`` on ``--device``,
 weights from ``$LADI_VTON_METRIC_WEIGHTS``) and writes
 ``metrics_<order>_<category>.json`` into the save directory, as the JAX
@@ -39,8 +47,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ladi_vton_tpu_torch.core import distributed
 from ladi_vton_tpu_torch.core.dtypes import default_policy, resolve_device
-from ladi_vton_tpu_torch.core.rng import batch_generator, set_seed
+from ladi_vton_tpu_torch.core.mesh import MeshSpec, make_mesh
+from ladi_vton_tpu_torch.core.rng import set_seed
 from ladi_vton_tpu_torch.data import (
     BatchLoader,
     DressCodeDataset,
@@ -49,6 +59,8 @@ from ladi_vton_tpu_torch.data import (
 from ladi_vton_tpu_torch.diffusion.schedulers import make_scheduler
 from ladi_vton_tpu_torch.hub import zoo
 from ladi_vton_tpu_torch.pipelines.condition import Conditioner
+from ladi_vton_tpu_torch.parallel.sharding import local_batch, sample_draws
+from ladi_vton_tpu_torch.parallel.tp import unet_tp
 from ladi_vton_tpu_torch.pipelines.drivers import run_batches
 from ladi_vton_tpu_torch.pipelines.serving import category_prompts
 from ladi_vton_tpu_torch.pipelines.tryon import TryOnPipeline
@@ -109,8 +121,8 @@ def parse_args(argv=None):
                         help="Directory with vocab.json + merges.txt "
                              "(defaults to <sd2_model_dir>/tokenizer)")
     parser.add_argument("--tensor_parallel", type=int, default=1,
-                        help="Only 1: tensor parallelism is not ported "
-                             "yet.")
+                        help="Ranks of the model axis the UNet's "
+                             "attentions and feed-forwards split over.")
     parser.add_argument("--height", type=int, default=512,
                         help="Generation height (the reference fixes "
                              "512; must be divisible by 64)")
@@ -118,7 +130,16 @@ def parse_args(argv=None):
                         help="Generation width (reference fixes 384)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Where the models run: cuda (default) or cpu.")
+    add_dist_flag(parser)
     return parser.parse_args(argv)
+
+
+def add_dist_flag(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--dist_backend", type=str, default=None,
+                        choices=list(distributed.BACKENDS),
+                        help="Process-group backend over ranks: nccl on "
+                             "cuda and gloo on cpu by default; gloo lets "
+                             "ranks share cards.")
 
 
 def check_args(args) -> torch.device:
@@ -127,14 +148,29 @@ def check_args(args) -> torch.device:
         raise ValueError("VitonHD dataroot must be provided")
     if args.dataset == "dresscode" and args.dresscode_dataroot is None:
         raise ValueError("DressCode dataroot must be provided")
-    if args.tensor_parallel != 1:
-        raise NotImplementedError(
-            f"--tensor_parallel {args.tensor_parallel}: tensor parallelism "
-            f"is not ported to the PyTorch package yet (ROADMAP.md P12)")
     device = resolve_device(args.device)
     if args.allow_tf32:
         torch.backends.cuda.matmul.allow_tf32 = True
     return device
+
+
+def setup_mesh(args, device: torch.device) -> tuple:
+    """Join the ranks' process group where the launcher started several,
+    lay them out as the data x model mesh and round ``--batch_size`` up to
+    a multiple of ``data`` (the JAX main's rule); (device, mesh)."""
+    distributed.initialize(backend=args.dist_backend, device=device)
+    device = distributed.local_device(device)
+    mesh = make_mesh(MeshSpec(model=args.tensor_parallel))
+    args.batch_size = -(-args.batch_size // mesh.data) * mesh.data
+    return device, mesh
+
+
+def finish(args, save_dir: str, device: torch.device) -> None:
+    """After every rank has saved: ``--compute_metrics`` on rank 0."""
+    distributed.barrier()
+    if args.compute_metrics and distributed.is_main_process():
+        score_saved(args, save_dir, device)
+    distributed.barrier()
 
 
 def tokenizer_dir(args) -> Path:
@@ -162,7 +198,7 @@ def make_loader(dataset, args) -> BatchLoader:
 def main(argv=None) -> dict:
     """Run the CLI; returns ``drivers.run_batches``' numbers."""
     args = parse_args(argv)
-    device = check_args(args)
+    device, mesh = setup_mesh(args, check_args(args))
     dtype = default_policy(args.mixed_precision or "bf16")
     set_seed(args.seed)
     size = (args.height, args.width)
@@ -182,7 +218,7 @@ def main(argv=None) -> dict:
         num_vstar=args.num_vstar, empty_ids=empty_ids.to(device),
         image_size=size)
     pipe = TryOnPipeline(
-        unet=zoo.extended_unet(args.dataset, **ckpt, **on),
+        unet=unet_tp(zoo.extended_unet(args.dataset, **ckpt, **on), mesh),
         vae=zoo.sd2_vae(args.sd2_model_dir, **on),
         emasc=zoo.emasc(args.dataset, **ckpt, **on),
         scheduler=make_scheduler(args.scheduler))
@@ -206,6 +242,7 @@ def main(argv=None) -> dict:
         return torch.from_numpy(np.ascontiguousarray(x)).to(device, dt)
 
     def step_fn(step: int, batch: dict) -> torch.Tensor:
+        batch, total = local_batch(mesh, batch)
         input_ids = to(np.asarray(tokenizer(category_prompts(
             batch["category"], args.num_vstar))), torch.long)
         pose_map = to(batch["pose_map"])
@@ -215,15 +252,14 @@ def main(argv=None) -> dict:
             image=to(batch["image"]), mask_image=to(batch["inpaint_mask"]),
             pose_map=pose_map, warped_cloth=warped, prompt_embeds=ehs,
             negative_prompt_embeds=neg,
-            generator=batch_generator(args.seed, step, device),
+            noise=sample_draws(mesh, args.seed, step, device, total, *size),
             num_inference_steps=args.num_inference_steps,
             guidance_scale=args.guidance_scale)
 
     save_dir = os.path.join(args.output_dir, args.test_order)
     stats = run_batches(make_loader(dataset, args), step_fn, save_dir,
-                        use_png=args.use_png, what="inference")
-    if args.compute_metrics:
-        score_saved(args, save_dir, device)
+                        use_png=args.use_png, what="inference", mesh=mesh)
+    finish(args, save_dir, device)
     return stats
 
 

@@ -21,7 +21,9 @@ Counterpart of ``ladi_vton_tpu/cli/serve.py``, with every flag of it and
 
 Weights load through the port's zoo onto ``--device`` (``cuda`` by
 default; asking for it where there is no card raises before any work, as
-does ``--tensor_parallel`` above 1).  The bound address is printed on one
+does ``--tensor_parallel`` above 1: serving stays one process until rank
+0's server broadcasts each batch to follower ranks, ROADMAP.md's first
+"Next PRs" item).  The bound address is printed on one
 line (``--port 0`` picks a free port); SIGINT shuts the server and the
 batcher down and the process exits 0.  ``--no_warmup`` skips the
 full-batch request made before serving.
@@ -91,7 +93,8 @@ def parse_args(argv=None):
                          "<sd2_model_dir>/tokenizer)")
     ap.add_argument("--num_vstar", type=int, default=16)
     ap.add_argument("--tensor_parallel", type=int, default=1,
-                    help="Only 1: tensor parallelism is not ported yet.")
+                    help="Only 1: serving under the mesh is not ported "
+                         "yet.")
     ap.add_argument("--device", type=str, default="cuda",
                     help="Where the models run: cuda (default) or cpu.")
     return ap.parse_args(argv)
@@ -101,8 +104,10 @@ def check_args(args) -> torch.device:
     """Refuse what the port cannot do, before any work; the device."""
     if args.tensor_parallel != 1:
         raise NotImplementedError(
-            f"--tensor_parallel {args.tensor_parallel}: tensor parallelism "
-            f"is not ported to the PyTorch package yet (ROADMAP.md P12)")
+            f"--tensor_parallel {args.tensor_parallel}: serving under the "
+            f"mesh (rank 0's server broadcasting each batch to its "
+            f"followers) is not ported yet: ROADMAP.md P12, Next PRs "
+            f"item 1")
     if args.enable_condition and not args.clip_vision_dir:
         raise ValueError("--enable_condition needs --clip_vision_dir")
     return resolve_device(args.device)

@@ -14,7 +14,9 @@ from the loaded VAE, and its padding must be ``kernel // 2``.  At each
 checkpoint boundary: ``emasc_{step}.pth`` in the reference layout (with
 its sidecar), then the VAE + EMASC reconstructions of the test split
 (``drivers.extract_save_vae_images``) and their metrics where the metric
-weights are present.  Checkpoints and resume as in ``cli.train_vto``.
+weights are present.  Checkpoints and resume as in ``cli.train_vto``, and
+so is training over ranks: data parallelism, ``--train_batch_size`` the
+global batch; rank 0 exports and validates.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ladi_vton_tpu_torch.cli.train_vto import (
     add_common_flags,
     build_dataset,
     check_train_args,
+    setup_mesh,
     checkpoint_state,
     resume,
     score,
@@ -46,9 +49,10 @@ from ladi_vton_tpu_torch.core.rng import set_seed
 from ladi_vton_tpu_torch.hub import zoo
 from ladi_vton_tpu_torch.models.emasc import EMASC, emasc_channels
 from ladi_vton_tpu_torch.models.vgg import VGG19Features, load_vgg19
+from ladi_vton_tpu_torch.core import distributed
 from ladi_vton_tpu_torch.train.runner import (
     LoopConfig,
-    Trackers,
+    make_trackers,
     run_checkpoint_validation,
     setup_logging,
     train_loop,
@@ -90,7 +94,7 @@ def vgg_tower(path, seed: int, device, logger) -> VGG19Features:
 def main(argv=None) -> int:
     """Run the CLI; returns the last step trained."""
     args = parse_args(argv)
-    device = check_train_args(args)
+    device, mesh = setup_mesh(args, check_train_args(args))
     if args.emasc_padding != args.emasc_kernel // 2:
         raise ValueError(
             "the port derives EMASC padding as kernel//2 (shape-"
@@ -120,10 +124,12 @@ def main(argv=None) -> int:
         adam_beta1=args.adam_beta1, adam_beta2=args.adam_beta2,
         adam_eps=args.adam_epsilon, weight_decay=args.adam_weight_decay,
         max_grad_norm=args.max_grad_norm, warmup_steps=args.lr_warmup_steps,
-        lr_scheduler=args.lr_scheduler, total_steps=args.max_train_steps)
+        lr_scheduler=args.lr_scheduler, total_steps=args.max_train_steps,
+        mesh=mesh)
     step_fn = make_emasc_train_step(
         optimizer=optimizer,
         gradient_accumulation_steps=args.gradient_accumulation_steps,
+        mesh=mesh,
         autocast=lambda: precision(device, dtype), vae=vae, emasc=emasc,
         vgg=vgg, vgg_weight=args.vgg_weight)
 
@@ -131,14 +137,16 @@ def main(argv=None) -> int:
                              async_save=args.async_checkpointing)
     start_step = resume(ckpt, args.resume_from_checkpoint, modules,
                         optimizer, logger)
-    trackers = Trackers(args.report_to, "LaDI_VTON_Emasc", args.output_dir,
-                        vars(args))
+    trackers = make_trackers(args.report_to, "LaDI_VTON_Emasc",
+                             args.output_dir, vars(args))
 
     def to_batch(raw: dict) -> dict:
         return {k: to_device(raw[k], device)
                 for k in ("image", "im_mask", "inpaint_mask")}
 
     def on_checkpoint(step: int) -> None:
+        if not distributed.is_main_process():
+            return
         export_module(emasc, Path(args.output_dir) / f"emasc_{step}.pth",
                       {"in_channels": list(in_ch),
                        "out_channels": list(out_ch)})
@@ -165,7 +173,7 @@ def main(argv=None) -> int:
                         checkpointing_steps=args.checkpointing_steps,
                         seed=args.seed),
         logger=logger, trackers=trackers, start_step=start_step,
-        on_checkpoint=on_checkpoint)
+        on_checkpoint=on_checkpoint, mesh=mesh)
     trackers.finish()
     logger.info(f"done at step {final}")
     return final

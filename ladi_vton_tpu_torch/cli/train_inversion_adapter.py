@@ -17,7 +17,8 @@ At each checkpoint boundary: ``inversion_adapter_{step}.pth`` in the
 reference layout (with its sidecar), then validation images through the
 plain inpainting pipeline (``pipelines.inpaint``) and their metrics where
 the metric weights are present.  Checkpoints and resume as in
-``cli.train_vto``.
+``cli.train_vto``, and so is training over ranks: data parallelism,
+``--train_batch_size`` the global batch; rank 0 exports and validates.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from ladi_vton_tpu_torch.cli.train_vto import (
     add_common_flags,
     build_dataset,
     check_train_args,
+    setup_mesh,
     checkpoint_state,
     new_adapter,
     resume,
@@ -52,9 +54,10 @@ from ladi_vton_tpu_torch.diffusion.schedulers import DDIMScheduler
 from ladi_vton_tpu_torch.hub import zoo
 from ladi_vton_tpu_torch.pipelines.condition import clip_pixels
 from ladi_vton_tpu_torch.pipelines.serving import category_prompts
+from ladi_vton_tpu_torch.core import distributed
 from ladi_vton_tpu_torch.train.runner import (
     LoopConfig,
-    Trackers,
+    make_trackers,
     run_checkpoint_validation,
     setup_logging,
     train_loop,
@@ -88,7 +91,7 @@ def parse_args(argv=None):
 def main(argv=None) -> int:
     """Run the CLI; returns the last step trained."""
     args = parse_args(argv)
-    device = check_train_args(args)
+    device, mesh = setup_mesh(args, check_train_args(args))
     dtype = default_policy(args.mixed_precision)
     set_seed(args.seed)
     logger = setup_logging(args.output_dir)
@@ -126,10 +129,12 @@ def main(argv=None) -> int:
         adam_beta1=args.adam_beta1, adam_beta2=args.adam_beta2,
         adam_eps=args.adam_epsilon, weight_decay=args.adam_weight_decay,
         max_grad_norm=args.max_grad_norm, warmup_steps=args.lr_warmup_steps,
-        lr_scheduler=args.lr_scheduler, total_steps=args.max_train_steps)
+        lr_scheduler=args.lr_scheduler, total_steps=args.max_train_steps,
+        mesh=mesh)
     step_fn = make_inversion_adapter_train_step(
         optimizer=optimizer,
         gradient_accumulation_steps=args.gradient_accumulation_steps,
+        mesh=mesh,
         autocast=autocast, unet9=unet9, vae=vae, text_model=text_model,
         inversion_adapter=adapter, num_vstar=args.num_vstar)
 
@@ -137,8 +142,8 @@ def main(argv=None) -> int:
                              async_save=args.async_checkpointing)
     start_step = resume(ckpt, args.resume_from_checkpoint, modules,
                         optimizer, logger)
-    trackers = Trackers(args.report_to, "LaDI_VTON_inversion_adapter",
-                        args.output_dir, vars(args))
+    trackers = make_trackers(args.report_to, "LaDI_VTON_inversion_adapter",
+                             args.output_dir, vars(args))
 
     def to_batch(raw: dict) -> dict:
         batch = {k: to_device(raw[k], device)
@@ -156,6 +161,8 @@ def main(argv=None) -> int:
         return batch
 
     def on_checkpoint(step: int) -> None:
+        if not distributed.is_main_process():
+            return
         export_module(adapter, Path(args.output_dir)
                       / f"inversion_adapter_{step}.pth", adapter.config)
         run_checkpoint_validation(lambda: validate(step), step, logger)
@@ -186,7 +193,7 @@ def main(argv=None) -> int:
                         checkpointing_steps=args.checkpointing_steps,
                         seed=args.seed),
         logger=logger, trackers=trackers, start_step=start_step,
-        on_checkpoint=on_checkpoint)
+        on_checkpoint=on_checkpoint, mesh=mesh)
     trackers.finish()
     logger.info(f"done at step {final}")
     return final

@@ -21,8 +21,20 @@ reference layout with ``.config.json`` sidecars, then validation images
 through ``TryOnPipeline`` (DDIM) and their metrics where the metric
 weights are present.  ``--resume_from_checkpoint latest`` (or a step)
 continues where the run stopped, with the same batches and draws.
-``--shard_optimizer_states`` and ``--tensor_parallel`` above 1 are
-distribution, not ported yet: they raise.
+
+Over ranks (``python -m torch.distributed.run --nproc_per_node N -m
+ladi_vton_tpu_torch.cli.train_vto ...``) the ranks form a data x model
+mesh (``core.mesh``; ``model`` = ``--tensor_parallel``, ``data`` the
+rest): ``--train_batch_size`` is the global batch and must divide by
+``data``; each rank trains on its rows and the gradients are averaged
+over ``data`` (``train.steps``).  ``--shard_optimizer_states`` shards the
+AdamW state over ``data`` (ZeRO-1); ``--tensor_parallel N`` splits the
+UNet's attentions and feed-forwards over ``model`` (``parallel.tp``); the
+two are mutually exclusive, as in the JAX main.  Rank 0 writes the
+checkpoints (consolidated), the exports (the reference layout, gathered
+under tensor parallelism), the logs and the validation images, which the
+first model group samples.  ``--dist_backend`` is NCCL on the card and
+gloo on the CPU; gloo also lets more ranks than cards share them.
 """
 
 from __future__ import annotations
@@ -31,6 +43,7 @@ import argparse
 import dataclasses
 import os
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,7 +54,9 @@ from ladi_vton_tpu_torch.core.checkpoint import (
     rng_state,
     set_rng_state,
 )
+from ladi_vton_tpu_torch.core import distributed
 from ladi_vton_tpu_torch.core.dtypes import default_policy, resolve_device
+from ladi_vton_tpu_torch.core.mesh import Mesh, MeshSpec, make_mesh
 from ladi_vton_tpu_torch.core.rng import set_seed
 from ladi_vton_tpu_torch.data import (
     BatchLoader,
@@ -54,9 +69,10 @@ from ladi_vton_tpu_torch.models.inversion_adapter import InversionAdapter
 from ladi_vton_tpu_torch.pipelines.condition import clip_pixels
 from ladi_vton_tpu_torch.pipelines.drivers import _to as to_device
 from ladi_vton_tpu_torch.pipelines.serving import category_prompts
+from ladi_vton_tpu_torch.parallel import tp as tensor_parallel
 from ladi_vton_tpu_torch.train.runner import (
     LoopConfig,
-    Trackers,
+    make_trackers,
     run_checkpoint_validation,
     setup_logging,
     train_loop,
@@ -122,6 +138,11 @@ def add_common_flags(p: argparse.ArgumentParser, *, max_train_steps: int,
     p.add_argument("--width", type=int, default=384)
     p.add_argument("--device", type=str, default="cuda",
                    help="Where training runs: cuda (default) or cpu.")
+    p.add_argument("--dist_backend", type=str, default=None,
+                   choices=list(distributed.BACKENDS),
+                   help="Process-group backend over ranks: nccl on cuda "
+                        "and gloo on cpu by default; gloo lets ranks share "
+                        "cards.")
 
 
 def parse_args(argv=None):
@@ -146,9 +167,10 @@ def parse_args(argv=None):
     p.add_argument("--clip_vision_dir", type=str, required=False)
     p.add_argument("--tokenizer_dir", type=str, default=None)
     p.add_argument("--shard_optimizer_states", action="store_true",
-                   help="Not ported yet (ROADMAP.md P12): raises.")
+                   help="ZeRO-1: shard the AdamW state over the data axis.")
     p.add_argument("--tensor_parallel", type=int, default=1,
-                   help="Only 1: tensor parallelism is not ported yet.")
+                   help="Ranks of the model axis the UNet's attentions and "
+                        "feed-forwards split over.")
     return p.parse_args(argv)
 
 
@@ -158,14 +180,13 @@ def check_train_args(args) -> torch.device:
         raise ValueError("VitonHD dataroot must be provided")
     if args.dataset == "dresscode" and args.dresscode_dataroot is None:
         raise ValueError("DressCode dataroot must be provided")
-    if getattr(args, "shard_optimizer_states", False):
-        raise NotImplementedError(
-            "--shard_optimizer_states: ZeRO-1 is distribution, not ported "
-            "to the PyTorch package yet (ROADMAP.md P12)")
-    if getattr(args, "tensor_parallel", 1) != 1:
-        raise NotImplementedError(
-            f"--tensor_parallel {args.tensor_parallel}: tensor parallelism "
-            f"is not ported to the PyTorch package yet (ROADMAP.md P12)")
+    if (getattr(args, "tensor_parallel", 1) > 1
+            and getattr(args, "shard_optimizer_states", False)):
+        raise ValueError(
+            "--shard_optimizer_states (ZeRO-1 over the data axis) and "
+            "--tensor_parallel are mutually exclusive: under TP the "
+            "Adam moments already shard over the model axis with their "
+            "parameters (parallel/tp.py)")
     device = resolve_device(args.device)
     if (device.type == "cuda"
             and default_policy(args.mixed_precision) == torch.float32):
@@ -176,6 +197,30 @@ def check_train_args(args) -> torch.device:
     if args.allow_tf32:
         torch.backends.cuda.matmul.allow_tf32 = True
     return device
+
+
+def setup_mesh(args, device: torch.device) -> tuple:
+    """Join the ranks' process group where the launcher started several
+    (``core.distributed``), and lay them out as the data x model mesh;
+    (this rank's device, the mesh).  The global batch must divide by
+    ``data``."""
+    distributed.initialize(backend=args.dist_backend, device=device)
+    device = distributed.local_device(device)
+    mesh = make_mesh(MeshSpec(model=getattr(args, "tensor_parallel", 1)))
+    if args.train_batch_size % mesh.data:
+        raise ValueError(f"--train_batch_size {args.train_batch_size} does "
+                         f"not divide over the data axis of {mesh.data}")
+    return device, mesh
+
+
+def validation_mesh(mesh: Mesh) -> Optional[Mesh]:
+    """The mesh a checkpoint's validation samples over: the first model
+    group's (a tensor-parallel UNet needs every rank of its group), one
+    data rank; None on the ranks that do not take part."""
+    if mesh.data_index != 0:
+        return None
+    return dataclasses.replace(mesh, data=1, data_index=0, data_group=None,
+                               data_ranks=(mesh.model_ranks[0],))
 
 
 def build_dataset(args, phase: str, order: str, outputlist, size):
@@ -204,18 +249,39 @@ def token_ids(tokenizer, prompts, device) -> torch.Tensor:
     return to_device(np.asarray(tokenizer(prompts)), device, torch.long)
 
 
-def checkpoint_state(step: int, modules: dict, optimizer) -> dict:
-    """What a trainer's ``checkpoint-{step}`` holds."""
-    return {"step": step,
-            "trainable": {k: m.state_dict() for k, m in modules.items()},
-            "optimizer": optimizer.state_dict(), "rng": rng_state()}
+def trained_names(modules: dict) -> list:
+    """``module.parameter`` of each trained parameter, in the optimizer's
+    order."""
+    return [f"{name}.{n}" for name, m in modules.items()
+            for n, p in m.named_parameters() if p.requires_grad]
+
+
+def checkpoint_state(step: int, modules: dict, optimizer,
+                     mesh: Optional[Mesh] = None) -> Optional[dict]:
+    """What a trainer's ``checkpoint-{step}`` holds: the whole state (the
+    UNet and its AdamW moments gathered under tensor parallelism, ZeRO-1's
+    state consolidated).  Collective over ranks; None off the main
+    process."""
+    opt = optimizer.state_dict()
+    trainable = {k: m.state_dict() for k, m in modules.items()}
+    if mesh is not None and mesh.model > 1:
+        unet = modules["unet"]
+        trainable["unet"] = tensor_parallel.gather_unet_state(unet, mesh)
+        opt["adamw"] = tensor_parallel.gather_optimizer_state(
+            opt["adamw"], tensor_parallel.param_specs(
+                unet, trained_names(modules), mesh), mesh)
+    if not distributed.is_main_process():
+        return None
+    return {"step": step, "trainable": trainable, "optimizer": opt,
+            "rng": rng_state()}
 
 
 def resume(ckpt: CheckpointManager, which, modules: dict, optimizer,
-           logger) -> int:
+           logger, mesh: Optional[Mesh] = None) -> int:
     """Load ``--resume_from_checkpoint`` (``latest``, a step or
-    ``checkpoint-<step>``) into the modules and the optimizer; the step
-    to start from (0 where there is no checkpoint, as the reference
+    ``checkpoint-<step>``) into the modules and the optimizer, on every
+    rank (a tensor-parallel UNet and its moments take their slices); the
+    step to start from (0 where there is no checkpoint, as the reference
     falls back)."""
     if not which:
         return 0
@@ -225,9 +291,17 @@ def resume(ckpt: CheckpointManager, which, modules: dict, optimizer,
     except FileNotFoundError:
         logger.info("no checkpoint found; training from scratch")
         return 0
+    opt = state["optimizer"]
     for name, module in modules.items():
-        module.load_state_dict(state["trainable"][name])
-    optimizer.load_state_dict(state["optimizer"])
+        if name == "unet" and mesh is not None and mesh.model > 1:
+            tensor_parallel.load_full_state(module, state["trainable"][name],
+                                            mesh)
+            opt = dict(opt, adamw=tensor_parallel.shard_optimizer_state(
+                opt["adamw"], tensor_parallel.param_specs(
+                    module, trained_names(modules), mesh), mesh))
+        else:
+            module.load_state_dict(state["trainable"][name])
+    optimizer.load_state_dict(opt)
     set_rng_state(state["rng"])
     logger.info(f"resumed from step {state['step']}")
     return int(state["step"])
@@ -269,7 +343,7 @@ def score(args, save_dir: str, device, trackers, step: int, logger) -> None:
 def main(argv=None) -> int:
     """Run the CLI; returns the last step trained."""
     args = parse_args(argv)
-    device = check_train_args(args)
+    device, mesh = setup_mesh(args, check_train_args(args))
     dtype = default_policy(args.mixed_precision)
     set_seed(args.seed)
     logger = setup_logging(args.output_dir)
@@ -287,6 +361,7 @@ def main(argv=None) -> int:
     unet = zoo.sd2_unet(args.sd2_model_dir, in_channels=in_ch,
                         dtype=torch.float32, device=device)
     unet.gradient_checkpointing = args.gradient_checkpointing
+    tensor_parallel.unet_tp(unet, mesh)
 
     adapter = vision = None
     if args.text_usage == "inversion_adapter":
@@ -338,18 +413,19 @@ def main(argv=None) -> int:
         adam_beta1=args.adam_beta1, adam_beta2=args.adam_beta2,
         adam_eps=args.adam_epsilon, weight_decay=args.adam_weight_decay,
         max_grad_norm=args.max_grad_norm, warmup_steps=args.lr_warmup_steps,
-        lr_scheduler=args.lr_scheduler, total_steps=args.max_train_steps)
+        lr_scheduler=args.lr_scheduler, total_steps=args.max_train_steps,
+        mesh=mesh, shard_optimizer_states=args.shard_optimizer_states)
     step_fn = make_vto_train_step(
-        optimizer=optimizer, config=config, autocast=autocast, unet=unet,
-        vae=vae, text_model=text_model, inversion_adapter=adapter,
+        optimizer=optimizer, config=config, autocast=autocast, mesh=mesh,
+        unet=unet, vae=vae, text_model=text_model, inversion_adapter=adapter,
         empty_prompt_ids=empty_ids)
 
     ckpt = CheckpointManager(args.output_dir, keep=2,
                              async_save=args.async_checkpointing)
     start_step = resume(ckpt, args.resume_from_checkpoint, modules,
-                        optimizer, logger)
-    trackers = Trackers(args.report_to, "LaDI_VTON_vto", args.output_dir,
-                        vars(args))
+                        optimizer, logger, mesh)
+    trackers = make_trackers(args.report_to, "LaDI_VTON_vto",
+                             args.output_dir, vars(args))
 
     def prompts(raw: dict) -> list:
         if args.text_usage == "noun_chunks":
@@ -376,14 +452,20 @@ def main(argv=None) -> int:
 
     def on_checkpoint(step: int) -> None:
         out = Path(args.output_dir)
-        export_module(unet, out / f"unet_{step}.pth",
-                      dataclasses.asdict(unet.config))
-        if args.train_inversion_adapter:
-            export_module(adapter, out / f"inversion_adapter_{step}.pth",
-                          adapter.config)
-        run_checkpoint_validation(lambda: validate(step), step, logger)
+        unet_state = tensor_parallel.gather_unet_state(unet, mesh)
+        if distributed.is_main_process():
+            export_module(unet, out / f"unet_{step}.pth",
+                          dataclasses.asdict(unet.config), state=unet_state)
+            if args.train_inversion_adapter:
+                export_module(adapter, out / f"inversion_adapter_{step}.pth",
+                              adapter.config)
+        del unet_state
+        vmesh = validation_mesh(mesh)
+        if vmesh is not None:
+            run_checkpoint_validation(lambda: validate(step, vmesh), step,
+                                      logger)
 
-    def validate(step: int) -> None:
+    def validate(step: int, vmesh: Mesh) -> None:
         from ladi_vton_tpu_torch.pipelines.drivers import (
             generate_images_from_tryon_pipe,
         )
@@ -399,18 +481,21 @@ def main(argv=None) -> int:
                 pipe, text_model, tokenizer, test_loader(args, test),
                 save_dir, inversion_adapter=adapter, vision=vision,
                 text_usage=args.text_usage, num_vstar=args.num_vstar,
-                seed=args.seed, cloth_input_type=args.cloth_input_type)
-        score(args, save_dir, device, trackers, step, logger)
+                seed=args.seed, cloth_input_type=args.cloth_input_type,
+                mesh=vmesh)
+        if distributed.is_main_process():
+            score(args, save_dir, device, trackers, step, logger)
 
     final = train_loop(
         step_fn=step_fn, loader=loader, to_batch=to_batch, device=device,
         draws_fn=vto_draws, ckpt_manager=ckpt,
-        state_fn=lambda step: checkpoint_state(step, modules, optimizer),
+        state_fn=lambda step: checkpoint_state(step, modules, optimizer,
+                                               mesh),
         loop=LoopConfig(max_train_steps=args.max_train_steps,
                         checkpointing_steps=args.checkpointing_steps,
                         seed=args.seed),
         logger=logger, trackers=trackers, start_step=start_step,
-        on_checkpoint=on_checkpoint)
+        on_checkpoint=on_checkpoint, mesh=mesh)
     trackers.finish()
     logger.info(f"done at step {final}")
     return final

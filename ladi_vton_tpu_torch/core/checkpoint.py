@@ -311,13 +311,16 @@ def set_rng_state(state: dict) -> None:
 
 
 def export_module(module: torch.nn.Module, path,
-                  config: Optional[dict] = None) -> Path:
-    """A tower's ``.pth`` in the reference layout (its state dict, on the
-    CPU, fp32 where floating), written atomically, with the architecture
-    as a ``.config.json`` sidecar the zoos read."""
+                  config: Optional[dict] = None,
+                  state: Optional[dict] = None) -> Path:
+    """A tower's ``.pth`` in the reference layout (its state dict, or
+    ``state`` where given, as a tensor-parallel module's gathered one; on
+    the CPU, fp32 where floating), written atomically, with the
+    architecture as a ``.config.json`` sidecar the zoos read."""
     path = Path(path)
+    state = module.state_dict() if state is None else state
     state = {k: (v.detach().float() if v.is_floating_point() else v.detach()
-                 ).cpu().clone() for k, v in module.state_dict().items()}
+                 ).cpu().clone() for k, v in state.items()}
     save_atomic(state, path)
     if config is not None:
         path.with_suffix(".config.json").write_text(json.dumps(config))

@@ -19,6 +19,12 @@ copied without blocking into pinned host memory behind a CUDA event, and
 fetched and written while batch N+1 runs.  Files are PNG (``--use_png``)
 or the port's baseline JPEG at quality 95 (``data/imageio.py``); a name
 seen before in the run (``pad_last``'s repeats) is skipped.
+
+Over a mesh (``core.mesh``, the JAX ``mesh=`` argument) ``step_fn`` gets
+the global batch and returns its rank's rows (``parallel.sharding``'s
+``local_batch`` and ``sample_draws`` cut the batch and the global
+batch's noise), each data rank saves its own items, and only model rank 0 of
+each data rank writes; the batch size must divide by ``data``.
 """
 
 from __future__ import annotations
@@ -31,11 +37,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ladi_vton_tpu_torch.core.mesh import Mesh, shard_batch
 from ladi_vton_tpu_torch.core.rng import batch_generator
 from ladi_vton_tpu_torch.data import imageio
 from ladi_vton_tpu_torch.diffusion.text import encode_text_word_embedding
 from ladi_vton_tpu_torch.models.emasc import mask_features
 from ladi_vton_tpu_torch.models.vae import DiagonalGaussian
+from ladi_vton_tpu_torch.parallel.sharding import local_batch, sample_draws
 from ladi_vton_tpu_torch.pipelines.condition import clip_pixels
 from ladi_vton_tpu_torch.pipelines.serving import category_prompts
 from ladi_vton_tpu_torch.pipelines.tryon import EMASC_INT_LAYERS
@@ -125,16 +133,20 @@ def _to(x, device, dtype=torch.float32) -> torch.Tensor:
 
 
 def run_batches(loader, step_fn: Callable, save_dir: str, *,
-                use_png: bool = False, what: str = "generate") -> dict:
+                use_png: bool = False, what: str = "generate",
+                mesh: Optional[Mesh] = None) -> dict:
     """``step_fn(step, batch)`` -> float images in [0, 1] (B, H, W, 3) for
-    every batch of ``loader``, saved under ``save_dir/<category>/``.
+    every batch of ``loader``, saved under ``save_dir/<category>/``; over
+    a ``mesh``, the images of this rank's rows, saved by model rank 0.
 
     Prints a progress line per batch and returns the run's numbers: the
-    images written, the wall seconds and images per second of the whole
-    loop (host clock, the last write included), and the seconds the loop
-    waited for the loader, per batch."""
+    distinct items of the run, the wall seconds and images per second
+    of the whole loop (host clock, the last write included), and the
+    seconds the loop waited for the loader, per batch."""
     os.makedirs(save_dir, exist_ok=True)
+    writes = mesh is None or mesh.model_index == 0
     saver = _PipelinedSaver(save_dir, use_png)
+    seen: set = set()  # (category, name) of every global batch so far
     t0 = time.perf_counter()
     waited, steps = 0.0, 0
     batches = iter(loader)
@@ -147,17 +159,25 @@ def run_batches(loader, step_fn: Callable, save_dir: str, *,
             if batch is None:
                 break
             images = step_fn(steps, batch)
-            saver.push(_quantize_u8(images), batch["im_name"],
-                       batch["category"])
+            # a pad_last repeat is saved by no rank
+            first = []
+            for key in zip(batch["category"], batch["im_name"]):
+                first.append(key not in seen)
+                seen.add(key)
+            local = shard_batch(mesh, {"first": first, **batch})
+            keep = [i for i, f in enumerate(local["first"]) if f]
+            if writes and keep:
+                saver.push(_quantize_u8(images[keep]),
+                           [local["im_name"][i] for i in keep],
+                           [local["category"][i] for i in keep])
             steps += 1
             print(f"{what}: batch {steps}/{total} "
                   f"({time.perf_counter() - t0:.2f} s)", flush=True)
     finally:
         saver.close()
     seconds = time.perf_counter() - t0
-    return {"images": len(saver.seen), "batches": steps,
-            "seconds": seconds,
-            "images_per_second": len(saver.seen) / seconds,
+    return {"images": len(seen), "batches": steps, "seconds": seconds,
+            "images_per_second": len(seen) / seconds,
             "loader_seconds_per_batch": waited / max(steps, 1)}
 
 
@@ -197,14 +217,16 @@ def generate_images_from_tryon_pipe(
     cloth_input_type: str = "warped",
     cloth_cond_rate: float = 1.0,
     no_pose: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> dict:
     """Generate try-on images for every batch in ``loader``.
 
     Batches carry image, inpaint_mask, pose_map, im_name and category,
     with warped_cloth for ``cloth_input_type="warped"``, and for the
     inversion adapter clip_cloth_features, or cloth for the ``vision``
-    tower; captions for ``text_usage="noun_chunks"``.  Returns
-    ``run_batches``' numbers."""
+    tower; captions for ``text_usage="noun_chunks"``.  ``mesh``: each
+    data rank generates its rows of every batch (``run_batches``).
+    Returns ``run_batches``' numbers."""
     if text_usage not in ("inversion_adapter", "noun_chunks", "none"):
         raise ValueError(f"unknown text_usage {text_usage!r}")
     if cloth_input_type not in ("warped", "none"):
@@ -215,6 +237,7 @@ def generate_images_from_tryon_pipe(
         np.asarray(tokenizer([""]))[0].astype(np.int64)).to(device)
 
     def step_fn(step: int, batch: dict) -> torch.Tensor:
+        batch, total = local_batch(mesh, batch)
         n = len(batch["im_name"])
         adapter = feats = None
         if text_usage == "inversion_adapter":
@@ -235,18 +258,19 @@ def generate_images_from_tryon_pipe(
                                   num_vstar=num_vstar)
         warped = (_to(batch["warped_cloth"], device)
                   if cloth_input_type == "warped" else None)
+        _, H, W, _ = batch["image"].shape
         return pipe.sample(
             image=_to(batch["image"], device),
             mask_image=_to(batch["inpaint_mask"], device),
             pose_map=_to(batch["pose_map"], device), warped_cloth=warped,
             prompt_embeds=ehs, negative_prompt_embeds=neg,
-            generator=batch_generator(seed, step, device),
+            noise=sample_draws(mesh, seed, step, device, total, H, W),
             num_inference_steps=num_inference_steps,
             guidance_scale=guidance_scale, cloth_cond_rate=cloth_cond_rate,
             no_pose=no_pose)
 
     return run_batches(loader, step_fn, save_dir, use_png=use_png,
-                       what="eval")
+                       what="eval", mesh=mesh)
 
 
 def extract_save_vae_images(vae, emasc, loader, save_dir: str, *,

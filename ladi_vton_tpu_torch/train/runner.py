@@ -9,6 +9,14 @@ step's randomness from ``core.rng.batch_generator(seed, step)``, so a
 step's draws depend only on the seed and its index, and positions the
 loader at the step it starts from (``BatchLoader.start_at``): a resumed
 run reads the same batches and draws as an uninterrupted one.
+
+Over a mesh (``core.mesh``) the loader still yields the global batch in
+the JAX order; each rank takes its rows along ``data``, and the draws are
+made for the global batch and cut to the same rows, so W ranks see the
+single process's batches, noise and timesteps.  The state is gathered on
+every rank (ZeRO-1's consolidation and tensor parallelism's gathers are
+collective) and saved by rank 0; logs and trackers are rank 0's; every
+rank waits at a barrier after a checkpoint.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from ladi_vton_tpu_torch.core.distributed import barrier, is_main_process
+from ladi_vton_tpu_torch.core.mesh import Mesh, shard_batch
 from ladi_vton_tpu_torch.core.rng import batch_generator
 from ladi_vton_tpu_torch.data import imageio
 
@@ -99,6 +109,24 @@ class Trackers:
                 backend.close()
 
 
+class NullTrackers:
+    """The trackers of a rank that is not the main process: no output."""
+
+    def log(self, metrics: dict, step: int) -> None:
+        pass
+
+    def log_images(self, tag: str, images, step: int, output_dir=None):
+        pass
+
+    def finish(self) -> None:
+        pass
+
+
+def make_trackers(*args, **kwargs):
+    """``Trackers`` on the main process, ``NullTrackers`` on the others."""
+    return Trackers(*args, **kwargs) if is_main_process() else NullTrackers()
+
+
 def run_checkpoint_validation(fn: Callable, step: int, logger) -> None:
     """Run a checkpoint-time validation, tolerating only a missing
     artifact (``FileNotFoundError``: metric weights or caches absent);
@@ -124,15 +152,27 @@ def train_loop(*, step_fn: Callable, loader, to_batch: Callable,
                device, ckpt_manager, state_fn: Callable, loop: LoopConfig,
                logger, trackers: Trackers,
                draws_fn: Optional[Callable] = None, start_step: int = 0,
-               on_checkpoint: Optional[Callable] = None) -> int:
+               on_checkpoint: Optional[Callable] = None,
+               mesh: Optional[Mesh] = None) -> int:
     """Train from ``start_step`` to ``loop.max_train_steps``.
 
-    Each step: ``to_batch(loader batch)``, the draws
-    ``draws_fn(batch, batch_generator(seed, step, device))`` (none without
-    ``draws_fn``), ``step_fn(batch, draws)``.  Every ``log_every`` steps
-    the metrics go to the trackers; every ``checkpointing_steps`` the
-    state ``state_fn(step)`` is saved and ``on_checkpoint(step)`` runs;
+    Each step: ``to_batch`` of this rank's rows of the loader's batch, the
+    draws ``draws_fn(batch, batch_generator(seed, step, device))`` of the
+    global batch cut to those rows (none without ``draws_fn``; a draws
+    function reads only the batch's ``image`` shape),
+    ``step_fn(batch, draws)``.  Every ``log_every`` steps the metrics go
+    to the trackers; every ``checkpointing_steps`` the state
+    ``state_fn(step)`` (collective, None off the main process) is saved
+    by the main process and ``on_checkpoint(step)`` runs on every rank;
     the last step is saved too.  Returns the final step."""
+    main = is_main_process()
+
+    def save(step: int) -> None:
+        state = state_fn(step)
+        if main:
+            ckpt_manager.save(step, state)
+            logger.info(f"saved checkpoint-{step}")
+
     n = len(loader)
     if n == 0:
         raise ValueError("the train split holds fewer items than a batch")
@@ -143,9 +183,14 @@ def train_loop(*, step_fn: Callable, loader, to_batch: Callable,
         for raw in loader:
             if step >= loop.max_train_steps:
                 break
-            batch = to_batch(raw)
-            draws = (draws_fn(batch, batch_generator(loop.seed, step, device))
-                     if draws_fn is not None else None)
+            rows = (mesh.rows(len(raw["image"])) if mesh is not None
+                    else slice(None))
+            batch = to_batch(shard_batch(mesh, raw))
+            draws = None
+            if draws_fn is not None:
+                draws = draws_fn({"image": raw["image"]},
+                                 batch_generator(loop.seed, step, device))
+                draws = {k: v[rows] for k, v in draws.items()}
             metrics = step_fn(batch, draws)
             step += 1
             if step % loop.log_every == 0:
@@ -153,15 +198,18 @@ def train_loop(*, step_fn: Callable, loader, to_batch: Callable,
                 now = time.perf_counter()
                 metrics["steps_per_sec"] = loop.log_every / (now - t_last)
                 t_last = now
-                logger.info(f"step {step}: {metrics}")
-                trackers.log(metrics, step)
+                if main:
+                    logger.info(f"step {step}: {metrics}")
+                    trackers.log(metrics, step)
             if step % loop.checkpointing_steps == 0:
-                ckpt_manager.save(step, state_fn(step))
-                logger.info(f"saved checkpoint-{step}")
+                save(step)
                 if on_checkpoint is not None:
                     on_checkpoint(step)
+                barrier()
                 t_last = time.perf_counter()  # time steps, not the saves
     if step > start_step and step % loop.checkpointing_steps != 0:
-        ckpt_manager.save(step, state_fn(step))
-    ckpt_manager.wait()
+        save(step)
+    if main:
+        ckpt_manager.wait()
+    barrier()
     return step

@@ -1,7 +1,6 @@
 """Training steps of the extended-UNet and EMASC stages.
 
-Counterpart of ``ladi_vton_tpu/train/steps.py`` (ZeRO-1 and
-``shard_step`` are distribution, not ported yet).  A step is eager:
+Counterpart of ``ladi_vton_tpu/train/steps.py``.  A step is eager:
 ``step(batch, draws) -> metrics`` runs the loss of each micro-batch,
 ``backward``, and one optimizer update.
 
@@ -24,6 +23,22 @@ Counterpart of ``ladi_vton_tpu/train/steps.py`` (ZeRO-1 and
   split into A micro-batches along the first axis, each loss is
   back-propagated scaled by 1/A, and one update follows; the metrics are
   the micro-batches' mean, as the JAX ``lax.scan`` gives them.
+* Data parallelism (``build_train_step(..., mesh=)``, the JAX
+  ``shard_step``): each rank runs its rows of the global batch, and after
+  the last micro-batch's backward one bucketed ``all_reduce`` averages
+  the gradients over the mesh's ``data`` group, so the update is the one
+  of the global batch's mean loss (the JAX ``psum``); the clip then sees
+  the same reduced gradients on every rank, and the metrics are averaged
+  over ``data``.
+* ZeRO-1 (``Optimizer(..., zero_group=)``, the JAX
+  ``zero1_state_sharding``): the parameters stay replicated and the AdamW
+  moments are sharded over ``data`` by
+  ``torch.distributed.optim.ZeroRedundancyOptimizer``: each rank updates
+  the parameters it owns and broadcasts them.  AdamW's arithmetic is per
+  element, so the update is bitwise the unsharded one.
+* Tensor parallelism (``parallel.tp``): parameters marked ``tp_sharded``
+  are one rank's slice; the clip's global norm adds their squares over
+  the ``model`` group (``Optimizer(..., model_group=)``).
 * Mixed precision: the trainable towers keep fp32 parameters, and the
   step runs under ``torch.autocast(dtype=torch.bfloat16)`` where the
   policy is bf16.  Autocast runs the convolutions and matmuls in bf16,
@@ -41,7 +56,10 @@ import math
 from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
+from ladi_vton_tpu_torch.core.mesh import Mesh, all_reduce_mean
 from ladi_vton_tpu_torch.diffusion.schedulers import DDPMScheduler
 from ladi_vton_tpu_torch.diffusion.text import encode_text_word_embedding
 from ladi_vton_tpu_torch.models.emasc import mask_features
@@ -105,17 +123,34 @@ def make_lr_schedule(name: str, lr: float, warmup_steps: int = 0,
 class Optimizer:
     """AdamW (``torch.optim.AdamW``) behind an optional global-norm clip,
     stepped with ``schedule(count)`` as its learning rate; ``count`` is
-    the number of updates made.  The state dict holds both."""
+    the number of updates made.  The state dict holds both.
+
+    ``zero_group`` (a process group of more than one rank) shards the
+    AdamW state over it (ZeRO-1); ``state_dict`` is then collective and
+    returns the whole state on the group's first rank, None elsewhere,
+    and ``load_state_dict`` takes the whole state on every rank.
+    ``model_group``: the group whose ranks hold the other slices of the
+    ``tp_sharded`` parameters, for the clip's norm."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  schedule: Callable[[int], float], *, betas=(0.9, 0.999),
                  eps: float = 1e-8, weight_decay: float = 0.0,
-                 max_grad_norm: Optional[float] = None):
+                 max_grad_norm: Optional[float] = None, zero_group=None,
+                 model_group=None):
         self.params = [p for p in params if p.requires_grad]
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
-        self.adamw = torch.optim.AdamW(self.params, lr=0.0, betas=betas,
-                                       eps=eps, weight_decay=weight_decay)
+        self.model_group = model_group
+        kw = dict(lr=0.0, betas=betas, eps=eps, weight_decay=weight_decay)
+        self.zero_group = zero_group
+        if zero_group is not None:
+            from torch.distributed.optim import ZeroRedundancyOptimizer
+
+            self.adamw = ZeroRedundancyOptimizer(
+                self.params, optimizer_class=torch.optim.AdamW,
+                process_group=zero_group, **kw)
+        else:
+            self.adamw = torch.optim.AdamW(self.params, **kw)
         self.count = 0
 
     def zero_grad(self) -> None:
@@ -127,8 +162,19 @@ class Optimizer:
         grads = [p.grad for p in self.params if p.grad is not None]
         if self.max_grad_norm is None or not grads:
             return None
-        norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads]))
+        sharded = [getattr(p, "tp_sharded", False) for p in self.params
+                   if p.grad is not None]
+        if self.model_group is None or not any(sharded):
+            norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.float()) for g in grads]))
+        else:
+            def squares(keep: bool) -> torch.Tensor:
+                return sum((torch.linalg.vector_norm(g.float()).square()
+                            for g, s in zip(grads, sharded) if s == keep),
+                           torch.zeros((), device=grads[0].device))
+            part = squares(True)
+            dist.all_reduce(part, group=self.model_group)
+            norm = torch.sqrt(squares(False) + part)
         scale = torch.where(norm < self.max_grad_norm,
                             torch.ones_like(norm), self.max_grad_norm / norm)
         torch._foreach_mul_(grads, scale)
@@ -143,11 +189,70 @@ class Optimizer:
         self.count += 1
         return norm
 
-    def state_dict(self) -> dict:
+    def local_state_numel(self) -> int:
+        """Elements of the AdamW state this rank holds."""
+        optim = self.adamw.optim if self.zero_group is not None else \
+            self.adamw
+        return sum(v.numel() for state in optim.state.values()
+                   for v in state.values() if torch.is_tensor(v)
+                   and v.dim() > 0)
+
+    def state_dict(self) -> Optional[dict]:
+        if self.zero_group is not None:
+            adamw = self._consolidated()
+            return None if adamw is None else {"adamw": adamw,
+                                               "count": self.count}
         return {"adamw": self.adamw.state_dict(), "count": self.count}
+
+    def _consolidated(self) -> Optional[dict]:
+        """ZeRO-1's whole AdamW state in ``torch.optim.AdamW``'s format
+        (which ``ZeroRedundancyOptimizer.load_state_dict`` reads) in host
+        memory on the group's first rank, None on the others.  Collective:
+        each parameter's owner broadcasts its moments as tensors
+        (``consolidate_state_dict`` pickles every rank's state through byte
+        tensors: minutes for the UNet's 7 GB).  Every rank receives into
+        one reused buffer and the first copies each moment out to the
+        host, so no rank holds more of the state on its device than its
+        shard and one parameter's moment."""
+        zero, group = self.adamw, self.zero_group
+        me = dist.get_rank(group)
+        out = torch.optim.Optimizer.state_dict(zero) if me == 0 else None
+        if out is not None:
+            out["state"] = {}
+        size = max(p.numel() for p in self.params)
+        scratch: dict = {}
+        for p in self.params:
+            owner = zero._param_to_rank[p]
+            local = zero.optim.state.get(p, {}) if owner == me else {}
+            head = torch.tensor([float(bool(local)), float(local.get(
+                "step", 0))], device=p.device)
+            src = dist.get_global_rank(group, owner)
+            dist.broadcast(head, src=src, group=group)
+            if not head[0]:
+                continue
+            entry = {"step": torch.tensor(float(head[1]))}
+            for key in ("exp_avg", "exp_avg_sq"):
+                if owner == me:
+                    t = local[key]
+                else:
+                    if p.dtype not in scratch:
+                        scratch[p.dtype] = torch.empty(
+                            size, dtype=p.dtype, device=p.device)
+                    t = scratch[p.dtype][:p.numel()].view_as(p)
+                dist.broadcast(t, src=src, group=group)
+                if out is not None:
+                    entry[key] = t.to("cpu", copy=True)
+            if out is not None:
+                out["state"][zero._param_to_index[p]] = entry
+        return out
 
     def load_state_dict(self, state: dict) -> None:
         self.adamw.load_state_dict(state["adamw"])
+        if self.zero_group is not None:
+            # ZeroRedundancyOptimizer.load_state_dict also leaves a device
+            # copy of this rank's moments in the wrapper's own ``state``,
+            # which nothing reads: the moments live in ``adamw.optim``
+            self.adamw.state.clear()
         self.count = int(state["count"])
 
 
@@ -155,13 +260,21 @@ def make_optimizer(params, lr: float = 1e-5, *, adam_beta1=0.9,
                    adam_beta2=0.999, adam_eps=1e-8, weight_decay=1e-2,
                    max_grad_norm=1.0, warmup_steps: int = 0,
                    lr_scheduler: str = "constant_with_warmup",
-                   total_steps: Optional[int] = None) -> Optimizer:
+                   total_steps: Optional[int] = None,
+                   mesh: Optional[Mesh] = None,
+                   shard_optimizer_states: bool = False) -> Optimizer:
     """AdamW + global-norm clip with the reference's flags (lr 1e-5,
-    weight decay 1e-2, clip 1.0) and the lr-scheduler union."""
+    weight decay 1e-2, clip 1.0) and the lr-scheduler union; over a
+    ``mesh``, ZeRO-1 over ``data`` where ``shard_optimizer_states`` and
+    the clip's norm over ``model``."""
+    zero = (mesh.data_group if mesh is not None and shard_optimizer_states
+            and mesh.data > 1 else None)
+    model = mesh.model_group if mesh is not None and mesh.model > 1 else None
     return Optimizer(params, make_lr_schedule(lr_scheduler, lr, warmup_steps,
                                               total_steps),
                      betas=(adam_beta1, adam_beta2), eps=adam_eps,
-                     weight_decay=weight_decay, max_grad_norm=max_grad_norm)
+                     weight_decay=weight_decay, max_grad_norm=max_grad_norm,
+                     zero_group=zero, model_group=model)
 
 
 # ------------------------------------------------------------ the step
@@ -185,14 +298,44 @@ def _split(tree: dict, A: int) -> list[dict]:
     return out
 
 
+# elements of one all_reduce bucket of the gradient mean (1 GiB of fp32)
+BUCKET_NUMEL = 1 << 28
+
+
+def reduce_gradients(params, mesh: Optional[Mesh]) -> None:
+    """Average the parameters' gradients over the mesh's ``data`` group:
+    one ``all_reduce`` a bucket of same-dtype gradients, flattened in
+    parameter order (a no-op without a process group)."""
+    if mesh is None or mesh.data_group is None:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    buckets: dict = {}
+    for g in grads:
+        chain = buckets.setdefault((g.dtype, g.device), [[]])
+        if chain[-1] and (sum(x.numel() for x in chain[-1]) + g.numel()
+                          > BUCKET_NUMEL):
+            chain.append([])
+        chain[-1].append(g)
+    for chain in buckets.values():
+        for bucket in chain:
+            flat = _flatten_dense_tensors(bucket)
+            dist.all_reduce(flat, group=mesh.data_group)
+            flat.div_(mesh.data)
+            for g, r in zip(bucket, _unflatten_dense_tensors(flat, bucket)):
+                g.copy_(r)
+
+
 def build_train_step(loss_fn: Callable, optimizer: Optimizer,
                      gradient_accumulation_steps: int = 1,
-                     autocast: Callable = contextlib.nullcontext
-                     ) -> Callable:
+                     autocast: Callable = contextlib.nullcontext,
+                     mesh: Optional[Mesh] = None) -> Callable:
     """``step(batch, draws) -> metrics`` from ``loss_fn(batch, draws) ->
     (loss, metrics)``: A micro-batches, each loss back-propagated scaled
     by 1/A, one update; the metrics (tensors, ``loss`` among them) are the
-    micro-batches' mean.  ``autocast()`` is the forward's context."""
+    micro-batches' mean.  ``autocast()`` is the forward's context.  Over a
+    ``mesh``, ``batch`` and ``draws`` are this rank's rows, the gradients
+    are averaged over ``data`` before the update and the metrics after
+    it."""
     A = gradient_accumulation_steps
 
     def step(batch: dict, draws: Optional[dict] = None) -> dict:
@@ -207,8 +350,11 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
             for k, v in {"loss": loss, **metrics}.items():
                 v = v.detach().float()
                 total[k] = total[k] + v if k in total else v
+        reduce_gradients(optimizer.params, mesh)
         optimizer.step()
-        return {k: v / A for k, v in total.items()}
+        group = mesh.data_group if mesh is not None else None
+        return {k: all_reduce_mean(v / A, group, mesh.data if mesh else 1)
+                for k, v in total.items()}
 
     return step
 
@@ -307,12 +453,12 @@ def make_vto_loss(*, unet, vae, text_model, config: VTOStepConfig,
 
 def make_vto_train_step(*, optimizer: Optimizer, config: VTOStepConfig,
                         autocast: Callable = contextlib.nullcontext,
-                        **towers) -> Callable:
+                        mesh: Optional[Mesh] = None, **towers) -> Callable:
     """``step(batch, draws)`` of the extended UNet (``make_vto_loss``'s
-    towers), with ``config.gradient_accumulation_steps``."""
+    towers), with ``config.gradient_accumulation_steps``, over ``mesh``."""
     return build_train_step(make_vto_loss(config=config, **towers),
                             optimizer, config.gradient_accumulation_steps,
-                            autocast)
+                            autocast, mesh)
 
 
 def emasc_draws(batch: dict, generator: torch.Generator) -> dict:
@@ -347,7 +493,8 @@ def make_emasc_loss(*, vae, emasc, vgg, int_layers=(1, 2, 3, 4, 5),
 def make_emasc_train_step(*, optimizer: Optimizer,
                           gradient_accumulation_steps: int = 1,
                           autocast: Callable = contextlib.nullcontext,
+                          mesh: Optional[Mesh] = None,
                           **kwargs) -> Callable:
     """``step(batch, draws)`` of the EMASC stage (``make_emasc_loss``)."""
     return build_train_step(make_emasc_loss(**kwargs), optimizer,
-                            gradient_accumulation_steps, autocast)
+                            gradient_accumulation_steps, autocast, mesh)

@@ -170,6 +170,8 @@ def make_inversion_adapter_loss(*, unet9, vae, text_model, inversion_adapter,
 
 def make_inversion_adapter_train_step(
         *, optimizer: Optimizer, gradient_accumulation_steps: int = 1,
-        autocast: Callable = contextlib.nullcontext, **kwargs) -> Callable:
+        autocast: Callable = contextlib.nullcontext, mesh=None,
+        **kwargs) -> Callable:
+    """``step(batch, draws)`` of the adapter stage, over ``mesh``."""
     return build_train_step(make_inversion_adapter_loss(**kwargs), optimizer,
-                            gradient_accumulation_steps, autocast)
+                            gradient_accumulation_steps, autocast, mesh)

@@ -22,7 +22,7 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "PIL", "cv2", "regex",
            "safetensors", "tqdm", "ladi_vton_tpu")
 # the data layer and the CLIs, which stand in for PIL, cv2 and tqdm; the
 # serving front end, the client and the metrics; the trainers, which stand
-# in for optax and orbax
+# in for optax and orbax; distribution, configuration and profiling
 DATA_AND_CLI = ("data", "data.agnostic", "data.dresscode", "data.features",
                 "data.imageio", "data.labels", "data.loader", "data.native",
                 "data.raster", "data.resample", "data.synthetic",
@@ -35,7 +35,10 @@ DATA_AND_CLI = ("data", "data.agnostic", "data.dresscode", "data.features",
                 "train", "train.steps", "train.tps_steps", "train.runner",
                 "models.vgg", "pipelines.inpaint", "cli.train_vto",
                 "cli.train_emasc", "cli.train_inversion_adapter",
-                "cli.train_tps", "ops._autograd")
+                "cli.train_tps", "ops._autograd", "core.distributed",
+                "core.mesh", "core.config", "parallel", "parallel.launch",
+                "parallel.sharding", "parallel.tp", "parallel.dryrun",
+                "utils.profiling")
 
 
 def _run(code: str, cwd: pathlib.Path, *args: str):
