@@ -39,7 +39,11 @@ Phases, each printing its numbers before the last line:
    ``F.linear``, ``F.layer_norm``).  Last, K1 and K4 at the shapes a
    tensor-parallel UNet (model 2, batch 4) gives them: K1 on half the
    heads of levels 1 and 2 and the mid block, K4 at half the inner
-   width of each level, each row as above;
+   width of each level, each row as above.  Then an A/B of
+   ``Upsample2D``'s two forms at the path's 1280- and 512-channel sites
+   (``UPSAMPLE_SITES``): the phase form of ``ops/upsample.py`` against
+   interpolate then the 3x3 convolution, device times from CUDA graphs
+   and the forms' difference in bf16 (``Upsample2D`` keeps the second);
 3. integration at full width: one level-0 ``Transformer2D`` (C=320,
    64x48, batch 4) and one VAE ``MidBlock`` (512 at 64x48) through the
    kernels on the card and through the plain versions on the CPU, same
@@ -173,7 +177,14 @@ Phases, each printing its numbers before the last line:
    ``train_vto --tensor_parallel 2``, its gathered ``unet_2.pth``
    loaded through the zoo; ``cli.inference`` over phase 7's VITON-HD
    split against phase 7's images.  (e) ``dryrun_multichip(2)`` on the
-   card, every kernel launched in its tensor-parallel step.
+   card, every kernel launched in its tensor-parallel step.  (f)
+   ``cli.serve`` over two ranks from phase 6's files, at data 2 and at
+   ``--tensor_parallel 2`` (DDIM-50, CFG 7.5, batch 2): phase 8's 2-image
+   raw request over HTTP within phase 11d's image limit of the one
+   process's answer to the same flags, a planted missing gather (the
+   follower's rows replaced by rank 0's) outside it, K1, K2, K4 and K5
+   launched on each rank, and SIGINT to rank 0 ending both ranks with
+   exit 0.
 
 Phases 2 and 3 compare with TF32 off for matmuls and cuDNN; phases 4
 and 5 serve with PyTorch's defaults (cuDNN TF32 allowed, matmul TF32
@@ -226,6 +237,7 @@ from ladi_vton_tpu_torch.cli import compute_cloth_clip_features as clip_main
 from ladi_vton_tpu_torch.cli import eval as eval_cli
 from ladi_vton_tpu_torch.cli import generate_fid_stats as stats_main
 from ladi_vton_tpu_torch.cli import inference as inference_cli
+from ladi_vton_tpu_torch.cli import serve as serve_cli
 from ladi_vton_tpu_torch.cli import train_emasc as train_emasc_cli
 from ladi_vton_tpu_torch.cli import (
     train_inversion_adapter as train_adapter_cli,
@@ -298,6 +310,10 @@ from ladi_vton_tpu_torch.ops.layer_norm import (
     layer_norm_plan,
     layer_norm_ref,
 )
+from ladi_vton_tpu_torch.ops.upsample import (
+    nearest_up2_conv3x3,
+    phase_kernels,
+)
 from ladi_vton_tpu_torch.metrics.compute import (
     MetricModels,
     _gt_image_paths,
@@ -315,6 +331,7 @@ from ladi_vton_tpu_torch.pipelines.serving import (
     make_http_server,
 )
 from ladi_vton_tpu_torch.pipelines.tryon import TryOnPipeline
+from ladi_vton_tpu_torch.parallel.launch import spawn
 from ladi_vton_tpu_torch.train import steps as steps_mod
 from ladi_vton_tpu_torch.train.steps import (
     VTOStepConfig,
@@ -759,6 +776,71 @@ def check_tensor_parallel_rows(gen: Gen, results: dict) -> dict:
                                    + [r["err"] for r in rows])
     return {"flash_attention": [list(s) for s in ATTN_TP_SHAPES],
             "geglu": [list(s) for s in GEGLU_TP_SHAPES]}
+
+
+# phase 2's A/B of Upsample2D's two forms at the path's C >= 512 sites for
+# 512x384 images (64x48 latents): the UNet's up path at 1280 channels from
+# 8x6 and 16x12 at phase 4's CFG batch of 4, the VAE decoder at 512
+# channels from 64x48 and 128x96 at batch 2 (B, C, H, W).  Each form is
+# held to the plain form in fp32 on the same bf16 inputs at GEGLU_LIMIT:
+# the phase form rounds its folded weights to bf16 before the products,
+# as K4 rounds its intermediate; cuDNN's bf16 convolution itself lands
+# about two half-ulps from fp32 at these outputs (|y| up to ~6)
+UPSAMPLE_SITES = [("UNet up path", (4, 1280, 8, 6)),
+                  ("UNet up path", (4, 1280, 16, 12)),
+                  ("VAE decoder", (2, 512, 64, 48)),
+                  ("VAE decoder", (2, 512, 128, 96))]
+UPSAMPLE_LIMIT = GEGLU_LIMIT
+
+
+def check_upsample(gen: Gen) -> list:
+    """Phase 2's A/B rows: ``ops.upsample.nearest_up2_conv3x3`` (four
+    phase convolutions at low resolution, folded once as a module would
+    keep them, and folded in the call) against ``Upsample2D``'s
+    interpolate then 3x3 convolution, at each of ``UPSAMPLE_SITES`` in
+    bf16: device ms of each from a CUDA graph, the max abs difference
+    between the two forms, and each form's from fp32 (the plain form in
+    fp32 on the same bf16 inputs, TF32 off) against ``UPSAMPLE_LIMIT``.
+    The routing stays as it is."""
+    log("phase 2: Upsample2D's phase form against interpolate + conv (A/B; "
+        "Upsample2D runs interpolate + conv)")
+    rows = []
+    for site, (B, C, H, W) in UPSAMPLE_SITES:
+        x = gen.normal(B, C, H, W).contiguous(
+            memory_format=torch.channels_last)
+        weight = gen.normal(C, C, 3, 3, scale=(9 * C) ** -0.5)
+        bias = gen.normal(C, scale=0.1)
+        folded = phase_kernels(weight)
+
+        def plain(x=x, weight=weight, bias=bias):
+            up = F.interpolate(x, scale_factor=2.0, mode="nearest")
+            return F.conv2d(up.contiguous(memory_format=torch.channels_last),
+                            weight, bias, padding=1)
+
+        phase = nearest_up2_conv3x3(x, weight, bias, folded=folded)
+        conv = plain()
+        ref = plain(x.float(), weight.float(), bias.float())
+        r = {"site": site, "shape": [B, C, H, W],
+             "diff": (phase.float() - conv.float()).abs().max().item(),
+             "phase_err": (phase.float() - ref).abs().max().item(),
+             "conv_err": (conv.float() - ref).abs().max().item(),
+             "phase_device_ms": graph_ms(lambda: nearest_up2_conv3x3(
+                 x, weight, bias, folded=folded)),
+             "phase_fold_device_ms": graph_ms(lambda: nearest_up2_conv3x3(
+                 x, weight, bias)),
+             "conv_device_ms": graph_ms(plain)}
+        log(f"phase 2 upsample {site} {tuple(x.shape)} -> "
+            f"{tuple(phase.shape)}: phase form device "
+            f"{r['phase_device_ms']:.4f} ms ({r['phase_fold_device_ms']:.4f} "
+            f"folding in the call), interpolate + conv "
+            f"{r['conv_device_ms']:.4f} ms; max abs difference of the forms "
+            f"{r['diff']:.3e}; from fp32 (limit {UPSAMPLE_LIMIT}): phase "
+            f"{r['phase_err']:.3e}, interpolate + conv {r['conv_err']:.3e}")
+        if not max(r["phase_err"], r["conv_err"]) <= UPSAMPLE_LIMIT:
+            raise AssertionError(f"an upsample form disagrees with fp32: "
+                                 f"{r}")
+        rows.append(r)
+    return rows
 
 
 # K5's phase-2 shapes (rows, C, read through the CLS stride): every plan
@@ -3383,8 +3465,6 @@ def ranks(target: str, n: int, args: tuple, label: str, out: pathlib.Path,
           backend: str = "gloo") -> tuple:
     """``chip_smoke.<target>(*args)`` on ``n`` ranks; (results, seconds).
     Each rank's output is kept under ``out/<label>``."""
-    from ladi_vton_tpu_torch.parallel.launch import spawn
-
     t0 = time.perf_counter()
     results = spawn(f"chip_smoke:{target}", n, args, timeout=DIST_TIMEOUT_S,
                     backend=backend, log_dir=out / label.replace(" ", "_"))
@@ -3553,6 +3633,140 @@ def dist_mains(work: pathlib.Path, roots: dict, train_roots: dict,
                              "process's")
 
 
+# phase 11f: cli.serve over two ranks sharing the card over gloo, at data 2
+# and at --tensor_parallel 2, from phase 6's files, answering phase 8's
+# 2-image raw request at batch 2; each answer against the one-process
+# answer of the same flags (the services cli.serve builds, called in this
+# process: phase 8 holds the two bitwise equal) by phase 11d's inference
+# limit, a mean absolute error of DIST_IMAGE_LIMIT
+SERVE_DIST_BATCH = 2
+SERVE_DIST_KERNELS = ("flash_attention", "group_norm", "geglu", "layer_norm")
+
+
+def serve_rank(argv: list) -> dict:
+    """Phase 11f on one rank: ``cli.serve``'s main in the ranks' process
+    group (rank 0 serves until SIGINT, the other rank follows it); the
+    kernels' launches over the rank's run."""
+    wrappers = {name: fn for name, fn, _, _, _ in KERNELS}
+    reset_counts(wrappers)
+    serve_cli.main(argv)
+    torch.cuda.synchronize()
+    return {"launches": main_counts(wrappers)}
+
+
+def serve_dist_argv(work: pathlib.Path, *flags: str) -> list:
+    return ["--dataset", "vitonhd", "--checkpoint_dir", str(work / "ladi"),
+            "--sd2_model_dir", str(work / "sd2"), "--enable_condition",
+            "--clip_vision_dir", str(work / "clip_vision"),
+            "--batch_size", str(SERVE_DIST_BATCH), "--seed", str(SERVE_SEED),
+            "--num_inference_steps", "50", "--guidance_scale", "7.5",
+            "--max_delay_ms", "5", "--no_warmup", "--port", "0",
+            "--device", "cuda", *flags]
+
+
+def serve_reference(work: pathlib.Path, raw: dict) -> dict:
+    """The one-process answer to ``raw``: request 0 of the services
+    ``cli.serve`` builds from the same flags, called in this process under
+    cli.serve's cuDNN setting (TF32 allowed, PyTorch's default)."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        service, cond = serve_cli.build_services(
+            serve_cli.parse_args(serve_dist_argv(work)),
+            torch.device("cuda"))
+        return direct_raw(cond, service, raw)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def served_url(started) -> str:
+    """Rank 0's address once it serves; raises where a rank failed first
+    or the start outlasts ``SERVE_START_TIMEOUT_S``."""
+    deadline = time.perf_counter() + SERVE_START_TIMEOUT_S
+    while time.perf_counter() < deadline and started.failure() is None:
+        for line in started.output(0).splitlines():
+            if line.startswith("serving try-on on "):
+                return line.split()[3]
+        time.sleep(0.1)
+    raise AssertionError(
+        f"cli.serve's rank 0 did not serve ({started.failure()}): "
+        f"{(started.logs / 'rank0.err').read_text()[-4000:]}")
+
+
+def serve_over_ranks(work: pathlib.Path, out: pathlib.Path, total: dict,
+                     smi: str) -> None:
+    """Phase 11f: ``cli.serve`` as two ranks sharing the card over gloo, at
+    data 2 and at ``--tensor_parallel 2`` (DDIM-50, CFG 7.5, 512x384,
+    batch 2), each answering phase 8's
+    2-image raw request over HTTP: the image within a mean absolute error
+    of ``DIST_IMAGE_LIMIT`` of the one-process answer of the same flags,
+    and at data 2 the same answer with the follower's rows replaced by
+    rank 0's (a planted fault: what a missing gather would serve) outside
+    it; every kernel of ``SERVE_DIST_KERNELS`` launched on each rank;
+    SIGINT to rank 0 ending both ranks with exit 0."""
+    t_phase = time.perf_counter()
+    raw = raw_request(np.random.default_rng(80), 2, 512, 384)
+    t0 = time.perf_counter()
+    ref = serve_reference(work, raw)
+    log(f"phase 11f: the one-process answer to the raw request, "
+        f"{time.perf_counter() - t0:.1f} s with the weights' load (the "
+        f"request {ref['total']:.3f} s) [{smi}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, flags in (("data 2", []), ("model 2", ["--tensor_parallel",
+                                                      "2"])):
+        argv = serve_dist_argv(work, "--dist_backend", "gloo", *flags)
+        t0 = time.perf_counter()
+        with spawn("chip_smoke:serve_rank", 2, (argv,),
+                   timeout=DIST_TIMEOUT_S,
+                   log_dir=out / "serve" / label.replace(" ", "_"),
+                   wait=False) as started:
+            url = served_url(started)
+            t_up = time.perf_counter() - t0
+            answer = client_raw(TryOnClient(url, timeout_s=SERVE_TIMEOUT_S),
+                                raw)
+            t1 = time.perf_counter()
+            started.procs[0].send_signal(signal.SIGINT)
+            results = started.results()  # raises unless every rank exits 0
+            codes = [p.returncode for p in started.procs]
+            t_exit = time.perf_counter() - t1
+        err = float(np.abs(answer["out"] - ref["out"]).mean())
+        cond_err = max(float(np.abs(a - b).max())
+                       for a, b in zip(answer["cond"], ref["cond"]))
+        fault = ""
+        if label == "data 2":
+            per = SERVE_DIST_BATCH // 2  # rank 0's rows, then rank 1's
+            planted = answer["out"].copy()
+            planted[per:2 * per] = answer["out"][:per]
+            fault_err = float(np.abs(planted - ref["out"]).mean())
+            fault = (f"; planted fault, the follower's rows replaced by rank "
+                     f"0's: {fault_err:.3e}")
+        for r in results:
+            add_launches(total, r["launches"])
+        log(f"phase 11f cli.serve over two ranks at {label} (batch "
+            f"{SERVE_DIST_BATCH}, DDIM-50, CFG 7.5): up in {t_up:.1f} s; "
+            f"the raw request of 2 images over HTTP (/condition "
+            f"{answer['t_cond']:.3f} s, with /tryon {answer['total']:.3f} s) "
+            f"against one process ({ref['total']:.3f} s direct): mean "
+            f"absolute error {err:.3e} (limit {DIST_IMAGE_LIMIT}){fault}; "
+            f"conditioning max abs {cond_err:.3e}; SIGINT -> exits {codes} "
+            f"in {t_exit:.2f} s; launches by rank "
+            f"{[r['launches'] for r in results]} [{smi}]")
+        if not err <= DIST_IMAGE_LIMIT:
+            raise AssertionError(f"phase 11f: {label} serves another answer "
+                                 f"than one process")
+        if label == "data 2" and fault_err <= DIST_IMAGE_LIMIT:
+            raise AssertionError("phase 11f: the limit does not tell a "
+                                 "missing gather")
+        missing = [(i, name) for i, r in enumerate(results)
+                   for name in SERVE_DIST_KERNELS if not r["launches"][name]]
+        if missing:
+            raise AssertionError(f"phase 11f: kernels never launched on a "
+                                 f"rank: {missing}")
+    log(f"phase 11f: serving over ranks ({time.perf_counter() - t_phase:.1f}"
+        f" s)")
+
+
 def distributed_path(work: pathlib.Path, roots: dict, train_roots: dict,
                      single_inference: pathlib.Path, tokenizer,
                      checked: dict, smi: str) -> dict:
@@ -3674,6 +3888,7 @@ def distributed_path(work: pathlib.Path, roots: dict, train_roots: dict,
     if missing:
         raise AssertionError(f"the dry run's TP step never launched "
                              f"{missing}")
+    serve_over_ranks(work, out, total, smi)
     missing = [name for name, n in total.items() if not n]
     if missing:
         raise AssertionError(f"kernels never launched in phase 11: {missing}")
@@ -3764,6 +3979,7 @@ def main() -> None:
     for name, grad in check_gradients(gen).items():
         results[name]["grad"] = grad
     checked = check_tensor_parallel_rows(gen, results)
+    check_upsample(gen)
     log("phase 2: every kernel agrees with its plain version, and so do "
         "its gradients")
 

@@ -4,8 +4,8 @@
         --checkpoint_dir <dir of the .pth releases> --sd2_model_dir <dir> \\
         --enable_condition --clip_vision_dir <dir> --port 8080
 
-Counterpart of ``ladi_vton_tpu/cli/serve.py``, with every flag of it and
-``--device``.  Endpoints (``pipelines.serving.make_http_server``):
+Counterpart of ``ladi_vton_tpu/cli/serve.py``, with every flag of it,
+``--device`` and ``--dist_backend``.  Endpoints (``pipelines.serving.make_http_server``):
 
 * ``POST /tryon``: an ``.npz`` body with ``image``, ``inpaint_mask``,
   ``pose_map``, ``warped_cloth``, ``prompt_embeds``,
@@ -20,27 +20,49 @@ Counterpart of ``ladi_vton_tpu/cli/serve.py``, with every flag of it and
 * ``GET /healthz``: JSON status, geometry, queue depth and counters.
 
 Weights load through the port's zoo onto ``--device`` (``cuda`` by
-default; asking for it where there is no card raises before any work, as
-does ``--tensor_parallel`` above 1: serving stays one process until rank
-0's server broadcasts each batch to follower ranks, ROADMAP.md's first
-"Next PRs" item).  The bound address is printed on one
-line (``--port 0`` picks a free port); SIGINT shuts the server and the
-batcher down and the process exits 0.  ``--no_warmup`` skips the
-full-batch request made before serving.
+default; asking for it where there is no card raises before any work).
+The bound address is printed on one line (``--port 0`` picks a free
+port); SIGINT shuts the server and the batcher down and the process
+exits 0.  ``--no_warmup`` skips the full-batch request made before
+serving.
+
+Over ranks (``python -m torch.distributed.run --nproc_per_node N -m
+ladi_vton_tpu_torch.cli.serve ...``) the ranks form the data x model mesh
+of ``cli.inference`` (``model`` = ``--tensor_parallel``, ``--batch_size``
+rounded up to a multiple of ``data``, ``--dist_backend``); each loads the
+same weights and swaps in its tensor-parallel UNet.  Rank 0 alone runs
+the HTTP server, the batcher and the conditioning; it sends each padded
+batch to the followers and gathers their rows (``TryOnService``).  SIGINT
+on rank 0 stops it as above, then the followers, and every rank exits
+0; a follower ignores its own SIGINT and waits for rank 0's stop.  Where
+a follower dies, rank 0's next message fails: it closes the server and
+exits non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import signal
+import sys
+import threading
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ladi_vton_tpu_torch.cli.inference import SCHEDULERS
+from ladi_vton_tpu_torch.cli.inference import (
+    SCHEDULERS,
+    add_dist_flag,
+    setup_mesh,
+)
+from ladi_vton_tpu_torch.core import distributed
 from ladi_vton_tpu_torch.core.dtypes import default_policy, resolve_device
+from ladi_vton_tpu_torch.core.mesh import Mesh
 from ladi_vton_tpu_torch.diffusion.schedulers import make_scheduler
 from ladi_vton_tpu_torch.hub import zoo
+from ladi_vton_tpu_torch.parallel.tp import unet_tp
 from ladi_vton_tpu_torch.pipelines.condition import Conditioner
 from ladi_vton_tpu_torch.pipelines.serving import (
     ConditionService,
@@ -93,33 +115,32 @@ def parse_args(argv=None):
                          "<sd2_model_dir>/tokenizer)")
     ap.add_argument("--num_vstar", type=int, default=16)
     ap.add_argument("--tensor_parallel", type=int, default=1,
-                    help="Only 1: serving under the mesh is not ported "
-                         "yet.")
+                    help="Ranks of the model axis the UNet's attentions "
+                         "and feed-forwards split over; the ranks split "
+                         "data x model.")
     ap.add_argument("--device", type=str, default="cuda",
                     help="Where the models run: cuda (default) or cpu.")
+    add_dist_flag(ap)
     return ap.parse_args(argv)
 
 
 def check_args(args) -> torch.device:
     """Refuse what the port cannot do, before any work; the device."""
-    if args.tensor_parallel != 1:
-        raise NotImplementedError(
-            f"--tensor_parallel {args.tensor_parallel}: serving under the "
-            f"mesh (rank 0's server broadcasting each batch to its "
-            f"followers) is not ported yet: ROADMAP.md P12, Next PRs "
-            f"item 1")
     if args.enable_condition and not args.clip_vision_dir:
         raise ValueError("--enable_condition needs --clip_vision_dir")
     return resolve_device(args.device)
 
 
-def build_services(args, device: torch.device):
-    """(TryOnService, ConditionService or None) from the zoo."""
+def build_services(args, device: torch.device,
+                   mesh: Optional[Mesh] = None):
+    """(TryOnService, ConditionService or None) from the zoo; over ranks,
+    the conditioning on rank 0 only."""
     dtype = default_policy(args.mixed_precision)
     on = dict(dtype=dtype, device=device)
     ckpt = dict(checkpoint_dir=args.checkpoint_dir)
+    unet = zoo.extended_unet(args.dataset, **ckpt, **on)
     pipe = TryOnPipeline(
-        unet=zoo.extended_unet(args.dataset, **ckpt, **on),
+        unet=unet if mesh is None else unet_tp(unet, mesh),
         vae=zoo.sd2_vae(args.sd2_model_dir, **on),
         emasc=zoo.emasc(args.dataset, **ckpt, **on),
         scheduler=make_scheduler(args.scheduler))
@@ -127,8 +148,9 @@ def build_services(args, device: torch.device):
         pipe, batch_size=args.batch_size, height=args.height,
         width=args.width, num_inference_steps=args.num_inference_steps,
         guidance_scale=args.guidance_scale,
-        context_dim=pipe.unet.config.cross_attention_dim, seed=args.seed)
-    if not args.enable_condition:
+        context_dim=pipe.unet.config.cross_attention_dim, seed=args.seed,
+        mesh=mesh)
+    if not args.enable_condition or not distributed.is_main_process():
         return service, None
     tokenizer = CLIPTokenizer.from_dir(
         Path(args.tokenizer_dir or Path(args.sd2_model_dir) / "tokenizer"))
@@ -147,20 +169,46 @@ def build_services(args, device: torch.device):
         num_vstar=args.num_vstar, device=device)
 
 
+def follow(service: TryOnService) -> None:
+    """A follower rank: sample rank 0's batches until its stop.  SIGINT
+    (a terminal's Ctrl-C reaches every rank) does not cut a collective
+    short: the follower waits for rank 0's stop."""
+    def hold(signum, frame):
+        print(f"rank {distributed.rank()}: SIGINT; waiting for rank 0's "
+              f"stop", flush=True)
+
+    previous = signal.signal(signal.SIGINT, hold)
+    try:
+        service.follow()
+    finally:
+        signal.signal(signal.SIGINT, previous)
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
-    device = check_args(args)
-    service, condition_service = build_services(args, device)
+    device, mesh = setup_mesh(args, check_args(args))
+    service, condition_service = build_services(args, device, mesh)
+    if not distributed.is_main_process():
+        print(f"rank {distributed.rank()} follows rank 0 (data index "
+              f"{mesh.data_index} of {mesh.data}, model index "
+              f"{mesh.model_index} of {mesh.model})", flush=True)
+        follow(service)
+        distributed.shutdown()
+        return
     if not args.no_warmup:
         print("warming up (one full-batch request)...", flush=True)
         service.warmup()
     batcher = MicroBatcher(service, max_delay_ms=args.max_delay_ms)
     server = make_http_server(batcher, host=args.host, port=args.port,
                               condition_service=condition_service)
+    # a failed process group ends serve_forever (shutdown() must come from
+    # another thread)
+    threading.Thread(target=lambda: service.broken_event.wait()
+                     and server.shutdown(), daemon=True).start()
     host, port = server.server_address[:2]
     print(f"serving try-on on http://{host}:{port} "
           f"(batch {args.batch_size}, {args.num_inference_steps} steps, "
-          f"{device})", flush=True)
+          f"{device}, mesh {mesh.data}x{mesh.model})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -168,6 +216,13 @@ def main(argv=None) -> None:
     finally:
         server.server_close()
         batcher.close()
+        service.close()
+    if service.broken is not None:
+        # a group with a lost peer may block in its teardown: leave at once
+        print(f"the ranks' process group failed: {service.broken!r}",
+              file=sys.stderr, flush=True)
+        os._exit(1)
+    distributed.shutdown()
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ and the mesh becomes process groups (``core.mesh``).
 * ``gather_to_host`` is ``multihost_utils.process_allgather``: every
   rank's array, stacked in rank order, on every rank; it goes through
   host memory over gloo, which has no CUDA ``all_gather``.
+  ``broadcast_from_main`` sends rank 0's host tensor the same way.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ BACKENDS = ("gloo", "nccl")
 # a gloo group over every rank for host-memory collectives, where the
 # default group is NCCL (the default group itself where it is gloo)
 _host_group = None
+# the timeout the groups were made with
+_timeout = DEFAULT_TIMEOUT
 
 
 def _env(*names: str) -> Optional[str]:
@@ -112,7 +115,7 @@ def initialize(coordinator_address: Optional[str] = None,
     process.  Arguments fall back to the launcher's environment; without
     a coordinator there it is a no-op (one process).  ``backend``
     defaults to ``default_backend(device)``."""
-    global _host_group
+    global _host_group, _timeout
     if dist.is_initialized():
         return dist.get_world_size() > 1
     address = coordinator_address or coordinator_from_env()
@@ -128,6 +131,7 @@ def initialize(coordinator_address: Optional[str] = None,
                             world_size=world, rank=rank, timeout=timeout)
     _host_group = (None if backend == "gloo"
                    else dist.new_group(backend="gloo", timeout=timeout))
+    _timeout = timeout
     return world > 1
 
 
@@ -173,6 +177,19 @@ def local_device(device) -> torch.device:
     return device
 
 
+def group_timeout() -> datetime.timedelta:
+    """How long a collective of the process group waits for its peers
+    before it raises."""
+    return _timeout
+
+
+def broadcast_from_main(t: torch.Tensor) -> None:
+    """Rank 0's host tensor into ``t`` on every rank, in place (the
+    shape and dtype must agree on every rank)."""
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.broadcast(t, src=0, group=_host_group)
+
+
 def gather_to_host(x) -> np.ndarray:
     """Every rank's array (the same shape on each), stacked in rank order
     on a new first axis, on every rank; ``x[None]`` in one process."""
@@ -187,7 +204,8 @@ def gather_to_host(x) -> np.ndarray:
 
 def shutdown() -> None:
     """Leave the process group where one was joined."""
-    global _host_group
+    global _host_group, _timeout
     if dist.is_initialized():
         dist.destroy_process_group()
     _host_group = None
+    _timeout = DEFAULT_TIMEOUT

@@ -1,0 +1,1 @@
+from ladi_vton_tpu_torch.ops.morphology import dilate

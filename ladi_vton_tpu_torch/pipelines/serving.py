@@ -1,19 +1,23 @@
 """Serving wrappers around the conditioning stage and the try-on pipeline.
 
-Counterparts of ``ladi_vton_tpu/pipelines/serving.py`` ``TryOnService``
-(without a mesh), ``ConditionService``, ``MicroBatcher`` and
-``make_http_server``.  Requests of up to
-``batch_size`` images are padded to the fixed batch (repeating the last
-sample), run, and returned unpadded as float32 numpy arrays.  A raw
-try-on request goes through both: ``ConditionService.run`` turns cloth,
-pose, masked person and category into warped cloth and prompt
-embeddings, which ``TryOnService.generate`` takes with the person image
-and inpainting mask.  The try-on runs under whichever scheduler its
-pipeline holds (``diffusion.schedulers.make_scheduler``); the prompts
-are tokenized by the caller's tokenizer, the port's
-``utils.tokenizer.CLIPTokenizer`` for the SD-2 vocabulary.  Each try-on
-request without an explicit generator gets its own, seeded from (seed,
-request count) in place of the JAX ``fold_in``.
+Counterparts of ``ladi_vton_tpu/pipelines/serving.py`` ``TryOnService``,
+``ConditionService``, ``MicroBatcher`` and ``make_http_server``.
+Requests of up to ``batch_size`` images are padded to the fixed batch
+(repeating the last sample), run, and returned unpadded as float32 numpy
+arrays.  A raw try-on request goes through both:
+``ConditionService.run`` turns cloth, pose, masked person and category
+into warped cloth and prompt embeddings, which ``TryOnService.generate``
+takes with the person image and inpainting mask.  The try-on runs under
+whichever scheduler its pipeline holds
+(``diffusion.schedulers.make_scheduler``); the prompts are tokenized by
+the caller's tokenizer, the port's ``utils.tokenizer.CLIPTokenizer`` for
+the SD-2 vocabulary.  Each try-on request without an explicit generator
+gets its own, seeded from (seed, request count) in place of the JAX
+``fold_in``.  Over the data x model mesh of ranks, where the JAX service
+shards each batch over ``data``, rank 0 serves and sends each batch to
+follower ranks, which sample their rows (``TryOnService``); the batch's
+draws are made for the whole padded batch, so data 2 makes the
+one-process images up to the numerics of a smaller batch.
 
 The HTTP front end is the JAX package's, path for path and byte for
 byte (``.npz`` bodies, the same status codes and ``/healthz`` keys), so
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import io
 import json
+import math
 import queue
 import threading
 import time
@@ -37,10 +42,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ladi_vton_tpu_torch.core import distributed
+from ladi_vton_tpu_torch.core.mesh import Mesh
 from ladi_vton_tpu_torch.core.rng import request_seed
 from ladi_vton_tpu_torch.data.labels import CATEGORY_PROMPT_TEXT
+from ladi_vton_tpu_torch.parallel.sharding import sample_noise
 from ladi_vton_tpu_torch.pipelines.condition import Conditioner
-from ladi_vton_tpu_torch.pipelines.tryon import TryOnPipeline
+from ladi_vton_tpu_torch.pipelines.tryon import (
+    NOISE_KEYS,
+    VAE_SCALE,
+    TryOnPipeline,
+)
 
 
 def category_prompts(categories, num_vstar: int) -> list[str]:
@@ -62,11 +74,35 @@ def pad_batch(x: np.ndarray, batch_size: int) -> np.ndarray:
     return x
 
 
+# the header rank 0 of a service over ranks sends its followers: a batch
+# follows it, or it only keeps them from timing out while idle, or it
+# stops them
+BATCH, HEARTBEAT, STOP = 0, 1, 2
+POSE_CHANNELS = 18
+
+
 class TryOnService:
+    """Pads requests to ``batch_size``, samples them and unpads.
+
+    Over the data x model mesh of ranks (``mesh``, ``core.mesh``), every
+    rank builds the same service around its pipeline (its UNet swapped
+    for the tensor-parallel one where ``mesh.model`` > 1).  Rank 0 serves:
+    under its lock it sends each padded batch, and the batch's global
+    draws, to the followers over the host group; every rank samples its
+    rows (``mesh.rows``), and rank 0 gathers one copy of each data
+    index's rows.  The followers wait in ``follow`` until rank 0's
+    ``close``.  While idle, rank 0 sends a heartbeat well inside the
+    group's timeout, so no follower's receive times out.  Where a
+    collective fails (a follower died), the service is broken for good:
+    ``broken`` holds the error, ``broken_event`` is set, and every later
+    request raises.  One rank (``mesh`` None or 1 x 1) samples as
+    before, with the request's generator."""
+
     def __init__(self, pipe: TryOnPipeline, *, batch_size: int = 8,
                  height: int = 512, width: int = 384,
                  num_inference_steps: int = 50, guidance_scale: float = 7.5,
-                 context_dim: int = 1024, seed: int = 0):
+                 context_dim: int = 1024, seed: int = 0,
+                 mesh: Optional[Mesh] = None):
         self.pipe = pipe
         self.batch_size = batch_size
         self.height = height
@@ -76,7 +112,23 @@ class TryOnService:
         self.context_dim = context_dim
         self.seed = seed
         self._count = 0
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
+        self.mesh = (mesh if mesh is not None and mesh.data * mesh.model > 1
+                     else None)
+        if self.mesh is not None and batch_size % self.mesh.data:
+            raise ValueError(
+                f"serving batch_size {batch_size} must be a multiple of "
+                f"the data-axis size {self.mesh.data}")
+        self.broken: Optional[BaseException] = None
+        self.broken_event = threading.Event()
+        self._closed = False
+        self._heartbeat = None
+        if self.mesh is not None and distributed.is_main_process():
+            self._last_sent = time.monotonic()
+            self._stop_beat = threading.Event()
+            self._heartbeat = threading.Thread(target=self._beat,
+                                               daemon=True)
+            self._heartbeat.start()
 
     def warmup(self) -> None:
         """Run one full-batch request ahead of the first real one."""
@@ -84,37 +136,183 @@ class TryOnService:
         z = np.zeros((b, h, w, 3), np.float32)
         self.generate(
             image=z, inpaint_mask=np.ones((b, h, w, 1), np.float32),
-            pose_map=np.zeros((b, h, w, 18), np.float32), warped_cloth=z,
+            pose_map=np.zeros((b, h, w, POSE_CHANNELS), np.float32),
+            warped_cloth=z,
             prompt_embeds=np.zeros((b, 77, self.context_dim), np.float32),
             negative_prompt_embeds=np.zeros((b, 77, self.context_dim),
                                             np.float32))
 
     def _pad(self, x: np.ndarray) -> torch.Tensor:
         x = pad_batch(np.asarray(x, np.float32), self.batch_size)
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.pipe.device)
+        return torch.from_numpy(np.ascontiguousarray(x))
 
     @torch.no_grad()
     def generate(self, *, image, inpaint_mask, pose_map, warped_cloth,
                  prompt_embeds, negative_prompt_embeds,
                  generator: Optional[torch.Generator] = None) -> np.ndarray:
         """Run one request (<= batch_size). Returns float32 NHWC images in
-        [0, 1], unpadded."""
+        [0, 1], unpadded.  Over ranks, rank 0 calls it."""
         n = image.shape[0]
+        arrays = dict(zip(_REQUEST_KEYS, map(self._pad, (
+            image, inpaint_mask, pose_map, warped_cloth, prompt_embeds,
+            negative_prompt_embeds))))
         with self._lock:
             if generator is None:
                 generator = torch.Generator(self.pipe.device).manual_seed(
                     request_seed(self.seed, self._count))
                 self._count += 1
-            out = self.pipe.sample(
-                image=self._pad(image), mask_image=self._pad(inpaint_mask),
-                pose_map=self._pad(pose_map),
-                warped_cloth=self._pad(warped_cloth),
-                prompt_embeds=self._pad(prompt_embeds),
-                negative_prompt_embeds=self._pad(negative_prompt_embeds),
-                generator=generator,
-                num_inference_steps=self.num_inference_steps,
-                guidance_scale=self.guidance_scale)
-        return out[:n].cpu().numpy()
+            if self.mesh is None:
+                return self._sample(arrays, slice(None),
+                                    generator=generator)[:n]
+            noise = sample_noise(generator, self.batch_size, self.height,
+                                 self.width)
+            return self._lead(arrays, noise, n)[:n]
+
+    @torch.no_grad()
+    def sample_batch(self, padded: dict, noise: dict) -> np.ndarray:
+        """A padded batch (the six request arrays at ``batch_size``)
+        sampled with the batch's global draws ``noise`` (NHWC, as
+        ``parallel.sharding.sample_noise`` draws them): float32 NHWC
+        images in [0, 1].  Over ranks, rank 0 calls it and each rank
+        samples its rows of both."""
+        arrays = {k: self._pad(padded[k]) for k in _REQUEST_KEYS}
+        if self.mesh is None:
+            return self._sample(arrays, slice(None), noise=noise)
+        return self._lead(arrays, noise, self.batch_size)
+
+    def _shapes(self, tokens: int) -> dict:
+        """Every array of a batch, by name, at this service's geometry and
+        ``tokens`` prompt tokens."""
+        b, h, w, d = (self.batch_size, self.height, self.width,
+                      self.context_dim)
+        lat = (b, h // VAE_SCALE, w // VAE_SCALE, 4)
+        return {"image": (b, h, w, 3), "inpaint_mask": (b, h, w, 1),
+                "pose_map": (b, h, w, POSE_CHANNELS),
+                "warped_cloth": (b, h, w, 3), "prompt_embeds": (b, tokens, d),
+                "negative_prompt_embeds": (b, tokens, d),
+                **{k: lat for k in NOISE_KEYS}}
+
+    def _send(self, kind: int, count: int = 0, n: int = 0,
+              tokens: int = 0) -> None:
+        distributed.broadcast_from_main(
+            torch.tensor([kind, count, n, tokens], dtype=torch.int64))
+        self._last_sent = time.monotonic()
+
+    def _lead(self, arrays: dict, noise: dict, n: int) -> np.ndarray:
+        """Rank 0: the header and the batch to every follower, then this
+        rank's rows, then the images of every data index."""
+        if not distributed.is_main_process():
+            raise RuntimeError("a follower samples in follow(), not here")
+        # the draws travel with the batch, through host memory
+        noise = {k: noise[k].detach().to("cpu", torch.float32).contiguous()
+                 for k in NOISE_KEYS}
+        tensors = {**arrays, **noise}
+        shapes = self._shapes(arrays["prompt_embeds"].shape[1])
+        bad = {k: tuple(t.shape) for k, t in tensors.items()
+               if tuple(t.shape) != shapes[k]}
+        if bad:  # refused before any collective: the service stays whole
+            raise ValueError(f"arrays {bad} do not fit the service's "
+                             f"batch {shapes}")
+        with self._lock:
+            if self.broken is not None:
+                raise RuntimeError(f"the service's process group failed: "
+                                   f"{self.broken!r}")
+            if self._closed:
+                raise RuntimeError("the service is closed")
+            try:
+                self._send(BATCH, self._count, n,
+                           shapes["prompt_embeds"][1])
+                distributed.broadcast_from_main(torch.cat(
+                    [tensors[k].reshape(-1) for k in shapes]))
+                out = self._rows(arrays, noise)
+                self._last_sent = time.monotonic()  # the followers wait
+                return out
+            except Exception as e:
+                self._fail(e)
+                raise
+
+    def _rows(self, arrays: dict, noise: dict) -> np.ndarray:
+        """Every rank: its rows sampled, then one copy of each data
+        index's rows (the model ranks of one data index hold the same)."""
+        out = self._sample(arrays, self.mesh.rows(self.batch_size),
+                           noise=noise)
+        parts = distributed.gather_to_host(out)
+        return np.concatenate(list(parts[::self.mesh.model]))
+
+    def _sample(self, arrays: dict, rows: slice, *,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[dict] = None) -> np.ndarray:
+        """``rows`` of the padded batch through the pipeline, drawing
+        from ``generator`` or taking those rows of the global ``noise``."""
+        a = {k: v[rows].to(self.pipe.device) for k, v in arrays.items()}
+        out = self.pipe.sample(
+            image=a["image"], mask_image=a["inpaint_mask"],
+            pose_map=a["pose_map"], warped_cloth=a["warped_cloth"],
+            prompt_embeds=a["prompt_embeds"],
+            negative_prompt_embeds=a["negative_prompt_embeds"],
+            generator=generator,
+            noise=None if noise is None else {k: v[rows]
+                                              for k, v in noise.items()},
+            num_inference_steps=self.num_inference_steps,
+            guidance_scale=self.guidance_scale)
+        return out.cpu().numpy()
+
+    @torch.no_grad()
+    def follow(self) -> None:
+        """A follower's loop: wait for rank 0's header; for a batch,
+        receive it and sample this rank's rows; return on stop."""
+        while True:
+            header = torch.zeros(4, dtype=torch.int64)
+            distributed.broadcast_from_main(header)
+            kind, _, _, tokens = header.tolist()  # (kind, count, n, tokens)
+            if kind == STOP:
+                return
+            if kind == HEARTBEAT:
+                continue
+            shapes = self._shapes(tokens)
+            flat = torch.empty(sum(math.prod(s) for s in shapes.values()))
+            distributed.broadcast_from_main(flat)
+            parts = dict(zip(shapes, flat.split(
+                [math.prod(s) for s in shapes.values()])))
+            tensors = {k: parts[k].view(s) for k, s in shapes.items()}
+            self._rows({k: tensors[k] for k in _REQUEST_KEYS},
+                       {k: tensors[k] for k in NOISE_KEYS})
+
+    def _beat(self) -> None:
+        """Rank 0's heartbeat: a header whenever none went out for a
+        quarter of the group's timeout (checked twice as often)."""
+        interval = distributed.group_timeout().total_seconds() / 4
+        while not self._stop_beat.wait(interval / 2):
+            with self._lock:
+                if self._closed or self.broken is not None:
+                    return
+                if time.monotonic() - self._last_sent < interval:
+                    continue
+                try:
+                    self._send(HEARTBEAT)
+                except Exception as e:
+                    self._fail(e)
+                    return
+
+    def _fail(self, error: BaseException) -> None:
+        self.broken = error
+        self.broken_event.set()
+
+    def close(self) -> None:
+        """Rank 0 over ranks: stop the followers (``follow`` returns) and
+        the heartbeat.  Nothing to do on one rank or a follower, nor once
+        the group has failed."""
+        if self._heartbeat is None:
+            return
+        self._stop_beat.set()
+        with self._lock:
+            if not self._closed and self.broken is None:
+                try:
+                    self._send(STOP)
+                except Exception as e:
+                    self._fail(e)
+            self._closed = True
+        self._heartbeat.join()
 
 
 class ConditionService:
@@ -170,7 +368,10 @@ class MicroBatcher:
     A request is never split: one that would overflow the group is put
     back to start the next.  An exception in ``generate`` (a CUDA error
     raised at a kernel's launch included) resolves every future of its
-    group with it and counts in ``errors``; the dispatcher carries on.
+    group with it and counts in ``errors``; the dispatcher carries on,
+    unless the service is broken (a ``TryOnService`` over ranks whose
+    process group failed): then every queued request fails too and the
+    batcher closes.
     """
 
     def __init__(self, service, *, max_delay_ms: float = 25.0):
@@ -209,6 +410,17 @@ class MicroBatcher:
             self._closed = True
             self._queue.put(None)
             self._dispatcher.join()
+
+    def _fail_queued(self, error: BaseException) -> None:
+        """Close, and fail every request still queued with ``error``."""
+        self._closed = True
+        while True:
+            try:
+                item = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            if item is not None:
+                item[2].set_exception(error)
 
     def _collect_group(self):
         """Block for the first request, then coalesce until the batch is
@@ -252,6 +464,9 @@ class MicroBatcher:
                 self.errors += 1
                 for _, _, fut in group:
                     fut.set_exception(e)
+                if getattr(self.service, "broken", None) is not None:
+                    self._fail_queued(e)
+                    return
                 continue
             off = 0
             for _, n, fut in group:

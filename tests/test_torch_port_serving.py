@@ -22,8 +22,9 @@
 * ``python -m ladi_vton_tpu_torch.cli.serve --device cpu`` as a process:
   its address on one line, its answer bitwise equal to the in-process
   services for the same seed and request count, a clean exit on SIGINT;
-  ``--tensor_parallel 2`` and ``--device cuda`` without a card refused
-  before any work.
+  ``--tensor_parallel 2`` in one process (whose mesh of one rank has no
+  model axis of 2) and ``--device cuda`` without a card refused before
+  any work.  Serving over ranks: ``test_torch_port_parallel_serving.py``.
 
 Every wait has its own timeout.
 """
@@ -514,7 +515,7 @@ def test_serve_process_answers_and_stops_on_sigint(tree):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--tensor_parallel", "2"], NotImplementedError, "P12"),
+    (["--tensor_parallel", "2"], ValueError, "does not cover"),
     (["--device", "cuda"], RuntimeError, "CUDA is not available")])
 def test_serve_refuses_before_any_work(flags, error, match, tmp_path,
                                        monkeypatch):

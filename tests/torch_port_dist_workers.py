@@ -10,6 +10,7 @@ the global draws; each rank takes its rows.
 from __future__ import annotations
 
 import copy
+import time
 from pathlib import Path
 
 import numpy as np
@@ -18,7 +19,9 @@ import torch
 from ladi_vton_tpu_torch.core import distributed
 from ladi_vton_tpu_torch.core.checkpoint import CheckpointManager
 from ladi_vton_tpu_torch.core.mesh import MeshSpec, make_mesh, shard_batch
+from ladi_vton_tpu_torch.diffusion.schedulers import make_scheduler
 from ladi_vton_tpu_torch.models import clip
+from ladi_vton_tpu_torch.models.emasc import EMASC
 from ladi_vton_tpu_torch.models.inversion_adapter import InversionAdapter
 from ladi_vton_tpu_torch.models.unet_condition import (
     UNet2DCondition,
@@ -26,6 +29,8 @@ from ladi_vton_tpu_torch.models.unet_condition import (
 )
 from ladi_vton_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from ladi_vton_tpu_torch.parallel import tp
+from ladi_vton_tpu_torch.pipelines.serving import TryOnService
+from ladi_vton_tpu_torch.pipelines.tryon import TryOnPipeline
 from ladi_vton_tpu_torch.train import steps
 
 torch.set_num_threads(1)
@@ -186,3 +191,33 @@ def single_grads(p: dict) -> dict:
     return {"loss": float(metrics["loss"]),
             "grads": {k: v.grad.clone()
                       for k, v in t["unet"].named_parameters()}}
+
+
+def serve_rank(p: dict) -> dict:
+    """A ``TryOnService`` over the payload's mesh around the payload's
+    try-on pipeline.  Rank 0: the payload's padded batch with its global
+    draws (``sample_batch``) where it holds them, then ``idle_s`` seconds
+    of nothing, then one request (request 0 of ``seed``), then ``close``;
+    the other ranks follow until the stop.  Each rank's seconds in
+    ``follow`` come back too."""
+    mesh = make_mesh(MeshSpec(**p["mesh"]))
+    unet = UNet2DCondition(UNetConfig(**p["unet_cfg"]))
+    vae = AutoencoderKL(VAEConfig(**p["vae_cfg"]))
+    emasc = EMASC(*p["emasc_cfg"])
+    for module, name in ((unet, "unet"), (vae, "vae"), (emasc, "emasc")):
+        module.load_state_dict(p["state"][name])
+        module.eval()
+    pipe = TryOnPipeline(unet=tp.unet_tp(unet, mesh), vae=vae, emasc=emasc,
+                         scheduler=make_scheduler("ddim"))
+    service = TryOnService(pipe, mesh=mesh, **p["service"])
+    if not distributed.is_main_process():
+        t0 = time.monotonic()
+        service.follow()
+        return {"followed_s": time.monotonic() - t0}
+    out = {}
+    if "noise" in p:
+        out["sample_batch"] = service.sample_batch(p["padded"], p["noise"])
+    time.sleep(p["idle_s"])
+    out["generate"] = service.generate(**p["request"])
+    service.close()
+    return out
