@@ -7,6 +7,7 @@
     python3 chip_smoke.py --sweep-layer-norm  # K5's device time per plan
     python3 chip_smoke.py --training-only     # phase 2's gradients, phase 10
     python3 chip_smoke.py --distributed-only  # phase 2's TP rows, phase 11
+    python3 chip_smoke.py --graphs-only       # phase 12
 
 Phases, each printing its numbers before the last line:
 
@@ -59,9 +60,11 @@ Phases, each printing its numbers before the last line:
    CFG 7.5, batch_size 2, answering three requests of 1, 2 and 2 images;
    each output is checked for shape, finiteness and range, and each
    kernel's launch counter must have risen during the requests; a census
-   of the GroupNorm and LayerNorm calls of one 2-image request lists their
-   shapes and K2's and K5's plan for each, and fails if phase 2 missed
-   one of those plans;
+   of the GroupNorm and LayerNorm calls of the service's warm-up (a
+   2-image request that captures the sampler's graphs: its prepare, one
+   UNet step and its decode, each run eagerly and then captured, so each
+   call twice) lists their shapes and K2's and K5's plan for each, and
+   fails if phase 2 missed one of those plans;
 5. raw requests: a ``ConditionService`` at full width (ViT-H/14 vision,
    SD-2 text, the SD-2 inversion adapter in bf16; TPS at 256x192 and the
    refinement at 512x384 in fp32; ``num_vstar`` 16) in front of the
@@ -69,8 +72,9 @@ Phases, each printing its numbers before the last line:
    the try-on inputs, for requests of 1 and 2 images; conditioning and
    total seconds and peak memory per request, every output checked, and
    K5 launched in both stages, K2's calls and kernel launches per
-   request logged, and K5's census of each request checked as in phase
-   4.  The port's CLIP BPE tokenizer reads a synthetic vocabulary
+   request logged, and K5's census of each request's conditioning (the
+   try-on replays phase 4's graphs, which calls no hook) checked as in
+   phase 4.  The port's CLIP BPE tokenizer reads a synthetic vocabulary
    (``synthetic_tokenizer``): the SD-2 one is not in the repository;
 6. the zoo path: phase 4's and 5's modules written as the reference's
    files (the four ``.pth`` releases; an SD-2 directory with ``vae/``
@@ -184,7 +188,30 @@ Phases, each printing its numbers before the last line:
    process's answer to the same flags, a planted missing gather (the
    follower's rows replaced by rank 0's) outside it, K1, K2, K4 and K5
    launched on each rank, and SIGINT to rank 0 ending both ranks with
-   exit 0.
+   exit 0.  (d)'s ``train_vto`` runs, bound by the host, run in this
+   process's main thread while a second thread runs (d)'s
+   ``cli.inference``, (e) and (f) beside them on the card;
+12. the sampler as CUDA graphs (``TryOnPipeline.jit_sample``; run right
+   after phase 3, on phase 4's full-width modules at 512x384 and CFG
+   7.5): each mode (``split=False``; ``split=True`` with ``"scan"`` and
+   with ``"host"``) under DDIM-50 at batch 2 and 8, and ``"host"`` under
+   dpm-20, pndm-50 and lms-50 and with ``cloth_cond_rate`` 0.5 at batch
+   2, two requests each with their own inputs and draws: every graphed
+   image bitwise equal to the eager ``sample``; the capture seconds,
+   each request's seconds and peak memory graphed and eager, the memory
+   the graphs hold; two planted faults that must break the equality (a
+   replay over stale static inputs; a ``"host"`` step captured with the
+   cloth gate as a Python bool); and one request of the callers' sampler
+   (``split=True``, ``"host"``) under torch.profiler, graphed and eager:
+   the busy share, the kernels, and K1, K2 (each form), K4 and K5 by
+   name, on the one trace, equal to the launch counters.
+
+Phases 4, 5, 6, 7, 8 and 11 sample through ``jit_sample``
+(``TryOnService``, the mains, ``split=True`` with ``"host"``): on the
+card its graphs replay, and a replay adds what the launch counters rose
+by during the capture.  A replay runs no Python and so no forward hook:
+phase 4's censuses of the try-on are taken over the capture (its warm-up
+run and the capture itself).
 
 Phases 2 and 3 compare with TF32 off for matmuls and cuDNN; phases 4
 and 5 serve with PyTorch's defaults (cuDNN TF32 allowed, matmul TF32
@@ -228,6 +255,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -322,6 +350,7 @@ from ladi_vton_tpu_torch.metrics.compute import (
 from ladi_vton_tpu_torch.metrics.fid import StatsCache, frechet_distance
 from ladi_vton_tpu_torch.metrics.inception import InceptionV3
 from ladi_vton_tpu_torch.metrics.lpips import LPIPS
+from ladi_vton_tpu_torch.pipelines import graphs
 from ladi_vton_tpu_torch.pipelines.condition import Conditioner, clip_pixels
 from ladi_vton_tpu_torch.pipelines.serving import (
     ConditionService,
@@ -412,8 +441,15 @@ def bound(flops: float, rate: float, moved: int) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+_LOG_LOCK = threading.Lock()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One line to stdout, whole even while phase 11's second thread
+    logs too."""
+    with _LOG_LOCK:
+        sys.stdout.write(msg + "\n")
+        sys.stdout.flush()
 
 
 def save_safetensors(tensors: dict, path) -> None:
@@ -1438,13 +1474,13 @@ def serve_raw_requests(service: TryOnService, wrappers: dict,
         raw = raw_request(rng, n, h, w)
         torch.cuda.reset_peak_memory_stats()
         ln_before = layer_norm.launches
-        gn_before = group_norm.launches
+        gn_before = graphs.counts()
         c = cond.conditioner
-        with GroupNormCensus(service.pipe.unet, service.pipe.vae,
-                             service.pipe.emasc) as census, LayerNormCensus(
-                service.pipe.unet, c.vision, c.adapter,
-                c.text_model) as ln_census:
+        # the conditioning runs eagerly; the try-on replays phase 4's
+        # graphs, which call no hook (phase 4's census covers it)
+        with LayerNormCensus(c.vision, c.adapter, c.text_model) as ln_census:
             r = answer(cond, service, raw, seed=100 + n)
+        gn = {k: v - gn_before[k] for k, v in graphs.counts().items()}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"raw request of {n} image(s) ({', '.join(raw['categories'])}) "
             f"at {h}x{w}: conditioning {r['t_cond']:.3f} s, total "
@@ -1457,13 +1493,14 @@ def serve_raw_requests(service: TryOnService, wrappers: dict,
             f"{r['out'].std():.4f}; K5 launches: conditioning "
             f"{r['ln_cond'] - ln_before}, try-on "
             f"{layer_norm.launches - r['ln_cond']}; K2 calls "
-            f"{group_norm.launches - gn_before}, K2 kernel launches "
-            f"{census.kernels()}")
+            f"{gn['group_norm']}, K2 kernel launches "
+            f"{gn['group_norm.cluster'] + 2 * gn['group_norm.split']}")
         check_raw_output(r, n, h, w, f"raw request of {n}")
         if not (r["ln_cond"] > ln_before
                 and layer_norm.launches > r["ln_cond"]):
             raise AssertionError("K5 was not launched in both stages")
-        check_layer_norm_census(ln_census, f"a raw request of {n} image(s)")
+        check_layer_norm_census(
+            ln_census, f"the conditioning of a raw request of {n} image(s)")
     launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
     return launches, cond.conditioner, {"raw": raw, "seed": 100 + n, **r}
 
@@ -1643,7 +1680,9 @@ def zoo_path(root: pathlib.Path, pipe: TryOnPipeline, cond: Conditioner,
         peak = torch.cuda.max_memory_allocated()
         log(f"zoo raw request of 2 images at {h}x{w}, {name}-{steps}, CFG "
             f"7.5, batch 2: conditioning {r['t_cond']:.3f} s, total "
-            f"{r['total']:.3f} s, peak device memory {peak / 2 ** 30:.2f} GiB "
+            f"{r['total']:.3f} s (the capture of the sampler's graphs "
+            f"{sum(service.sampler.capture_seconds.values()):.3f} s of it), "
+            f"peak device memory {peak / 2 ** 30:.2f} GiB "
             f"({(peak - base) / 2 ** 30:.2f} GiB above the resident weights), "
             f"output in [{r['out'].min():.4f}, {r['out'].max():.4f}] std "
             f"{r['out'].std():.4f}")
@@ -3530,18 +3569,15 @@ def distributed_only(work: pathlib.Path, checked: dict, smi: str) -> dict:
                             tokenizer, checked, smi)
 
 
-def dist_mains(work: pathlib.Path, roots: dict, train_roots: dict,
-               single_inference: pathlib.Path, out: pathlib.Path,
+def dist_mains(work: pathlib.Path, train_roots: dict, out: pathlib.Path,
                total: dict, smi: str, dp_peak: float) -> None:
-    """Phase 11d: the mains as two ranks with torchrun's variables.
+    """Phase 11d's trainer runs, two ranks with torchrun's variables.
     ``cli.train_vto --shard_optimizer_states`` two steps with a checkpoint
     each, then again from ``checkpoint-1`` alone, resumed: the second
     ``unet_2.pth`` bitwise the first's, and each run's peak memory a rank,
     its checkpoints included, below ``dp_peak`` (phase 11a's unsharded
     step's); ``cli.train_vto --tensor_parallel
-    2`` two steps, its gathered ``unet_2.pth`` loaded through the zoo;
-    ``cli.inference`` over phase 7's VITON-HD split against the one
-    process's images (``single_inference``)."""
+    2`` two steps, its gathered ``unet_2.pth`` loaded through the zoo."""
     sd2 = work / "sd2"
     vto = ["--dataset", "vitonhd", "--vitonhd_dataroot",
            str(train_roots["vitonhd"]), "--sd2_model_dir", str(sd2),
@@ -3615,6 +3651,13 @@ def dist_mains(work: pathlib.Path, roots: dict, train_roots: dict,
     torch.cuda.empty_cache()
     shutil.rmtree(tp_out)
 
+
+def dist_inference(work: pathlib.Path, roots: dict,
+                   single_inference: pathlib.Path, out: pathlib.Path,
+                   total: dict, smi: str) -> None:
+    """Phase 11d's ``cli.inference`` as two ranks over phase 7's VITON-HD
+    split, against the one process's images (``single_inference``)."""
+    runs = out / "mains"
     two = runs / "inference"
     results, seconds = ranks("run_main", 2, (
         "ladi_vton_tpu_torch.cli.inference",
@@ -3867,9 +3910,37 @@ def distributed_path(work: pathlib.Path, roots: dict, train_roots: dict,
                                  "tell unreduced partial sums")
     log(f"phase 11c: two ranks in {seconds:.1f} s wall")
 
-    dist_mains(work, roots, train_roots, single_inference, out, total, smi,
-               dp_peak)
+    # 11d's trainer runs are the phase's longest and bound by the host
+    # (gloo's host-staged gradient all_reduce, 10.5 GB checkpoints); 11d's
+    # inference, 11e and 11f, which fit on the card beside them, run
+    # meanwhile in a second thread
+    with ThreadPoolExecutor(1) as pool:
+        side = pool.submit(side_phases, work, roots, single_inference, out,
+                           smi)
+        dist_mains(work, train_roots, out, total, smi, dp_peak)
+        add_launches(total, side.result())
+    missing = [name for name, n in total.items() if not n]
+    if missing:
+        raise AssertionError(f"kernels never launched in phase 11: {missing}")
+    log(f"phase 11: distribution ({time.perf_counter() - t_phase:.1f} s)")
+    return total
 
+
+def side_phases(work: pathlib.Path, roots: dict,
+                single_inference: pathlib.Path, out: pathlib.Path,
+                smi: str) -> dict:
+    """Phase 11d's inference, 11e and 11f, in that order; the kernels'
+    launches summed over their ranks."""
+    total = {name: 0 for name, _, _, _, _ in KERNELS}
+    dist_inference(work, roots, single_inference, out, total, smi)
+    dist_dryrun(out, total)
+    serve_over_ranks(work, out, total, smi)
+    return total
+
+
+def dist_dryrun(out: pathlib.Path, total: dict) -> None:
+    """Phase 11e: ``dryrun_multichip(2)`` on the card, its
+    tensor-parallel step launching K1, K2, K4 and K5 on each rank."""
     from ladi_vton_tpu_torch.parallel.dryrun import dryrun_multichip
 
     t0 = time.perf_counter()
@@ -3888,12 +3959,6 @@ def distributed_path(work: pathlib.Path, roots: dict, train_roots: dict,
     if missing:
         raise AssertionError(f"the dry run's TP step never launched "
                              f"{missing}")
-    serve_over_ranks(work, out, total, smi)
-    missing = [name for name, n in total.items() if not n]
-    if missing:
-        raise AssertionError(f"kernels never launched in phase 11: {missing}")
-    log(f"phase 11: distribution ({time.perf_counter() - t_phase:.1f} s)")
-    return total
 
 
 KERNELS = (
@@ -3909,6 +3974,273 @@ KERNELS = (
      "ladi_vton_tpu_torch/csrc/layer_norm.cu",
      "ladi_vton_tpu/ops/layer_norm.py:66"),
 )
+
+
+# phase 12: the sampler as CUDA graphs (``TryOnPipeline.jit_sample``),
+# at phase 4's full width (31-channel SD-2 UNet, SD-2 VAE, EMASC, bf16;
+# 512x384, CFG 7.5).  Each group (scheduler, steps, batch,
+# cloth_cond_rate) makes two requests A and B with their own inputs and
+# generators, samples both eagerly, then through each of its modes
+# ((split, denoise mode)); each graphed image must equal the eager one
+# bit for bit
+GRAPH_MODES = ((False, "scan"), (True, "scan"), (True, "host"))
+GRAPH_GROUPS = (
+    ("ddim", 50, 2, 1.0, GRAPH_MODES),
+    ("ddim", 50, 8, 1.0, GRAPH_MODES),
+    ("dpm", 20, 2, 1.0, ((True, "host"),)),
+    ("pndm", 50, 2, 1.0, ((True, "host"),)),
+    ("lms", 50, 2, 1.0, ((True, "host"),)),
+    # the cloth gate closes at step 25 of 50, inside the loop
+    ("ddim", 50, 2, 0.5, ((True, "host"),)),
+)
+# the case profiled and planted with a stale replay: the callers' sampler
+# (``parallel.sharding.make_sampler``)
+PROFILED = ("ddim", 2, True, "host")
+REQUEST_KEYS = ("image", "inpaint_mask", "pose_map", "warped_cloth",
+                "prompt_embeds", "negative_prompt_embeds")
+SAMPLE_KEYS = ("image", "mask_image", "pose_map", "warped_cloth",
+               "prompt_embeds", "negative_prompt_embeds")
+OUR_KERNELS = {"K1": ("flash_fwd",), "K2": ("gn_cluster", "gn_split"),
+               "K4": ("geglu_",), "K5": ("ln_kernel",)}
+
+
+class FixedGatePipeline(TryOnPipeline):
+    """Phase 12's planted fault: the cloth gate evaluated once, as a
+    Python bool, when the step is captured (its step input then holds 0:
+    the gate stays open at every replay), not as a ``torch.where`` on the
+    step index."""
+
+    def denoise_one_step(self, latents, state, step_i, t, *,
+                         cloth_gate_from: float, **inputs):
+        closed = 0 >= cloth_gate_from
+        return super().denoise_one_step(
+            latents, state, step_i, t, **inputs,
+            cloth_gate_from=-float("inf") if closed else float("inf"))
+
+
+def mode_label(split: bool, mode: str) -> str:
+    return f"split=True {mode}" if split else "split=False"
+
+
+def graph_request(rng: np.random.Generator, n: int) -> list:
+    r = request(rng, n, 512, 384)
+    return [torch.from_numpy(r[k]).cuda() for k in REQUEST_KEYS]
+
+
+def eager_request(spipe: TryOnPipeline, x: list, seed: int,
+                  kw: dict) -> torch.Tensor:
+    return spipe.sample(**dict(zip(SAMPLE_KEYS, x)), **kw,
+                        generator=torch.Generator("cuda").manual_seed(seed))
+
+
+def run_timed(fn) -> tuple:
+    """(result, host seconds after a synchronise, peak GiB allocated)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+# host seconds the profiler stays open before and after the profiled
+# call: the trace keeps only the device events that lie inside its start
+# and stop on the host clock, and without the margin it lost the first or
+# last split-form GroupNorm launches of a request (VAE encode, VAE decode)
+PROFILE_MARGIN_S = 0.1
+
+
+def profiled_request(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its host wall seconds,
+    device kernel milliseconds, the busy share, the kernels it ran and
+    those of K1, K2, K4 and K5 by their names."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        time.sleep(PROFILE_MARGIN_S)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    ms = sum(e.self_device_time_total for e in events) / 1e3
+    ours = {k: sum(e.count for e in events if any(
+        n in e.key for n in names)) for k, names in OUR_KERNELS.items()}
+    by_name = {e.key[:60]: e.count for e in events if any(
+        n in e.key for names in OUR_KERNELS.values() for n in names)}
+    return {"wall_s": wall, "device_ms": ms, "busy": ms / (wall * 1e3),
+            "kernels": sum(e.count for e in events), "ours": ours,
+            "by_name": by_name}
+
+
+def launches_of(fn) -> dict:
+    """The wrappers' counters' rise over one call of ``fn``."""
+    before = graphs.counts()
+    fn()
+    torch.cuda.synchronize()
+    after = graphs.counts()
+    return {k: after[k] - before[k] for k in after}
+
+
+def confirmed_profile(fn, launched: dict, what: str) -> dict:
+    """``profiled_request(fn)``, whose kernel names must confirm the
+    launch counters' rise over one call (``launched``), on its one trace:
+    one K1 and one K5 kernel a launch, K2's cluster form one and its
+    split form two (stats, apply), K4 two or three (the split-K
+    reduction)."""
+    k2 = {"cluster": launched["group_norm.cluster"],
+          "split": 2 * launched["group_norm.split"]}
+    prof = profiled_request(fn)
+    k = prof["ours"]
+    split = sum(n for name, n in prof["by_name"].items()
+                if "gn_split" in name)
+    ok = (k["K1"] == launched["flash_attention"]
+          and k["K5"] == launched["layer_norm"]
+          and k["K2"] == k2["cluster"] + k2["split"]
+          and split == k2["split"]
+          and 2 * launched["geglu"] <= k["K4"] <= 3 * launched["geglu"])
+    log(f"phase 12 {what}: the profiler's kernels by name {k} (K2's split "
+        f"form {split}) against the counters {launched}: "
+        f"{'agree' if ok else 'DISAGREE'}")
+    if not ok:
+        log(f"phase 12 {what}: the trace's kernels of K1, K2, K4 and K5 by "
+            f"name: {prof['by_name']}")
+        raise AssertionError(f"{what}: the profiler does not confirm the "
+                             f"launch counters")
+    return prof
+
+
+def graph_case(spipe: TryOnPipeline, kw: dict, split: bool, mode: str,
+               reqs: list, refs: list, label: str, smi: str,
+               profiled: bool) -> dict:
+    """One mode of one group: a sampler, requests A (its capture) and B,
+    each held bitwise to the eager image; the numbers; on the profiled
+    case, the profile, the launches and the stale replay."""
+    sampler = spipe.jit_sample(split=split, denoise_mode=mode, **kw)
+    outs, seconds, peaks = [], [], []
+    for i in (0, 1):
+        out, dt, peak = run_timed(lambda: sampler(
+            *reqs[i], generator=torch.Generator("cuda").manual_seed(
+                1200 + i)))
+        outs.append(out)
+        seconds.append(dt)
+        peaks.append(peak)
+    same = [torch.equal(o, ref) for o, ref in zip(outs, refs)]
+    capture = sum(sampler.capture_seconds.values())
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    r = {"capture_s": capture, "request_s": seconds[1],
+         "capture_request_s": seconds[0],
+         "peak_capture_gib": peaks[0], "peak_replay_gib": peaks[1],
+         "same": same}
+    if profiled:
+        # the last request loaded B's inputs: replay as if for A without
+        # loading A's
+        stale = next(iter(sampler.sets.values())).run().clone()
+        r["stale_equal_b"] = torch.equal(stale, refs[1])
+        r["stale_equal_a"] = torch.equal(stale, refs[0])
+        gen = torch.Generator("cuda")
+        r["launched"] = launches_of(lambda: sampler(
+            *reqs[1], generator=gen.manual_seed(1201)))
+        r["profile"] = confirmed_profile(lambda: sampler(
+            *reqs[1], generator=gen.manual_seed(1201)), r["launched"],
+            f"{label}, graphed")
+    del sampler
+    gc.collect()
+    torch.cuda.empty_cache()
+    r["held_gib"] = (held - torch.cuda.memory_reserved()) / 2 ** 30
+    log(f"phase 12 {label}: capture {capture:.3f} s; requests graphed "
+        f"A (with its capture) {seconds[0]:.3f} s, B {seconds[1]:.3f} s; "
+        f"peak allocated {peaks[0]:.2f} GiB over the capture, "
+        f"{peaks[1]:.2f} GiB over a replay; the graphs hold "
+        f"{r['held_gib']:.2f} GiB; bitwise equal to the eager sample: A "
+        f"{same[0]}, B {same[1]} [{smi}]")
+    if not all(same):
+        raise AssertionError(f"phase 12 {label}: graphed != eager")
+    return r
+
+
+@torch.no_grad()
+def graphs_path(pipe: TryOnPipeline, smi: str) -> dict:
+    """Phase 12: every group of ``GRAPH_GROUPS``, the two planted faults,
+    and the profiled request graphed against eager.  Returns the
+    numbers by case label."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(12)
+    results = {}
+    for name, steps, batch, rate, modes in GRAPH_GROUPS:
+        spipe = dataclasses.replace(pipe, scheduler=make_scheduler(name))
+        kw = dict(num_inference_steps=steps, guidance_scale=7.5,
+                  cloth_cond_rate=rate)
+        group = f"{name}-{steps} batch {batch} cloth_cond_rate {rate}"
+        reqs = [graph_request(rng, batch) for _ in range(2)]
+        refs, eager_s, eager_peak = [], [], []
+        for i in range(2):
+            out, dt, peak = run_timed(lambda: eager_request(
+                spipe, reqs[i], 1200 + i, kw))
+            refs.append(out)
+            eager_s.append(dt)
+            eager_peak.append(peak)
+        log(f"phase 12 {group}: eager requests A {eager_s[0]:.3f} s, B "
+            f"{eager_s[1]:.3f} s, peak allocated {max(eager_peak):.2f} GiB "
+            f"[{smi}]")
+        for split, mode in modes:
+            label = f"{group} {mode_label(split, mode)}"
+            profiled = (name, batch, split, mode) == PROFILED and rate == 1.0
+            r = graph_case(spipe, kw, split, mode, reqs, refs, label, smi,
+                           profiled)
+            r.update(eager_s=eager_s[1], eager_peak_gib=max(eager_peak))
+            results[label] = r
+            if profiled:
+                stale = (not r["stale_equal_a"]) and r["stale_equal_b"]
+                log(f"phase 12 planted fault, a replay whose static inputs "
+                    f"were not refreshed (A's request, B's inputs): equal "
+                    f"to A's eager image {r['stale_equal_a']}, to B's "
+                    f"{r['stale_equal_b']}: "
+                    f"{'detected' if stale else 'MISSED'}")
+                if not stale:
+                    raise AssertionError("the stale replay was not detected")
+                launched = launches_of(lambda: eager_request(
+                    spipe, reqs[1], 1201, kw))
+                prof = confirmed_profile(lambda: eager_request(
+                    spipe, reqs[1], 1201, kw), launched, f"{label}, eager")
+                g = r["profile"]
+                log(f"phase 12 {label}: one request under torch.profiler: "
+                    f"graphed {g['wall_s']:.3f} s wall, {g['device_ms']:.2f} "
+                    f"ms of kernels, busy {g['busy']:.4f}, {g['kernels']} "
+                    f"kernels; eager {prof['wall_s']:.3f} s, "
+                    f"{prof['device_ms']:.2f} ms, busy {prof['busy']:.4f}, "
+                    f"{prof['kernels']} kernels; launches a request graphed "
+                    f"{r['launched']}, eager {launched} [{smi}]")
+                if launched != r["launched"] or g["ours"] != prof["ours"]:
+                    raise AssertionError("a graphed request launches other "
+                                         "kernels than the eager one")
+                r["eager_profile"] = prof
+        if rate != 1.0:
+            fixed = FixedGatePipeline(**{
+                f.name: getattr(spipe, f.name)
+                for f in dataclasses.fields(spipe)})
+            sampler = fixed.jit_sample(split=True, denoise_mode="host", **kw)
+            out = sampler(*reqs[0], generator=torch.Generator(
+                "cuda").manual_seed(1200))
+            planted = not torch.equal(out, refs[0])
+            log(f"phase 12 planted fault, the {group} step graph captured "
+                f"with the cloth gate as a Python bool: max |graphed - "
+                f"eager| {float((out - refs[0]).abs().max()):.4e}: "
+                f"{'detected' if planted else 'MISSED'}")
+            if not planted:
+                raise AssertionError("the fixed cloth gate was not detected")
+            del sampler
+        del refs, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase 12: the sampler as CUDA graphs "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return results
 
 
 def main() -> None:
@@ -3927,6 +4259,10 @@ def main() -> None:
                         help="phase 2's gradient rows and phase 10 alone "
                         "(its files written from freshly seeded modules), "
                         "then exit without the result lines")
+    parser.add_argument("--graphs-only", action="store_true",
+                        help="phase 12 alone (the sampler as CUDA graphs, "
+                        "from freshly seeded modules), then exit without "
+                        "the result lines")
     parser.add_argument("--distributed-only", action="store_true",
                         help="phase 2's tensor-parallel rows and phase 11 "
                         "alone (its files written from freshly seeded "
@@ -3962,6 +4298,9 @@ def main() -> None:
         f"{build_dir / 'nvcc.log'}")
 
     gen = Gen(0)
+    if args.graphs_only:
+        graphs_path(full_width_pipeline(), smi)
+        return
     if args.training_only:
         check_gradients(gen)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
@@ -4011,30 +4350,32 @@ def run_phases(work: pathlib.Path, gen: Gen, smi: str, checked: dict) -> dict:
     log(f"phase 3: full-width blocks, the sampler under each scheduler and "
         f"with hoisted K/V, the tiled decode and the conditioner agree with "
         f"the CPU ({time.perf_counter() - t0:.1f} s)")
+    graphs_path(pipe, smi)
 
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
     service = TryOnService(pipe, batch_size=2, height=512, width=384,
                            num_inference_steps=50, guidance_scale=7.5,
                            context_dim=1024, seed=0)
+    # the census over the capture: a replay calls no forward hook
+    census = GroupNormCensus(pipe.unet, pipe.vae, pipe.emasc)
+    ln_census = LayerNormCensus(pipe.unet)
     t0 = time.perf_counter()
-    service.warmup()
+    with census, ln_census:
+        service.warmup()
     torch.cuda.synchronize()
-    log(f"phase 4: warmup request (2 images) {time.perf_counter() - t0:.3f} s")
+    log(f"phase 4: warmup request (2 images) {time.perf_counter() - t0:.3f} "
+        f"s, the capture of the sampler's graphs "
+        f"{sum(service.sampler.capture_seconds.values()):.3f} s of it "
+        f"[{smi}]")
     rng = np.random.default_rng(0)
     wrappers = {name: wrapper for name, wrapper, _, _, _ in KERNELS}
     for wrapper in wrappers.values():
         wrapper.launches = 0
-    census = GroupNormCensus(pipe.unet, pipe.vae, pipe.emasc)
-    ln_census = LayerNormCensus(pipe.unet)
-    for i, n in enumerate((1, 2, 2)):
+    for n in (1, 2, 2):
         req = request(rng, n, 512, 384)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        if i == 1:
-            with census, ln_census:
-                out = service.generate(**req)
-        else:
-            out = service.generate(**req)
+        out = service.generate(**req)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -4048,8 +4389,9 @@ def run_phases(work: pathlib.Path, gen: Gen, smi: str, checked: dict) -> dict:
             raise AssertionError(f"request of {n}: bad output")
     launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
     log(f"launches during the three requests: {launches}")
-    check_census(census)
-    check_layer_norm_census(ln_census, "one 2-image request")
+    what = "the capture of a 2-image request (each call twice)"
+    check_census(census, what)
+    check_layer_norm_census(ln_census, what)
     missing = [name for name, count in launches.items() if count == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the path: {missing}")

@@ -12,9 +12,12 @@ routing ``--checkpoint_dir``, ``--sd2_model_dir``, ``--clip_vision_dir``,
 the conditioning stage (``pipelines.condition.Conditioner``: TPS warp at
 256x192, grid sample and refinement at full size, CLIP ViT-H features,
 inversion adapter, pseudo-word text encoding), then the try-on
-(``TryOnPipeline.sample``, DDIM-50 and CFG 7.5 by default), then the
-per-category save (``pipelines.drivers``).  Weights load through the
-port's zoo; the last batch is padded to the batch size.
+(``TryOnPipeline.jit_sample(split=True, denoise_mode="host")``, built
+once for the run through ``parallel.sharding.make_sampler``, its CUDA
+graphs captured at the first batch and replayed after; DDIM-50 and CFG
+7.5 by default), then the per-category save (``pipelines.drivers``).
+Weights load through the port's zoo; the last batch is padded to the
+batch size.
 
 The run is on ``--device`` (``cuda`` by default; asking for it where
 there is no card raises).  ``--allow_tf32`` sets cuBLAS's TF32 switch, as
@@ -29,10 +32,11 @@ is rounded up to a multiple of ``data``, each data rank conditions,
 samples and saves its rows of every batch with its rows of the global
 batch's noise, and model rank 0 writes; ``--tensor_parallel N`` splits
 the UNet's attentions and feed-forwards over ``model``
-(``parallel.tp``).  ``--dist_backend`` is NCCL on the card and gloo on
-the CPU.  ``--compute_metrics`` scores the saved images once the
-saver has flushed (``metrics.compute.compute_metrics`` on ``--device``,
-weights from ``$LADI_VTON_METRIC_WEIGHTS``) and writes
+(``parallel.tp``), and the sampler then runs eagerly
+(``parallel.sharding.eager_reason``).  ``--dist_backend`` is NCCL on
+the card and gloo on the CPU.  ``--compute_metrics`` scores the saved
+images once the saver has flushed (``metrics.compute.compute_metrics``
+on ``--device``, weights from ``$LADI_VTON_METRIC_WEIGHTS``) and writes
 ``metrics_<order>_<category>.json`` into the save directory, as the JAX
 main does.  A batch's noise comes from a generator seeded with
 ``request_seed(--seed, batch index)``, not the JAX ``fold_in`` stream.
@@ -59,7 +63,11 @@ from ladi_vton_tpu_torch.data import (
 from ladi_vton_tpu_torch.diffusion.schedulers import make_scheduler
 from ladi_vton_tpu_torch.hub import zoo
 from ladi_vton_tpu_torch.pipelines.condition import Conditioner
-from ladi_vton_tpu_torch.parallel.sharding import local_batch, sample_draws
+from ladi_vton_tpu_torch.parallel.sharding import (
+    local_batch,
+    make_sampler,
+    sample_draws,
+)
 from ladi_vton_tpu_torch.parallel.tp import unet_tp
 from ladi_vton_tpu_torch.pipelines.drivers import run_batches
 from ladi_vton_tpu_torch.pipelines.serving import category_prompts
@@ -241,6 +249,10 @@ def main(argv=None) -> dict:
     def to(x, dt=torch.float32):
         return torch.from_numpy(np.ascontiguousarray(x)).to(device, dt)
 
+    sampler = make_sampler(pipe, mesh,
+                           num_inference_steps=args.num_inference_steps,
+                           guidance_scale=args.guidance_scale)
+
     def step_fn(step: int, batch: dict) -> torch.Tensor:
         batch, total = local_batch(mesh, batch)
         input_ids = to(np.asarray(tokenizer(category_prompts(
@@ -248,13 +260,10 @@ def main(argv=None) -> dict:
         pose_map = to(batch["pose_map"])
         warped, ehs, neg = cond(pose_map, to(batch["cloth"]),
                                 to(batch["im_mask"]), input_ids)
-        return pipe.sample(
-            image=to(batch["image"]), mask_image=to(batch["inpaint_mask"]),
-            pose_map=pose_map, warped_cloth=warped, prompt_embeds=ehs,
-            negative_prompt_embeds=neg,
-            noise=sample_draws(mesh, args.seed, step, device, total, *size),
-            num_inference_steps=args.num_inference_steps,
-            guidance_scale=args.guidance_scale)
+        return sampler(
+            to(batch["image"]), to(batch["inpaint_mask"]), pose_map, warped,
+            ehs, neg,
+            noise=sample_draws(mesh, args.seed, step, device, total, *size))
 
     save_dir = os.path.join(args.output_dir, args.test_order)
     stats = run_batches(make_loader(dataset, args), step_fn, save_dir,

@@ -23,8 +23,14 @@ Weights load through the port's zoo onto ``--device`` (``cuda`` by
 default; asking for it where there is no card raises before any work).
 The bound address is printed on one line (``--port 0`` picks a free
 port); SIGINT shuts the server and the batcher down and the process
-exits 0.  ``--no_warmup`` skips the full-batch request made before
-serving.
+exits 0.  The sampler is ``TryOnPipeline.jit_sample(split=True,
+denoise_mode="host")``: the full-batch request made before serving
+captures its CUDA graphs, before the batcher and HTTP threads start,
+and every request replays them (``--no_warmup`` skips that request,
+and the first request captures).
+The start line says which sampler runs: over ranks at
+``--tensor_parallel`` above 1 it is the eager one, since the
+tensor-parallel UNet's collectives run on the host.
 
 Over ranks (``python -m torch.distributed.run --nproc_per_node N -m
 ladi_vton_tpu_torch.cli.serve ...``) the ranks form the data x model mesh
@@ -208,7 +214,8 @@ def main(argv=None) -> None:
     host, port = server.server_address[:2]
     print(f"serving try-on on http://{host}:{port} "
           f"(batch {args.batch_size}, {args.num_inference_steps} steps, "
-          f"{device}, mesh {mesh.data}x{mesh.model})", flush=True)
+          f"{device}, mesh {mesh.data}x{mesh.model}, "
+          f"{service.sampler_kind})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

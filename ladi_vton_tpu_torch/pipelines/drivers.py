@@ -20,6 +20,10 @@ fetched and written while batch N+1 runs.  Files are PNG (``--use_png``)
 or the port's baseline JPEG at quality 95 (``data/imageio.py``); a name
 seen before in the run (``pad_last``'s repeats) is skipped.
 
+The try-on batches go through one sampler a run
+(``parallel.sharding.make_sampler``: ``TryOnPipeline.jit_sample``, whose
+CUDA graphs replay on the card, as the JAX package's ``drivers.py``
+uses its ``jit_sample``).
 Over a mesh (``core.mesh``, the JAX ``mesh=`` argument) ``step_fn`` gets
 the global batch and returns its rank's rows (``parallel.sharding``'s
 ``local_batch`` and ``sample_draws`` cut the batch and the global
@@ -43,7 +47,11 @@ from ladi_vton_tpu_torch.data import imageio
 from ladi_vton_tpu_torch.diffusion.text import encode_text_word_embedding
 from ladi_vton_tpu_torch.models.emasc import mask_features
 from ladi_vton_tpu_torch.models.vae import DiagonalGaussian
-from ladi_vton_tpu_torch.parallel.sharding import local_batch, sample_draws
+from ladi_vton_tpu_torch.parallel.sharding import (
+    local_batch,
+    make_sampler,
+    sample_draws,
+)
 from ladi_vton_tpu_torch.pipelines.condition import clip_pixels
 from ladi_vton_tpu_torch.pipelines.serving import category_prompts
 from ladi_vton_tpu_torch.pipelines.tryon import EMASC_INT_LAYERS
@@ -235,6 +243,12 @@ def generate_images_from_tryon_pipe(
     towers = text_model.text_model.final_layer_norm.weight.dtype
     empty_ids = torch.from_numpy(
         np.asarray(tokenizer([""]))[0].astype(np.int64)).to(device)
+    # one sampler for the run, its graphs captured at the first batch (and
+    # again for a last batch of another size), as the JAX package jits one
+    sampler = make_sampler(pipe, mesh,
+                           num_inference_steps=num_inference_steps,
+                           guidance_scale=guidance_scale,
+                           cloth_cond_rate=cloth_cond_rate, no_pose=no_pose)
 
     def step_fn(step: int, batch: dict) -> torch.Tensor:
         batch, total = local_batch(mesh, batch)
@@ -259,15 +273,10 @@ def generate_images_from_tryon_pipe(
         warped = (_to(batch["warped_cloth"], device)
                   if cloth_input_type == "warped" else None)
         _, H, W, _ = batch["image"].shape
-        return pipe.sample(
-            image=_to(batch["image"], device),
-            mask_image=_to(batch["inpaint_mask"], device),
-            pose_map=_to(batch["pose_map"], device), warped_cloth=warped,
-            prompt_embeds=ehs, negative_prompt_embeds=neg,
-            noise=sample_draws(mesh, seed, step, device, total, H, W),
-            num_inference_steps=num_inference_steps,
-            guidance_scale=guidance_scale, cloth_cond_rate=cloth_cond_rate,
-            no_pose=no_pose)
+        return sampler(
+            _to(batch["image"], device), _to(batch["inpaint_mask"], device),
+            _to(batch["pose_map"], device), warped, ehs, neg,
+            noise=sample_draws(mesh, seed, step, device, total, H, W))
 
     return run_batches(loader, step_fn, save_dir, use_png=use_png,
                        what="eval", mesh=mesh)

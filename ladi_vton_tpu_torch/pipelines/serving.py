@@ -46,7 +46,11 @@ from ladi_vton_tpu_torch.core import distributed
 from ladi_vton_tpu_torch.core.mesh import Mesh
 from ladi_vton_tpu_torch.core.rng import request_seed
 from ladi_vton_tpu_torch.data.labels import CATEGORY_PROMPT_TEXT
-from ladi_vton_tpu_torch.parallel.sharding import sample_noise
+from ladi_vton_tpu_torch.parallel.sharding import (
+    eager_reason,
+    make_sampler,
+    sample_noise,
+)
 from ladi_vton_tpu_torch.pipelines.condition import Conditioner
 from ladi_vton_tpu_torch.pipelines.tryon import (
     NOISE_KEYS,
@@ -96,7 +100,14 @@ class TryOnService:
     collective fails (a follower died), the service is broken for good:
     ``broken`` holds the error, ``broken_event`` is set, and every later
     request raises.  One rank (``mesh`` None or 1 x 1) samples as
-    before, with the request's generator."""
+    before, with the request's generator.
+
+    The batches go through ``parallel.sharding.make_sampler``'s
+    ``TryOnPipeline.jit_sample(split=True, denoise_mode="host")``: on
+    the card its CUDA graphs are captured by ``warmup`` and replayed by
+    every request; a rank of a mesh whose model axis is above 1 samples
+    eagerly (``parallel.sharding.eager_reason``).  ``sampler_kind`` says
+    which, for the start line."""
 
     def __init__(self, pipe: TryOnPipeline, *, batch_size: int = 8,
                  height: int = 512, width: int = 384,
@@ -119,6 +130,14 @@ class TryOnService:
             raise ValueError(
                 f"serving batch_size {batch_size} must be a multiple of "
                 f"the data-axis size {self.mesh.data}")
+        self.sampler = make_sampler(pipe, self.mesh,
+                                    num_inference_steps=num_inference_steps,
+                                    guidance_scale=guidance_scale)
+        reason = eager_reason(self.mesh)
+        self.sampler_kind = (
+            f"eager sampler ({reason})" if reason is not None
+            else "CUDA-graphed sampler" if pipe.device.type == "cuda"
+            else "eager sampler (CPU)")
         self.broken: Optional[BaseException] = None
         self.broken_event = threading.Event()
         self._closed = False
@@ -131,7 +150,9 @@ class TryOnService:
             self._heartbeat.start()
 
     def warmup(self) -> None:
-        """Run one full-batch request ahead of the first real one."""
+        """Run one full-batch request ahead of the first real one: on the
+        card it captures the sampler's graphs, so call it before other
+        threads launch work (the batcher's, the HTTP handlers')."""
         b, h, w = self.batch_size, self.height, self.width
         z = np.zeros((b, h, w, 3), np.float32)
         self.generate(
@@ -245,16 +266,10 @@ class TryOnService:
         """``rows`` of the padded batch through the pipeline, drawing
         from ``generator`` or taking those rows of the global ``noise``."""
         a = {k: v[rows].to(self.pipe.device) for k, v in arrays.items()}
-        out = self.pipe.sample(
-            image=a["image"], mask_image=a["inpaint_mask"],
-            pose_map=a["pose_map"], warped_cloth=a["warped_cloth"],
-            prompt_embeds=a["prompt_embeds"],
-            negative_prompt_embeds=a["negative_prompt_embeds"],
-            generator=generator,
+        out = self.sampler(
+            *(a[k] for k in _REQUEST_KEYS), generator=generator,
             noise=None if noise is None else {k: v[rows]
-                                              for k, v in noise.items()},
-            num_inference_steps=self.num_inference_steps,
-            guidance_scale=self.guidance_scale)
+                                              for k, v in noise.items()})
         return out.cpu().numpy()
 
     @torch.no_grad()

@@ -26,6 +26,12 @@ Public inputs and outputs are NHWC, as in the JAX package; the towers run
 NCHW in channels-last memory.  Random draws come from an explicit
 ``torch.Generator``, or ``prepare`` takes them as ``noise`` (NHWC
 tensors) so a test can hand it the JAX package's draws.
+
+``denoise_one_step`` is one update of the loop, the unit that ``denoise``
+repeats; its cloth gate is a ``torch.where`` on the device step index.
+``jit_sample`` is the JAX package's compiled sampler: on the card it
+captures the sample as CUDA graphs and replays them
+(``pipelines/graphs.py``); on the CPU it runs the same stages eagerly.
 """
 
 from __future__ import annotations
@@ -96,13 +102,11 @@ class TryOnPipeline:
         prompt embeds (B,77,D); latents (B,H/8,W/8,4) replaces the
         initial N(0, 1) draw.
         """
-        prepared = self.prepare(image=image, mask_image=mask_image,
-                                pose_map=pose_map, warped_cloth=warped_cloth,
-                                generator=generator, noise=noise,
-                                no_pose=no_pose)
-        if latents is not None:
-            prepared["latents"] = _nchw(latents).to(self.device,
-                                                    torch.float32)
+        draws = self.draws(image, generator=generator, noise=noise,
+                           latents=latents)
+        prepared = self.prepare_drawn(
+            image=image, mask_image=mask_image, pose_map=pose_map,
+            warped_cloth=warped_cloth, draws=draws, no_pose=no_pose)
         intermediate = prepared.pop("intermediate")
         latents = self.denoise(
             prepared, prompt_embeds=prompt_embeds,
@@ -120,16 +124,37 @@ class TryOnPipeline:
                                device=self.device, dtype=torch.float32)
                 for k in NOISE_KEYS}
 
+    def draws(self, image: torch.Tensor, *, generator=None, noise=None,
+              latents: Optional[torch.Tensor] = None) -> dict:
+        """The sample's draws for ``image`` (B, H, W, 3): the three N(0, 1)
+        draws of ``_draw``, with ``latents`` (NHWC) in place of the initial
+        one where given (drawn all the same, so the generator advances as
+        it does without)."""
+        B, H, W, _ = image.shape
+        draws = self._draw(B, H // VAE_SCALE, W // VAE_SCALE, generator,
+                           noise)
+        if latents is not None:
+            draws["latents"] = _nchw(latents).to(self.device, torch.float32)
+        return draws
+
     @torch.no_grad()
     def prepare(self, *, image, mask_image, pose_map, warped_cloth=None,
                 generator=None, noise=None, no_pose: bool = False) -> dict:
+        return self.prepare_drawn(
+            image=image, mask_image=mask_image, pose_map=pose_map,
+            warped_cloth=warped_cloth, no_pose=no_pose,
+            draws=self.draws(image, generator=generator, noise=noise))
+
+    @torch.no_grad()
+    def prepare_drawn(self, *, image, mask_image, pose_map, warped_cloth,
+                      draws: dict, no_pose: bool = False) -> dict:
+        """``prepare`` with its draws made (``draws``)."""
         dev = self.device
         image, mask_image, pose_map = (
             t.to(dev) for t in (image, mask_image, pose_map))
         B, H, W, _ = image.shape
         lh, lw = H // VAE_SCALE, W // VAE_SCALE
         sf = self.vae.config.scaling_factor
-        draws = self._draw(B, lh, lw, generator, noise)
 
         mask, masked_image = prepare_mask_and_masked_image(image, mask_image)
         pose_lat = resize_bilinear(_nchw(pose_map), (lh, lw))
@@ -163,19 +188,12 @@ class TryOnPipeline:
             "intermediate": intermediate,
         }
 
-    @torch.no_grad()
-    def denoise(self, prepared: dict, *, prompt_embeds,
-                negative_prompt_embeds, num_inference_steps: int = 50,
-                guidance_scale: float = 7.5,
-                cloth_cond_rate: float = 1.0) -> torch.Tensor:
+    def _cfg_inputs(self, prepared: dict, prompt_embeds,
+                    negative_prompt_embeds, do_cfg: bool) -> tuple:
+        """(mask_in, masked_in, pose_in, cloth_in, context): the UNet's
+        conditioning at batch 2B under CFG (the uncond half with zeroed
+        pose and cloth), or at B without."""
         dev = self.device
-        do_cfg = guidance_scale > 1.0
-        timesteps = self.scheduler.set_timesteps(num_inference_steps,
-                                                 device=dev)
-        steps = torch.arange(len(timesteps), device=dev)
-        gate_from = cloth_gate_start(num_inference_steps, cloth_cond_rate)
-        # scaled after set_timesteps: LMS knows its sigma_max only then
-        latents = prepared["latents"] * self.scheduler.init_noise_sigma
         mask_in = prepared["mask_lat"]
         masked_in = prepared["masked_latents"]
         pose_in = prepared["pose_lat"]
@@ -188,27 +206,84 @@ class TryOnPipeline:
             context = torch.cat([negative_prompt_embeds.to(dev), context])
             if cloth_in is not None:
                 cloth_in = torch.cat([torch.zeros_like(cloth_in), cloth_in])
+        return mask_in, masked_in, pose_in, cloth_in, context
+
+    def loop_inputs(self, prepared: dict, *, prompt_embeds,
+                    negative_prompt_embeds, guidance_scale: float) -> tuple:
+        """What the loop starts from: (latents scaled by the scheduler's
+        ``init_noise_sigma``, the scheduler's initial state, and the
+        keyword inputs every ``denoise_one_step`` takes).  Call it after
+        ``set_timesteps``: LMS knows its sigma_max only then."""
+        mask_in, masked_in, pose_in, cloth_in, context = self._cfg_inputs(
+            prepared, prompt_embeds, negative_prompt_embeds,
+            guidance_scale > 1.0)
+        latents = prepared["latents"] * self.scheduler.init_noise_sigma
         context_kv = (self.unet.precompute_context_kv(context)
                       if self.hoist_context_kv else None)
+        return latents, self.scheduler.init_loop_state(latents), dict(
+            mask_in=mask_in, masked_in=masked_in, pose_in=pose_in,
+            cloth_in=cloth_in, context=context, context_kv=context_kv)
 
-        state = self.scheduler.init_loop_state(latents)
+    @torch.no_grad()
+    def denoise_one_step(self, latents, state, step_i, t, *, mask_in,
+                         masked_in, pose_in, cloth_in, context,
+                         guidance_scale: float, cloth_gate_from: float,
+                         context_kv=None) -> tuple:
+        """One denoise update, the unit of the loop: returns (latents,
+        scheduler state).  ``step_i`` and ``t`` are 0-d device tensors;
+        the warped-cloth gate is a ``torch.where`` on ``step_i``, so one
+        captured step serves every step index."""
+        do_cfg = guidance_scale > 1.0
+        scaled = self.scheduler.scale_input(latents, step_i, t)
+        lmi = torch.cat([scaled] * 2) if do_cfg else scaled
+        parts = [lmi, mask_in.to(lmi.dtype), masked_in.to(lmi.dtype),
+                 pose_in.to(lmi.dtype)]
+        if cloth_in is not None:
+            gated = torch.where(step_i >= cloth_gate_from,
+                                torch.zeros_like(cloth_in), cloth_in)
+            parts.append(gated.to(lmi.dtype))
+        model_in = torch.cat(parts, dim=1)
+        noise_pred = self.unet(model_in, t.expand(model_in.shape[0]),
+                               context, context_kv=context_kv)
+        if do_cfg:
+            uncond, text = noise_pred.chunk(2)
+            noise_pred = uncond + guidance_scale * (text - uncond)
+        state, latents = self.scheduler.loop_step(state, noise_pred, step_i,
+                                                  t, latents)
+        return latents, state
+
+    @torch.no_grad()
+    def denoise(self, prepared: dict, *, prompt_embeds,
+                negative_prompt_embeds, num_inference_steps: int = 50,
+                guidance_scale: float = 7.5,
+                cloth_cond_rate: float = 1.0) -> torch.Tensor:
+        timesteps = self.scheduler.set_timesteps(num_inference_steps,
+                                                 device=self.device)
+        return self.denoise_planned(
+            prepared, timesteps, prompt_embeds=prompt_embeds,
+            negative_prompt_embeds=negative_prompt_embeds,
+            guidance_scale=guidance_scale,
+            cloth_gate_from=cloth_gate_start(num_inference_steps,
+                                             cloth_cond_rate))
+
+    @torch.no_grad()
+    def denoise_planned(self, prepared: dict, timesteps: torch.Tensor, *,
+                        prompt_embeds, negative_prompt_embeds,
+                        guidance_scale: float,
+                        cloth_gate_from: float) -> torch.Tensor:
+        """``denoise`` over a plan already set (``timesteps``, from the
+        scheduler's ``set_timesteps``): the loop over ``denoise_one_step``,
+        with no copy from the host."""
+        latents, state, inputs = self.loop_inputs(
+            prepared, prompt_embeds=prompt_embeds,
+            negative_prompt_embeds=negative_prompt_embeds,
+            guidance_scale=guidance_scale)
+        steps = torch.arange(len(timesteps), device=self.device)
         for i in range(len(timesteps)):
-            step, t = steps[i], timesteps[i]
-            scaled = self.scheduler.scale_input(latents, step, t)
-            lmi = torch.cat([scaled] * 2) if do_cfg else scaled
-            parts = [lmi, mask_in.to(lmi.dtype), masked_in.to(lmi.dtype),
-                     pose_in.to(lmi.dtype)]
-            if cloth_in is not None:
-                parts.append(torch.zeros_like(lmi) if i >= gate_from
-                             else cloth_in.to(lmi.dtype))
-            model_in = torch.cat(parts, dim=1)
-            noise_pred = self.unet(model_in, t.expand(model_in.shape[0]),
-                                   context, context_kv=context_kv)
-            if do_cfg:
-                uncond, text = noise_pred.chunk(2)
-                noise_pred = uncond + guidance_scale * (text - uncond)
-            state, latents = self.scheduler.loop_step(state, noise_pred, step,
-                                                      t, latents)
+            latents, state = self.denoise_one_step(
+                latents, state, steps[i], timesteps[i],
+                guidance_scale=guidance_scale,
+                cloth_gate_from=cloth_gate_from, **inputs)
         return latents
 
     @torch.no_grad()
@@ -220,3 +295,23 @@ class TryOnPipeline:
         else:
             decoded = self.vae.decode(z)
         return _nhwc((decoded.float() / 2 + 0.5).clamp(0.0, 1.0))
+
+    def jit_sample(self, split: bool = False, **static_kwargs):
+        """The compiled sampler of the JAX package: ``sampler(image,
+        mask_image, pose_map, warped_cloth, prompt_embeds,
+        negative_prompt_embeds, *, generator=None, noise=None,
+        latents=None)`` with the static keys ``num_inference_steps``,
+        ``guidance_scale``, ``cloth_cond_rate``, ``no_pose`` and
+        ``denoise_mode`` (``"scan"`` or ``"host"``, for ``split=True``).
+
+        On the card it captures CUDA graphs at the first call of each
+        input signature and replays them: ``split=False`` one graph of the
+        whole sample; ``split=True`` three, prepare, denoise and decode,
+        where denoise is the unrolled loop (``"scan"``) or one captured
+        ``denoise_one_step`` replayed once a step (``"host"``).  On the
+        CPU the same stages run eagerly.  Either way the images are
+        ``sample``'s, bit for bit (``pipelines/graphs.py``).  Build it
+        after the modules are placed: the graphs read their storage."""
+        from ladi_vton_tpu_torch.pipelines.graphs import Sampler
+
+        return Sampler(self, split=split, **static_kwargs)
