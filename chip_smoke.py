@@ -7,7 +7,7 @@
     python3 chip_smoke.py --sweep-layer-norm  # K5's device time per plan
     python3 chip_smoke.py --training-only     # phase 2's gradients, phase 10
     python3 chip_smoke.py --distributed-only  # phase 2's TP rows, phase 11
-    python3 chip_smoke.py --graphs-only       # phase 12
+    python3 chip_smoke.py --graphs-only       # phases 12 and 13
 
 Phases, each printing its numbers before the last line:
 
@@ -72,9 +72,11 @@ Phases, each printing its numbers before the last line:
    the try-on inputs, for requests of 1 and 2 images; conditioning and
    total seconds and peak memory per request, every output checked, and
    K5 launched in both stages, K2's calls and kernel launches per
-   request logged, and K5's census of each request's conditioning (the
-   try-on replays phase 4's graphs, which calls no hook) checked as in
-   phase 4.  The port's CLIP BPE tokenizer reads a synthetic vocabulary
+   request logged.  The conditioning replays ``Conditioner.jit()``'s
+   graph and the try-on phase 4's graphs, which call no hook: K5's
+   census of the conditioning is taken over the warm-up request, which
+   captures the conditioning's graph, and checked as in phase 4.  The
+   port's CLIP BPE tokenizer reads a synthetic vocabulary
    (``synthetic_tokenizer``): the SD-2 one is not in the repository;
 6. the zoo path: phase 4's and 5's modules written as the reference's
    files (the four ``.pth`` releases; an SD-2 directory with ``vae/``
@@ -204,18 +206,41 @@ Phases, each printing its numbers before the last line:
    cloth gate as a Python bool); and one request of the callers' sampler
    (``split=True``, ``"host"``) under torch.profiler, graphed and eager:
    the busy share, the kernels, and K1, K2 (each form), K4 and K5 by
-   name, on the one trace, equal to the launch counters.
+   name, on the one trace, equal to the launch counters;
+13. the conditioning as CUDA graphs (``Conditioner.jit()``, run right
+   after phase 12, on phase 5's full-width conditioning towers):
+   ``ConditionService`` at batch 2 and 8, two requests each (the first
+   captures) whose rows mix a ``$`` run, a prompt without ``$`` and a
+   run cut by the 77 tokens; every output bitwise equal to the eager
+   ``Conditioner`` on the same padded inputs; capture seconds, request
+   seconds and peak memory graphed and eager, the memory the graph
+   holds; a replay over the first request's static inputs must not give
+   the second request's outputs (a planted fault); the boolean-mask
+   splice the port had must fail to capture, in a process of its own,
+   where the static splice captures (a planted fault); and at batch 2
+   one request under torch.profiler, graphed and eager, K5's kernels by
+   name equal to the launch counters on the one trace.  Then the
+   drivers' programs (the VAE reconstruction, the try-on driver on the
+   vision tower and on noun chunks, the adapter's validation with a
+   9-channel SD-2 UNet under bf16 autocast; DDIM-5, batches of 2 and 1
+   image) graphed against their bodies called eagerly: every image
+   bitwise equal, and each program's capture seconds.
 
 Phases 4, 5, 6, 7, 8 and 11 sample through ``jit_sample``
-(``TryOnService``, the mains, ``split=True`` with ``"host"``): on the
-card its graphs replay, and a replay adds what the launch counters rose
-by during the capture.  A replay runs no Python and so no forward hook:
-phase 4's censuses of the try-on are taken over the capture (its warm-up
-run and the capture itself).
+(``TryOnService``, the mains, ``split=True`` with ``"host"``), and
+phases 5 to 10 condition, encode prompts, run the vision tower, the VAE
+reconstruction and the adapter's validation through the other programs
+of ``pipelines.graphs`` (``ConditionService``, the mains, the trainers'
+validation): on the card their graphs replay, and a replay adds what
+the launch counters rose by during the capture; phases 7, 9 and 10 log
+each program's capture seconds.  A replay runs no Python and so no
+forward hook: phase 4's censuses of the try-on, and phase 5's of the
+conditioning, are taken over the capture (its warm-up run and the
+capture itself).
 
-Phases 2 and 3 compare with TF32 off for matmuls and cuDNN; phases 4
-and 5 serve with PyTorch's defaults (cuDNN TF32 allowed, matmul TF32
-off), which the port leaves as they are: with cuDNN TF32 off, cuDNN runs
+Phases 2, 3 and 12 compare with TF32 off for matmuls and cuDNN; phase
+13 and phases 4 on serve with PyTorch's defaults (cuDNN TF32 allowed,
+matmul TF32 off), which the port leaves as they are: with cuDNN TF32 off, cuDNN runs
 the fp32 refinement through FFT convolutions that take ~60x longer and
 a ~20 GiB workspace (``tools/profile_raw_request.py``).
 
@@ -288,7 +313,11 @@ from ladi_vton_tpu_torch.diffusion.schedulers import (
     DDIMScheduler,
     make_scheduler,
 )
-from ladi_vton_tpu_torch.diffusion.text import encode_text_word_embedding
+from ladi_vton_tpu_torch.diffusion.text import (
+    VSTAR_TOKEN_ID,
+    encode_text_word_embedding,
+    splice_word_embeddings,
+)
 from ladi_vton_tpu_torch.hub import zoo
 from ladi_vton_tpu_torch.models.clip import (
     CLIPTextModel,
@@ -350,7 +379,7 @@ from ladi_vton_tpu_torch.metrics.compute import (
 from ladi_vton_tpu_torch.metrics.fid import StatsCache, frechet_distance
 from ladi_vton_tpu_torch.metrics.inception import InceptionV3
 from ladi_vton_tpu_torch.metrics.lpips import LPIPS
-from ladi_vton_tpu_torch.pipelines import graphs
+from ladi_vton_tpu_torch.pipelines import drivers, graphs, inpaint
 from ladi_vton_tpu_torch.pipelines.condition import Conditioner, clip_pixels
 from ladi_vton_tpu_torch.pipelines.serving import (
     ConditionService,
@@ -1454,20 +1483,29 @@ def check_raw_output(r: dict, n: int, h: int, w: int, what: str) -> None:
         raise AssertionError(f"{what}: bad output")
 
 
-def serve_raw_requests(service: TryOnService, wrappers: dict,
-                       tokenizer) -> tuple:
-    """Phase 5: ConditionService -> TryOnService at full width; returns
-    the kernels' launches over the two requests, the conditioner, and the
-    2-image request (its inputs, seed and outputs) for phase 6."""
+def serve_raw_requests(service: TryOnService, wrappers: dict, tokenizer,
+                       towers: Conditioner) -> tuple:
+    """Phase 5: ConditionService -> TryOnService at full width, around the
+    conditioning ``towers``; returns the kernels' launches over the two
+    requests, the conditioner, and the 2-image request (its inputs, seed
+    and outputs) for phase 6."""
     h, w = service.height, service.width
-    cond = ConditionService(conditioner("cuda", (h, w), tokenizer), tokenizer,
-                            batch_size=service.batch_size,
+    cond = ConditionService(towers, tokenizer, batch_size=service.batch_size,
                             num_vstar=NUM_VSTAR)
     rng = np.random.default_rng(1)
+    c = cond.conditioner
     t0 = time.perf_counter()
-    answer(cond, service, raw_request(rng, 2, h, w), seed=100)
+    # the census over the capture of the conditioning's graph (its warm-up
+    # run and the capture call each layer once): a replay calls no hook,
+    # and the try-on replays phase 4's graphs (phase 4's census)
+    with LayerNormCensus(c.vision, c.adapter, c.text_model) as ln_census:
+        answer(cond, service, raw_request(rng, 2, h, w), seed=100)
     log(f"phase 5: warmup raw request (2 images) "
-        f"{time.perf_counter() - t0:.3f} s")
+        f"{time.perf_counter() - t0:.3f} s, the capture of the "
+        f"conditioning's graph "
+        f"{sum(cond.program.capture_seconds.values()):.3f} s of it")
+    check_layer_norm_census(
+        ln_census, "the conditioning's capture (each call twice)")
     for wrapper in wrappers.values():
         wrapper.launches = 0
     for n in (1, 2):
@@ -1475,11 +1513,7 @@ def serve_raw_requests(service: TryOnService, wrappers: dict,
         torch.cuda.reset_peak_memory_stats()
         ln_before = layer_norm.launches
         gn_before = graphs.counts()
-        c = cond.conditioner
-        # the conditioning runs eagerly; the try-on replays phase 4's
-        # graphs, which call no hook (phase 4's census covers it)
-        with LayerNormCensus(c.vision, c.adapter, c.text_model) as ln_census:
-            r = answer(cond, service, raw, seed=100 + n)
+        r = answer(cond, service, raw, seed=100 + n)
         gn = {k: v - gn_before[k] for k, v in graphs.counts().items()}
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log(f"raw request of {n} image(s) ({', '.join(raw['categories'])}) "
@@ -1499,8 +1533,6 @@ def serve_raw_requests(service: TryOnService, wrappers: dict,
         if not (r["ln_cond"] > ln_before
                 and layer_norm.launches > r["ln_cond"]):
             raise AssertionError("K5 was not launched in both stages")
-        check_layer_norm_census(
-            ln_census, f"the conditioning of a raw request of {n} image(s)")
     launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
     return launches, cond.conditioner, {"raw": raw, "seed": 100 + n, **r}
 
@@ -1886,7 +1918,8 @@ def mains_path(work: pathlib.Path, pipe: TryOnPipeline, cond: Conditioner,
         torch.cuda.synchronize()
         reset_counts(wrappers)
         t_main = time.perf_counter()
-        stats = main_fn(argv)
+        with ProgramLog() as programs:
+            stats = main_fn(argv)
         torch.cuda.synchronize()
         t_main = time.perf_counter() - t_main
         counts = main_counts(wrappers)
@@ -1895,7 +1928,8 @@ def mains_path(work: pathlib.Path, pipe: TryOnPipeline, cond: Conditioner,
             f"loop {stats['seconds']:.3f} s ({stats['images']} images in "
             f"{stats['batches']} batches, {stats['images_per_second']:.4f} "
             f"images/s), loader {stats['loader_seconds_per_batch']:.3f} s "
-            f"per batch, host clock; launches {counts} [{smi}]")
+            f"per batch, host clock; launches {counts}; programs captured "
+            f"(seconds, host clock) {programs.seconds} [{smi}]")
         missing = [k for k, n in counts.items() if n == 0]
         if missing:
             raise AssertionError(f"{label}: kernels never launched: "
@@ -2410,18 +2444,20 @@ def metrics_path(work: pathlib.Path, roots: dict, cond: Conditioner,
                              "disagree over one folder")
 
     ln_before = layer_norm.launches
-    target = timed("compute_cloth_clip_features (VITON-HD test split)",
-                   clip_main.main, [
-                       "--dataset", "vitonhd", "--vitonhd_dataroot",
-                       str(vh), "--phase", "test", "--batch_size", "2",
-                       "--num_workers", "2", "--clip_vision_dir",
-                       str(work / "clip_vision"), "--cache_root",
-                       str(work / "clip_cache")], smi)
+    with ProgramLog() as programs:
+        target = timed("compute_cloth_clip_features (VITON-HD test split)",
+                       clip_main.main, [
+                           "--dataset", "vitonhd", "--vitonhd_dataroot",
+                           str(vh), "--phase", "test", "--batch_size", "2",
+                           "--num_workers", "2", "--clip_vision_dir",
+                           str(work / "clip_vision"), "--cache_root",
+                           str(work / "clip_cache")], smi)
     ln_clip = layer_norm.launches - ln_before
     launches = main_counts(wrappers)
     n = check_clip_features(target, vh, cond.vision)
     log(f"phase 9: {n} CLIP cloth features equal to the zoo-loaded tower "
-        f"called directly; K5 launches in the main {ln_clip}")
+        f"called directly; K5 launches in the main {ln_clip}; programs "
+        f"captured (seconds, host clock) {programs.seconds}")
     if ln_clip == 0:
         raise AssertionError("compute_cloth_clip_features launched no K5")
     missing = [k for k, v in launches.items() if v == 0]
@@ -3027,7 +3063,8 @@ def training_path(work: pathlib.Path, zpipe: TryOnPipeline,
                  / "metrics.jsonl")
         before = len(metric_lines(jsonl)) if jsonl.exists() else 0
         t0 = time.perf_counter()
-        with GradientWatch() as watch, contextlib.ExitStack() as stack:
+        with GradientWatch() as watch, contextlib.ExitStack() as stack, \
+                ProgramLog() as programs:
             for c in census:
                 stack.enter_context(c)
             result = main_fn(argv)
@@ -3052,7 +3089,8 @@ def training_path(work: pathlib.Path, zpipe: TryOnPipeline,
             f"with an exactly zero gradient), losses {losses}{per_step}, "
             f"peak device memory {peak:.2f} GiB, launches {counts}, "
             f"{({k: round(v / max(len(lines), 1), 1) for k, v in counts.items()})} "
-            f"a logged step [{smi}]")
+            f"a logged step; validation programs captured (seconds, host "
+            f"clock) {programs.seconds} [{smi}]")
         if not all(np.isfinite(losses)) or not watch.updates:
             raise AssertionError(f"{label}: no finite training")
         missing = [k for k in TRAIN_KERNELS[kind] if not counts[k]]
@@ -4102,12 +4140,12 @@ def confirmed_profile(fn, launched: dict, what: str) -> dict:
           and k["K2"] == k2["cluster"] + k2["split"]
           and split == k2["split"]
           and 2 * launched["geglu"] <= k["K4"] <= 3 * launched["geglu"])
-    log(f"phase 12 {what}: the profiler's kernels by name {k} (K2's split "
-        f"form {split}) against the counters {launched}: "
+    log(f"{what}: the profiler's kernels by name {k} (K2's split form "
+        f"{split}) against the counters {launched}: "
         f"{'agree' if ok else 'DISAGREE'}")
     if not ok:
-        log(f"phase 12 {what}: the trace's kernels of K1, K2, K4 and K5 by "
-            f"name: {prof['by_name']}")
+        log(f"{what}: the trace's kernels of K1, K2, K4 and K5 by name: "
+            f"{prof['by_name']}")
         raise AssertionError(f"{what}: the profiler does not confirm the "
                              f"launch counters")
     return prof
@@ -4148,7 +4186,7 @@ def graph_case(spipe: TryOnPipeline, kw: dict, split: bool, mode: str,
             *reqs[1], generator=gen.manual_seed(1201)))
         r["profile"] = confirmed_profile(lambda: sampler(
             *reqs[1], generator=gen.manual_seed(1201)), r["launched"],
-            f"{label}, graphed")
+            f"phase 12 {label}, graphed")
     del sampler
     gc.collect()
     torch.cuda.empty_cache()
@@ -4207,7 +4245,8 @@ def graphs_path(pipe: TryOnPipeline, smi: str) -> dict:
                 launched = launches_of(lambda: eager_request(
                     spipe, reqs[1], 1201, kw))
                 prof = confirmed_profile(lambda: eager_request(
-                    spipe, reqs[1], 1201, kw), launched, f"{label}, eager")
+                    spipe, reqs[1], 1201, kw), launched,
+                    f"phase 12 {label}, eager")
                 g = r["profile"]
                 log(f"phase 12 {label}: one request under torch.profiler: "
                     f"graphed {g['wall_s']:.3f} s wall, {g['device_ms']:.2f} "
@@ -4243,6 +4282,375 @@ def graphs_path(pipe: TryOnPipeline, smi: str) -> dict:
     return results
 
 
+# phase 13: the conditioning as CUDA graphs (``Conditioner.jit()``
+# through ``ConditionService``) at phase 5's full width, at these batch
+# sizes; the prompts' ``$`` runs by garment (``MixedRuns``), and the
+# pseudo-words of the cut run that S = 77 keeps
+CONDITION_BATCHES = (2, 8)
+CUT_KEEP = 7
+GARMENTS = ("upper_body", "lower_body", "dresses")
+
+
+class MixedRuns:
+    """Phase 13's tokenizer: the synthetic tokenizer's ids, then by the
+    prompt's garment: an upper body garment keeps its ``$`` run, a lower
+    body garment loses it (no ``$``), and a dress has its run moved to
+    the end of the 77 tokens, where S cuts it after ``CUT_KEEP``
+    pseudo-words."""
+
+    def __init__(self, tokenizer: CLIPTokenizer):
+        self.tokenizer = tokenizer
+
+    def __call__(self, prompts) -> np.ndarray:
+        ids = np.array(self.tokenizer(prompts))
+        plain = self.tokenizer.encode(" s ")[0]  # any id but '$'
+        for row, prompt in zip(ids, prompts):
+            if "upper body" not in prompt:
+                row[row == VSTAR_TOKEN_ID] = plain
+            if "dress" in prompt:
+                row[-CUT_KEEP:] = VSTAR_TOKEN_ID
+        return ids
+
+
+def eager_condition(svc: ConditionService, raw: dict) -> tuple:
+    """``svc.run`` with the eager ``Conditioner`` in place of its
+    program: the same tokens, padding and fetch."""
+    n = raw["cloth"].shape[0]
+    ids = np.asarray(svc.tokenizer(svc.prompts(raw["categories"])))
+    out = svc.conditioner(*(svc._pad(raw[k], np.float32) for k in (
+        "pose_map", "cloth", "im_mask")), svc._pad(ids, np.int64))
+    return tuple(t[:n].float().cpu().numpy() for t in out)
+
+
+def index_write_splice(input_embeds, input_ids, word_embeddings,
+                       num_vstar):
+    """The splice as the port wrote it before ``Conditioner.jit()``: a
+    boolean-mask index write, whose ``nonzero`` waits for the device."""
+    B, S, D = input_embeds.shape
+    ptes = word_embeddings.reshape(B, num_vstar, D).to(input_embeds.dtype)
+    is_vstar = input_ids == VSTAR_TOKEN_ID
+    has_vstar = is_vstar.any(dim=1)
+    first = is_vstar.int().argmax(dim=1)
+    targets = first[:, None] + torch.arange(num_vstar,
+                                            device=input_ids.device)
+    keep = has_vstar[:, None] & (targets < S)
+    rows = torch.arange(B, device=input_ids.device)[:, None].expand_as(
+        targets)
+    out = input_embeds.clone()
+    out[rows[keep], targets[keep]] = ptes[keep]
+    return out
+
+
+def planted_splice_capture() -> None:
+    """Phase 13's second planted fault, run as a process of its own (a
+    failed capture may leave the CUDA context unusable): the static
+    splice captured in a program, then the boolean-mask splice, whose
+    capture must fail.  Prints one JSON line."""
+    gen = torch.Generator("cuda").manual_seed(13)
+    B, S, D = 8, 77, 1024
+    embeds = torch.randn(B, S, D, generator=gen, device="cuda").to(BF16)
+    words = torch.randn(B, NUM_VSTAR * D, generator=gen,
+                        device="cuda").to(BF16)
+    ids = torch.randint(0, VSTAR_TOKEN_ID, (B, S), generator=gen,
+                        device="cuda")
+    ids[::2, 40:40 + NUM_VSTAR] = VSTAR_TOKEN_ID
+    ids[1::4, S - CUT_KEEP:] = VSTAR_TOKEN_ID
+    result = {}
+    for name, splice in (("static", splice_word_embeddings),
+                         ("index_write", index_write_splice)):
+        program = graphs.Program(
+            lambda e, i, w, splice=splice: splice(e, i, w, NUM_VSTAR),
+            device="cuda")
+        try:
+            out = program(embeds, ids, words)
+            same = torch.equal(out, splice(embeds, ids, words, NUM_VSTAR))
+            result[name] = f"captured, bitwise equal to the eager: {same}"
+        except Exception as e:  # the fault under test: report it
+            result[name] = f"refused: {type(e).__name__}: {str(e)[:160]}"
+    print(json.dumps(result), flush=True)
+
+
+def check_splice_capture(smi: str) -> None:
+    """Run ``planted_splice_capture`` in a child process and fail unless
+    the boolean-mask splice was refused and the static one captured."""
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.planted_splice_capture()"],
+        cwd=pathlib.Path(__file__).resolve().parent, capture_output=True,
+        text=True, timeout=600)
+    lines = [line for line in done.stdout.splitlines()
+             if line.startswith("{")]
+    if done.returncode or not lines:
+        raise AssertionError(f"the splice capture process failed "
+                             f"({done.returncode}): {done.stderr[-2000:]}")
+    result = json.loads(lines[-1])
+    caught = (result["static"].endswith("True")
+              and result["index_write"].startswith("refused"))
+    log(f"phase 13 planted fault, the boolean-mask splice captured in a "
+        f"program (a process of its own, {time.perf_counter() - t0:.1f} s): "
+        f"{result['index_write']}; the static splice "
+        f"{result['static']}: {'detected' if caught else 'MISSED'} [{smi}]")
+    if not caught:
+        raise AssertionError("the boolean-mask splice was not refused, or "
+                             "the static splice did not capture")
+
+
+def condition_args(raw: dict) -> dict:
+    """A raw request's arguments of ``ConditionService.run``."""
+    return {k: raw[k] for k in ("cloth", "pose_map", "im_mask",
+                                "categories")}
+
+
+def same_outputs(a: tuple, b: tuple) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+@torch.no_grad()
+def condition_graphs_path(towers: Conditioner, tokenizer: CLIPTokenizer,
+                          smi: str) -> dict:
+    """Phase 13: ``ConditionService``'s graphed conditioning against the
+    eager ``Conditioner``, its numbers, the two planted faults and the
+    profiled request.  Returns the numbers by batch size."""
+    t_phase = time.perf_counter()
+    h, w = towers.image_size
+    rng = np.random.default_rng(13)
+    results = {}
+    for b in CONDITION_BATCHES:
+        svc = ConditionService(towers, MixedRuns(tokenizer), batch_size=b,
+                               num_vstar=NUM_VSTAR)
+        reqs = []
+        for i in range(2):
+            raw = raw_request(rng, b, h, w)
+            raw["categories"] = [GARMENTS[(j + i) % 3] for j in range(b)]
+            reqs.append(raw)
+        refs, eager_s, eager_peak = [], [], []
+        for raw in reqs:
+            out, dt, peak = run_timed(lambda: eager_condition(svc, raw))
+            refs.append(out)
+            eager_s.append(dt)
+            eager_peak.append(peak)
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved()
+        outs, seconds, peaks = [], [], []
+        for i, raw in enumerate(reqs):
+            out, dt, peak = run_timed(
+                lambda: svc.run(**condition_args(raw)))
+            outs.append(out)
+            seconds.append(dt)
+            peaks.append(peak)
+            if i == 0:
+                # a replay over A's static inputs, as if for B
+                stale = tuple(t[:b].float().cpu().numpy() for t in next(
+                    iter(svc.program.sets.values())).run())
+        same = [same_outputs(o, r) for o, r in zip(outs, refs)]
+        planted = same_outputs(stale, refs[0]) and not same_outputs(
+            stale, refs[1])
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved() - held
+        capture = sum(svc.program.capture_seconds.values())
+        r = {"capture_s": capture, "capture_request_s": seconds[0],
+             "request_s": seconds[1], "eager_s": eager_s[1],
+             "peak_capture_gib": peaks[0], "peak_replay_gib": peaks[1],
+             "eager_peak_gib": max(eager_peak),
+             "held_gib": held / 2 ** 30, "same": same}
+        log(f"phase 13 batch {b}: capture {capture:.3f} s; requests graphed "
+            f"A (with its capture) {seconds[0]:.3f} s, B {seconds[1]:.3f} s; "
+            f"eager A {eager_s[0]:.3f} s, B {eager_s[1]:.3f} s; peak "
+            f"allocated {peaks[0]:.2f} GiB over the capture, {peaks[1]:.2f} "
+            f"GiB over a replay, {max(eager_peak):.2f} GiB eager; the graph "
+            f"holds {r['held_gib']:.2f} GiB; bitwise equal to the eager "
+            f"Conditioner: A {same[0]}, B {same[1]} [{smi}]")
+        log(f"phase 13 planted fault, a replay over A's static inputs as if "
+            f"for B: equal to A's eager outputs and not to B's: "
+            f"{'detected' if planted else 'MISSED'}")
+        if not all(same):
+            raise AssertionError(f"phase 13 batch {b}: graphed != eager")
+        if not planted:
+            raise AssertionError("the stale replay was not detected")
+        if b == CONDITION_BATCHES[0]:
+            args = condition_args(reqs[1])
+            launched = launches_of(lambda: svc.run(**args))
+            g = confirmed_profile(lambda: svc.run(**args), launched,
+                                  f"phase 13 batch {b}, graphed")
+            eager_launched = launches_of(lambda: eager_condition(svc,
+                                                                 reqs[1]))
+            e = confirmed_profile(lambda: eager_condition(svc, reqs[1]),
+                                  eager_launched,
+                                  f"phase 13 batch {b}, eager")
+            log(f"phase 13 batch {b}: one request under torch.profiler: "
+                f"graphed {g['wall_s']:.4f} s wall, {g['device_ms']:.2f} ms "
+                f"of kernels, busy {g['busy']:.4f}, {g['kernels']} kernels; "
+                f"eager {e['wall_s']:.4f} s, {e['device_ms']:.2f} ms, busy "
+                f"{e['busy']:.4f}, {e['kernels']} kernels; launches a "
+                f"request graphed {launched}, eager {eager_launched} [{smi}]")
+            if launched != eager_launched or g["ours"] != e["ours"]:
+                raise AssertionError("a graphed conditioning launches other "
+                                     "kernels than the eager one")
+            if not launched["layer_norm"]:
+                raise AssertionError("the conditioning launched no K5")
+            r.update(launched=launched, profile=g, eager_profile=e)
+        results[b] = r
+        del svc
+        gc.collect()
+        torch.cuda.empty_cache()
+    check_splice_capture(smi)
+    log(f"phase 13: the conditioning as CUDA graphs "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+    return results
+
+
+class ProgramLog:
+    """While open, the capture seconds of every ``pipelines.graphs``
+    program that captures (the mains build theirs inside), by program:
+    ``seconds``."""
+
+    def __enter__(self) -> "ProgramLog":
+        self.seconds: dict = {}
+        self.replay = replay = graphs.Program.replay
+
+        def logged(program, args):
+            before = set(program.capture_seconds)
+            out = replay(program, args)
+            for key, sec in program.capture_seconds.items():
+                if key not in before:
+                    self.seconds.setdefault(program_name(program),
+                                            []).append(round(sec, 3))
+            return out
+
+        graphs.Program.replay = logged
+        return self
+
+    def __exit__(self, *exc) -> None:
+        graphs.Program.replay = self.replay
+
+
+def program_name(program: graphs.Program) -> str:
+    if isinstance(program, graphs.LoopProgram):
+        return type(program.plan).__name__
+    body = program.body
+    return getattr(body, "__qualname__", type(body).__name__).replace(
+        ".<locals>.<lambda>", "").replace(".<locals>.", ".")
+
+
+# phase 13's drivers' programs against their eager bodies: the sampler's
+# steps, and the batches (two, then one image: a second signature)
+DRIVER_STEPS = 5
+DRIVER_BATCHES = (2, 1)
+
+
+@contextlib.contextmanager
+def collected_batches():
+    """The drivers' ``run_batches`` returning each batch's images, unsaved
+    (``drivers`` and ``inpaint``)."""
+    def collect(loader, step_fn, *args, **kwargs):
+        return [step_fn(i, b).clone() for i, b in enumerate(loader)]
+
+    saved = drivers.run_batches, inpaint.run_batches
+    drivers.run_batches = inpaint.run_batches = collect
+    try:
+        yield
+    finally:
+        drivers.run_batches, inpaint.run_batches = saved
+
+
+@contextlib.contextmanager
+def eager_programs():
+    """Every ``pipelines.graphs`` program calls its body eagerly on the
+    card, as it does on the CPU."""
+    def eager(program, *args):
+        with torch.no_grad():
+            return program.body(*args)
+
+    saved = graphs.Program.__call__
+    graphs.Program.__call__ = eager
+    try:
+        yield
+    finally:
+        graphs.Program.__call__ = saved
+
+
+def driver_batch(rng: np.random.Generator, n: int, start: int) -> dict:
+    """A test batch as the datasets give it, at 512x384."""
+    r = raw_request(rng, n, 512, 384)
+    return {"image": r["image"], "inpaint_mask": r["inpaint_mask"],
+            "pose_map": r["pose_map"], "im_mask": r["im_mask"],
+            "cloth": r["cloth"], "warped_cloth": r["cloth"][::-1].copy(),
+            "category": r["categories"],
+            "captions": [f"a shirt with {c} stripes" for c in range(n)],
+            "im_name": [f"{start + i:06d}_0.jpg" for i in range(n)]}
+
+
+def driver_programs(pipe: TryOnPipeline, towers: Conditioner, tokenizer,
+                    smi: str) -> dict:
+    """Phase 13's second part: each driver whose batches run through
+    ``pipelines.graphs`` programs (the VAE reconstruction, the try-on
+    driver on the vision tower and on noun chunks, the adapter's
+    validation under bf16 autocast, as its trainer runs it) over two
+    batches, graphed and with every program's body called eagerly: every
+    image bitwise equal.  Returns each driver's capture seconds."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(14)
+    loader = [driver_batch(rng, n, 10 * i)
+              for i, n in enumerate(DRIVER_BATCHES)]
+    text, adapter, vision = (towers.text_model, towers.adapter,
+                             towers.vision)
+    ipipe = inpaint.InpaintPipeline(
+        unet=seeded(lambda: UNet2DCondition(sd2_unet_config(9)), 25,
+                    "cuda", BF16),
+        vae=pipe.vae, scheduler=DDIMScheduler())
+    tryon = dict(num_vstar=NUM_VSTAR, seed=3,
+                 num_inference_steps=DRIVER_STEPS)
+
+    def adapter_validation():
+        with precision(torch.device("cuda"), BF16):
+            return inpaint.generate_images_inversion_adapter(
+                ipipe, text, tokenizer, adapter, vision, loader, "unused",
+                **tryon)
+
+    runs = {
+        "the VAE reconstruction": lambda: drivers.extract_save_vae_images(
+            pipe.vae, pipe.emasc, loader, "unused", seed=3),
+        "the try-on driver, the adapter on the vision tower":
+            lambda: drivers.generate_images_from_tryon_pipe(
+                pipe, text, tokenizer, loader, "unused",
+                inversion_adapter=adapter, vision=vision, **tryon),
+        "the try-on driver, noun chunks":
+            lambda: drivers.generate_images_from_tryon_pipe(
+                pipe, text, tokenizer, loader, "unused",
+                text_usage="noun_chunks", **tryon),
+        "the adapter's validation, bf16 autocast": adapter_validation,
+    }
+    results = {}
+    for label, run in runs.items():
+        with collected_batches(), torch.no_grad():
+            with ProgramLog() as programs:
+                t = time.perf_counter()
+                graphed = run()
+                torch.cuda.synchronize()
+                t_graphed = time.perf_counter() - t
+            with eager_programs():
+                t = time.perf_counter()
+                eager = run()
+                torch.cuda.synchronize()
+                t_eager = time.perf_counter() - t
+        same = [torch.equal(a, b) for a, b in zip(graphed, eager)]
+        ok = (len(same) == len(DRIVER_BATCHES) and all(same)
+              and all(torch.isfinite(a).all() for a in graphed))
+        log(f"phase 13 {label}: {len(graphed)} batches graphed "
+            f"{t_graphed:.3f} s with the captures, eager {t_eager:.3f} s; "
+            f"programs captured (seconds, host clock) {programs.seconds}; "
+            f"images bitwise equal to the eager bodies': {same} [{smi}]")
+        if not ok:
+            raise AssertionError(f"phase 13 {label}: graphed != eager")
+        results[label] = programs.seconds
+    log(f"phase 13: the drivers' programs ({time.perf_counter() - t0:.1f} "
+        f"s)")
+    return results
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--sweep-geglu", action="store_true",
@@ -4260,9 +4668,9 @@ def main() -> None:
                         "(its files written from freshly seeded modules), "
                         "then exit without the result lines")
     parser.add_argument("--graphs-only", action="store_true",
-                        help="phase 12 alone (the sampler as CUDA graphs, "
-                        "from freshly seeded modules), then exit without "
-                        "the result lines")
+                        help="phases 12 and 13 alone (the sampler and the "
+                        "conditioning as CUDA graphs, from freshly seeded "
+                        "modules), then exit without the result lines")
     parser.add_argument("--distributed-only", action="store_true",
                         help="phase 2's tensor-parallel rows and phase 11 "
                         "alone (its files written from freshly seeded "
@@ -4299,7 +4707,14 @@ def main() -> None:
 
     gen = Gen(0)
     if args.graphs_only:
-        graphs_path(full_width_pipeline(), smi)
+        pipe = full_width_pipeline()
+        graphs_path(pipe, smi)
+        torch.backends.cudnn.allow_tf32 = True  # as in run_phases
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+            tokenizer = synthetic_tokenizer(pathlib.Path(work))
+            towers = conditioner("cuda", (512, 384), tokenizer)
+            condition_graphs_path(towers, tokenizer, smi)
+            driver_programs(pipe, towers, tokenizer, smi)
         return
     if args.training_only:
         check_gradients(gen)
@@ -4336,7 +4751,7 @@ def main() -> None:
 
 
 def run_phases(work: pathlib.Path, gen: Gen, smi: str, checked: dict) -> dict:
-    """Phases 3 to 11, with the files they write under ``work``; returns
+    """Phases 3 to 13, with the files they write under ``work``; returns
     the kernels' launches on phase 5's (``launches``), 6's, 7's, 8's, 9's,
     10's and 11's paths, by phase.  ``checked``: the tensor-parallel
     shapes phase 2 checked."""
@@ -4353,6 +4768,9 @@ def run_phases(work: pathlib.Path, gen: Gen, smi: str, checked: dict) -> dict:
     graphs_path(pipe, smi)
 
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default
+    towers = conditioner("cuda", (512, 384), tokenizer)
+    condition_graphs_path(towers, tokenizer, smi)
+    driver_programs(pipe, towers, tokenizer, smi)
     service = TryOnService(pipe, batch_size=2, height=512, width=384,
                            num_inference_steps=50, guidance_scale=7.5,
                            context_dim=1024, seed=0)
@@ -4397,7 +4815,7 @@ def run_phases(work: pathlib.Path, gen: Gen, smi: str, checked: dict) -> dict:
         raise AssertionError(f"kernels never launched on the path: {missing}")
 
     launches, cond, record = serve_raw_requests(service, wrappers,
-                                                tokenizer)
+                                                tokenizer, towers)
     log(f"launches during the two raw requests: {launches}")
     missing = [name for name, count in launches.items() if count == 0]
     if missing:
@@ -4433,7 +4851,7 @@ def run_phases(work: pathlib.Path, gen: Gen, smi: str, checked: dict) -> dict:
 
     # phase 11's ranks need the card: this process lets go of its modules,
     # and of phase 10's checkpoints on disk
-    del pipe, service, cond, record, zpipe, zcond, raw, served
+    del pipe, service, cond, towers, record, zpipe, zcond, raw, served
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(work / "train", ignore_errors=True)

@@ -9,7 +9,9 @@ Counterpart of ``ladi_vton_tpu/cli/compute_cloth_clip_features.py``
 flags, ``--mixed_precision`` and ``--device`` (``cuda`` by default;
 raises where there is no card).  Each cloth of the split, resized to
 224x224 and CLIP-normalised (``pipelines.condition.clip_pixels``), goes
-through the ViT-H/14 vision tower from the port's zoo; every
+through the ViT-H/14 vision tower from the port's zoo, as one program for
+the run (``pipelines.condition.vision_program``, the JAX main's jitted
+``run``: its CUDA graph captured at the first batch and replayed); every
 last_hidden_state is kept once per cloth name, rounded to float16 as the
 JAX main rounds it, and written as ``data.features.ClothFeatureCache``'s
 ``.npz`` under ``<cache_root>/clip_cloth_embeddings/<dataset>``.  The
@@ -34,7 +36,7 @@ from ladi_vton_tpu_torch.data import (
 )
 from ladi_vton_tpu_torch.data.features import ClothFeatureCache
 from ladi_vton_tpu_torch.hub import zoo
-from ladi_vton_tpu_torch.pipelines.condition import clip_pixels
+from ladi_vton_tpu_torch.pipelines.condition import vision_program
 
 
 def parse_args(argv=None):
@@ -75,25 +77,23 @@ def main(argv=None) -> Path:
         dataroot = args.vitonhd_dataroot
         dataset = VitonHDDataset(dataroot, phase=args.phase, order="paired",
                                  outputlist=("cloth", "c_name"))
-    vision = zoo.clip_vit_h_vision(args.clip_vision_dir, dtype=dtype,
-                                   device=device)
+    run = vision_program(zoo.clip_vit_h_vision(
+        args.clip_vision_dir, dtype=dtype, device=device), dtype)
 
     loader = BatchLoader(dataset, args.batch_size,
                          num_workers=args.num_workers, pad_last=True)
     names: list[str] = []
     feats: list[np.ndarray] = []
     seen: set[str] = set()
-    with torch.no_grad():
-        for batch in loader:
-            cloth = torch.from_numpy(np.ascontiguousarray(batch["cloth"]))
-            out = vision(clip_pixels(cloth.to(device, torch.float32),
-                                     dtype)).float().cpu().numpy()
-            for name, feat in zip(batch["c_name"], out):
-                if name in seen:
-                    continue
-                seen.add(name)
-                names.append(name)
-                feats.append(feat.astype(np.float16))
+    for batch in loader:
+        cloth = torch.from_numpy(np.ascontiguousarray(batch["cloth"]))
+        out = run(cloth.to(device, torch.float32)).float().cpu().numpy()
+        for name, feat in zip(batch["c_name"], out):
+            if name in seen:
+                continue
+            seen.add(name)
+            names.append(name)
+            feats.append(feat.astype(np.float16))
 
     cache_root = Path(args.cache_root or Path(dataroot).parent / "cache")
     target = cache_root / "clip_cloth_embeddings" / args.dataset

@@ -9,9 +9,11 @@ Counterpart of ``ladi_vton_tpu/cli/inference.py``, with every flag of
 it (the reference's src/inference.py flags, plus the offline weight
 routing ``--checkpoint_dir``, ``--sd2_model_dir``, ``--clip_vision_dir``,
 ``--tokenizer_dir``) and ``--device``.  Per batch of the test split:
-the conditioning stage (``pipelines.condition.Conditioner``: TPS warp at
-256x192, grid sample and refinement at full size, CLIP ViT-H features,
-inversion adapter, pseudo-word text encoding), then the try-on
+the conditioning stage (``pipelines.condition.Conditioner.jit()``: TPS
+warp at 256x192, grid sample and refinement at full size, CLIP ViT-H
+features, inversion adapter, pseudo-word text encoding; one program for
+the run, its CUDA graph captured at the first batch and replayed after),
+then the try-on
 (``TryOnPipeline.jit_sample(split=True, denoise_mode="host")``, built
 once for the run through ``parallel.sharding.make_sampler``, its CUDA
 graphs captured at the first batch and replayed after; DDIM-50 and CFG
@@ -218,13 +220,15 @@ def main(argv=None) -> dict:
     tokenizer = CLIPTokenizer.from_dir(tokenizer_dir(args))
     empty_ids = torch.from_numpy(
         np.asarray(tokenizer([""]))[0].astype(np.int64))
-    cond = Conditioner(
+    # the conditioning program, captured at the first batch, as the JAX
+    # main jits ``build_condition_fn``
+    condition = Conditioner(
         tps=tps, refinement=refinement,
         vision=zoo.clip_vit_h_vision(args.clip_vision_dir, **on),
         adapter=zoo.inversion_adapter(args.dataset, **ckpt, **on),
         text_model=zoo.sd2_text_encoder(args.sd2_model_dir, **on),
         num_vstar=args.num_vstar, empty_ids=empty_ids.to(device),
-        image_size=size)
+        image_size=size).jit()
     pipe = TryOnPipeline(
         unet=unet_tp(zoo.extended_unet(args.dataset, **ckpt, **on), mesh),
         vae=zoo.sd2_vae(args.sd2_model_dir, **on),
@@ -258,8 +262,8 @@ def main(argv=None) -> dict:
         input_ids = to(np.asarray(tokenizer(category_prompts(
             batch["category"], args.num_vstar))), torch.long)
         pose_map = to(batch["pose_map"])
-        warped, ehs, neg = cond(pose_map, to(batch["cloth"]),
-                                to(batch["im_mask"]), input_ids)
+        warped, ehs, neg = condition(pose_map, to(batch["cloth"]),
+                                     to(batch["im_mask"]), input_ids)
         return sampler(
             to(batch["image"]), to(batch["inpaint_mask"]), pose_map, warped,
             ehs, neg,

@@ -24,10 +24,11 @@ default; asking for it where there is no card raises before any work).
 The bound address is printed on one line (``--port 0`` picks a free
 port); SIGINT shuts the server and the batcher down and the process
 exits 0.  The sampler is ``TryOnPipeline.jit_sample(split=True,
-denoise_mode="host")``: the full-batch request made before serving
-captures its CUDA graphs, before the batcher and HTTP threads start,
-and every request replays them (``--no_warmup`` skips that request,
-and the first request captures).
+denoise_mode="host")`` and the conditioning ``Conditioner.jit()``: a
+full-batch request to each, made before serving, captures their CUDA
+graphs before the batcher and HTTP threads start, and every request
+replays them (``--no_warmup`` skips those requests, and the first
+request of each captures).
 The start line says which sampler runs: over ranks at
 ``--tensor_parallel`` above 1 it is the eager one, since the
 tensor-parallel UNet's collectives run on the host.
@@ -204,6 +205,8 @@ def main(argv=None) -> None:
     if not args.no_warmup:
         print("warming up (one full-batch request)...", flush=True)
         service.warmup()
+        if condition_service is not None:
+            condition_service.warmup()
     batcher = MicroBatcher(service, max_delay_ms=args.max_delay_ms)
     server = make_http_server(batcher, host=args.host, port=args.port,
                               condition_service=condition_service)

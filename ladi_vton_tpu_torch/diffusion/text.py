@@ -4,8 +4,14 @@ Counterpart of ``ladi_vton_tpu/diffusion/text.py``: the prompt holds
 ``num_vstar`` consecutive ``$`` tokens (CLIP vocabulary id 259); the
 token embeddings of the first ``$`` run are replaced by the inversion
 adapter's embeddings before the causal encoder runs.  The JAX package
-blends with a one-hot product to stay free of dynamic shapes; here the
-same replacement is an index-based write.
+blends with a one-hot product to stay free of dynamic shapes; here each
+position gathers its pseudo-word (the index clamped into the run) and a
+``torch.where`` selects it inside the run.  The shapes depend on none of
+the ids' values and nothing waits for the device, so a CUDA graph
+captures it (a boolean-mask index write is a ``nonzero``, which
+synchronises with the host); a select copies values, so the result is
+the JAX splice's for finite inputs, and gradients reach both the prompt
+embeddings and the pseudo-words.
 """
 
 from __future__ import annotations
@@ -30,14 +36,13 @@ def splice_word_embeddings(input_embeds: torch.Tensor,
     is_vstar = input_ids == VSTAR_TOKEN_ID
     has_vstar = is_vstar.any(dim=1)                                # (B,)
     first = is_vstar.int().argmax(dim=1)                           # (B,)
-    targets = first[:, None] + torch.arange(num_vstar,
-                                            device=input_ids.device)
-    keep = has_vstar[:, None] & (targets < S)                      # (B, V)
-    rows = torch.arange(B, device=input_ids.device)[:, None].expand_as(
-        targets)
-    out = input_embeds.clone()
-    out[rows[keep], targets[keep]] = ptes[keep]
-    return out
+    # position s holds pseudo-word s - first where that is in [0, V)
+    src = (torch.arange(S, device=input_ids.device)[None, :]
+           - first[:, None])                                       # (B, S)
+    inside = has_vstar[:, None] & (src >= 0) & (src < num_vstar)
+    index = src.clamp(0, num_vstar - 1)[:, :, None].expand(B, S, D)
+    return torch.where(inside[:, :, None], torch.gather(ptes, 1, index),
+                       input_embeds)
 
 
 def encode_text_word_embedding(text_model, input_ids: torch.Tensor,

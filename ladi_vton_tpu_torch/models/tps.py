@@ -204,7 +204,7 @@ def grid_regularization_losses(coor: torch.Tensor, grid_size: int = 5):
 
     row = second_diff(pts)
     col = second_diff(pts.transpose(1, 2))
-    floor = torch.tensor(0.08, dtype=coor.dtype, device=coor.device)
+    floor = coor.new_full((), 0.08)  # a fill: no copy from the host
     rx = torch.maximum(floor, row[..., 0]).mean()
     ry = torch.maximum(floor, row[..., 1]).mean()
     cx = torch.maximum(floor, col[..., 0]).mean()
@@ -216,7 +216,7 @@ def grid_regularization_losses(coor: torch.Tensor, grid_size: int = 5):
                  - (p1[..., 1] - p2[..., 1]) * (p1[..., 0] - p0[..., 0]))
         return cross.abs().sum()
 
-    lo = torch.tensor(0.02, dtype=coor.dtype, device=coor.device)
+    lo = coor.new_full((), 0.02)
     rg = torch.maximum(collinearity(pts[0]), lo)
     cg = torch.maximum(collinearity(pts[0].transpose(0, 1)), lo)
     return rx, ry, cx, cy, rg, cg

@@ -28,15 +28,16 @@ import torch
 _tables: dict = {}
 
 
-def _cached(key: tuple, make):
+def device_cached(key: tuple, make):
     """``_tables[key]``, made by ``make()`` on the first call; refuses to
-    make it while the current stream is being captured."""
+    make it while the current stream is being captured.  ``key`` ends
+    with the device."""
     tables = _tables.get(key)
     if tables is None:
         device = key[-1]
         if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
             raise RuntimeError(
-                f"resize: tables {key} are not on the device yet, and a "
+                f"tables {key} are not on the device yet, and a "
                 f"copy from the host cannot be captured; run the call once "
                 f"before capturing it")
         tables = _tables[key] = make()
@@ -46,9 +47,9 @@ def _cached(key: tuple, make):
 def _axis(in_size: int, out_size: int, align_corners: bool, device):
     """(lo, hi, weight) source indices and weights of one axis."""
     device = torch.device(device)
-    return _cached(("bilinear", in_size, out_size, align_corners, device),
-                   lambda: _make_axis(in_size, out_size, align_corners,
-                                      device))
+    return device_cached(
+        ("bilinear", in_size, out_size, align_corners, device),
+        lambda: _make_axis(in_size, out_size, align_corners, device))
 
 
 def _make_axis(in_size: int, out_size: int, align_corners: bool, device):
@@ -102,4 +103,4 @@ def _nearest(in_size: int, out_size: int, device) -> torch.Tensor:
         return torch.as_tensor(idx.astype(np.int64), device=device)
 
     device = torch.device(device)
-    return _cached(("nearest", in_size, out_size, device), make)
+    return device_cached(("nearest", in_size, out_size, device), make)

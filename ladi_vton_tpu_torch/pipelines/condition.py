@@ -1,7 +1,7 @@
 """Conditioning stage: TPS warp -> refinement -> CLIP vision / PTE text.
 
 Counterpart of ``ladi_vton_tpu/pipelines/condition.py
-build_condition_fn``, eagerly: the in-shop cloth is warped by the TPS
+build_condition_fn``: the in-shop cloth is warped by the TPS
 module at low resolution, the grid is resized and applied at full
 resolution with ``grid_sample``, the refinement UNet cleans the warp, and
 CLIP ViT-H/14 features of the cloth go through the inversion adapter to
@@ -11,6 +11,14 @@ the prompt; the unconditional embeddings encode the empty prompt.
 Inputs and outputs are NHWC, as in the JAX package.  TPS and refinement
 run in fp32; CLIP, adapter and text run in the towers' dtype (bf16 on
 the card), and the warped cloth is cast to that dtype after its clip.
+
+``Conditioner.__call__`` runs the stage eagerly; ``Conditioner.jit()``
+is the JAX ``condition`` program: a ``pipelines.graphs.Program`` of the
+same call, captured as a CUDA graph per input signature on the card and
+replayed (the eager call on the CPU), whose outputs are the eager
+call's bit for bit.  Its graph reads the towers' parameters in place:
+``to()`` onto another device or a reload makes new modules, which need
+a new ``jit()``.
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ from ladi_vton_tpu_torch.models.inversion_adapter import InversionAdapter
 from ladi_vton_tpu_torch.models.refinement import UNetVanilla
 from ladi_vton_tpu_torch.models.tps import ConvNetTPS
 from ladi_vton_tpu_torch.ops.grid_sample import grid_sample
-from ladi_vton_tpu_torch.ops.resize import resize_bilinear
+from ladi_vton_tpu_torch.ops.resize import device_cached, resize_bilinear
+from ladi_vton_tpu_torch.pipelines.graphs import Program
 
 # openai CLIP preprocessing constants
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -51,9 +60,19 @@ def clip_pixels(cloth: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     224x224, in [0, 1], normalised with CLIP's mean and std; NCHW in
     ``dtype``."""
     clip_in = _resize((cloth + 1.0) * 0.5, CLIP_SIZE).clamp(0.0, 1.0)
-    mean = clip_in.new_tensor(CLIP_MEAN)
-    std = clip_in.new_tensor(CLIP_STD)
+    mean, std = device_cached(
+        ("clip", clip_in.dtype, clip_in.device),
+        lambda: tuple(clip_in.new_tensor(v) for v in (CLIP_MEAN, CLIP_STD)))
     return _nchw(((clip_in - mean) / std).to(dtype))
+
+
+def vision_program(vision: CLIPVisionModel, dtype: torch.dtype) -> Program:
+    """The vision tower on ``clip_pixels`` as a program (the JAX
+    drivers' ``vision_feats``): NHWC cloth in [-1, 1] -> the tower's
+    features."""
+    return Program(lambda cloth: vision(clip_pixels(cloth, dtype)),
+                   device=next(vision.parameters()).device,
+                   modules=(vision,))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,3 +146,12 @@ class Conditioner:
         warped = self.warp(pose_map, cloth, im_mask).to(self.dtype)
         ehs, neg = self.embeddings(cloth, input_ids)
         return warped, ehs, neg
+
+    def jit(self) -> Program:
+        """The JAX ``build_condition_fn``'s program: ``program(pose_map,
+        cloth, im_mask, input_ids) -> (warped_cloth, prompt_embeds,
+        negative_prompt_embeds)``, as ``__call__`` computes them, from
+        inputs on any device."""
+        return Program(self, device=self.device, modules=(
+            self.tps, self.refinement, self.vision, self.adapter,
+            self.text_model))

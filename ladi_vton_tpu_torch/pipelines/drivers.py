@@ -20,10 +20,16 @@ fetched and written while batch N+1 runs.  Files are PNG (``--use_png``)
 or the port's baseline JPEG at quality 95 (``data/imageio.py``); a name
 seen before in the run (``pad_last``'s repeats) is skipped.
 
-The try-on batches go through one sampler a run
-(``parallel.sharding.make_sampler``: ``TryOnPipeline.jit_sample``, whose
-CUDA graphs replay on the card, as the JAX package's ``drivers.py``
-uses its ``jit_sample``).
+Each run builds its programs once, as the JAX package's ``drivers.py``
+jits them (``pipelines.graphs.Program``: CUDA graphs captured at the
+first batch of each shape and replayed on the card, the eager call on
+the CPU, the same images either way): the prompts' encoding
+(``prompt_program``, the JAX ``encode_text``, one per ``text_usage``),
+the vision tower on the cloth (``condition.vision_program``, the JAX
+``vision_feats``), the try-on sampler (``parallel.sharding.make_sampler``:
+``TryOnPipeline.jit_sample``) and the VAE reconstruction (the JAX
+``recon``, whose posterior draw is made eagerly and copied in).  The
+uint8 quantisation stays an eager pass over the program's output.
 Over a mesh (``core.mesh``, the JAX ``mesh=`` argument) ``step_fn`` gets
 the global batch and returns its rank's rows (``parallel.sharding``'s
 ``local_batch`` and ``sample_draws`` cut the batch and the global
@@ -52,7 +58,8 @@ from ladi_vton_tpu_torch.parallel.sharding import (
     make_sampler,
     sample_draws,
 )
-from ladi_vton_tpu_torch.pipelines.condition import clip_pixels
+from ladi_vton_tpu_torch.pipelines.condition import vision_program
+from ladi_vton_tpu_torch.pipelines.graphs import Program
 from ladi_vton_tpu_torch.pipelines.serving import category_prompts
 from ladi_vton_tpu_torch.pipelines.tryon import EMASC_INT_LAYERS
 
@@ -207,6 +214,22 @@ def encode_prompts(text_model, input_ids: torch.Tensor,
     return ehs, neg
 
 
+def prompt_program(text_model, empty_ids: torch.Tensor, *, adapter=None,
+                   num_vstar: int = 16) -> Program:
+    """``encode_prompts`` as the JAX ``encode_text`` program:
+    ``program(input_ids, clip_features)`` with an ``adapter``,
+    ``program(input_ids)`` without."""
+    device = text_model.text_model.final_layer_norm.weight.device
+    if adapter is None:
+        return Program(lambda ids: encode_prompts(text_model, ids, empty_ids),
+                       device=device, modules=(text_model,))
+    return Program(
+        lambda ids, feats: encode_prompts(
+            text_model, ids, empty_ids, adapter=adapter,
+            clip_features=feats, num_vstar=num_vstar),
+        device=device, modules=(text_model, adapter))
+
+
 def generate_images_from_tryon_pipe(
     pipe,
     text_model,
@@ -243,33 +266,35 @@ def generate_images_from_tryon_pipe(
     towers = text_model.text_model.final_layer_norm.weight.dtype
     empty_ids = torch.from_numpy(
         np.asarray(tokenizer([""]))[0].astype(np.int64)).to(device)
-    # one sampler for the run, its graphs captured at the first batch (and
-    # again for a last batch of another size), as the JAX package jits one
+    # the run's programs, their graphs captured at the first batch (and
+    # again for a last batch of another size), as the JAX package jits
+    # them once
     sampler = make_sampler(pipe, mesh,
                            num_inference_steps=num_inference_steps,
                            guidance_scale=guidance_scale,
                            cloth_cond_rate=cloth_cond_rate, no_pose=no_pose)
+    adapter = inversion_adapter if text_usage == "inversion_adapter" else None
+    encode = prompt_program(text_model, empty_ids, adapter=adapter,
+                            num_vstar=num_vstar)
+    vision_feats = (vision_program(vision, towers)
+                    if adapter is not None and vision is not None else None)
 
     def step_fn(step: int, batch: dict) -> torch.Tensor:
         batch, total = local_batch(mesh, batch)
         n = len(batch["im_name"])
-        adapter = feats = None
+        feats = ()
         if text_usage == "inversion_adapter":
-            adapter = inversion_adapter
             if "clip_cloth_features" in batch:
-                feats = _to(batch["clip_cloth_features"], device, towers)
+                feats = (_to(batch["clip_cloth_features"], device, towers),)
             else:
-                feats = vision(clip_pixels(_to(batch["cloth"], device),
-                                           towers))
+                feats = (vision_feats(_to(batch["cloth"], device)),)
             prompts = category_prompts(batch["category"], num_vstar)
         elif text_usage == "noun_chunks":
             prompts = list(batch["captions"])
         else:
             prompts = [""] * n
         input_ids = _to(np.asarray(tokenizer(prompts)), device, torch.long)
-        ehs, neg = encode_prompts(text_model, input_ids, empty_ids,
-                                  adapter=adapter, clip_features=feats,
-                                  num_vstar=num_vstar)
+        ehs, neg = encode(input_ids, *feats)
         warped = (_to(batch["warped_cloth"], device)
                   if cloth_input_type == "warped" else None)
         _, H, W, _ = batch["image"].shape
@@ -287,28 +312,38 @@ def extract_save_vae_images(vae, emasc, loader, save_dir: str, *,
                             noise: Optional[Callable] = None,
                             use_png: bool = False) -> dict:
     """VAE (+EMASC) reconstructions of every batch (reference
-    image_from_pipe.py:221-258).  The posterior noise of batch ``step``
-    is ``noise(step, shape)`` (NCHW) where given, else drawn from
+    image_from_pipe.py:221-258), through one program for the run (the
+    JAX ``recon``).  The posterior noise of batch ``step`` is
+    ``noise(step, shape)`` (NCHW) where given, else drawn from
     ``batch_generator(seed, step)``."""
     device = vae.quant_conv.weight.device
+    scale = 2 ** (len(vae.config.block_out_channels) - 1)
 
-    @torch.no_grad()
-    def step_fn(step: int, batch: dict) -> torch.Tensor:
+    def recon(image, im_mask, inpaint_mask, draw):
         image, im_mask, inpaint_mask = (
-            _to(batch[k], device).permute(0, 3, 1, 2)
-            for k in ("image", "im_mask", "inpaint_mask"))
+            x.permute(0, 3, 1, 2) for x in (image, im_mask, inpaint_mask))
         moments, _ = vae.encode(image)
-        posterior = DiagonalGaussian(moments)
-        shape = posterior.mean.shape
-        draw = (noise(step, shape) if noise is not None else torch.randn(
-            shape, generator=batch_generator(seed, step, device),
-            device=device))
-        latents = posterior.sample(draw.to(device))
+        latents = DiagonalGaussian(moments).sample(draw)
         _, feats = vae.encode(im_mask)
         adapted = mask_features(emasc([feats[i] for i in int_layers]),
                                 inpaint_mask)
         out = vae.decode(latents, adapted, tuple(int_layers))
         return (out.float() / 2 + 0.5).clamp(0.0, 1.0).permute(0, 2, 3, 1)
+
+    program = Program(recon, device=device, modules=(vae, emasc))
+
+    def step_fn(step: int, batch: dict) -> torch.Tensor:
+        image, im_mask, inpaint_mask = (
+            _to(batch[k], device) for k in ("image", "im_mask",
+                                            "inpaint_mask"))
+        B, H, W, _ = image.shape
+        # the posterior's shape: (B, latent, H / scale, W / scale)
+        shape = torch.Size((B, vae.config.latent_channels, H // scale,
+                            W // scale))
+        draw = (noise(step, shape) if noise is not None else torch.randn(
+            shape, generator=batch_generator(seed, step, device),
+            device=device))
+        return program(image, im_mask, inpaint_mask, draw.to(device))
 
     return run_batches(loader, step_fn, save_dir, use_png=use_png,
                        what="vae")

@@ -1,29 +1,38 @@
-"""CUDA graphs of the try-on sampler: what ``TryOnPipeline.jit_sample``
-builds.
+"""CUDA graphs: the port's counterpart of the JAX package's ``jax.jit``.
 
-The JAX package compiles its sampler (``jit_sample``) into device
-programs that run without the host.  PyTorch's counterpart of a compiled
-program is a captured ``torch.cuda.CUDAGraph``: the launches of one
-eager run, recorded once and replayed by one call.  ``Sampler`` is the
-JAX ``sampler``:
+The JAX package compiles every inference program it runs (the sampler,
+the conditioning, the drivers' text and vision towers, the VAE
+reconstruction, the inpainting validation) into device programs that run
+without the host.  PyTorch's counterpart of a compiled program is a
+captured ``torch.cuda.CUDAGraph``: the launches of one eager run,
+recorded once and replayed by one call.
+
+``Program(body, device=...)`` is that counterpart for any ``body(*args)``
+over tensor trees (tensors, None, and tuples, lists and dicts of them).
+On the card, each input signature (the trees' structure, shapes and
+dtypes) gets its own static input buffers and graphs, captured at its
+first call; a call copies its inputs into the buffers, replays, and
+returns clones of the outputs, so a caller may keep them while the next
+call replays.  On the CPU, where nothing is captured, a program calls
+``body`` itself.  A program runs under ``torch.no_grad()``.  The graphs
+read the modules' parameters in place: modules moved or reloaded need a
+new program.  ``modules`` holding a BatchNorm or dropout in training
+mode are refused at capture, since the graph would record the training
+forward (running-statistics updates, one dropout mask for good).
+
+``LoopProgram`` captures a sampling loop as three graphs of one memory
+pool, replayed in the order they were captured: a prepare graph (which
+also makes the scheduler's first state), one step graph replayed once a
+step after the step index and the timestep are written into its inputs
+and its results copied back over the latents and the state, and a decode
+graph.  ``Sampler`` is the JAX ``sampler`` of
+``TryOnPipeline.jit_sample``:
 
 * ``split=False``: one graph of the whole sample;
 * ``split=True``, ``denoise_mode="scan"``: three graphs, prepare, the
   unrolled denoise loop, decode;
-* ``split=True``, ``denoise_mode="host"``: a prepare graph (which also
-  scales the latents and makes the scheduler's first state), one graph
-  of ``denoise_one_step`` replayed once a step after the step index, the
-  timestep and the scheduler state are written into its inputs, and a
-  decode graph.
-
-A graph reads and writes fixed addresses, so each input signature (the
-shapes and dtypes of the inputs, and which of them are given) gets its
-own static input buffers and graphs, captured at its first call; the
-sampler's static keys are fixed when it is built.  The three graphs of a
-signature share one memory pool, since they always replay in the order
-they were captured; signatures have pools of their own.  A request
-copies its inputs into the buffers, replays, and gets a clone of the
-image, so it may keep it while the next request replays.
+* ``split=True``, ``denoise_mode="host"``: the ``LoopProgram`` graphs,
+  with ``denoise_one_step`` as the step.
 
 The draws are made eagerly, in ``TryOnPipeline._draw``'s order, and
 copied in like the inputs: the generators advance as under
@@ -32,16 +41,15 @@ bit.  The sampler has its own copy of the scheduler, whose plan it sets
 once: the graphs read its coefficient tables, which a later
 ``set_timesteps`` on the pipeline's scheduler would otherwise replace.
 
-Each graph is captured on the sampler's own stream after one eager run
+Each graph is captured on the program's own stream after one eager run
 there, which makes what the first call makes lazily outside the graph:
 the kernel library's build and load, ``sm_count``, GroupNorm's
 ``_check_placeable``, K1's shared-memory attribute, cuBLAS's workspace
-for the stream, K2's split-form counters for (device, stream) and the
-resize tables.  Under autocast (the trainers' validation) the capture
-runs without autocast's cache of cast weights, so the casts are in the
-graph.  A capture or replay that fails raises; nothing runs eagerly in
-its place on the card.  On the CPU, where nothing is
-captured, the sampler runs the same stages eagerly.
+for the stream, K2's split-form counters for (device, stream), the
+resize tables and CLIP's normalisation constants.  Under autocast (the
+trainers' validation) the capture runs without autocast's cache of cast
+weights, so the casts are in the graph.  A capture or replay that fails
+raises; nothing runs eagerly in its place on the card.
 
 The kernel wrappers count their launches in Python, which a replay does
 not run: a graph keeps what each counter rose by during its capture
@@ -56,9 +64,10 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -70,6 +79,9 @@ from ladi_vton_tpu_torch.pipelines.tryon import cloth_gate_start
 
 DENOISE_MODES = ("scan", "host")
 WRAPPERS = (flash_attention, geglu, group_norm, layer_norm)
+# modules whose training-mode forward a capture would record for good
+TRAINING_MODULES = (torch.nn.modules.batchnorm._BatchNorm,
+                    torch.nn.modules.dropout._DropoutNd)
 
 
 def counts() -> dict:
@@ -143,7 +155,7 @@ class Graph:
 
 
 def _leaves(tree) -> list:
-    """The tensors of a scheduler state or input tree, in a fixed order."""
+    """The tensors of a tensor tree, in a fixed order."""
     if tree is None:
         return []
     if isinstance(tree, torch.Tensor):
@@ -155,40 +167,180 @@ def _leaves(tree) -> list:
     raise TypeError(f"not a tensor tree: {type(tree).__name__}")
 
 
-def _signature(x: dict) -> tuple:
-    return tuple((k, None if v is None else (tuple(v.shape), v.dtype))
-                 for k, v in sorted(_flat(x).items()))
-
-
-def _flat(x: dict, prefix: str = "") -> dict:
-    out = {}
-    for k, v in x.items():
-        if isinstance(v, dict):
-            out.update(_flat(v, f"{prefix}{k}."))
-        else:
-            out[prefix + k] = v
-    return out
-
-
-def _static_like(x, device):
-    if isinstance(x, dict):
-        return {k: _static_like(v, device) for k, v in x.items()}
-    if x is None:
+def _map(fn, tree):
+    """``tree`` with ``fn`` applied to each tensor."""
+    if tree is None:
         return None
-    return torch.empty(x.shape, dtype=x.dtype, device=device)
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map(fn, v) for v in tree)
+    raise TypeError(f"not a tensor tree: {type(tree).__name__}")
 
 
-def _load(static: dict, x: dict) -> None:
-    for dst, src in zip(_leaves(static), _leaves(x)):
+def _signature(tree):
+    """A tensor tree's structure, shapes and dtypes."""
+    if tree is None or isinstance(tree, torch.Tensor):
+        return tree if tree is None else (tuple(tree.shape), tree.dtype)
+    if isinstance(tree, dict):
+        return ("dict",) + tuple((k, _signature(tree[k]))
+                                 for k in sorted(tree))
+    if isinstance(tree, (tuple, list)):
+        return ("seq",) + tuple(_signature(v) for v in tree)
+    raise TypeError(f"not a tensor tree: {type(tree).__name__}")
+
+
+def _load(static, tree) -> None:
+    for dst, src in zip(_leaves(static), _leaves(tree)):
         dst.copy_(src)
 
 
-class Sampler:
-    """``TryOnPipeline.jit_sample``'s sampler (see the module docstring).
+def _refuse_training(modules: Sequence[torch.nn.Module]) -> None:
+    for module in modules:
+        for name, m in module.named_modules():
+            if m.training and isinstance(m, TRAINING_MODULES):
+                raise RuntimeError(
+                    f"{type(module).__name__}.{name} ({type(m).__name__}) "
+                    f"is in training mode, and a CUDA graph would record "
+                    f"its training forward; call .eval() before capturing")
 
-    ``sets`` holds one ``GraphSet`` per input signature seen, and
-    ``capture_seconds`` the seconds each took to capture (host clock,
-    synchronised; warm-up runs and instantiation included)."""
+
+class Captured:
+    """One signature's static ``inputs`` and ``body``'s graph over them."""
+
+    def __init__(self, body: Callable, inputs: tuple,
+                 stream: torch.cuda.Stream):
+        self.inputs = inputs
+        self.graph = Graph(body, *inputs, stream=stream)
+
+    def run(self):
+        return self.graph.replay()
+
+
+class Program:
+    """``body(*args)`` as a compiled program (see the module docstring).
+
+    ``sets`` holds what each input signature seen captured, and
+    ``capture_seconds`` the seconds each took (host clock, synchronised;
+    warm-up runs and instantiation included)."""
+
+    def __init__(self, body: Callable, *, device,
+                 modules: Sequence[torch.nn.Module] = ()):
+        self.body = body
+        self.device = torch.device(device)
+        self.modules = tuple(m for m in modules if m is not None)
+        self.graphed = self.device.type == "cuda"
+        self.stream = (torch.cuda.Stream(self.device) if self.graphed
+                       else None)
+        self.sets: dict = {}
+        self.capture_seconds: dict = {}
+
+    def capture(self, inputs: tuple):
+        """What one signature replays, captured over its static
+        ``inputs`` (which hold its first call's values): an object with
+        ``inputs`` and ``run()``."""
+        return Captured(self.body, inputs, self.stream)
+
+    def replay(self, args: tuple):
+        """Copy ``args`` into their signature's static inputs (capturing
+        at the signature's first call) and replay: the outputs, in the
+        graphs' memory until the next replay of the signature."""
+        key = _signature(args)
+        graphs = self.sets.get(key)
+        if graphs is None:
+            _refuse_training(self.modules)
+            t0 = time.perf_counter()
+            inputs = _map(lambda x: torch.empty_like(x, device=self.device),
+                          args)
+            _load(inputs, args)
+            graphs = self.capture(inputs)
+            torch.cuda.synchronize(self.device)
+            self.capture_seconds[key] = time.perf_counter() - t0
+            self.sets[key] = graphs
+        else:
+            _load(graphs.inputs, args)
+        return graphs.run()
+
+    @torch.no_grad()
+    def __call__(self, *args, clone: bool = True):
+        """``body(*args)``.  ``clone=False`` returns the graphs' own
+        outputs, which the signature's next replay overwrites: for a
+        caller that copies them out at once, under its own lock."""
+        if not self.graphed:
+            return self.body(*args)
+        out = self.replay(args)
+        return _map(torch.clone, out) if clone else out
+
+
+class HostLoop:
+    """A sampling loop's graphs over one signature's static ``inputs``
+    (``(x,)``): ``plan.prepare_loop(x)`` -> (carry, latents, state, step
+    inputs), ``plan.step(latents, state, step_i, t, step inputs)`` ->
+    (latents, state), replayed once per step of ``plan.timesteps``, and
+    ``plan.decode_loop(latents, carry)``."""
+
+    def __init__(self, plan, inputs: tuple, stream: torch.cuda.Stream):
+        # the plan's steps, not the plan: no reference to the program
+        self.inputs = inputs
+        self.steps, self.timesteps = plan.steps, plan.timesteps
+        prep = Graph(plan.prepare_loop, *inputs, stream=stream)
+        pool = prep.pool
+        carry, latents, state, step_inputs = prep.outputs
+        self.step_i = torch.zeros((), dtype=plan.steps.dtype,
+                                  device=plan.steps.device)
+        self.t = torch.zeros((), dtype=plan.timesteps.dtype,
+                             device=plan.timesteps.device)
+        # the step reads the latents and state the prepare graph wrote,
+        # and each replay's results are copied back over them
+        step = Graph(plan.step, latents, state, self.step_i, self.t,
+                     step_inputs, stream=stream, pool=pool)
+        dec = Graph(plan.decode_loop, latents, carry, stream=stream,
+                    pool=pool)
+        self.graphs = [prep, step, dec]
+
+    def run(self):
+        prep, step, dec = self.graphs
+        _, latents, state, _ = prep.replay()
+        for i in range(len(self.timesteps)):
+            self.step_i.copy_(self.steps[i])
+            self.t.copy_(self.timesteps[i])
+            new_latents, new_state = step.replay()
+            latents.copy_(new_latents)
+            for dst, src in zip(_leaves(state), _leaves(new_state)):
+                dst.copy_(src)
+        return dec.replay()
+
+
+def run_loop(plan, x):
+    """``plan``'s loop run eagerly, the stages ``HostLoop`` captures:
+    ``prepare_loop``, ``step`` once a step, ``decode_loop``."""
+    carry, latents, state, inputs = plan.prepare_loop(x)
+    for i in range(len(plan.timesteps)):
+        latents, state = plan.step(latents, state, plan.steps[i],
+                                   plan.timesteps[i], inputs)
+    return plan.decode_loop(latents, carry)
+
+
+class LoopProgram(Program):
+    """A sampling loop as a program: ``run_loop(plan, x)`` on the CPU,
+    the ``HostLoop`` graphs of each signature on the card.  ``plan`` has
+    ``device``, ``steps``, ``timesteps``, ``prepare_loop``, ``step`` and
+    ``decode_loop``."""
+
+    def __init__(self, plan, *, modules: Sequence[torch.nn.Module] = ()):
+        super().__init__(functools.partial(run_loop, plan),
+                         device=plan.device, modules=modules)
+        self.plan = plan
+
+    def capture(self, inputs: tuple):
+        return HostLoop(self.plan, inputs, self.stream)
+
+
+class SamplerPlan:
+    """The try-on sampler's static keys and stages, on the inputs ``x``
+    (static buffers when captured)."""
 
     def __init__(self, pipe, *, split: bool = False,
                  num_inference_steps: int = 50, guidance_scale: float = 7.5,
@@ -205,16 +357,10 @@ class Sampler:
         self.no_pose = no_pose
         self.gate_from = cloth_gate_start(num_inference_steps,
                                           cloth_cond_rate)
-        device = self.pipe.device
+        self.device = self.pipe.device
         self.timesteps = self.pipe.scheduler.set_timesteps(
-            num_inference_steps, device=device)
-        self.steps = torch.arange(len(self.timesteps), device=device)
-        self.graphed = device.type == "cuda"
-        self.stream = torch.cuda.Stream(device) if self.graphed else None
-        self.sets: dict = {}
-        self.capture_seconds: dict = {}
-
-    # the stages, on the inputs ``x`` (static buffers when captured)
+            num_inference_steps, device=self.device)
+        self.steps = torch.arange(len(self.timesteps), device=self.device)
 
     def prepare(self, x: dict) -> dict:
         return self.pipe.prepare_drawn(
@@ -228,6 +374,10 @@ class Sampler:
             negative_prompt_embeds=x["negative_prompt_embeds"],
             guidance_scale=self.guidance_scale)
 
+    def prepare_loop(self, x: dict) -> tuple:
+        prepared = self.prepare(x)
+        return (prepared, *self.loop_inputs(prepared, x))
+
     def denoise(self, prepared: dict, x: dict) -> torch.Tensor:
         return self.pipe.denoise_planned(
             prepared, self.timesteps, prompt_embeds=x["prompt_embeds"],
@@ -240,28 +390,55 @@ class Sampler:
             latents, state, step_i, t, guidance_scale=self.guidance_scale,
             cloth_gate_from=self.gate_from, **inputs)
 
-    def decode(self, latents: torch.Tensor, prepared: dict) -> torch.Tensor:
+    def decode_loop(self, latents: torch.Tensor,
+                    prepared: dict) -> torch.Tensor:
         return self.pipe.decode(latents, prepared["intermediate"])
 
     def whole(self, x: dict) -> torch.Tensor:
         prepared = self.prepare(x)
-        return self.decode(self.denoise(prepared, x), prepared)
+        return self.decode_loop(self.denoise(prepared, x), prepared)
 
-    def eager(self, x: dict) -> torch.Tensor:
-        """The stages of this sampler's mode, run eagerly."""
-        if self.mode == "whole":
-            return self.whole(x)
-        prepared = self.prepare(x)
-        if self.mode == "scan":
-            latents = self.denoise(prepared, x)
-        else:
-            latents, state, inputs = self.loop_inputs(prepared, x)
-            for i in range(len(self.timesteps)):
-                latents, state = self.step(latents, state, self.steps[i],
-                                           self.timesteps[i], inputs)
-        return self.decode(latents, prepared)
 
-    @torch.no_grad()
+class Staged:
+    """The whole sample as one graph, or prepare, the unrolled denoise
+    loop and decode as three of one pool, over static ``inputs``."""
+
+    def __init__(self, plan: SamplerPlan, inputs: tuple,
+                 stream: torch.cuda.Stream):
+        self.inputs = inputs
+        if plan.mode == "whole":
+            self.graphs = [Graph(plan.whole, *inputs, stream=stream)]
+            return
+        (x,) = inputs
+        prep = Graph(plan.prepare, x, stream=stream)
+        pool = prep.pool
+        den = Graph(plan.denoise, prep.outputs, x, stream=stream, pool=pool)
+        dec = Graph(plan.decode_loop, den.outputs, prep.outputs,
+                    stream=stream, pool=pool)
+        self.graphs = [prep, den, dec]
+
+    def run(self):
+        for g in self.graphs:
+            out = g.replay()
+        return out
+
+
+class Sampler(LoopProgram):
+    """``TryOnPipeline.jit_sample``'s sampler (see the module docstring).
+    On the CPU every mode runs ``run_loop``, the operations of
+    ``TryOnPipeline.sample`` in its order."""
+
+    def __init__(self, pipe, **static):
+        plan = SamplerPlan(pipe, **static)
+        super().__init__(plan, modules=(plan.pipe.unet, plan.pipe.vae,
+                                        plan.pipe.emasc))
+        self.mode = plan.mode
+
+    def capture(self, inputs: tuple):
+        if self.mode == "host":
+            return super().capture(inputs)
+        return Staged(self.plan, inputs, self.stream)
+
     def __call__(self, image: torch.Tensor, mask_image: torch.Tensor,
                  pose_map: torch.Tensor,
                  warped_cloth: Optional[torch.Tensor],
@@ -272,84 +449,9 @@ class Sampler:
                  latents: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Float32 NHWC images in [0, 1], as ``TryOnPipeline.sample``
         with this sampler's static keys makes them."""
-        x = {"image": image, "mask_image": mask_image, "pose_map": pose_map,
-             "warped_cloth": warped_cloth, "prompt_embeds": prompt_embeds,
-             "negative_prompt_embeds": negative_prompt_embeds,
-             "draws": self.pipe.draws(image, generator=generator,
-                                      noise=noise, latents=latents)}
-        if not self.graphed:
-            return self.eager(x)
-        key = _signature(x)
-        graphs = self.sets.get(key)
-        if graphs is None:
-            t0 = time.perf_counter()
-            graphs = GraphSet(self, x)
-            torch.cuda.synchronize(self.pipe.device)
-            self.capture_seconds[key] = time.perf_counter() - t0
-            self.sets[key] = graphs
-        else:
-            graphs.load(x)
-        return graphs.run().clone()
-
-
-class GraphSet:
-    """One input signature's static inputs (``inputs``) and graphs, made
-    from the first inputs ``x`` (copied in before the warm-up runs)."""
-
-    def __init__(self, s: Sampler, x: dict):
-        # the sampler's plan, not the sampler: no reference cycle, so a
-        # dropped sampler frees its graphs at once
-        self.mode, self.steps, self.timesteps = s.mode, s.steps, s.timesteps
-        self.inputs = _static_like(x, s.pipe.device)
-        self.load(x)
-        stream = s.stream
-        if s.mode == "whole":
-            self.graphs = [Graph(s.whole, self.inputs, stream=stream)]
-            return
-        if s.mode == "scan":
-            prep = Graph(s.prepare, self.inputs, stream=stream)
-            pool = prep.pool
-            den = Graph(s.denoise, prep.outputs, self.inputs, stream=stream,
-                        pool=pool)
-            dec = Graph(s.decode, den.outputs, prep.outputs, stream=stream,
-                        pool=pool)
-            self.graphs = [prep, den, dec]
-            return
-        # "host": the step reads the latents and state the prepare graph
-        # wrote, and each replay's results are copied back over them
-        def prepare(x: dict) -> tuple:
-            prepared = s.prepare(x)
-            return (prepared, *s.loop_inputs(prepared, x))
-
-        prep = Graph(prepare, self.inputs, stream=stream)
-        pool = prep.pool
-        prepared, latents, state, inputs = prep.outputs
-        device = s.pipe.device
-        self.step_i = torch.zeros((), dtype=s.steps.dtype, device=device)
-        self.t = torch.zeros((), dtype=s.timesteps.dtype, device=device)
-        step = Graph(s.step, latents, state, self.step_i, self.t, inputs,
-                     stream=stream, pool=pool)
-        dec = Graph(s.decode, latents, prepared, stream=stream, pool=pool)
-        self.graphs = [prep, step, dec]
-
-    def load(self, x: dict) -> None:
-        """Copy a request's inputs and draws into the static inputs."""
-        _load(self.inputs, x)
-
-    def run(self) -> torch.Tensor:
-        """Replay on the static inputs as they stand; the image, in the
-        graphs' memory until the next replay."""
-        if self.mode != "host":
-            for g in self.graphs:
-                out = g.replay()
-            return out
-        prep, step, dec = self.graphs
-        _, latents, state, _ = prep.replay()
-        for i in range(len(self.timesteps)):
-            self.step_i.copy_(self.steps[i])
-            self.t.copy_(self.timesteps[i])
-            new_latents, new_state = step.replay()
-            latents.copy_(new_latents)
-            for dst, src in zip(_leaves(state), _leaves(new_state)):
-                dst.copy_(src)
-        return dec.replay()
+        return super().__call__({
+            "image": image, "mask_image": mask_image, "pose_map": pose_map,
+            "warped_cloth": warped_cloth, "prompt_embeds": prompt_embeds,
+            "negative_prompt_embeds": negative_prompt_embeds,
+            "draws": self.plan.pipe.draws(image, generator=generator,
+                                          noise=noise, latents=latents)})

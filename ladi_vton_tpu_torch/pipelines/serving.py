@@ -25,6 +25,11 @@ either package's client talks to either package's server.  Its handler
 threads run ``ConditionService.run`` while the batcher's dispatcher
 thread runs ``TryOnService.generate``: both hold ``torch.no_grad()``
 themselves (grad mode is per thread) and launch on the current stream.
+Both replay CUDA graphs on the card: the conditioning is one
+``Conditioner.jit()`` program, the try-on the sampler of
+``parallel.sharding.make_sampler``; each service's ``warmup`` captures
+its graphs, which a server does before it takes requests, so that no
+capture runs while another thread replays.
 """
 
 from __future__ import annotations
@@ -336,12 +341,16 @@ class ConditionService:
 
     ``tokenizer`` maps a list of prompts to (n, S) token ids, as the CLIP
     tokenizer does (S = 77 for SD-2).  The conditioner's towers are
-    placed on ``device``."""
+    placed on ``device``, and every request goes through one
+    ``Conditioner.jit()`` program: requests are padded to ``batch_size``,
+    so on the card ``warmup`` (or the first request) captures its one
+    graph and every request replays it."""
 
     def __init__(self, conditioner: Conditioner, tokenizer, *,
                  batch_size: int = 8, num_vstar: int = 16,
                  device: str = "cuda"):
         self.conditioner = conditioner.to(device)
+        self.program = self.conditioner.jit()
         self.tokenizer = tokenizer
         self.batch_size = batch_size
         self.num_vstar = num_vstar
@@ -354,18 +363,32 @@ class ConditionService:
         x = pad_batch(np.asarray(x, dtype), self.batch_size)
         return torch.from_numpy(np.ascontiguousarray(x))
 
+    def warmup(self) -> None:
+        """Run one full-batch request ahead of the first real one: on the
+        card it captures the program's graph, so call it before other
+        threads launch work (the batcher's, the HTTP handlers')."""
+        b = self.batch_size
+        h, w = self.conditioner.image_size
+        z = np.zeros((b, h, w, 3), np.float32)
+        self.run(cloth=z, pose_map=np.zeros((b, h, w, POSE_CHANNELS),
+                                            np.float32),
+                 im_mask=z, categories=["upper_body"] * b)
+
     @torch.no_grad()
     def run(self, *, cloth, pose_map, im_mask, categories):
         """Returns float32 (warped_cloth, prompt_embeds,
         negative_prompt_embeds), unpadded to the request's n samples."""
         n = cloth.shape[0]
         input_ids = np.asarray(self.tokenizer(self.prompts(categories)))
+        # the inputs' copy, the replay and the fetch, before another
+        # handler thread's request overwrites the graph's buffers: the
+        # fetch reads those buffers, with no clone on the device first
         with self._lock:
-            out = self.conditioner(
+            out = self.program(
                 self._pad(pose_map, np.float32), self._pad(cloth, np.float32),
                 self._pad(im_mask, np.float32),
-                self._pad(input_ids, np.int64))
-        return tuple(t[:n].float().cpu().numpy() for t in out)
+                self._pad(input_ids, np.int64), clone=False)
+            return tuple(t[:n].float().cpu().numpy() for t in out)
 
 
 _REQUEST_KEYS = ("image", "inpaint_mask", "pose_map", "warped_cloth",

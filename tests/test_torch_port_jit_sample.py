@@ -7,13 +7,15 @@ four steps of a 4-step plan under each scheduler at ``cloth_cond_rate``
 0.5, so the warped-cloth gate is open at steps 0 and 1 and closed at 2
 and 3, from the same prepared inputs on both sides; the JAX step is
 jitted with its static keys, as its ``jit_sample(denoise_mode="host")``
-jits it.  ``jit_sample`` runs in its three modes (``split=False``;
-``split=True`` with ``"scan"`` and with ``"host"``), as
-``tests/test_pipeline.py`` runs the JAX ones; on the CPU the port's
-sampler runs its stages eagerly, so it must also equal the port's own
-``sample`` bit for bit.  Last, the rule that a service over a mesh whose
-model axis is above 1 keeps the eager sampler, and that the callers'
-sampler is ``split=True`` with ``"host"``.
+jits it, once per scheduler for the module (``jax_steps``).  The port's
+``jit_sample`` runs in its three modes (``split=False``; ``split=True``
+with ``"scan"`` and with ``"host"``), each held to one sample of the JAX
+``jit_sample(split=True, denoise_mode="host")``, made once for the
+module: the JAX package's own tests hold its three modes to each other.
+On the CPU the port's sampler runs its stages eagerly, so each mode must
+also equal the port's own ``sample`` bit for bit.  Last, the rule that a service over a mesh
+whose model axis is above 1 keeps the eager sampler, and that the
+callers' sampler is ``split=True`` with ``"host"``.
 """
 
 import dataclasses
@@ -65,11 +67,41 @@ def _nchw(x):
     return _torch(x).permute(0, 3, 1, 2)
 
 
+class JittedUNet:
+    """A JAX UNet whose ``apply`` is one jitted function: each
+    scheduler's step, traced apart, finds the UNet's trace in that
+    function's cache instead of tracing it again."""
+
+    def __init__(self, unet):
+        self.apply = jax.jit(unet.apply)
+
+
+@pytest.fixture(scope="module")
+def jax_steps(pipelines):
+    """``steps(name)`` -> (the JAX pipeline under scheduler ``name``, its
+    ``denoise_one_step`` jitted with GEN's static keys), made once."""
+    stages, _, _ = pipelines
+    unet = JittedUNet(stages.jpipe.unet)
+    made = {}
+
+    def steps(name: str):
+        if name not in made:
+            jpipe = dataclasses.replace(
+                stages.jpipe, unet=unet,
+                scheduler=jax_schedulers.make_scheduler(name))
+            # jitted as JAX ``jit_sample(denoise_mode="host")`` jits it
+            made[name] = jpipe, jax.jit(functools.partial(
+                jpipe.denoise_one_step, guidance_scale=7.5,
+                cloth_gate_from=cloth_gate_start(STEPS, RATE)))
+        return made[name]
+
+    return steps
+
+
 @pytest.mark.parametrize("scheduler", ["ddim", "pndm", "lms", "dpm"])
-def test_denoise_one_step_matches_jax(pipelines, scheduler):
+def test_denoise_one_step_matches_jax(pipelines, jax_steps, scheduler):
     stages, params, pipe = pipelines
-    jpipe = dataclasses.replace(
-        stages.jpipe, scheduler=jax_schedulers.make_scheduler(scheduler))
+    jpipe, jstep = jax_steps(scheduler)
     pipe = dataclasses.replace(pipe, scheduler=make_scheduler(scheduler))
     req = _request(70)
     a = {k: jnp.asarray(v) for k, v in req.items()}
@@ -86,9 +118,6 @@ def test_denoise_one_step_matches_jax(pipelines, scheduler):
     cfg = dict(zip(("mask_in", "masked_in", "pose_in", "cloth_in",
                     "context"), jpipe._cfg_inputs(
         prepared, a["prompt_embeds"], a["negative_prompt_embeds"], True)))
-    # jitted as JAX ``jit_sample(denoise_mode="host")`` jits it
-    jstep = jax.jit(functools.partial(
-        jpipe.denoise_one_step, guidance_scale=7.5, cloth_gate_from=gate))
 
     timesteps = pipe.scheduler.set_timesteps(STEPS)
     ours = {k: _nchw(prepared[k]) for k in (
@@ -112,18 +141,26 @@ def test_denoise_one_step_matches_jax(pipelines, scheduler):
             atol=STEP_RTOL * np.abs(ref).max(), err_msg=f"step {i}")
 
 
-@pytest.mark.parametrize("split,mode", [(False, "scan"), (True, "scan"),
-                                        (True, "host")],
-                         ids=["whole", "scan", "host"])
-def test_jit_sample_matches_jax(pipelines, split, mode):
-    stages, params, pipe = pipelines
+@pytest.fixture(scope="module")
+def jax_sample(pipelines):
+    """(request, draw key, image) of the JAX ``jit_sample(split=True,
+    denoise_mode="host")`` under GEN, made once for the three modes."""
+    stages, params, _ = pipelines
     req = _request(72)
     rng = jax.random.key(73)
     pos = [jnp.asarray(req[k]) for k in (
         "image", "mask_image", "pose_map", "warped_cloth", "prompt_embeds",
         "negative_prompt_embeds")] + [rng]
-    ref = np.asarray(stages.jpipe.jit_sample(
-        split=split, denoise_mode=mode, **GEN)(params, *pos))
+    return req, rng, np.asarray(stages.jpipe.jit_sample(
+        split=True, denoise_mode="host", **GEN)(params, *pos))
+
+
+@pytest.mark.parametrize("split,mode", [(False, "scan"), (True, "scan"),
+                                        (True, "host")],
+                         ids=["whole", "scan", "host"])
+def test_jit_sample_matches_jax(pipelines, jax_sample, split, mode):
+    _, _, pipe = pipelines
+    req, rng, ref = jax_sample
     sampler = pipe.jit_sample(split=split, denoise_mode=mode, **GEN)
     assert isinstance(sampler, Sampler) and not sampler.graphed
     args = [_torch(req[k]) for k in (

@@ -5,9 +5,11 @@
 
 Builds what ``chip_smoke.py`` phase 5 builds (full-width towers with
 seeded random weights, ``ConditionService`` -> ``TryOnService`` at
-512x384, DDIM-50, CFG 7.5, batch 2), answers one warm-up request, then
-for each stage of one request (the conditioning's warp and embeddings,
-then the try-on) reports:
+512x384, DDIM-50, CFG 7.5, batch 2), answers one warm-up request (which
+captures both services' CUDA graphs), then for each stage of one request
+(the conditioning's warp and embeddings run eagerly, the conditioning
+eagerly and as the service replays its graph, the try-on's graphs, and
+the whole raw request as the services answer it) reports:
 
 - seconds on the host clock after ``torch.cuda.synchronize()``, without
   the profiler;
@@ -232,8 +234,15 @@ def main() -> None:
                measure(lambda: c.embeddings(cloth, ids),
                        "conditioning: embeddings (CLIP vision, adapter, "
                        "text x2)"),
-               measure(condition, "conditioning (ConditionService.run)"),
-               measure(try_on, "try-on (TryOnService.generate)")]
+               measure(lambda: chip_smoke.eager_condition(cond, raw),
+                       "conditioning, eager (the Conditioner called with "
+                       "ConditionService.run's padding and fetch)"),
+               measure(condition, "conditioning, graphed "
+                       "(ConditionService.run)"),
+               measure(try_on, "try-on, graphed (TryOnService.generate)"),
+               measure(lambda: (condition(), try_on()),
+                       "raw request, graphed (ConditionService.run, then "
+                       "TryOnService.generate)")]
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     k5 = {"conditioning": layer_norm_by_shape(condition, "conditioning", out),
