@@ -7,7 +7,7 @@
     python3 chip_smoke.py --sweep-layer-norm  # K5's device time per plan
     python3 chip_smoke.py --training-only     # phase 2's gradients, phase 10
     python3 chip_smoke.py --distributed-only  # phase 2's TP rows, phase 11
-    python3 chip_smoke.py --graphs-only       # phases 12 and 13
+    python3 chip_smoke.py --graphs-only       # phases 12, 13 and 14
 
 Phases, each printing its numbers before the last line:
 
@@ -133,9 +133,8 @@ Phases, each printing its numbers before the last line:
    128x128 image, on the card (bf16 autocast, fp32 parameters, the kernels'
    Functions) against the CPU (fp32), same weights and draws (loss within
    a stated relative limit, each part of the UNet's gradient to a stated
-   cosine similarity); the VTO step alone at 512x384, batch 1, timed with
-   and without gradient checkpointing (seconds, peak memory, launches a
-   step); then the four trainers at 512x384 from 1024x768
+   cosine similarity) (phase 14 times the step alone, graphed and
+   eager); then the four trainers at 512x384 from 1024x768
    synthetic train splits of both datasets (``data/synthetic.py``) and
    phase 6's files (the stock UNet written under ``sd2/unet``, a seeded
    torchvision-layout VGG19): ``train_vto`` two steps, resumed for two
@@ -144,9 +143,11 @@ Phases, each printing its numbers before the last line:
    (DressCode, every category; three steps with an asynchronous
    checkpoint each, so that keeping two deletes the first),
    ``train_inversion_adapter`` and
-   ``train_tps`` (one epoch of each phase, then the extraction).  Every
-   update must see a finite gradient on every trained parameter and its
-   first move them, the losses be finite, each kernel the step runs be
+   ``train_tps`` (batch 1, one epoch of each phase, then the
+   extraction), each replaying its step programs.  Every step must leave
+   a finite gradient on every trained parameter, and each step program's
+   first replayed step move them (``GradientWatch``: what the host sees
+   of a replay), the losses be finite, each kernel the step runs be
    launched, the GroupNorm and LayerNorm census of ``train_vto`` and
    ``train_emasc`` be covered by phase 2; ``train_vto``'s checkpoints are
    resumed and each trainer keeps its last two, the ``.pth`` exports load
@@ -185,20 +186,21 @@ Phases, each printing its numbers before the last line:
    split against phase 7's images.  (e) ``dryrun_multichip(2)`` on the
    card, every kernel launched in its tensor-parallel step.  (f)
    ``cli.serve`` over two ranks from phase 6's files, at data 2 and at
-   ``--tensor_parallel 2`` (DDIM-50, CFG 7.5, batch 2): phase 8's 2-image
+   ``--tensor_parallel 2`` (DDIM-10, CFG 7.5, batch 2): phase 8's 2-image
    raw request over HTTP within phase 11d's image limit of the one
    process's answer to the same flags, a planted missing gather (the
    follower's rows replaced by rank 0's) outside it, K1, K2, K4 and K5
    launched on each rank, and SIGINT to rank 0 ending both ranks with
-   exit 0.  (d)'s ``train_vto`` runs, bound by the host, run in this
-   process's main thread while a second thread runs (d)'s
+   exit 0.  (d)'s ``train_vto`` runs, bound by the host, run one after
+   another in this process's main thread (each writes 10.5 GB
+   checkpoints) while a second thread runs (b), (c), (d)'s
    ``cli.inference``, (e) and (f) beside them on the card;
 12. the sampler as CUDA graphs (``TryOnPipeline.jit_sample``; run right
    after phase 3, on phase 4's full-width modules at 512x384 and CFG
    7.5): each mode (``split=False``; ``split=True`` with ``"scan"`` and
-   with ``"host"``) under DDIM-50 at batch 2 and 8, and ``"host"`` under
-   dpm-20, pndm-50 and lms-50 and with ``cloth_cond_rate`` 0.5 at batch
-   2, two requests each with their own inputs and draws: every graphed
+   with ``"host"``) under DDIM-50 at batch 2, ``"host"`` under DDIM-20
+   at batch 8, and ``"host"`` under dpm-20, pndm-20 and lms-20 and
+   DDIM-20 with ``cloth_cond_rate`` 0.5 at batch 2, two requests each with their own inputs and draws: every graphed
    image bitwise equal to the eager ``sample``; the capture seconds,
    each request's seconds and peak memory graphed and eager, the memory
    the graphs hold; two planted faults that must break the equality (a
@@ -224,7 +226,30 @@ Phases, each printing its numbers before the last line:
    vision tower and on noun chunks, the adapter's validation with a
    9-channel SD-2 UNet under bf16 autocast; DDIM-5, batches of 2 and 1
    image) graphed against their bodies called eagerly: every image
-   bitwise equal, and each program's capture seconds.
+   bitwise equal, and each program's capture seconds;
+14. the train steps as CUDA graphs (``pipelines.graphs.TrainProgram``,
+   run right after phase 13, on freshly seeded full-width trained towers
+   beside phase 4's and 5's frozen ones, cuDNN deterministic): the VTO
+   step at 512x384 (batch 1 with gradient checkpointing off and on,
+   batch 2 with gradient accumulation 2), EMASC, the inversion adapter
+   (the stock 9-channel UNet frozen), TPS at 256x192 and the refinement
+   (batch 2), each graphed against its eager body from a copy of the
+   same modules over five steps, under a warm-up schedule whose learning
+   rate changes at every step (TPS and the refinement: their constant
+   Adam): after every step the metrics, parameters, BatchNorm
+   statistics, AdamW moments and step counters, count and learning rate
+   bitwise equal; the seconds graphed and eager, the warm-up's and the
+   capture's, the peaks and the graph's pool; for VTO batch 1 and each
+   other kind one more step under torch.profiler, graphed and eager: the
+   busy share and each kernel's launches a step, equal to the
+   profiler's count on one trace.  Two planted faults on the EMASC step
+   must land off the eager trajectory (the learning rate baked into the
+   capture; the capture's call updating twice); the capturable AdamW
+   must stay within a stated limit of the non-capturable one on one
+   gradient sequence; and the TPS evaluation (warped, refined) and extraction
+   and the three metric towers (TF32 off) must replay bitwise their
+   eager bodies, with each graph's pool and the FFT kernels a replay
+   runs.
 
 Phases 4, 5, 6, 7, 8 and 11 sample through ``jit_sample``
 (``TryOnService``, the mains, ``split=True`` with ``"host"``), and
@@ -376,9 +401,9 @@ from ladi_vton_tpu_torch.metrics.compute import (
     _gt_image_paths,
     _load_batch,
 )
-from ladi_vton_tpu_torch.metrics.fid import StatsCache, frechet_distance
-from ladi_vton_tpu_torch.metrics.inception import InceptionV3
+from ladi_vton_tpu_torch.metrics.inception import InceptionV3, strict_fp32
 from ladi_vton_tpu_torch.metrics.lpips import LPIPS
+from ladi_vton_tpu_torch.metrics.ssim import ssim as ssim_fn
 from ladi_vton_tpu_torch.pipelines import drivers, graphs, inpaint
 from ladi_vton_tpu_torch.pipelines.condition import Conditioner, clip_pixels
 from ladi_vton_tpu_torch.pipelines.serving import (
@@ -393,11 +418,23 @@ from ladi_vton_tpu_torch.parallel.launch import spawn
 from ladi_vton_tpu_torch.train import steps as steps_mod
 from ladi_vton_tpu_torch.train.steps import (
     VTOStepConfig,
+    emasc_draws,
+    make_emasc_train_step,
     make_optimizer,
     make_vto_loss,
     make_vto_train_step,
     precision,
     vto_draws,
+)
+from ladi_vton_tpu_torch.train.tps_steps import (
+    TPS_SIZE,
+    adapter_draws,
+    eval_batch,
+    extraction_pixels,
+    make_inversion_adapter_train_step,
+    make_refinement_train_step,
+    make_tps_train_step,
+    tps_optimizer,
 )
 from ladi_vton_tpu_torch.utils.tokenizer import (
     CLIPTokenizer,
@@ -2415,13 +2452,6 @@ def metrics_path(work: pathlib.Path, roots: dict, cond: Conditioner,
     log(f"phase 9: reading and resizing the run's {len(paths)} images and "
         f"their {len(gt)} ground truths (1024x768) on the host, one "
         f"thread: {time.perf_counter() - t0:.3f} s")
-    mu, sigma, _ = StatsCache(dc.parent / "fid_stats").load(
-        "dresscode_upper_body")
-    t0 = time.perf_counter()
-    frechet_distance(mu, sigma, mu, sigma)
-    log(f"phase 9: one frechet_distance of 2048-d stats on the host (scipy "
-        f"sqrtm, the eps branch when the first root is not finite): "
-        f"{time.perf_counter() - t0:.3f} s [{smi}]")
     check_jpeg_reads(jpeg_dir, png_dir)
 
     dresscode_run = main_runs(work, roots, out)[0]
@@ -2849,62 +2879,8 @@ def check_train_step(zpipe: TryOnPipeline, zcond: Conditioner, tokenizer,
             and min(parts.values()) >= TRAIN_GRAD_COS):
         raise AssertionError("the card's training step disagrees with the "
                              "CPU's")
-    del cpu
-    unet.requires_grad_(True)
-    time_train_steps(unet, card, config, empty.to("cuda"), tokenizer,
-                     wrappers, smi)
-    del unet, card
+    del cpu, unet, card
     torch.cuda.empty_cache()
-
-
-def time_train_steps(unet: UNet2DCondition, towers: dict, config,
-                     empty: torch.Tensor, tokenizer, wrappers: dict,
-                     smi: str) -> None:
-    """Phase 10: the VTO train step alone (loss, backward, clip, AdamW) at
-    512x384, batch 1, from batches already on the card, without and with
-    gradient checkpointing: seconds per step (CUDA-synchronised host
-    clock, steps 2-4 of four), peak device memory over the steps, and
-    each kernel's launches per step.  The mains' own step seconds also
-    hold their data loading."""
-    h, w = TRAIN_SIZE
-    rng = np.random.default_rng(102)
-    for ckpt in (False, True):
-        unet.gradient_checkpointing = ckpt
-        opt = make_optimizer(list(unet.parameters()), 1e-5, warmup_steps=0)
-        step = make_vto_train_step(
-            optimizer=opt, config=config,
-            autocast=lambda: precision(torch.device("cuda"), BF16),
-            empty_prompt_ids=empty, **towers)
-        batches = []
-        for i in range(4):
-            b = train_batch(rng, tokenizer, h, w)
-            batches.append(({k: v.to("cuda") for k, v in b.items()}, {
-                k: v.to("cuda") for k, v in vto_draws(
-                    b, torch.Generator().manual_seed(i)).items()}))
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        times = []
-        for i, (batch, draws) in enumerate(batches):
-            if i == 1:
-                reset_counts(wrappers)
-            t0 = time.perf_counter()
-            loss = step(batch, draws)["loss"]
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            if not torch.isfinite(loss):
-                raise AssertionError("a timed train step's loss is not "
-                                     "finite")
-        counts = {k: v / 3 for k, v in main_counts(wrappers).items()}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f"phase 10: the VTO train step alone at {h}x{w}, batch 1, "
-            f"gradient checkpointing {ckpt}: {np.mean(times[1:]):.3f} s a "
-            f"step (steps {[round(t, 3) for t in times]}, the first with "
-            f"its warm-up), peak device memory {peak:.2f} GiB over the "
-            f"steps, launches a step {counts} [{smi}]")
-        del opt, step, batches
-        unet.zero_grad(set_to_none=True)
-        torch.cuda.empty_cache()
-    unet.gradient_checkpointing = False
 
 
 def write_train_data(root: pathlib.Path) -> dict:
@@ -2936,49 +2912,66 @@ def write_stock_unet(sd2: pathlib.Path, unet: UNet2DCondition) -> None:
 
 
 class GradientWatch:
-    """Wraps ``train.steps.Optimizer.step`` while open: before every update
-    every trained parameter must hold a finite gradient, and the first
-    update of each optimizer must move every parameter whose gradient is
-    not exactly zero (``zero_grads`` counts those that are)."""
+    """Wraps ``pipelines.graphs.TrainProgram.__call__`` while open and
+    counts each program's steps (``updates``).  After every step it reads
+    the trained parameters' gradients (on the card the graph's own, which
+    each replay writes): every one present and finite.  Around each
+    program's first replayed step (a call of a signature it has captured;
+    eagerly, its first step) it also holds the parameters before and
+    after it: every parameter whose gradient is not exactly zero moved
+    (``zero_grads`` counts those that are).  ``unchecked`` lists the
+    programs that never reached such a step."""
 
     def __init__(self):
         self.updates = 0
         self.zero_grads = 0
-        self.seen = set()
+        self.programs = {}
 
     def __enter__(self):
-        original = self.original = steps_mod.Optimizer.step
+        original = self.original = graphs.TrainProgram.__call__
         watch = self
 
-        def step(opt):
-            bad = [p for p in opt.params
-                   if p.grad is None or not torch.isfinite(p.grad).all()]
-            if bad:
-                raise AssertionError(f"{len(bad)} of {len(opt.params)} "
-                                     f"trained parameters without a finite "
-                                     f"gradient")
-            first = id(opt) not in watch.seen
-            watch.seen.add(id(opt))
+        def call(program, *args):
+            opt = program.optimizer
+            checked = watch.programs.setdefault(id(program), [program,
+                                                              False])
+            check = not checked[1] and (
+                not program.graphed
+                or graphs._signature(args) in program.sets)
             # host copies: the watch adds nothing to the peak device memory
             before = ([p.detach().to("cpu", copy=True) for p in opt.params]
-                      if first else None)
-            norm = original(opt)
+                      if check else None)
+            out = original(program, *args)
             watch.updates += 1
-            if first:
-                zero = [bool(not p.grad.any()) for p in opt.params]
+            grads = [p.grad for p in opt.params]
+            if any(g is None for g in grads) or not bool(torch.stack(
+                    [torch.isfinite(g).all() for g in grads]).all()):
+                bad = sum(g is None or not bool(torch.isfinite(g).all())
+                          for g in grads)
+                raise AssertionError(f"step {watch.updates}: {bad} of "
+                                     f"{len(grads)} trained parameters "
+                                     f"without a finite gradient")
+            if check:
+                checked[1] = True
+                zero = [bool(not g.any()) for g in grads]
                 still = sum(torch.equal(b, p.detach().cpu()) and not z
                             for b, p, z in zip(before, opt.params, zero))
                 watch.zero_grads += sum(zero)
                 if still:
                     raise AssertionError(f"{still} of {len(before)} "
                                          f"parameters did not move")
-            return norm
+            return out
 
-        steps_mod.Optimizer.step = step
+        graphs.TrainProgram.__call__ = call
         return self
 
     def __exit__(self, *exc):
-        steps_mod.Optimizer.step = self.original
+        graphs.TrainProgram.__call__ = self.original
+
+    @property
+    def unchecked(self) -> list:
+        return [program_name(p) for p, done in self.programs.values()
+                if not done]
 
 
 def metric_lines(path: pathlib.Path) -> list:
@@ -3021,7 +3014,7 @@ def train_runs(work: pathlib.Path, roots: dict, out: pathlib.Path) -> list:
         ("train_tps", "tps", train_tps_cli.main,
          ["--dataset", "vitonhd", "--vitonhd_dataroot",
           str(roots["vitonhd"]), "--checkpoints_dir", str(out / "tps"),
-          "--exp_name", "warp", "-b", "2", "-j", "2", "--epochs_tps", "1",
+          "--exp_name", "warp", "-b", "1", "-j", "2", "--epochs_tps", "1",
           "--epochs_refinement", "1", "--vgg_weights",
           str(work / "vgg19.pth"), "--device", "cuda", *size]),
     ]
@@ -3085,14 +3078,20 @@ def training_path(work: pathlib.Path, zpipe: TryOnPipeline,
                         f" (host clock, each with its batch's loading; the "
                         f"first of a run includes its warm-up)")
         log(f"phase 10 {label}: {seconds:.1f} s wall, result {result}, "
-            f"{watch.updates} update(s) ({watch.zero_grads} parameter(s) "
-            f"with an exactly zero gradient), losses {losses}{per_step}, "
+            f"{watch.updates} update(s) of {len(watch.programs)} train "
+            f"program(s), every gradient finite, each first replayed step "
+            f"moving its parameters "
+            f"({watch.zero_grads} parameter(s) with an exactly zero "
+            f"gradient), losses {losses}{per_step}, "
             f"peak device memory {peak:.2f} GiB, launches {counts}, "
             f"{({k: round(v / max(len(lines), 1), 1) for k, v in counts.items()})} "
             f"a logged step; validation programs captured (seconds, host "
             f"clock) {programs.seconds} [{smi}]")
         if not all(np.isfinite(losses)) or not watch.updates:
             raise AssertionError(f"{label}: no finite training")
+        if watch.unchecked:
+            raise AssertionError(f"{label}: no replayed step of "
+                                 f"{watch.unchecked} to check")
         missing = [k for k in TRAIN_KERNELS[kind] if not counts[k]]
         if missing:
             raise AssertionError(f"{label}: kernels never launched: "
@@ -3370,7 +3369,8 @@ def dp_rank(work: str) -> dict:
                 out["cosine"] = cosines(unet_grads(towers["unet"]), ref)
         out[tag] = {"loss": losses[0], "seconds": seconds,
                     "peak_gib": peak_gib(), "launches": main_counts(wrappers),
-                    "adam_numel": opt.local_state_numel()}
+                    "adam_numel": opt.local_state_numel(),
+                    "eager_reason": step.eager_reason}
         if zero:
             out["zero1_bitwise"] = same_params(updated,
                                                host_params(towers["unet"]))
@@ -3608,14 +3608,15 @@ def distributed_only(work: pathlib.Path, checked: dict, smi: str) -> dict:
 
 
 def dist_mains(work: pathlib.Path, train_roots: dict, out: pathlib.Path,
-               total: dict, smi: str, dp_peak: float) -> None:
+               total: dict, smi: str, dp_peak: float, which: str) -> None:
     """Phase 11d's trainer runs, two ranks with torchrun's variables.
-    ``cli.train_vto --shard_optimizer_states`` two steps with a checkpoint
-    each, then again from ``checkpoint-1`` alone, resumed: the second
-    ``unet_2.pth`` bitwise the first's, and each run's peak memory a rank,
-    its checkpoints included, below ``dp_peak`` (phase 11a's unsharded
-    step's); ``cli.train_vto --tensor_parallel
-    2`` two steps, its gathered ``unet_2.pth`` loaded through the zoo."""
+    ``which`` "zero1": ``cli.train_vto --shard_optimizer_states`` two steps
+    with a checkpoint each, then again from ``checkpoint-1`` alone,
+    resumed: the second ``unet_2.pth`` bitwise the first's, and each
+    run's peak memory a rank, its checkpoints included, below ``dp_peak``
+    (phase 11a's unsharded step's); "tp": ``cli.train_vto
+    --tensor_parallel 2`` two steps, its gathered ``unet_2.pth`` loaded
+    through the zoo."""
     sd2 = work / "sd2"
     vto = ["--dataset", "vitonhd", "--vitonhd_dataroot",
            str(train_roots["vitonhd"]), "--sd2_model_dir", str(sd2),
@@ -3656,6 +3657,20 @@ def dist_mains(work: pathlib.Path, train_roots: dict, out: pathlib.Path,
                                  f"unsharded step's {dp_peak:.2f} GiB")
         return lines
 
+    if which == "tp":
+        run("train_vto --tensor_parallel 2", vto + [
+            "--output_dir", str(tp_out), "--checkpointing_steps", "2",
+            "--tensor_parallel", "2"])
+        unet = zoo.extended_unet(checkpoint=str(tp_out / "unet_2.pth"),
+                                 device="cuda", dtype=BF16)
+        q = unet.down_blocks[1].attentions[0].transformer_blocks[0].attn1.to_q
+        log(f"phase 11d: the tensor-parallel run's gathered unet_2.pth "
+            f"loads through the zoo (to_q {tuple(q.weight.shape)}, "
+            f"{sum(p.numel() for p in unet.parameters())} parameters)")
+        del unet
+        torch.cuda.empty_cache()
+        shutil.rmtree(tp_out)
+        return
     zero = vto + ["--checkpointing_steps", "1", "--shard_optimizer_states"]
     lines = run("train_vto --shard_optimizer_states",
                 zero + ["--output_dir", str(full)])
@@ -3674,20 +3689,8 @@ def dist_mains(work: pathlib.Path, train_roots: dict, out: pathlib.Path,
     del a, b
     shutil.rmtree(full)
     shutil.rmtree(part)
-    run("train_vto --tensor_parallel 2", vto + [
-        "--output_dir", str(tp_out), "--checkpointing_steps", "2",
-        "--tensor_parallel", "2"])
-    unet = zoo.extended_unet(checkpoint=str(tp_out / "unet_2.pth"),
-                             device="cuda", dtype=BF16)
-    q = unet.down_blocks[1].attentions[0].transformer_blocks[0].attn1.to_q
     log(f"phase 11d: the resumed ZeRO-1 run's unet_2.pth is bitwise the "
-        f"uninterrupted run's, its step-2 loss {resumed[-1]['loss']}; the "
-        f"tensor-parallel run's gathered unet_2.pth loads through the zoo "
-        f"(to_q {tuple(q.weight.shape)}, "
-        f"{sum(p.numel() for p in unet.parameters())} parameters)")
-    del unet
-    torch.cuda.empty_cache()
-    shutil.rmtree(tp_out)
+        f"uninterrupted run's, its step-2 loss {resumed[-1]['loss']}")
 
 
 def dist_inference(work: pathlib.Path, roots: dict,
@@ -3721,6 +3724,10 @@ def dist_inference(work: pathlib.Path, roots: dict,
 # process: phase 8 holds the two bitwise equal) by phase 11d's inference
 # limit, a mean absolute error of DIST_IMAGE_LIMIT
 SERVE_DIST_BATCH = 2
+# DDIM steps of its requests: the tensor-parallel sampler's collectives
+# go through the host under gloo, about a second a CFG step, beside
+# phase 11d's trainers on the same host
+SERVE_DIST_STEPS = 10
 SERVE_DIST_KERNELS = ("flash_attention", "group_norm", "geglu", "layer_norm")
 
 
@@ -3740,7 +3747,8 @@ def serve_dist_argv(work: pathlib.Path, *flags: str) -> list:
             "--sd2_model_dir", str(work / "sd2"), "--enable_condition",
             "--clip_vision_dir", str(work / "clip_vision"),
             "--batch_size", str(SERVE_DIST_BATCH), "--seed", str(SERVE_SEED),
-            "--num_inference_steps", "50", "--guidance_scale", "7.5",
+            "--num_inference_steps", str(SERVE_DIST_STEPS),
+            "--guidance_scale", "7.5",
             "--max_delay_ms", "5", "--no_warmup", "--port", "0",
             "--device", "cuda", *flags]
 
@@ -3777,7 +3785,7 @@ def served_url(started) -> str:
 def serve_over_ranks(work: pathlib.Path, out: pathlib.Path, total: dict,
                      smi: str) -> None:
     """Phase 11f: ``cli.serve`` as two ranks sharing the card over gloo, at
-    data 2 and at ``--tensor_parallel 2`` (DDIM-50, CFG 7.5, 512x384,
+    data 2 and at ``--tensor_parallel 2`` (DDIM-10, CFG 7.5, 512x384,
     batch 2), each answering phase 8's
     2-image raw request over HTTP: the image within a mean absolute error
     of ``DIST_IMAGE_LIMIT`` of the one-process answer of the same flags,
@@ -3825,7 +3833,8 @@ def serve_over_ranks(work: pathlib.Path, out: pathlib.Path, total: dict,
         for r in results:
             add_launches(total, r["launches"])
         log(f"phase 11f cli.serve over two ranks at {label} (batch "
-            f"{SERVE_DIST_BATCH}, DDIM-50, CFG 7.5): up in {t_up:.1f} s; "
+            f"{SERVE_DIST_BATCH}, DDIM-{SERVE_DIST_STEPS}, CFG 7.5): up in "
+            f"{t_up:.1f} s; "
             f"the raw request of 2 images over HTTP (/condition "
             f"{answer['t_cond']:.3f} s, with /tryon {answer['total']:.3f} s) "
             f"against one process ({ref['total']:.3f} s direct): mean "
@@ -3885,7 +3894,8 @@ def distributed_path(work: pathlib.Path, roots: dict, train_roots: dict,
             f"{r['dp']['launches']}; planted fault, no gradient all_reduce: "
             f"cosine by part "
             f"{({k: round(v, 6) for k, v in r['fault_cosine'].items()})} "
-            f"(limit {DIST_GRAD_COS}) [{smi}]")
+            f"(limit {DIST_GRAD_COS}); the steps ran eagerly: "
+            f"{r['dp']['eager_reason']} [{smi}]")
         rel = abs(r["dp"]["loss"] - ref["loss"]) / abs(ref["loss"])
         half = r["zero1"]["adam_numel"] / r["dp"]["adam_numel"]
         if not (rel <= DIST_LOSS_LIMIT and r["zero1_bitwise"]
@@ -3897,9 +3907,48 @@ def distributed_path(work: pathlib.Path, roots: dict, train_roots: dict,
         if min(r["fault_cosine"].values()) >= DIST_GRAD_COS:
             raise AssertionError("phase 11a: the gradient limit does not "
                                  "tell a step without its all_reduce")
+        if not (r["dp"]["eager_reason"] and r["zero1"]["eager_reason"]):
+            raise AssertionError("phase 11a: a step over ranks did not run "
+                                 "eagerly")
     dp_peak = max(r["dp"]["peak_gib"] for r in results)
     log(f"phase 11a: two ranks in {seconds:.1f} s wall")
 
+    # 11d's trainer runs are the phase's longest and bound by the host
+    # (gloo's host-staged gradient all_reduce, 10.5 GB checkpoints, which
+    # run one after another so that the disk holds one run's at a time);
+    # 11b, 11c, 11d's inference, 11e and 11f, which fit on the card beside
+    # them and write little, run meanwhile in a second thread
+    with ThreadPoolExecutor(1) as pool:
+        side = pool.submit(side_phases, work, roots, single_inference, out,
+                           ref, checked, smi)
+        dist_mains(work, train_roots, out, total, smi, dp_peak, "zero1")
+        dist_mains(work, train_roots, out, total, smi, dp_peak, "tp")
+        add_launches(total, side.result())
+    missing = [name for name, n in total.items() if not n]
+    if missing:
+        raise AssertionError(f"kernels never launched in phase 11: {missing}")
+    log(f"phase 11: distribution ({time.perf_counter() - t_phase:.1f} s)")
+    return total
+
+
+def side_phases(work: pathlib.Path, roots: dict,
+                single_inference: pathlib.Path, out: pathlib.Path,
+                ref: dict, checked: dict, smi: str) -> dict:
+    """Phase 11b, 11c, 11d's inference, 11e and 11f, in that order; the
+    kernels' launches summed over their ranks."""
+    total = {name: 0 for name, _, _, _, _ in KERNELS}
+    nccl_and_tp(out, ref, checked, total, smi)
+    dist_inference(work, roots, single_inference, out, total, smi)
+    dist_dryrun(out, total)
+    serve_over_ranks(work, out, total, smi)
+    return total
+
+
+def nccl_and_tp(out: pathlib.Path, ref: dict, checked: dict, total: dict,
+                smi: str) -> None:
+    """Phase 11b (one rank over NCCL) and 11c (the tensor-parallel
+    forward and step over two ranks), against phase 11a's one-process
+    ``ref``; ``checked``: the tensor-parallel shapes phase 2 checked."""
     (r,), seconds = ranks("nccl_rank", 1, (str(out),), "nccl", out,
                           backend="nccl")
     log(f"phase 11b: one rank over {r['backend']} (world {r['world']}): "
@@ -3947,33 +3996,6 @@ def distributed_path(work: pathlib.Path, roots: dict, train_roots: dict,
             raise AssertionError("phase 11c: the forward's limit does not "
                                  "tell unreduced partial sums")
     log(f"phase 11c: two ranks in {seconds:.1f} s wall")
-
-    # 11d's trainer runs are the phase's longest and bound by the host
-    # (gloo's host-staged gradient all_reduce, 10.5 GB checkpoints); 11d's
-    # inference, 11e and 11f, which fit on the card beside them, run
-    # meanwhile in a second thread
-    with ThreadPoolExecutor(1) as pool:
-        side = pool.submit(side_phases, work, roots, single_inference, out,
-                           smi)
-        dist_mains(work, train_roots, out, total, smi, dp_peak)
-        add_launches(total, side.result())
-    missing = [name for name, n in total.items() if not n]
-    if missing:
-        raise AssertionError(f"kernels never launched in phase 11: {missing}")
-    log(f"phase 11: distribution ({time.perf_counter() - t_phase:.1f} s)")
-    return total
-
-
-def side_phases(work: pathlib.Path, roots: dict,
-                single_inference: pathlib.Path, out: pathlib.Path,
-                smi: str) -> dict:
-    """Phase 11d's inference, 11e and 11f, in that order; the kernels'
-    launches summed over their ranks."""
-    total = {name: 0 for name, _, _, _, _ in KERNELS}
-    dist_inference(work, roots, single_inference, out, total, smi)
-    dist_dryrun(out, total)
-    serve_over_ranks(work, out, total, smi)
-    return total
 
 
 def dist_dryrun(out: pathlib.Path, total: dict) -> None:
@@ -4024,12 +4046,15 @@ KERNELS = (
 GRAPH_MODES = ((False, "scan"), (True, "scan"), (True, "host"))
 GRAPH_GROUPS = (
     ("ddim", 50, 2, 1.0, GRAPH_MODES),
-    ("ddim", 50, 8, 1.0, GRAPH_MODES),
+    # batch 8 in the callers' mode only (every mode is checked at batch
+    # 2), and the other groups at 20 steps: the check is the graphs'
+    # bits, which the loop's length does not change
+    ("ddim", 20, 8, 1.0, ((True, "host"),)),
     ("dpm", 20, 2, 1.0, ((True, "host"),)),
-    ("pndm", 50, 2, 1.0, ((True, "host"),)),
-    ("lms", 50, 2, 1.0, ((True, "host"),)),
-    # the cloth gate closes at step 25 of 50, inside the loop
-    ("ddim", 50, 2, 0.5, ((True, "host"),)),
+    ("pndm", 20, 2, 1.0, ((True, "host"),)),
+    ("lms", 20, 2, 1.0, ((True, "host"),)),
+    # the cloth gate closes at step 10 of 20, inside the loop
+    ("ddim", 20, 2, 0.5, ((True, "host"),)),
 )
 # the case profiled and planted with a stale replay: the callers' sampler
 # (``parallel.sharding.make_sampler``)
@@ -4085,8 +4110,9 @@ def run_timed(fn) -> tuple:
 # host seconds the profiler stays open before and after the profiled
 # call: the trace keeps only the device events that lie inside its start
 # and stop on the host clock, and without the margin it lost the first or
-# last split-form GroupNorm launches of a request (VAE encode, VAE decode)
-PROFILE_MARGIN_S = 0.1
+# last split-form GroupNorm launches of a request (VAE encode, VAE
+# decode); at 0.1 s an eager request's trace still lost 7 of its 74 once
+PROFILE_MARGIN_S = 0.5
 
 
 def profiled_request(fn) -> dict:
@@ -4651,6 +4677,617 @@ def driver_programs(pipe: TryOnPipeline, towers: Conditioner, tokenizer,
     return results
 
 
+# phase 14: the train steps as CUDA graphs (``pipelines.graphs.
+# TrainProgram``, the JAX ``shard_step``'s ``jax.jit``) at full width,
+# 512x384 (TPS at 256x192).  Each step kind's program against its eager
+# body (``TrainProgram.run_eager``: the same capturable optimizer, batches
+# and draws) over TRAIN_GRAPH_STEPS steps, from two copies of the same
+# seeded modules: after every step the metrics, every trained parameter
+# and buffer (BatchNorm's running statistics), the AdamW moments and step
+# counters, ``count`` and the learning rate written must be
+# ``torch.equal``.  The diffusion steps train under a warm-up schedule
+# (TRAIN_GRAPH_LR), whose learning rate changes at every step; TPS and the
+# refinement under their constant Adam(0.5, 0.99).  cuDNN deterministic,
+# as phase 11's bitwise checks need, and PyTorch's deterministic
+# algorithms (the resize's backward, an ``index_add``).  Two planted faults must land off the
+# eager trajectory: a learning rate written inside the captured body (the
+# capture bakes in its step's value) and not before the replays, and a
+# first call that replays its capture once more (its update applied
+# twice).  Then the TPS evaluation and the extraction (``train_tps``'s
+# programs) and the metric towers (``MetricModels``' programs, TF32 off)
+# against their eager bodies, bitwise.  Last, the capturable optimizer
+# against the non-capturable one (AdamW's bias correction in fp32 on the
+# device against float64 on the host) on one gradient sequence, each
+# element within the bound below; and a card optimizer resumed from a
+# CPU optimizer's state, graphed against eager (``resume_host_state``)
+TRAIN_GRAPH_STEPS = 5
+TRAIN_GRAPH_LR = dict(lr=1e-4, warmup_steps=10)
+# (label, batch, gradient accumulation, gradient checkpointing)
+VTO_GRAPH_CASES = (("VTO batch 1", 1, 1, False),
+                   ("VTO batch 1, gradient checkpointing", 1, 1, True),
+                   ("VTO batch 2, accumulation 2", 2, 2, False))
+TPS_GRAPH_BATCH = 2
+METRIC_GRAPH_BATCH = 8
+# the two bias corrections differ by fp32 rounding (1 - 0.999^t loses
+# about ten bits to cancellation at t = 1), so an element's update may
+# differ by ~3e-5 of itself; where the sum with the parameter, or the
+# weight decay's product, rounds the other way, the parameters differ in
+# their last bit, up to twice a step: each
+# element within CAPTURABLE_ULPS units in its last place or
+# CAPTURABLE_LIMIT of its own update, whichever is larger
+CAPTURABLE_ULPS = 2 * TRAIN_GRAPH_STEPS
+CAPTURABLE_LIMIT = 1e-4
+
+
+def tps_module() -> ConvNetTPS:
+    """Phase 5's TPS (its regression off the identity warp)."""
+    module = ConvNetTPS(256, 192, 21)
+    torch.nn.init.normal_(module.loc_net.regression.linear.weight, std=1e-3)
+    return module
+
+
+def same_train_state(a: dict, b: dict) -> bool:
+    """Whether two copies of a step's state are bitwise equal: every
+    trained module's parameters and buffers, the AdamW state of every
+    parameter, ``count`` and the learning rate written."""
+    for name, module in a["modules"].items():
+        sa, sb = module.state_dict(), b["modules"][name].state_dict()
+        if sa.keys() != sb.keys() or not all(torch.equal(sa[k], sb[k])
+                                             for k in sa):
+            return False
+    oa, ob = a["optimizer"], b["optimizer"]
+    if oa.count != ob.count or not torch.equal(oa.lr, ob.lr):
+        return False
+    for pa, pb in zip(oa.params, ob.params):
+        ea, eb = oa.adamw.state.get(pa, {}), ob.adamw.state.get(pb, {})
+        if ea.keys() != eb.keys() or not all(torch.equal(ea[k], eb[k])
+                                             for k in ea):
+            return False
+    return True
+
+
+def max_param_diff(a: dict, b: dict) -> float:
+    return max((pa.detach() - pb.detach()).abs().max().item()
+               for pa, pb in zip(a["optimizer"].params,
+                                 b["optimizer"].params))
+
+
+def pool_gib(pool) -> float:
+    """The device memory a graph pool holds (the allocator's segments of
+    that pool), GiB."""
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if tuple(s.get("segment_pool_id", ())) == tuple(pool)) / 2 ** 30
+
+
+class BakedLrProgram(graphs.TrainProgram):
+    """Phase 14's first planted fault: the learning rate is written inside
+    the body, so the capture records its step's value, and is not written
+    before a replay, which replays that value."""
+
+    def __init__(self, program: graphs.TrainProgram):
+        opt, body = program.optimizer, program.body
+
+        def baked(*args):
+            opt.write_lr()
+            return body(*args)
+
+        super().__init__(baked, optimizer=opt, device=program.device,
+                         modules=program.modules)
+
+    def __call__(self, *args):
+        with torch.enable_grad():
+            out = graphs._map(torch.clone, self.replay(args))
+        self.optimizer.advance()
+        return out
+
+
+class DoubleUpdateProgram(graphs.TrainProgram):
+    """Phase 14's second planted fault: the call that captures a
+    signature also replays it once, so that call's update applies
+    twice."""
+
+    def __init__(self, program: graphs.TrainProgram):
+        super().__init__(program.body, optimizer=program.optimizer,
+                         device=program.device, modules=program.modules)
+
+    def replay(self, args):
+        fresh = graphs._signature(args) not in self.sets
+        out = super().replay(args)
+        if fresh:
+            out = self.sets[graphs._signature(args)].run()
+        return out
+
+
+def trajectories(label: str, make, inputs: list, smi: str,
+                 planted=None, profile: bool = False) -> dict:
+    """Two copies of a step (``make()`` -> modules, optimizer, step
+    program), the first run eagerly (its body), the second graphed (or
+    wrapped in ``planted``), over ``inputs`` (one (batch, draws) a step):
+    whether each step's results were bitwise equal, the seconds, the
+    capture's, the peaks above the resident state, the pool; with
+    ``profile``, each one's launches and profile of one more step, the
+    graphed trace confirming the launch counters."""
+    eager, graphed = make(), make()
+    if planted is not None:
+        graphed["step"] = planted(graphed["step"])
+    program = graphed["step"]
+    same, seconds, peaks, lrs = [], {"eager": [], "graphed": []}, {
+        "eager": [], "graphed": []}, []
+    for args in inputs:
+        for kind, run in (("eager", lambda: eager["step"].run_eager(*args)),
+                          ("graphed", lambda: program(*args))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            seconds[kind].append(time.perf_counter() - t0)
+            peaks[kind].append((torch.cuda.max_memory_allocated() - before)
+                               / 2 ** 30)
+            if kind == "eager":
+                ref = out
+        same.append(ref.keys() == out.keys()
+                    and all(torch.equal(ref[k], out[k]) for k in ref)
+                    and same_train_state(eager, graphed))
+        lrs.append(float(graphed["optimizer"].lr))
+    (step,) = program.sets.values()
+    r = {"same": same, "eager_s": seconds["eager"],
+         "graphed_s": seconds["graphed"], "lrs": lrs,
+         "warmup_s": step.warmup_seconds,
+         "capture_s": step.capture_seconds,
+         "peak_eager_gib": max(peaks["eager"]),
+         "peak_capture_gib": peaks["graphed"][0],
+         "peak_replay_gib": max(peaks["graphed"][1:]),
+         "pool_gib": pool_gib(step.pool),
+         "state_gib": sum(p.numel() * 4 * 3 for p in
+                          graphed["optimizer"].params) / 2 ** 30,
+         "max_param_diff": max_param_diff(eager, graphed)}
+    if profile:
+        args = inputs[-1]
+        r["launched"] = launches_of(lambda: program(*args))
+        r["eager_launched"] = launches_of(
+            lambda: eager["step"].run_eager(*args))
+        r["profile"] = confirmed_profile(lambda: program(*args),
+                                         r["launched"],
+                                         f"phase 14 {label}, graphed")
+        # the eager step's busy share; its trace has lost a split-form
+        # GroupNorm launch at a window's edge (as phase 12's did before
+        # PROFILE_MARGIN_S), so only the graphed trace confirms the
+        # counters, which the eager ones must equal
+        r["eager_profile"] = profiled_request(
+            lambda: eager["step"].run_eager(*args))
+        if r["launched"] != r["eager_launched"]:
+            raise AssertionError(f"phase 14 {label}: a replay launches "
+                                 f"other kernels than the eager step")
+    del eager, graphed, program, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    mean = lambda xs: float(np.mean(xs[1:]))  # noqa: E731
+    log(f"phase 14 {label}: steps graphed {mean(r['graphed_s']):.4f} s "
+        f"(2-{len(inputs)}; the first, eager then captured, "
+        f"{r['graphed_s'][0]:.3f} s: warm-up {r['warmup_s']:.3f} s, "
+        f"capture {r['capture_s']:.3f} s), eager {mean(r['eager_s']):.4f} "
+        f"s; peak allocated above the resident state: eager "
+        f"{r['peak_eager_gib']:.2f} GiB, capture "
+        f"{r['peak_capture_gib']:.2f}, replay {r['peak_replay_gib']:.2f}; "
+        f"the graph's pool {r['pool_gib']:.2f} GiB, gradients included "
+        f"(parameters and AdamW moments {r['state_gib']:.2f} GiB); lr "
+        f"written "
+        f"{[f'{x:.3g}' for x in lrs]}; bitwise equal to the eager body "
+        f"after each step: {same}"
+        + (f"; launches a step {r['launched']}; one step under "
+           f"torch.profiler: graphed {r['profile']['wall_s']:.4f} s wall, "
+           f"{r['profile']['device_ms']:.2f} ms of kernels, busy "
+           f"{r['profile']['busy']:.4f}, {r['profile']['kernels']} "
+           f"kernels; eager {r['eager_profile']['wall_s']:.4f} s, "
+           f"{r['eager_profile']['device_ms']:.2f} ms, busy "
+           f"{r['eager_profile']['busy']:.4f}, "
+           f"{r['eager_profile']['kernels']} kernels" if profile else "")
+        + f" [{smi}]")
+    return r
+
+
+def on_cuda(tree: dict) -> dict:
+    return {k: v.to("cuda") for k, v in tree.items()}
+
+
+def train_graph_inputs(tokenizer, n: int, batch: int, seed: int,
+                       draws=None, keys=None) -> list:
+    """``n`` steps' (batch, draws) at 512x384 on the card."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        rows = [train_batch(rng, tokenizer, *TRAIN_SIZE)
+                for _ in range(batch)]
+        b = {k: torch.cat([r[k] for r in rows]) for k in rows[0]}
+        if keys is not None:
+            b = {k: b[k] for k in keys}
+        d = (draws(b, torch.Generator().manual_seed(seed + i))
+             if draws is not None else None)
+        out.append((on_cuda(b), on_cuda(d) if d is not None else None))
+    return out
+
+
+def warp_inputs(n: int, size: tuple, seed: int) -> list:
+    """``n`` steps' TPS or refinement batches (TPS_GRAPH_BATCH images)."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    B, (h, w) = TPS_GRAPH_BATCH, size
+    return [(on_cuda({k: torch.from_numpy(rng.uniform(
+        -1 if k != "pose" else 0, 1, (B, h, w, 18 if k == "pose" else 3)
+    ).astype(f)) for k in ("cloth", "im_cloth", "im_mask", "pose")}),)
+        for _ in range(n)]
+
+
+def step_makers(pipe: TryOnPipeline, towers: Conditioner,
+                tokenizer) -> dict:
+    """Phase 14's step kinds: label -> (make, inputs, profiled)."""
+    cuda = torch.device("cuda")
+    autocast = lambda: precision(cuda, BF16)  # noqa: E731
+    vae, text, adapter = pipe.vae, towers.text_model, towers.adapter
+    for m in (vae, text, adapter):
+        m.requires_grad_(False)
+    empty = torch.from_numpy(tokenizer([""])[0].astype(np.int64)).cuda()
+    vgg = seeded(VGG19Features, 14, "cuda").requires_grad_(False)
+    unet9 = seeded(lambda: UNet2DCondition(sd2_unet_config(9)), 25, "cuda",
+                   BF16).requires_grad_(False)
+    tps_frozen = seeded(tps_module, 20, "cuda").requires_grad_(False)
+    makers = {}
+
+    def vto(A: int, ckpt: bool):
+        def make():
+            unet = seeded(lambda: UNet2DCondition(sd2_unet_config(31)), 10,
+                          "cuda")
+            unet.gradient_checkpointing = ckpt
+            opt = make_optimizer(list(unet.parameters()), **TRAIN_GRAPH_LR)
+            return {"modules": {"unet": unet}, "optimizer": opt,
+                    "step": make_vto_train_step(
+                        optimizer=opt, config=VTOStepConfig(
+                            num_vstar=NUM_VSTAR,
+                            gradient_accumulation_steps=A),
+                        autocast=autocast, unet=unet, vae=vae,
+                        text_model=text, inversion_adapter=adapter,
+                        empty_prompt_ids=empty)}
+        return make
+
+    for i, (label, batch, A, ckpt) in enumerate(VTO_GRAPH_CASES):
+        makers[label] = (vto(A, ckpt), train_graph_inputs(
+            tokenizer, TRAIN_GRAPH_STEPS, batch, 1400 + 10 * i, vto_draws),
+            i == 0)
+
+    def emasc_make():
+        emasc = seeded(EMASC, 12, "cuda")
+        opt = make_optimizer(list(emasc.parameters()), **TRAIN_GRAPH_LR)
+        return {"modules": {"emasc": emasc}, "optimizer": opt,
+                "step": make_emasc_train_step(
+                    optimizer=opt, autocast=autocast, vae=vae, emasc=emasc,
+                    vgg=vgg)}
+
+    makers["EMASC"] = (emasc_make, train_graph_inputs(
+        tokenizer, TRAIN_GRAPH_STEPS, 1, 1440, emasc_draws,
+        ("image", "im_mask", "inpaint_mask")), True)
+
+    def adapter_make():
+        trained = seeded(lambda: InversionAdapter(num_encoder_layers=1), 23,
+                         "cuda")
+        opt = make_optimizer(list(trained.parameters()), **TRAIN_GRAPH_LR)
+        return {"modules": {"adapter": trained}, "optimizer": opt,
+                "step": make_inversion_adapter_train_step(
+                    optimizer=opt, autocast=autocast, unet9=unet9, vae=vae,
+                    text_model=text, inversion_adapter=trained,
+                    num_vstar=NUM_VSTAR)}
+
+    adapter_inputs = train_graph_inputs(
+        tokenizer, TRAIN_GRAPH_STEPS, 1, 1450, adapter_draws,
+        ("image", "im_mask", "inpaint_mask", "input_ids",
+         "clip_cloth_features"))
+    for b, _ in adapter_inputs:
+        b["clip_cloth_features"] = b["clip_cloth_features"].to(BF16)
+    makers["the adapter"] = (adapter_make, adapter_inputs, True)
+
+    def tps_make():
+        module = seeded(tps_module, 20, "cuda")
+        opt = tps_optimizer(module.parameters())
+        return {"modules": {"tps": module}, "optimizer": opt,
+                "step": make_tps_train_step(tps=module, optimizer=opt)}
+
+    makers["TPS 256x192"] = (tps_make, warp_inputs(
+        TRAIN_GRAPH_STEPS, TPS_SIZE, 1460), True)
+
+    def refinement_make():
+        module = seeded(UNetVanilla, 21, "cuda")
+        opt = tps_optimizer(module.parameters())
+        return {"modules": {"refinement": module}, "optimizer": opt,
+                "step": make_refinement_train_step(
+                    optimizer=opt, tps=tps_frozen, refinement=module,
+                    vgg=vgg)}
+
+    makers["the refinement"] = (refinement_make, warp_inputs(
+        TRAIN_GRAPH_STEPS, TRAIN_SIZE, 1470), True)
+    return makers
+
+
+def planted_train_faults(makers: dict, smi: str) -> None:
+    """Phase 14's two planted faults on the EMASC step (warm-up
+    schedule): each must land off the eager trajectory."""
+    make, inputs, _ = makers["EMASC"]
+    for name, planted in (("the learning rate baked into the capture",
+                           BakedLrProgram),
+                          ("the capture's call updating twice",
+                           DoubleUpdateProgram)):
+        r = trajectories(f"EMASC, planted fault: {name}", make, inputs,
+                         smi, planted=planted)
+        off = [i + 1 for i, s in enumerate(r["same"]) if not s]
+        log(f"phase 14 planted fault, {name}: off the eager trajectory at "
+            f"steps {off}, the parameters {r['max_param_diff']:.3e} apart "
+            f"after step {len(inputs)}: "
+            f"{'detected' if off else 'MISSED'}")
+        if not off:
+            raise AssertionError(f"phase 14: the planted fault ({name}) "
+                                 f"stayed on the eager trajectory")
+
+
+def capturable_drift(smi: str) -> float:
+    """The capturable AdamW (``train.steps.Optimizer`` on the card)
+    against the non-capturable one (``lr`` a float, the bias correction on
+    the host in float64) on the same parameters and gradient sequence,
+    under TRAIN_GRAPH_LR's warm-up: their largest parameter difference
+    after TRAIN_GRAPH_STEPS updates, each element's against the larger of
+    CAPTURABLE_ULPS units in its last place and CAPTURABLE_LIMIT of its
+    update (the worst ratio is returned).  The gradients span nine
+    decades, so that some elements sit where eps dominates the
+    denominator."""
+    gen = torch.Generator("cuda").manual_seed(1495)
+    shapes = [(1024, 1024), (4096,), (320, 320, 3, 3)]
+    base = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    grads = [[torch.randn(s, generator=gen, device="cuda") * 10.0 ** -k
+              for s, k in zip(shapes, (0, 4, 8))]
+             for _ in range(TRAIN_GRAPH_STEPS)]
+    runs = {}
+    for capturable in (True, False):
+        params = [torch.nn.Parameter(b.clone()) for b in base]
+        opt = make_optimizer(params, **TRAIN_GRAPH_LR)
+        if not capturable:
+            opt.adamw = torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999),
+                                          eps=1e-8, weight_decay=1e-2)
+            opt.lr, opt.capturable = None, False
+        for g in grads:
+            opt.zero_grad()
+            for p, x in zip(params, g):
+                p.grad = x.clone()
+            opt.step()
+        runs[capturable] = params
+    inf = torch.tensor(float("inf"), device="cuda")
+    diff = worst = 0.0
+    for a, b, b0 in zip(runs[True], runs[False], base):
+        a, b = a.detach(), b.detach()
+        ulp = torch.nextafter(b.abs(), inf) - b.abs()
+        bound = torch.maximum(CAPTURABLE_ULPS * ulp,
+                              CAPTURABLE_LIMIT * (b - b0).abs())
+        diff = max(diff, (a - b).abs().max().item())
+        worst = max(worst, ((a - b).abs() / bound).max().item())
+    log(f"phase 14: the capturable AdamW against the non-capturable one, "
+        f"{TRAIN_GRAPH_STEPS} updates of the same gradients under the "
+        f"warm-up: parameters at most {diff:.3e} apart; the worst element "
+        f"at {worst:.3f} of its bound ({CAPTURABLE_ULPS} units in its last "
+        f"place or {CAPTURABLE_LIMIT:g} of its update) [{smi}]")
+    if not worst <= 1.0:
+        raise AssertionError(f"the capturable optimizer drifts past its "
+                             f"bound ({worst:.3f}) from the non-capturable "
+                             f"one")
+    return worst
+
+
+def resume_host_state(smi: str) -> None:
+    """A card optimizer resumed from the state dict of a non-capturable
+    one: an optimizer on the CPU, as ``--device cpu`` writes it (and as
+    the trainers wrote it before AdamW was capturable: ``capturable``
+    False, the step counters on the host).  The load must move the
+    counters to the card, and the step program after it (graphed, and
+    its eager body from a second load) run TRAIN_GRAPH_STEPS updates
+    from the loaded moments, bitwise equal after each."""
+    gen = torch.Generator().manual_seed(1496)
+    shapes = [(256, 256), (4096,)]
+    host = [torch.nn.Parameter(torch.randn(s, generator=gen))
+            for s in shapes]
+    grads = [[torch.randn(s, generator=gen) for s in shapes]
+             for _ in range(2 + TRAIN_GRAPH_STEPS)]
+    opt = make_optimizer(host, **TRAIN_GRAPH_LR)
+    for g in grads[:2]:
+        opt.zero_grad()
+        for p, x in zip(host, g):
+            p.grad = x.clone()
+        opt.step()
+    saved = opt.state_dict()
+    if any(group["capturable"] for group in saved["adamw"]["param_groups"]):
+        raise AssertionError("phase 14: the CPU optimizer saved a "
+                             "capturable state")
+    runs = []
+    for graphed in (False, True):
+        params = [torch.nn.Parameter(p.detach().cuda()) for p in host]
+        card = make_optimizer(params, **TRAIN_GRAPH_LR)
+        card.load_state_dict(saved)
+        where = {(e["step"].device.type, e["step"].dtype, float(e["step"]))
+                 for e in card.adamw.state.values()}
+        if where != {("cuda", torch.float32, 2.0)}:
+            raise AssertionError(f"phase 14: the loaded step counters are "
+                                 f"{where}, not 2.0 in fp32 on the card")
+
+        def body(*gs, card=card, params=params):
+            card.zero_grad()
+            for p, g in zip(params, gs):
+                p.grad = g.clone()
+            return {"norm": card.update()}
+
+        program = graphs.TrainProgram(body, optimizer=card, device="cuda")
+        run = program if graphed else program.run_eager
+        trail = []
+        for g in grads[2:]:
+            out = run(*[x.cuda() for x in g])
+            trail.append([out["norm"]] + [p.detach().clone()
+                                          for p in params]
+                         + [e[k].clone() for e in card.adamw.state.values()
+                            for k in ("exp_avg", "exp_avg_sq", "step")])
+        runs.append((trail, card.count))
+    (eager, n_eager), (graph, n_graph) = runs
+    same = [all(torch.equal(a, b) for a, b in zip(x, y))
+            for x, y in zip(eager, graph)]
+    moved = max((a - b.cuda()).abs().max().item()
+                for a, b in zip(graph[-1][1:1 + len(host)], host))
+    log(f"phase 14: a card optimizer resumed from a CPU optimizer's state "
+        f"(step counters on the host, capturable False): counters moved to "
+        f"the card, {TRAIN_GRAPH_STEPS} steps graphed bitwise their eager "
+        f"body after each: {same}, count {n_graph}, parameters moved "
+        f"{moved:.3e} [{smi}]")
+    if not all(same) or n_graph != n_eager or n_graph != 2 + \
+            TRAIN_GRAPH_STEPS or not moved > 0:
+        raise AssertionError("phase 14: the resumed optimizer's steps are "
+                             "off")
+
+
+def kernel_names(fn) -> dict:
+    """The kernels one call of ``fn`` runs, by name, under the profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def inference_program(label: str, program: graphs.Program, eager, args,
+                      smi: str) -> dict:
+    """A program's capture and a replay against its body called eagerly,
+    bitwise; the seconds, the pool, FFT kernels in a replay."""
+    with torch.no_grad():
+        want = eager(*args)
+    got, seconds = [], []
+    for _ in range(2):
+        out, dt, _ = run_timed(lambda: program(*args))
+        got.append(out)
+        seconds.append(dt)
+    _, eager_s, _ = run_timed(lambda: eager(*args))
+    flat = graphs._leaves
+    same = [all(torch.equal(a, b) for a, b in zip(flat(g), flat(want)))
+            for g in got]
+    (captured,) = program.sets.values()
+    pool = pool_gib(captured.graph.pool)
+    fft = sum(n for k, n in kernel_names(lambda: program(*args)).items()
+              if "fft" in k.lower())
+    log(f"phase 14 {label}: capture call {seconds[0]:.3f} s (capture "
+        f"{sum(program.capture_seconds.values()):.3f} s), replay "
+        f"{seconds[1]:.4f} s, eager {eager_s:.4f} s; the graph's pool "
+        f"{pool:.2f} GiB; FFT kernels in a replay {fft}; bitwise equal to "
+        f"the eager body: {same} [{smi}]")
+    if not all(same):
+        raise AssertionError(f"phase 14 {label}: graphed != eager")
+    return {"capture_s": seconds[0], "replay_s": seconds[1],
+            "eager_s": eager_s, "pool_gib": pool, "fft_kernels": fft}
+
+
+def inference_programs(work: pathlib.Path, smi: str) -> dict:
+    """The TPS evaluation (warped, refined) and the extraction, as
+    ``train_tps`` builds them, and the metric towers of ``MetricModels``
+    (TF32 off) against their eager bodies."""
+    tps_m = seeded(tps_module, 20, "cuda")
+    ref_m = seeded(UNetVanilla, 21, "cuda")
+    vgg = seeded(VGG19Features, 14, "cuda")
+    (batch,), = warp_inputs(1, TRAIN_SIZE, 1480)
+    h, w = TRAIN_SIZE
+    results = {}
+    for refined in (False, True):
+        body = functools.partial(eval_batch, tps_m, ref_m, vgg,
+                                 refined=refined, height=h, width=w)
+        results[f"eval refined={refined}"] = inference_program(
+            f"the TPS evaluation, refined {refined} (batch "
+            f"{TPS_GRAPH_BATCH})", graphs.Program(
+                body, device="cuda", modules=(tps_m, ref_m, vgg)), body,
+            (batch,), smi)
+    body = functools.partial(extraction_pixels, tps_m, ref_m, height=h,
+                             width=w)
+    args = tuple(batch[k] for k in ("cloth", "im_mask", "pose"))
+    results["extraction"] = inference_program(
+        f"the extraction (batch {TPS_GRAPH_BATCH})", graphs.Program(
+            body, device="cuda", modules=(tps_m, ref_m)), body, args, smi)
+    del tps_m, ref_m, vgg
+    models = MetricModels(write_metric_weights(work / "metrics14", seed=92),
+                          "cuda")
+    rng = np.random.default_rng(1490)
+    x = torch.from_numpy(rng.uniform(-1, 1, (
+        METRIC_GRAPH_BATCH, 299, 299, 3)).astype(np.float32))
+    a = rng.uniform(0, 1, (METRIC_GRAPH_BATCH, *TRAIN_SIZE, 3)).astype(
+        np.float32)
+    b = torch.from_numpy(np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1)
+                         .astype(np.float32))
+    a = torch.from_numpy(a)
+    inception, lpips = models.inception(), models.lpips()
+    towers = {
+        "inception": ((x,), lambda t: inception(t.cuda())),
+        "lpips": ((a, b), lambda s, t: lpips(s.cuda(), t.cuda(),
+                                             normalize=True)),
+        "ssim": ((a, b), lambda s, t: ssim_fn(s.cuda(), t.cuda())),
+    }
+    # the programs as MetricModels builds them, each called once there
+    models.inception_features(x.numpy())
+    models.lpips_distance(a.numpy(), b.numpy())
+    models.ssim(a.numpy(), b.numpy())
+    with strict_fp32():
+        for name, (args, eager) in towers.items():
+            program = models._programs[name]
+            program.sets.clear()  # captured again below, timed
+            gc.collect()
+            torch.cuda.empty_cache()
+            results[name] = inference_program(
+                f"the metric tower {name} (batch {METRIC_GRAPH_BATCH}, TF32 "
+                f"off)", program, eager, args, smi)
+    del models
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
+
+
+def train_graphs_path(pipe: TryOnPipeline, towers: Conditioner, tokenizer,
+                      work: pathlib.Path, smi: str) -> dict:
+    """Phase 14: every step kind graphed against its eager body, the
+    planted faults, the capturable optimizer's drift, and the inference
+    programs.  Returns the numbers by label."""
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    # index_add (the backward of the resize in the EMASC step's VGG loss
+    # and the refinement's upsampling) then adds in a fixed order; other
+    # operations without a deterministic form only warn, and nothing
+    # fills new memory
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        makers = step_makers(pipe, towers, tokenizer)
+        results = {}
+        for label, (make, inputs, profiled) in makers.items():
+            r = trajectories(label, make, inputs, smi, profile=profiled)
+            if not all(r["same"]):
+                raise AssertionError(f"phase 14 {label}: graphed != eager")
+            results[label] = r
+        planted_train_faults(makers, smi)
+        results["capturable_drift"] = capturable_drift(smi)
+        resume_host_state(smi)
+        del makers
+        gc.collect()
+        torch.cuda.empty_cache()
+        results["inference"] = inference_programs(work, smi)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+    log(f"phase 14: the train steps, the TPS evaluation and extraction and "
+        f"the metric towers as CUDA graphs ({time.perf_counter() - t0:.1f} "
+        f"s)")
+    return results
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--sweep-geglu", action="store_true",
@@ -4668,9 +5305,10 @@ def main() -> None:
                         "(its files written from freshly seeded modules), "
                         "then exit without the result lines")
     parser.add_argument("--graphs-only", action="store_true",
-                        help="phases 12 and 13 alone (the sampler and the "
-                        "conditioning as CUDA graphs, from freshly seeded "
-                        "modules), then exit without the result lines")
+                        help="phases 12, 13 and 14 alone (the sampler, the "
+                        "conditioning and the train steps as CUDA graphs, "
+                        "from freshly seeded modules), then exit without "
+                        "the result lines")
     parser.add_argument("--distributed-only", action="store_true",
                         help="phase 2's tensor-parallel rows and phase 11 "
                         "alone (its files written from freshly seeded "
@@ -4715,6 +5353,8 @@ def main() -> None:
             towers = conditioner("cuda", (512, 384), tokenizer)
             condition_graphs_path(towers, tokenizer, smi)
             driver_programs(pipe, towers, tokenizer, smi)
+            train_graphs_path(pipe, towers, tokenizer, pathlib.Path(work),
+                              smi)
         return
     if args.training_only:
         check_gradients(gen)
@@ -4751,7 +5391,7 @@ def main() -> None:
 
 
 def run_phases(work: pathlib.Path, gen: Gen, smi: str, checked: dict) -> dict:
-    """Phases 3 to 13, with the files they write under ``work``; returns
+    """Phases 3 to 14, with the files they write under ``work``; returns
     the kernels' launches on phase 5's (``launches``), 6's, 7's, 8's, 9's,
     10's and 11's paths, by phase.  ``checked``: the tensor-parallel
     shapes phase 2 checked."""
@@ -4771,6 +5411,7 @@ def run_phases(work: pathlib.Path, gen: Gen, smi: str, checked: dict) -> dict:
     towers = conditioner("cuda", (512, 384), tokenizer)
     condition_graphs_path(towers, tokenizer, smi)
     driver_programs(pipe, towers, tokenizer, smi)
+    train_graphs_path(pipe, towers, tokenizer, work, smi)
     service = TryOnService(pipe, batch_size=2, height=512, width=384,
                            num_inference_steps=50, guidance_scale=7.5,
                            context_dim=1024, seed=0)

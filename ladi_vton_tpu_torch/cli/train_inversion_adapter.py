@@ -52,7 +52,7 @@ from ladi_vton_tpu_torch.core.dtypes import default_policy
 from ladi_vton_tpu_torch.core.rng import set_seed
 from ladi_vton_tpu_torch.diffusion.schedulers import DDIMScheduler
 from ladi_vton_tpu_torch.hub import zoo
-from ladi_vton_tpu_torch.pipelines.condition import clip_pixels
+from ladi_vton_tpu_torch.pipelines.condition import vision_program
 from ladi_vton_tpu_torch.pipelines.serving import category_prompts
 from ladi_vton_tpu_torch.core import distributed
 from ladi_vton_tpu_torch.train.runner import (
@@ -145,6 +145,10 @@ def main(argv=None) -> int:
     trackers = make_trackers(args.report_to, "LaDI_VTON_inversion_adapter",
                              args.output_dir, vars(args))
 
+    # the vision tower as a program (the JAX main's jitted apply)
+    vision_feats = (vision_program(vision, dtype) if vision is not None
+                    else None)
+
     def to_batch(raw: dict) -> dict:
         batch = {k: to_device(raw[k], device)
                  for k in ("image", "im_mask", "inpaint_mask")}
@@ -154,9 +158,8 @@ def main(argv=None) -> int:
         if args.use_clip_cloth_features:
             feats = to_device(raw["clip_cloth_features"], device)
         else:
-            with torch.no_grad(), autocast():
-                feats = vision(clip_pixels(to_device(raw["cloth"], device),
-                                           dtype))
+            with autocast():
+                feats = vision_feats(to_device(raw["cloth"], device))
         batch["clip_cloth_features"] = feats.to(dtype)
         return batch
 

@@ -35,6 +35,7 @@ card raises).  Both towers run in fp32, as the reference runs them:
 from __future__ import annotations
 
 import argparse
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -58,16 +59,15 @@ from ladi_vton_tpu_torch.data import (
 )
 from ladi_vton_tpu_torch.models.refinement import UNetVanilla
 from ladi_vton_tpu_torch.models.tps import ConvNetTPS
-from ladi_vton_tpu_torch.models.vgg import vgg_loss
+from ladi_vton_tpu_torch.pipelines.graphs import Program
 from ladi_vton_tpu_torch.train.runner import Trackers, setup_logging
 from ladi_vton_tpu_torch.train.tps_steps import (
     TPS_SIZE,
+    eval_batch,
+    extraction_pixels,
     make_refinement_train_step,
     make_tps_train_step,
-    nchw,
     tps_optimizer,
-    warp,
-    warp_and_refine,
 )
 
 
@@ -179,35 +179,44 @@ def main(argv=None) -> dict:
                 "im_mask": to_device(raw["im_mask"], device),
                 "pose": to_device(pose, device)}
 
-    @torch.no_grad()
+    # the per-epoch evaluation and the extraction as programs (the JAX
+    # main's jitted ``_eval_batch_*`` and ``extract_fn``), one each; the
+    # graphs read the towers' parameters and statistics in place
+    programs = {}
+
+    def program(name: str, body) -> Program:
+        if name not in programs:
+            programs[name] = Program(body, device=device,
+                                     modules=(tps, refinement, vgg))
+        tps.eval()
+        refinement.eval()
+        return programs[name]
+
     def eval_epoch(dataset, use_refinement: bool):
         """Mean L1 and VGG losses of the warped (or refined) cloth over a
-        test split, and the last batch's panel in [0, 1]."""
-        l1s, vggs, visual = [], [], None
+        test split, summed on the device and read once, and the last
+        batch's panel in [0, 1]."""
+        run = program(f"eval_{use_refinement}", functools.partial(
+            eval_batch, tps, refinement, vgg, refined=use_refinement,
+            height=args.height, width=args.width))
+        sums, n, last = None, 0, None
         for raw in BatchLoader(dataset, args.batch_size,
                                num_workers=args.workers):
             b = arrays(raw)
-            if use_refinement:
-                warped = warp_and_refine(
-                    tps, refinement, cloth=b["cloth"], im_mask=b["im_mask"],
-                    pose=b["pose"], height=args.height, width=args.width)
-            else:
-                tps.eval()
-                warped = warp(tps, b, args.height, args.width)
-            l1s.append(float(torch.mean(torch.abs(warped - b["im_cloth"]))))
-            vggs.append(float(vgg_loss(vgg, nchw(warped),
-                                       nchw(b["im_cloth"]))))
-            if not use_refinement:
-                warped = warped.clamp(-1.0, 1.0)
-            # image | cloth | target | warped along the width
-            visual = np.concatenate(
-                [raw["image"]] + [b[k].cpu().numpy()
-                                  for k in ("cloth", "im_cloth")]
-                + [warped.cpu().numpy()], axis=2)
-        if not l1s:  # an empty test split: no NaN means
+            warped, l1, perc = run(b)
+            pair = torch.stack([l1, perc]).double()
+            sums = pair if sums is None else sums + pair
+            n += 1
+            last = raw["image"], b, warped
+        if not n:  # an empty test split: no NaN means
             return 0.0, 0.0, None
-        return (float(np.mean(l1s)), float(np.mean(vggs)),
-                (visual + 1.0) / 2.0)
+        l1, perc = (sums / n).tolist()
+        image, b, warped = last
+        # image | cloth | target | warped along the width
+        visual = np.concatenate(
+            [image] + [b[k].cpu().numpy() for k in ("cloth", "im_cloth")]
+            + [warped.cpu().numpy()], axis=2)
+        return l1, perc, (visual + 1.0) / 2.0
 
     def eval_and_log(epoch: int, phase: str, train_metrics: dict,
                      use_refinement: bool) -> None:
@@ -285,16 +294,16 @@ def main(argv=None) -> dict:
     extracted = 0
 
     def extract(dataset, sub: str) -> int:
+        pixels_of = program("extract", functools.partial(
+            extraction_pixels, tps, refinement, height=args.height,
+            width=args.width))
         seen = set()
         root = cache_root / sub / args.dataset
         for raw in BatchLoader(dataset, args.batch_size,
                                num_workers=args.workers, pad_last=True):
             b = arrays(raw)
-            warped = warp_and_refine(
-                tps, refinement, cloth=b["cloth"], im_mask=b["im_mask"],
-                pose=b["pose"], height=args.height, width=args.width)
-            pixels = torch.round(((warped + 1) / 2).clamp(0, 1) * 255).to(
-                torch.uint8).cpu().numpy()
+            pixels = pixels_of(b["cloth"], b["im_mask"],
+                               b["pose"]).cpu().numpy()
             for img, cat, iname, cname in zip(
                     pixels, raw["category"], raw["im_name"], raw["c_name"]):
                 name = iname.replace(".jpg", "") + "_" + cname

@@ -66,7 +66,7 @@ from ladi_vton_tpu_torch.data import (
 from ladi_vton_tpu_torch.diffusion.schedulers import DDIMScheduler
 from ladi_vton_tpu_torch.hub import zoo
 from ladi_vton_tpu_torch.models.inversion_adapter import InversionAdapter
-from ladi_vton_tpu_torch.pipelines.condition import clip_pixels
+from ladi_vton_tpu_torch.pipelines.condition import vision_program
 from ladi_vton_tpu_torch.pipelines.drivers import _to as to_device
 from ladi_vton_tpu_torch.pipelines.serving import category_prompts
 from ladi_vton_tpu_torch.parallel import tp as tensor_parallel
@@ -434,6 +434,10 @@ def main(argv=None) -> int:
             return [""] * len(raw["category"])
         return category_prompts(raw["category"], args.num_vstar)
 
+    # the vision tower as a program (the JAX main's jitted apply)
+    vision_feats = (vision_program(vision, dtype) if vision is not None
+                    else None)
+
     def to_batch(raw: dict) -> dict:
         batch = {k: to_device(raw[k], device) for k in (
             "image", "im_mask", "inpaint_mask", "pose_map")}
@@ -444,9 +448,8 @@ def main(argv=None) -> int:
             if args.use_clip_cloth_features:
                 feats = to_device(raw["clip_cloth_features"], device)
             else:
-                with torch.no_grad(), autocast():
-                    feats = vision(clip_pixels(to_device(raw["cloth"],
-                                                         device), dtype))
+                with autocast():
+                    feats = vision_feats(to_device(raw["cloth"], device))
             batch["clip_cloth_features"] = feats.to(dtype)
         return batch
 

@@ -85,9 +85,16 @@ class DDPMScheduler:
     def __init__(self, config: SchedulerConfig = SchedulerConfig()):
         self.config = config
         self.alphas_cumprod = _make_alphas_cumprod(config)
+        self._tables: dict = {}
 
     def _alphas(self, sample, timesteps) -> torch.Tensor:
-        table = torch.as_tensor(self.alphas_cumprod, device=sample.device)
+        # the table is copied to a device once: a train step's CUDA graph
+        # cannot capture a copy from host memory, and its first (eager)
+        # step makes it
+        table = self._tables.get(sample.device)
+        if table is None:
+            table = self._tables[sample.device] = torch.as_tensor(
+                self.alphas_cumprod, device=sample.device)
         a = table[timesteps.to(sample.device)].to(sample.dtype)
         return a.reshape(a.shape + (1,) * (sample.dim() - a.dim()))
 

@@ -15,7 +15,11 @@ category-scoped or ``all``.  Images are read by the port's
 
 The towers run in fp32 with TF32 off for cuDNN and cuBLAS, in a scope
 around the metric calls (``inception.strict_fp32``), whatever the
-process's settings; those are restored afterwards.
+process's settings; those are restored afterwards.  Each tower (Inception,
+LPIPS, SSIM) is a ``pipelines.graphs.Program`` of ``MetricModels``, the
+JAX package's jitted metric functions: on the card a CUDA graph for each
+batch shape, captured and replayed under that scope; on the CPU the tower
+itself.
 
 Weights: FID/KID/IS need ``inception.pth`` (pytorch-fid's layout) and
 LPIPS ``lpips_alex.pth`` (the lpips package's), from ``weights_dir`` or
@@ -48,6 +52,7 @@ from ladi_vton_tpu_torch.metrics.inception import (
 )
 from ladi_vton_tpu_torch.metrics.lpips import LPIPS, lpips_state
 from ladi_vton_tpu_torch.metrics.ssim import ssim as ssim_fn
+from ladi_vton_tpu_torch.pipelines.graphs import Program
 
 METRICS = ("ssim_score", "lpips_score", "fid_score", "kid_score",
            "is_score")
@@ -144,6 +149,7 @@ class MetricModels:
         self.device = resolve_device(device)
         self._inception = None
         self._lpips = None
+        self._programs: dict = {}
 
     def inception(self) -> InceptionV3:
         if self._inception is None:
@@ -172,27 +178,39 @@ class MetricModels:
             self._lpips = model.eval().to(self.device)
         return self._lpips
 
-    @torch.no_grad()
+    def program(self, name: str, make_body) -> Program:
+        """The tower ``name`` as a program (the JAX package's jitted
+        metric functions), built once from ``make_body()``; the graphs
+        are captured, and replayed, with TF32 off."""
+        if name not in self._programs:
+            body, modules = make_body()
+            self._programs[name] = Program(body, device=self.device,
+                                           modules=modules)
+        return self._programs[name]
+
     def inception_features(self, inc_in: np.ndarray):
         """(pool3, logits) as float32 numpy of a clean-resized batch."""
+        run = self.program("inception", lambda: (self.inception(),
+                                                 (self.inception(),)))
         with strict_fp32():
-            feats, logits = self.inception()(
-                torch.from_numpy(inc_in).to(self.device))
+            feats, logits = run(torch.from_numpy(inc_in))
         return feats.cpu().numpy(), logits.cpu().numpy()
 
-    @torch.no_grad()
     def lpips_distance(self, a: np.ndarray, b: np.ndarray) -> float:
+        def make():
+            tower = self.lpips()
+            return (lambda x, y: tower(x, y, normalize=True)), (tower,)
+
         with strict_fp32():
-            d = self.lpips()(torch.from_numpy(a).to(self.device),
-                             torch.from_numpy(b).to(self.device),
-                             normalize=True)
+            d = self.program("lpips", make)(torch.from_numpy(a),
+                                            torch.from_numpy(b))
         return float(d)
 
-    @torch.no_grad()
     def ssim(self, a: np.ndarray, b: np.ndarray) -> float:
         with strict_fp32():
-            return float(ssim_fn(torch.from_numpy(a).to(self.device),
-                                 torch.from_numpy(b).to(self.device)))
+            d = self.program("ssim", lambda: (ssim_fn, ()))(
+                torch.from_numpy(a), torch.from_numpy(b))
+        return float(d)
 
 
 def compute_metrics(

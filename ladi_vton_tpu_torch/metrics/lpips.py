@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ladi_vton_tpu_torch.ops.resize import device_cached
+
 SHIFT = (-0.030, -0.088, -0.188)
 SCALE = (0.458, 0.448, 0.450)
 ALEX_INDICES = (0, 3, 6, 8, 10)
@@ -66,8 +68,10 @@ class LPIPS(nn.Module):
         if normalize:  # [0, 1] -> [-1, 1]
             img0 = img0 * 2.0 - 1.0
             img1 = img1 * 2.0 - 1.0
-        shift = img0.new_tensor(SHIFT)
-        scale = img0.new_tensor(SCALE)
+        # made once a device: a copy from the host cannot be captured
+        shift, scale = device_cached(
+            ("lpips", img0.dtype, img0.device),
+            lambda: (img0.new_tensor(SHIFT), img0.new_tensor(SCALE)))
         f0 = self.net(((img0 - shift) / scale).permute(0, 3, 1, 2))
         f1 = self.net(((img1 - shift) / scale).permute(0, 3, 1, 2))
         total = img0.new_zeros(img0.shape[0])

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ladi_vton_tpu_torch.ops.resize import device_cached
+
 
 def gaussian_kernel(size: int = 11, sigma: float = 1.5) -> np.ndarray:
     coords = np.arange(size, dtype=np.float64) - (size - 1) / 2.0
@@ -28,8 +30,11 @@ def ssim(pred: torch.Tensor, target: torch.Tensor, *,
          k1: float = 0.01, k2: float = 0.03) -> torch.Tensor:
     """Mean SSIM of two NHWC batches (a 0-d fp32 tensor)."""
     C = pred.shape[-1]
-    kernel = torch.from_numpy(gaussian_kernel(kernel_size, sigma)).to(
-        pred.device)
+    # made once a device: a copy from the host cannot be captured
+    kernel = device_cached(
+        ("ssim", kernel_size, sigma, pred.device),
+        lambda: torch.from_numpy(gaussian_kernel(kernel_size, sigma)).to(
+            pred.device))
     weight = kernel[None, None].expand(C, 1, kernel_size, kernel_size)
 
     def filt(x):

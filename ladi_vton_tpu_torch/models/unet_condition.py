@@ -174,9 +174,13 @@ class UNet2DCondition(nn.Module):
 
     def _run(self, block, *args):
         """``block(*args)``, checkpointed where the forward records
-        gradients and ``gradient_checkpointing`` is set."""
+        gradients and ``gradient_checkpointing`` is set.  The blocks draw
+        nothing (no dropout), so the recompute needs no generator state:
+        ``preserve_rng_state=False``, which also keeps a CUDA graph's
+        capture from reading the device generator."""
         if self.gradient_checkpointing and torch.is_grad_enabled():
-            return checkpoint(block, *args, use_reentrant=False)
+            return checkpoint(block, *args, use_reentrant=False,
+                              preserve_rng_state=False)
         return block(*args)
 
     def precompute_context_kv(self, encoder_hidden_states: torch.Tensor

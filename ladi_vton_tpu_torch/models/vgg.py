@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ladi_vton_tpu_torch.ops.resize import resize_bilinear
+from ladi_vton_tpu_torch.ops.resize import device_cached, resize_bilinear
 
 # torchvision vgg19's configuration "E": conv widths, "M" a max pool
 _CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
@@ -79,8 +79,11 @@ def vgg_preprocess(x: torch.Tensor) -> torch.Tensor:
     x = resize_bilinear(x.float(), (int(round(H * scale)),
                                     int(round(W * scale))))
     x = (x + 1.0) * 0.5
-    mean = x.new_tensor(IMAGENET_MEAN)[None, :, None, None]
-    std = x.new_tensor(IMAGENET_STD)[None, :, None, None]
+    # made once a device: a copy from the host cannot be captured
+    mean, std = device_cached(
+        ("imagenet", x.dtype, x.device),
+        lambda: tuple(x.new_tensor(v)[None, :, None, None]
+                      for v in (IMAGENET_MEAN, IMAGENET_STD)))
     return (x - mean) / std
 
 

@@ -1,11 +1,11 @@
 """CUDA graphs: the port's counterpart of the JAX package's ``jax.jit``.
 
-The JAX package compiles every inference program it runs (the sampler,
-the conditioning, the drivers' text and vision towers, the VAE
-reconstruction, the inpainting validation) into device programs that run
-without the host.  PyTorch's counterpart of a compiled program is a
-captured ``torch.cuda.CUDAGraph``: the launches of one eager run,
-recorded once and replayed by one call.
+The JAX package compiles every program it runs (the sampler, the
+conditioning, the drivers' text and vision towers, the VAE
+reconstruction, the inpainting validation, the metric towers, the train
+steps) into device programs that run without the host.  PyTorch's
+counterpart of a compiled program is a captured ``torch.cuda.CUDAGraph``:
+the launches of one eager run, recorded once and replayed by one call.
 
 ``Program(body, device=...)`` is that counterpart for any ``body(*args)``
 over tensor trees (tensors, None, and tuples, lists and dicts of them).
@@ -19,6 +19,12 @@ read the modules' parameters in place: modules moved or reloaded need a
 new program.  ``modules`` holding a BatchNorm or dropout in training
 mode are refused at capture, since the graph would record the training
 forward (running-statistics updates, one dropout mask for good).
+
+``TrainProgram`` is a train step as a program (the JAX ``shard_step``):
+grad mode on, the optimizer's learning rate written before each call and
+its count advanced after, the first call of a signature the real step
+(eager) before the capture, and dropout in training mode refused where
+BatchNorm in training mode is captured with its statistics' update.
 
 ``LoopProgram`` captures a sampling loop as three graphs of one memory
 pool, replayed in the order they were captured: a prepare graph (which
@@ -66,6 +72,7 @@ import copy
 import dataclasses
 import functools
 import gc
+import logging
 import time
 from typing import Callable, Optional, Sequence
 
@@ -111,15 +118,16 @@ def _uncached_autocast():
 
 class Graph:
     """``body(*args)`` captured as one CUDA graph on ``stream``, after one
-    eager run there; ``args`` are the static tensors it reads (any nesting
-    of tuples, lists and dicts), ``outputs`` what it returned.  ``pool``:
-    another graph's memory pool to share."""
+    eager run there (the warm-up, whose outputs go to ``warmed``);
+    ``args`` are the static tensors it reads (any nesting of tuples, lists
+    and dicts), ``outputs`` what it returned.  ``pool``: another graph's
+    memory pool to share."""
 
     def __init__(self, body: Callable, *args, stream: torch.cuda.Stream,
                  pool=None):
         stream.wait_stream(torch.cuda.current_stream(stream.device))
         with torch.cuda.stream(stream), _uncached_autocast():
-            body(*args)
+            self.warmed(body(*args))
         before = counts()
         self.graph = torch.cuda.CUDAGraph()
         # no collection during the capture: one that freed another graph
@@ -143,6 +151,13 @@ class Graph:
             after = counts()
             self.deltas = {k: after[k] - before[k] for k in after}
             _add_counts({k: -d for k, d in self.deltas.items()})
+        self.captured()
+
+    def warmed(self, outputs) -> None:
+        """The warm-up run's outputs (dropped here), before the capture."""
+
+    def captured(self) -> None:
+        """Called once the capture has ended."""
 
     @property
     def pool(self):
@@ -207,6 +222,23 @@ def _refuse_training(modules: Sequence[torch.nn.Module]) -> None:
                     f"its training forward; call .eval() before capturing")
 
 
+def _refuse_draws(modules: Sequence[torch.nn.Module]) -> None:
+    """A training program's rule: a BatchNorm in training mode is allowed
+    (its running statistics' update is the step's own effect, and is
+    captured with it), a dropout with p > 0 in training mode is not: it
+    draws from the device generator, and a replay would repeat the
+    capture's mask.  A step takes its draws as inputs."""
+    for module in modules:
+        for name, m in module.named_modules():
+            if (m.training and isinstance(m, torch.nn.modules.dropout.
+                                          _DropoutNd) and m.p > 0):
+                raise RuntimeError(
+                    f"{type(module).__name__}.{name} ({type(m).__name__}, "
+                    f"p={m.p}) draws from the device generator in training "
+                    f"mode, which a CUDA graph would replay unchanged; pass "
+                    f"the step's draws as inputs, or call .eval()")
+
+
 class Captured:
     """One signature's static ``inputs`` and ``body``'s graph over them."""
 
@@ -243,24 +275,33 @@ class Program:
         ``inputs`` and ``run()``."""
         return Captured(self.body, inputs, self.stream)
 
+    def refuse(self) -> None:
+        """Raises where ``modules`` may not be captured (an inference
+        program's rule: nothing in training mode)."""
+        _refuse_training(self.modules)
+
     def replay(self, args: tuple):
         """Copy ``args`` into their signature's static inputs (capturing
         at the signature's first call) and replay: the outputs, in the
         graphs' memory until the next replay of the signature."""
         key = _signature(args)
         graphs = self.sets.get(key)
-        if graphs is None:
-            _refuse_training(self.modules)
-            t0 = time.perf_counter()
-            inputs = _map(lambda x: torch.empty_like(x, device=self.device),
-                          args)
-            _load(inputs, args)
-            graphs = self.capture(inputs)
-            torch.cuda.synchronize(self.device)
-            self.capture_seconds[key] = time.perf_counter() - t0
-            self.sets[key] = graphs
-        else:
+        if graphs is not None:
             _load(graphs.inputs, args)
+            return graphs.run()
+        self.refuse()
+        t0 = time.perf_counter()
+        inputs = _map(lambda x: torch.empty_like(x, device=self.device),
+                      args)
+        _load(inputs, args)
+        graphs = self.capture(inputs)
+        torch.cuda.synchronize(self.device)
+        self.capture_seconds[key] = time.perf_counter() - t0
+        self.sets[key] = graphs
+        return self.first_run(graphs)
+
+    def first_run(self, graphs):
+        """The outputs of a signature's first call, once captured."""
         return graphs.run()
 
     @torch.no_grad()
@@ -272,6 +313,109 @@ class Program:
             return self.body(*args)
         out = self.replay(args)
         return _map(torch.clone, out) if clone else out
+
+
+class TrainStep(Graph):
+    """One signature's static ``inputs`` and the train step's graph over
+    them.  The warm-up is the real step, run once eagerly on ``stream``
+    (it also makes the AdamW state, the kernel library, the cuBLAS
+    workspace of the stream), and its outputs are ``first``; the cache
+    that run left is released before the capture, which runs nothing, so
+    the call that captures applies one update.  The capture gives
+    ``params`` new gradients in the graph's pool, into which the real
+    step's are copied: after the call, as after every replay, each
+    ``.grad`` holds the step's gradient.  ``warmup_seconds`` and
+    ``capture_seconds``: the real step's and the capture's (host clock,
+    synchronised)."""
+
+    def __init__(self, body: Callable, inputs: tuple,
+                 stream: torch.cuda.Stream, params: Sequence[torch.Tensor]):
+        self.inputs, self.params, self.device = inputs, params, stream.device
+        self.t0 = time.perf_counter()
+        super().__init__(body, *inputs, stream=stream)
+        torch.cuda.synchronize(self.device)
+        self.capture_seconds = time.perf_counter() - self.t0 - \
+            self.warmup_seconds
+
+    def warmed(self, outputs) -> None:
+        self.first = outputs
+        torch.cuda.synchronize(self.device)
+        # the eager run's activations stay cached for the program's
+        # stream, where nothing else allocates: hand them back before the
+        # graph's pool takes the same room
+        torch.cuda.empty_cache()
+        self.grads = [p.grad for p in self.params]
+        self.warmup_seconds = time.perf_counter() - self.t0
+
+    def captured(self) -> None:
+        for p, g in zip(self.params, self.grads):
+            if p.grad is not None and g is not None:
+                p.grad.copy_(g)
+        del self.grads
+
+    run = Graph.replay
+
+
+class TrainProgram(Program):
+    """A train step as a compiled program: the counterpart of the JAX
+    ``shard_step``'s ``jax.jit(step, donate_argnums=(0,))``, whose state
+    is updated in place.
+
+    ``body(*args) -> metrics`` is the step's device work (``zero_grad``,
+    the forwards and backwards, ``optimizer.update()``), with grad mode
+    on.  A call writes the learning rate (``optimizer.write_lr()``), runs
+    the step, advances ``optimizer.count`` and returns the metrics: on
+    the card each input signature's first call is the real step, after
+    which it is captured (``TrainStep``), and later calls copy their
+    inputs into the signature's static ones and replay.  The gradients
+    live in the graphs' pool.  Before a capture, ``modules`` holding a
+    dropout with p > 0 in training mode are refused (``_refuse_draws``);
+    BatchNorm in training mode is captured with its statistics' update.
+    ``eager_reason`` (a str) runs the step eagerly on the card instead,
+    and is logged once."""
+
+    def __init__(self, body: Callable, *, optimizer, device,
+                 modules: Sequence[torch.nn.Module] = (),
+                 eager_reason: Optional[str] = None):
+        super().__init__(body, device=device, modules=modules)
+        self.optimizer = optimizer
+        self.eager_reason = eager_reason if self.graphed else None
+        if self.eager_reason is not None:
+            self.graphed = False
+            logging.getLogger(__name__).info(
+                "the train step runs eagerly on %s: %s", self.device,
+                self.eager_reason)
+
+    def refuse(self) -> None:
+        _refuse_draws(self.modules)
+
+    def capture(self, inputs: tuple) -> TrainStep:
+        step = TrainStep(self.body, inputs, self.stream,
+                         self.optimizer.params)
+        self.optimizer.captured = True
+        return step
+
+    def first_run(self, step: TrainStep):
+        first, step.first = step.first, None
+        return first
+
+    def run_eager(self, *args):
+        """The step as the CPU runs it: ``body`` itself, between the
+        learning rate's write and the count's advance."""
+        self.optimizer.write_lr()
+        with torch.enable_grad():
+            out = self.body(*args)
+        self.optimizer.advance()
+        return out
+
+    def __call__(self, *args):
+        if not self.graphed:
+            return self.run_eager(*args)
+        self.optimizer.write_lr()
+        with torch.enable_grad():
+            out = _map(torch.clone, self.replay(args))
+        self.optimizer.advance()
+        return out
 
 
 class HostLoop:

@@ -160,7 +160,13 @@ def train_loop(*, step_fn: Callable, loader, to_batch: Callable,
     draws ``draws_fn(batch, batch_generator(seed, step, device))`` of the
     global batch cut to those rows (none without ``draws_fn``; a draws
     function reads only the batch's ``image`` shape),
-    ``step_fn(batch, draws)``.  Every ``log_every`` steps the metrics go
+    ``step_fn(batch, draws)``.  The trainers' ``step_fn`` is a
+    ``pipelines.graphs.TrainProgram``: it writes the step's learning rate,
+    replays the captured step (the first step of a batch shape runs
+    eagerly, then captures) and advances the optimizer's count.  A replay
+    runs on the caller's current stream, so the checkpoints and
+    ``on_checkpoint`` read the parameters and the optimizer state after
+    it, in order.  Every ``log_every`` steps the metrics go
     to the trackers; every ``checkpointing_steps`` the state
     ``state_fn(step)`` (collective, None off the main process) is saved
     by the main process and ``on_checkpoint(step)`` runs on every rank;

@@ -1,8 +1,14 @@
 """Training steps of the extended-UNet and EMASC stages.
 
-Counterpart of ``ladi_vton_tpu/train/steps.py``.  A step is eager:
-``step(batch, draws) -> metrics`` runs the loss of each micro-batch,
-``backward``, and one optimizer update.
+Counterpart of ``ladi_vton_tpu/train/steps.py``.  A step,
+``step(batch, draws) -> metrics``, runs the loss of each micro-batch,
+``backward``, and one optimizer update.  It is a
+``pipelines.graphs.TrainProgram``, the JAX ``jax.jit`` of the step: on
+the card its first call per input signature is the real step, run
+eagerly, after which the step is captured as a CUDA graph that later
+calls replay (forward, backward, clip and AdamW inside the graph, the
+learning rate written before each replay); on the CPU, and over a
+process group (``eager_reason``), it runs eagerly.
 
 * The optimizer (``make_optimizer``) is AdamW after a global-norm clip,
   matched to optax's ``chain(clip_by_global_norm, adamw(schedule))``:
@@ -66,6 +72,7 @@ from ladi_vton_tpu_torch.models.emasc import mask_features
 from ladi_vton_tpu_torch.models.vae import DiagonalGaussian
 from ladi_vton_tpu_torch.models.vgg import vgg_loss
 from ladi_vton_tpu_torch.ops.resize import resize_bilinear, resize_nearest
+from ladi_vton_tpu_torch.pipelines.graphs import TrainProgram
 from ladi_vton_tpu_torch.pipelines.tryon import _nchw as nchw
 
 LR_SCHEDULERS = ("linear", "cosine", "cosine_with_restarts", "polynomial",
@@ -125,12 +132,27 @@ class Optimizer:
     stepped with ``schedule(count)`` as its learning rate; ``count`` is
     the number of updates made.  The state dict holds both.
 
+    A step is split so that a CUDA graph can hold its device part:
+    ``write_lr`` (host: the schedule's value at ``count`` into the
+    learning rate the update reads), ``update`` (device: the clip and the
+    AdamW update, no host sync) and ``advance`` (host: ``count`` + 1);
+    ``step`` is the three in order.  On the card AdamW is capturable: its
+    step counters live on the device and ``lr`` is a 0-dim fp32 device
+    tensor that ``write_lr`` fills, so a captured update reads each
+    replay's value; the bias correction is then computed in fp32 on the
+    device, not in float64 on the host.  On the CPU (where PyTorch refuses
+    capturable parameters) AdamW is not capturable and ``write_lr`` sets
+    the param groups' float.
+
     ``zero_group`` (a process group of more than one rank) shards the
     AdamW state over it (ZeRO-1); ``state_dict`` is then collective and
     returns the whole state on the group's first rank, None elsewhere,
     and ``load_state_dict`` takes the whole state on every rank.
     ``model_group``: the group whose ranks hold the other slices of the
-    ``tp_sharded`` parameters, for the clip's norm."""
+    ``tp_sharded`` parameters, for the clip's norm.  ``captured`` is set
+    by a program that captured ``update`` (``pipelines.graphs.
+    TrainProgram``): loading a state then is refused, since it would
+    swap the tensors the graph reads."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter],
                  schedule: Callable[[int], float], *, betas=(0.9, 0.999),
@@ -141,7 +163,14 @@ class Optimizer:
         self.schedule = schedule
         self.max_grad_norm = max_grad_norm
         self.model_group = model_group
-        kw = dict(lr=0.0, betas=betas, eps=eps, weight_decay=weight_decay)
+        self.device = (self.params[0].device if self.params
+                       else torch.device("cpu"))
+        self.capturable = self.device.type == "cuda"
+        self.lr = (torch.zeros((), dtype=torch.float32, device=self.device)
+                   if self.capturable else None)
+        kw = dict(lr=self.lr if self.capturable else 0.0, betas=betas,
+                  eps=eps, weight_decay=weight_decay,
+                  capturable=self.capturable)
         self.zero_group = zero_group
         if zero_group is not None:
             from torch.distributed.optim import ZeroRedundancyOptimizer
@@ -151,7 +180,29 @@ class Optimizer:
                 process_group=zero_group, **kw)
         else:
             self.adamw = torch.optim.AdamW(self.params, **kw)
+        self._own_groups()
         self.count = 0
+        self.captured = False
+
+    def _groups(self) -> list:
+        groups = list(self.adamw.param_groups)
+        if self.zero_group is not None:
+            groups += self.adamw.optim.param_groups
+        return groups
+
+    def _own_groups(self) -> None:
+        """Every param group reads this optimizer's ``lr`` and
+        ``capturable`` (a loaded state dict brings its own)."""
+        for group in self._groups():
+            group["capturable"] = self.capturable
+            if self.lr is not None:
+                group["lr"] = self.lr
+        # eager updates of a capturable AdamW are intended (the first
+        # step of a program, steps over ranks): no warning about them
+        optims = [self.adamw] + ([self.adamw.optim]
+                                 if self.zero_group is not None else [])
+        for optim in optims:
+            optim._warned_capturable_if_run_uncaptured = True
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
@@ -180,13 +231,31 @@ class Optimizer:
         torch._foreach_mul_(grads, scale)
         return norm
 
-    def step(self) -> Optional[torch.Tensor]:
-        norm = self.clip()
+    def write_lr(self) -> float:
+        """The schedule's learning rate at ``count``, written where the
+        next ``update`` reads it (a fill on the card: no host sync)."""
         lr = float(self.schedule(self.count))
-        for group in self.adamw.param_groups:
-            group["lr"] = lr
+        if self.lr is not None:
+            self.lr.fill_(lr)
+        else:
+            for group in self._groups():
+                group["lr"] = lr
+        return lr
+
+    def update(self) -> Optional[torch.Tensor]:
+        """The device part of a step: the clip and the AdamW update with
+        the learning rate last written; returns the clip's norm."""
+        norm = self.clip()
         self.adamw.step()
+        return norm
+
+    def advance(self) -> None:
         self.count += 1
+
+    def step(self) -> Optional[torch.Tensor]:
+        self.write_lr()
+        norm = self.update()
+        self.advance()
         return norm
 
     def local_state_numel(self) -> int:
@@ -198,11 +267,15 @@ class Optimizer:
                    and v.dim() > 0)
 
     def state_dict(self) -> Optional[dict]:
-        if self.zero_group is not None:
-            adamw = self._consolidated()
-            return None if adamw is None else {"adamw": adamw,
-                                               "count": self.count}
-        return {"adamw": self.adamw.state_dict(), "count": self.count}
+        """``{"adamw": ..., "count": n}``; each param group's ``lr`` is a
+        float there, so the state loads into either form."""
+        adamw = (self._consolidated() if self.zero_group is not None
+                 else self.adamw.state_dict())
+        if adamw is None:
+            return None
+        groups = [dict(g, lr=float(g["lr"])) for g in adamw["param_groups"]]
+        return {"adamw": dict(adamw, param_groups=groups),
+                "count": self.count}
 
     def _consolidated(self) -> Optional[dict]:
         """ZeRO-1's whole AdamW state in ``torch.optim.AdamW``'s format
@@ -247,12 +320,29 @@ class Optimizer:
         return out
 
     def load_state_dict(self, state: dict) -> None:
+        """Load ``state_dict``'s output, from either form; refused once a
+        program captured ``update``.  The step counters move to where this
+        optimizer keeps them: a saved non-capturable AdamW (on the CPU, or
+        on the card before AdamW was capturable) left them on the host, and
+        a capturable one reads them on its parameters' device."""
+        if self.captured:
+            raise RuntimeError(
+                "a captured train program reads this optimizer's state in "
+                "place; load the state before the program's first call")
         self.adamw.load_state_dict(state["adamw"])
+        self._own_groups()
+        optim = self.adamw
         if self.zero_group is not None:
             # ZeroRedundancyOptimizer.load_state_dict also leaves a device
             # copy of this rank's moments in the wrapper's own ``state``,
             # which nothing reads: the moments live in ``adamw.optim``
             self.adamw.state.clear()
+            optim = self.adamw.optim
+        for p, entry in optim.state.items():
+            if "step" in entry:
+                entry["step"] = entry["step"].to(
+                    device=p.device if self.capturable else "cpu",
+                    dtype=torch.float32)
         self.count = int(state["count"])
 
 
@@ -325,20 +415,41 @@ def reduce_gradients(params, mesh: Optional[Mesh]) -> None:
                 g.copy_(r)
 
 
+def eager_reason(mesh: Optional[Mesh]) -> Optional[str]:
+    """Why a step over ``mesh`` runs eagerly on the card, or None where
+    it is a captured program: a step over a process group runs its
+    collectives (the gradient ``all_reduce`` over ``data``, ZeRO-1's
+    broadcasts, the clip's ``all_reduce`` over ``model``), which gloo
+    stages through the host and a graph cannot hold; NCCL's capture
+    waits for a machine with more than one card to be checked."""
+    if mesh is None or (mesh.data_group is None
+                        and mesh.model_group is None):
+        return None
+    return (f"a mesh of {mesh.data} x {mesh.model} ranks over a process "
+            f"group: its collectives are not captured")
+
+
 def build_train_step(loss_fn: Callable, optimizer: Optimizer,
                      gradient_accumulation_steps: int = 1,
                      autocast: Callable = contextlib.nullcontext,
-                     mesh: Optional[Mesh] = None) -> Callable:
+                     mesh: Optional[Mesh] = None,
+                     modules: Iterable[torch.nn.Module] = ()
+                     ) -> TrainProgram:
     """``step(batch, draws) -> metrics`` from ``loss_fn(batch, draws) ->
     (loss, metrics)``: A micro-batches, each loss back-propagated scaled
     by 1/A, one update; the metrics (tensors, ``loss`` among them) are the
     micro-batches' mean.  ``autocast()`` is the forward's context.  Over a
     ``mesh``, ``batch`` and ``draws`` are this rank's rows, the gradients
     are averaged over ``data`` before the update and the metrics after
-    it."""
+    it.
+
+    The step is a ``pipelines.graphs.TrainProgram`` (the JAX
+    ``shard_step``'s ``jax.jit``): captured and replayed on the card but
+    where ``eager_reason(mesh)`` says why not; ``modules`` are the
+    towers the loss runs, checked before the capture."""
     A = gradient_accumulation_steps
 
-    def step(batch: dict, draws: Optional[dict] = None) -> dict:
+    def body(batch: dict, draws: Optional[dict] = None) -> dict:
         optimizer.zero_grad()
         parts = (zip(_split(batch, A), _split(draws or {}, A)) if A > 1
                  else [(batch, draws or {})])
@@ -351,12 +462,13 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
                 v = v.detach().float()
                 total[k] = total[k] + v if k in total else v
         reduce_gradients(optimizer.params, mesh)
-        optimizer.step()
+        optimizer.update()
         group = mesh.data_group if mesh is not None else None
         return {k: all_reduce_mean(v / A, group, mesh.data if mesh else 1)
                 for k, v in total.items()}
 
-    return step
+    return TrainProgram(body, optimizer=optimizer, device=optimizer.device,
+                        modules=modules, eager_reason=eager_reason(mesh))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -458,7 +570,12 @@ def make_vto_train_step(*, optimizer: Optimizer, config: VTOStepConfig,
     towers), with ``config.gradient_accumulation_steps``, over ``mesh``."""
     return build_train_step(make_vto_loss(config=config, **towers),
                             optimizer, config.gradient_accumulation_steps,
-                            autocast, mesh)
+                            autocast, mesh, _towers(towers))
+
+
+def _towers(kwargs: dict) -> list:
+    """The modules among a loss's keyword arguments."""
+    return [m for m in kwargs.values() if isinstance(m, torch.nn.Module)]
 
 
 def emasc_draws(batch: dict, generator: torch.Generator) -> dict:
@@ -497,4 +614,5 @@ def make_emasc_train_step(*, optimizer: Optimizer,
                           **kwargs) -> Callable:
     """``step(batch, draws)`` of the EMASC stage (``make_emasc_loss``)."""
     return build_train_step(make_emasc_loss(**kwargs), optimizer,
-                            gradient_accumulation_steps, autocast, mesh)
+                            gradient_accumulation_steps, autocast, mesh,
+                            _towers(kwargs))

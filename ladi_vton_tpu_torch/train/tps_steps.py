@@ -41,6 +41,7 @@ from ladi_vton_tpu_torch.pipelines.tryon import _nhwc as nhwc
 from ladi_vton_tpu_torch.train.steps import (
     Optimizer,
     _latent_shape,
+    _towers,
     build_train_step,
 )
 
@@ -72,7 +73,7 @@ def make_tps_loss(*, tps, const_weight: float = 0.01) -> Callable:
 def make_tps_train_step(*, tps, optimizer: Optimizer,
                         const_weight: float = 0.01) -> Callable:
     return build_train_step(make_tps_loss(tps=tps, const_weight=const_weight),
-                            optimizer)
+                            optimizer, modules=(tps,))
 
 
 def warp(tps, batch: dict, height: int, width: int) -> torch.Tensor:
@@ -105,7 +106,8 @@ def make_refinement_loss(*, tps, refinement, vgg, l1_weight: float = 1.0,
 
 
 def make_refinement_train_step(*, optimizer: Optimizer, **kwargs) -> Callable:
-    return build_train_step(make_refinement_loss(**kwargs), optimizer)
+    return build_train_step(make_refinement_loss(**kwargs), optimizer,
+                            modules=_towers(kwargs))
 
 
 @torch.no_grad()
@@ -123,6 +125,35 @@ def warp_and_refine(tps, refinement, *, cloth, im_mask, pose,
     ref_in = torch.cat([batch["im_mask"], batch["pose"], warped], dim=-1)
     refined = nhwc(refinement(nchw(ref_in)))
     return refined.clamp(-1.0, 1.0) if clamp else refined
+
+
+def eval_batch(tps, refinement, vgg, batch: dict, *, refined: bool,
+               height: int = 512, width: int = 384) -> tuple:
+    """One test batch of the per-epoch evaluation (the JAX main's
+    ``_eval_batch_tps`` and ``_eval_batch_refined``): (warped cloth, its
+    L1 and VGG losses against ``im_cloth``), the warped cloth clamped to
+    [-1, 1].  ``refined``: warped and refined (``warp_and_refine``), else
+    TPS alone.  Both towers in eval mode."""
+    if refined:
+        warped = warp_and_refine(tps, refinement, cloth=batch["cloth"],
+                                 im_mask=batch["im_mask"],
+                                 pose=batch["pose"], height=height,
+                                 width=width)
+    else:
+        tps.eval()
+        warped = warp(tps, batch, height, width)
+    l1 = torch.mean(torch.abs(warped - batch["im_cloth"]))
+    perc = vgg_loss(vgg, nchw(warped), nchw(batch["im_cloth"]))
+    return warped.clamp(-1.0, 1.0), l1, perc
+
+
+def extraction_pixels(tps, refinement, cloth, im_mask, pose, *,
+                      height: int = 512, width: int = 384) -> torch.Tensor:
+    """The extraction's refined warped cloths (the JAX main's
+    ``extract_fn``) as uint8 NHWC pixels."""
+    warped = warp_and_refine(tps, refinement, cloth=cloth, im_mask=im_mask,
+                             pose=pose, height=height, width=width)
+    return torch.round(((warped + 1) / 2).clamp(0, 1) * 255).to(torch.uint8)
 
 
 def adapter_draws(batch: dict, generator: torch.Generator, *,
@@ -174,4 +205,5 @@ def make_inversion_adapter_train_step(
         **kwargs) -> Callable:
     """``step(batch, draws)`` of the adapter stage, over ``mesh``."""
     return build_train_step(make_inversion_adapter_loss(**kwargs), optimizer,
-                            gradient_accumulation_steps, autocast, mesh)
+                            gradient_accumulation_steps, autocast, mesh,
+                            _towers(kwargs))
