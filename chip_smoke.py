@@ -8,6 +8,7 @@
     python3 chip_smoke.py --training-only     # phase 2's gradients, phase 10
     python3 chip_smoke.py --distributed-only  # phase 2's TP rows, phase 11
     python3 chip_smoke.py --graphs-only       # phases 12, 13 and 14
+    python3 chip_smoke.py --jpeg-only         # phase 7's JPEG decoder
 
 Phases, each printing its numbers before the last line:
 
@@ -90,10 +91,21 @@ Phases, each printing its numbers before the last line:
    kernel's launch counter rising; last, the VAE's encode and decode at
    512x384 untiled and tiled with the JAX defaults, timed, and the
    tiled calls under the K2 census;
-7. the CLIs: a DressCode (one category) and a VITON-HD test split of 2
-   pairs each, written at the datasets' 1024x768 by the port's PNG writer
-   under the datasets' file names (``data/synthetic.py``), with the
-   warped-cloth and CLIP-feature caches; ``cli.inference.main`` over each
+7. first the JPEG decoder on the host (``csrc/host/jpeg_decode.cpp``,
+   built by this machine's compiler): each committed fixture
+   (``tests/fixtures/jpeg``: progressive, smoothed, arithmetic-coded,
+   4:4:0, 4:1:1, CMYK, YCCK, Adobe-RGB, RGB-labelled) bitwise against
+   PIL's pixels
+   beside it; a VITON-HD item whose person and cloth are the progressive
+   fixtures, read with no sidecar; a 1024x768 image's coefficients
+   written baseline, progressive and arithmetic-coded
+   (``tools/bench_jpeg_decode.py``), decoded bitwise alike, each decode
+   timed, and a VITON-HD item's load from each kind of person and cloth
+   timed (host clock).  Then the CLIs: a DressCode (one category) and a
+   VITON-HD test split of 2 pairs each, written at the datasets'
+   1024x768 by the port's PNG writer under the datasets' file names
+   (``data/synthetic.py``), with the warped-cloth and CLIP-feature
+   caches; ``cli.inference.main`` over each
    (DDIM-50, CFG 7.5, batch 2, 512x384, PNG output) and ``cli.eval.main``
    over each (DPM-Solver++-20, the cached warped cloths and CLIP
    features), from phase 6's reference-layout files (the ``*_vitonhd``
@@ -290,6 +302,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import importlib.util
 import io
 import json
 import os
@@ -333,6 +346,7 @@ from ladi_vton_tpu_torch.data import (
     native,
     synthetic,
 )
+from ladi_vton_tpu_torch.data.dresscode import _to_float as dresscode_to_float
 from ladi_vton_tpu_torch.data.features import ClothFeatureCache
 from ladi_vton_tpu_torch.diffusion.schedulers import (
     DDIMScheduler,
@@ -1928,6 +1942,115 @@ def check_jpegs(save_dir: pathlib.Path, label: str) -> int:
     if not files:
         raise AssertionError(f"{label}: no JPEG written")
     return len(files)
+
+
+# phase 7's JPEG checks: the committed fixtures (tools/make_jpeg_fixtures.py
+# writes them where PIL is installed, each beside PIL's pixels as a PNG),
+# the decodes timed per kind, and a VITON-HD item's loads timed
+JPEG_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
+    "fixtures" / "jpeg"
+JPEG_DECODE_REPS = 20
+JPEG_ITEM_REPS = 5
+JPEG_ITEM_KEYS = ("c_name", "im_name", "image", "cloth", "pose_map",
+                  "inpaint_mask", "im_mask", "warped_cloth", "category")
+
+
+def same_item(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        bitwise(a[k], b[k]) if isinstance(b[k], np.ndarray)
+        else a[k] == b[k] for k in b)
+
+
+def jpeg_path(work: pathlib.Path, smi: str) -> None:
+    """Phase 7's JPEG decoder, on the host: every committed fixture
+    decoded by the library this machine's compiler built, bitwise against
+    PIL's pixels beside it; a VITON-HD item whose person and cloth are
+    the progressive fixtures, read with no sidecar present; the decode of
+    a 1024x768 image's coefficients written baseline, progressive and
+    arithmetic-coded (``tools/bench_jpeg_decode.py``), all three bitwise
+    equal, timed; and a 1024x768 VITON-HD item's load with baseline,
+    progressive and arithmetic person and cloth, timed, the items bitwise
+    equal."""
+    t0 = time.perf_counter()
+    manifest = json.loads((JPEG_FIXTURES / "fixtures.json").read_text())
+    for kind, entry in manifest.items():
+        got = imageio.open_image(JPEG_FIXTURES / f"{kind}.jpg")
+        want = imageio.decode_png((JPEG_FIXTURES / f"{kind}.png").read_bytes())
+        if got.mode != entry["mode"] or not np.array_equal(got.pixels,
+                                                           want.pixels):
+            raise AssertionError(f"JPEG fixture {kind} ({entry['what']}): "
+                                 f"the port's decode is not PIL's pixels")
+    log(f"phase 7 JPEG: {len(manifest)} committed fixtures decode bitwise "
+        f"to PIL's pixels with {native.build()}: {', '.join(manifest)}")
+
+    root = synthetic.write_vitonhd(work / "jpeg_item" / "vitonhd",
+                                   n_pairs=1, size=(128, 96), seed=72)
+    for sub, kind in (("image", "progressive_person"),
+                      ("cloth", "progressive_cloth")):
+        shutil.copyfile(JPEG_FIXTURES / f"{kind}.jpg",
+                        root / "test" / sub / "000000_00.jpg")
+    if list(root.parent.rglob("*.jpg.png")):
+        raise AssertionError("a sidecar in the progressive item's tree")
+    item = VitonHDDataset(str(root), phase="test", size=(128, 96),
+                          outputlist=JPEG_ITEM_KEYS)[0]
+    for key, kind in (("image", "progressive_person"),
+                      ("cloth", "progressive_cloth")):
+        px = imageio.decode_png((JPEG_FIXTURES / f"{kind}.png").read_bytes())
+        if not np.array_equal(item[key], dresscode_to_float(px)):
+            raise AssertionError(f"the progressive item's {key} is not the "
+                                 f"fixture's pixels")
+    log("phase 7 JPEG: a VITON-HD item with the progressive person and "
+        "cloth fixtures, no sidecar, read through VitonHDDataset, its image "
+        "and cloth the fixtures' pixels")
+
+    # loaded from its file, as it loads the tests' writer: sys.path stays
+    spec = importlib.util.spec_from_file_location(
+        "bench_jpeg_decode", REPO / "tools" / "bench_jpeg_decode.py")
+    bench_jpeg_decode = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = bench_jpeg_decode
+    spec.loader.exec_module(bench_jpeg_decode)
+
+    t_write = time.perf_counter()
+    files = bench_jpeg_decode.timing_files()
+    t_write = time.perf_counter() - t_write
+    decoded = {kind: native.jpeg_decode(data) for kind, data in files.items()}
+    if any(px is None or not np.array_equal(px, decoded["baseline"])
+           for px in decoded.values()):
+        raise AssertionError("the 1024x768 progressive or arithmetic decode "
+                             "is not the baseline decode of the same "
+                             "coefficients")
+    for kind, data in files.items():
+        t = bench_jpeg_decode.summary(bench_jpeg_decode.decode_ms(
+            native.jpeg_decode, data, JPEG_DECODE_REPS))
+        log(f"phase 7 JPEG decode 1024x768 q{bench_jpeg_decode.QUALITY} "
+            f"4:2:0 {kind} ({len(data)} bytes): median "
+            f"{t['median_ms']:.3f} ms, min {t['min_ms']:.3f}, max "
+            f"{t['max_ms']:.3f} over {t['reps']} decodes, host clock "
+            f"[{smi}]")
+
+    root = synthetic.write_vitonhd(work / "jpeg_load" / "vitonhd",
+                                   n_pairs=1, size=SOURCE_SIZE, seed=73)
+    items = {}
+    for kind, data in files.items():  # the person and the cloth alike
+        for sub in ("image", "cloth"):
+            (root / "test" / sub / "000000_00.jpg").write_bytes(data)
+        ds = VitonHDDataset(str(root), phase="test", size=(512, 384),
+                            outputlist=JPEG_ITEM_KEYS)
+        items[kind] = ds[0]
+        ms = []
+        for _ in range(JPEG_ITEM_REPS):
+            t_item = time.perf_counter()
+            ds[0]
+            ms.append((time.perf_counter() - t_item) * 1e3)
+        t = bench_jpeg_decode.summary(ms)
+        log(f"phase 7 JPEG: one VITON-HD item at 512x384 from {kind} "
+            f"1024x768 person and cloth: median {t['median_ms']:.3f} ms, "
+            f"min {t['min_ms']:.3f}, max {t['max_ms']:.3f} over "
+            f"{t['reps']} loads, host clock [{smi}]")
+    if not all(same_item(it, items["baseline"]) for it in items.values()):
+        raise AssertionError("the VITON-HD items differ by the JPEGs' kind")
+    log(f"phase 7 JPEG: the decoder's checks ({time.perf_counter() - t0:.1f}"
+        f" s, {t_write:.1f} s of it writing the timing files)")
 
 
 def mains_path(work: pathlib.Path, pipe: TryOnPipeline, cond: Conditioner,
@@ -5313,6 +5436,9 @@ def main() -> None:
                         help="phase 2's tensor-parallel rows and phase 11 "
                         "alone (its files written from freshly seeded "
                         "modules), then exit without the result lines")
+    parser.add_argument("--jpeg-only", action="store_true",
+                        help="phase 7's JPEG decoder checks alone (no "
+                        "kernel build), then exit without the result lines")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script measures "
@@ -5327,6 +5453,10 @@ def main() -> None:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)}")
 
+    if args.jpeg_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+            jpeg_path(pathlib.Path(work), smi)
+        return
     build_dir, build_s = _build.build()
     _build.library()
     if args.sweep_geglu:
@@ -5472,6 +5602,7 @@ def run_phases(work: pathlib.Path, gen: Gen, smi: str, checked: dict) -> dict:
                              f"{missing}")
     log(f"phase 6: the zoo path ({time.perf_counter() - t0:.1f} s)")
 
+    jpeg_path(work, smi)
     mains_launches, roots = mains_path(work, zpipe, zcond, wrappers, smi)
     log(f"launches during phase 7's five CLI runs: {mains_launches}")
 

@@ -1,24 +1,56 @@
-// Baseline JPEG decoder of the port's data layer, bound with ctypes
+// JPEG decoder of the port's data layer, bound with ctypes
 // (ladi_vton_tpu_torch/data/native.py) and built with preprocess.cpp.
 //
-// It gives the pixels PIL gives (libjpeg-turbo with PIL's defaults):
+// It gives the pixels np.asarray(PIL.Image.open(path)) gives (PIL on
+// libjpeg-turbo 3.1, with PIL's defaults), following libjpeg's integer
+// arithmetic file by file:
 //
-// * sequential Huffman JPEG at 8 bits (SOF0, SOF1), 1 or 3 components,
-//   interleaved or one scan per component, restart intervals, tables
-//   defined anywhere before the scan that uses them (quantisation tables
-//   latched at a component's first scan, as libjpeg does);
-// * jidctint.c's "islow" integer IDCT with its range-limit table;
-// * jdsample.c's fancy upsampling for components at half the width
-//   (h2v1_fancy_upsample) or half the width and height
-//   (h2v2_fancy_upsample), with their alternating rounding biases and
-//   edge rows repeated as jdmainct.c repeats them; plain replication
-//   where the downsampled width is 2 or less, as libjpeg-turbo falls back;
-// * jdcolor.c's fixed-point YCbCr -> RGB.
+// * frames at 8 bits with 1, 3 or 4 components: sequential Huffman (SOF0,
+//   SOF1; jdhuff.c), progressive Huffman (SOF2; jdphuff.c: DC first and
+//   refinement, AC first with end-of-band runs, AC refinement), and
+//   arithmetic coding, sequential (SOF9) and progressive (SOF10)
+//   (jdarith.c: the QM decoder and its statistics bins, conditioned by a
+//   DAC segment or its defaults); interleaved or one scan per component,
+//   restart intervals (which reset the predictors, the end-of-band run
+//   and the statistics), tables defined anywhere before the scan that
+//   uses them (quantisation tables latched at a component's first scan);
+//   a scan script that libjpeg only warns about decodes on, one that it
+//   rejects (jdphuff.c start_pass_phuff_decoder) is damaged;
+// * the "islow" integer IDCT after the last scan, as libjpeg-turbo's x86
+//   SIMD code computes it on 16-bit lanes (jidctint.c's result wherever
+//   nothing overflows), and libjpeg-turbo's block smoothing where a
+//   progressive file leaves any of the coefficients 1..9 inexact
+//   (jdcoefct.c smoothing_ok and decompress_smooth_data, >= 2.1);
+// * every integral sampling ratio as jdsample.c jinit_upsampler picks its
+//   method: fancy h2v1, h1v2 (4:4:0) and h2v2 upsampling with their
+//   alternating rounding biases and edge rows repeated as jdmainct.c
+//   repeats them, plain replication where the downsampled width is 2 or
+//   less (h2v1, h2v2) and for every other integral ratio (int_upsample,
+//   for example 4:1:1);
+// * colour as jdapimin.c default_decompress_parms settles it: YCbCr ->
+//   RGB in jdcolor.c's fixed point; RGB without transform under an Adobe
+//   marker with transform 0, or component ids 'R', 'G', 'B' without JFIF;
+//   four components as CMYK, or YCCK under Adobe transform 2
+//   (ycck_cmyk_convert), each byte then inverted as PIL's "CMYK;I" raw
+//   mode inverts every CMYK JPEG;
+// * damaged data as libjpeg meets it through PIL: a segment that runs
+//   into a marker reads zeros, and a Huffman segment leaves its remaining
+//   MCUs alone once a read took them; a bad Huffman code reads 17 bits
+//   and gives 0; a restart marker out of its order is resynchronised
+//   (jdmarker.c jpeg_resync_to_restart); smoothing takes the progression
+//   before the last scan past the last iMCU row decoded whole
+//   (last_good_iMCU_row); markers are read after the scans as
+//   jdmarker.c reads them.  A file that ends where libjpeg would wait for
+//   more is damaged, as PIL reports it truncated, except after the scan
+//   of a single-scan sequential image, which PIL has already put out.
 //
-// Anything else (progressive or lossless frames, arithmetic coding,
-// 12-bit samples, Adobe or RGB-labelled colour, other sampling ratios)
-// returns kUnsupported, so the caller can read the file's decoded
-// sidecar instead; a damaged file returns kMalformed.
+// It returns kUnsupported, so the caller can read the file's decoded
+// sidecar instead, for: lossless frames (SOF3, which PIL decodes at 8
+// bits, and SOF11); 12-bit samples and a height left to a DNL marker (PIL
+// refuses both when it opens the file); hierarchical frames (SOF5-7,
+// SOF13-15) and the reserved SOF8 (libjpeg refuses them); 2 or more than
+// 4 components (PIL refuses them); non-integral sampling ratios (libjpeg
+// refuses them).  A damaged file returns kMalformed.
 
 #include <cstdint>
 #include <cstring>
@@ -27,6 +59,8 @@
 namespace {
 
 enum { kOk = 0, kUnsupported = 1, kMalformed = 2 };
+// internal: the file ends inside a marker segment, where libjpeg waits
+constexpr int kTruncated = 3;
 
 // natural index of the k-th coefficient in zigzag order, then 16 extra
 // entries so a damaged run length cannot index past the block
@@ -38,9 +72,11 @@ const int kNatural[64 + 16] = {
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
 constexpr int kLookBits = 9;
+constexpr int kMaxBlocksInMcu = 10;  // libjpeg's D_MAX_BLOCKS_IN_MCU
 
 struct Huffman {
-    bool defined = false;
+    bool valid = false;  // defined, its codes fitting
+    bool dc_ok = false;  // every symbol <= 15: usable as a DC table
     int32_t maxcode[18];
     int32_t valoffset[18];
     uint8_t vals[256];
@@ -74,6 +110,9 @@ struct Huffman {
         }
         maxcode[17] = 0x7FFFFFFF;
         std::memcpy(vals, symbols, count);
+        dc_ok = true;
+        for (int i = 0; i < count; ++i)
+            if (symbols[i] > 15) dc_ok = false;
         std::memset(look_len, 0, sizeof(look_len));
         p = 0;
         for (int l = 1; l <= kLookBits; ++l) {
@@ -85,20 +124,73 @@ struct Huffman {
                 }
             }
         }
-        defined = true;
         return true;
     }
 };
 
-// The entropy-coded segment, with byte stuffing undone; at a marker it
-// stops and feeds zeros, as libjpeg does.
+// the next marker at or after p: skips what is left of a segment
+long next_marker(const uint8_t* data, long size, long p) {
+    while (p + 1 < size) {
+        if (data[p] == 0xFF && data[p + 1] != 0x00 && data[p + 1] != 0xFF)
+            return p;
+        ++p;
+    }
+    return size;
+}
+
+// jdmarker.c read_restart_marker with jpeg_resync_to_restart, for the
+// marker at q (size: none) where restart number `want` is due: where the
+// next segment begins, and *pending when the marker stays unread, which
+// leaves that segment empty.
+long resync(const uint8_t* data, long size, long q, int want,
+            bool* pending) {
+    for (;;) {
+        if (q + 1 >= size) {
+            *pending = true;
+            return size;
+        }
+        const int m = data[q + 1];
+        const auto rst = [&](int n) { return m == 0xD0 + (n & 7); };
+        int action;
+        if (rst(want))
+            action = 1;  // the expected restart: swallowed
+        else if (m < 0xC0)
+            action = 2;  // not a marker: scan on
+        else if (m < 0xD0 || m > 0xD7 || rst(want + 1) || rst(want + 2))
+            action = 3;  // another marker, or a restart still to come
+        else if (rst(want - 1) || rst(want - 2))
+            action = 2;  // a restart already past: scan on
+        else
+            action = 1;  // too far away: taken as the expected one
+        *pending = action == 3;
+        if (action == 1) return q + 2;
+        if (action == 3) return q;
+        q = next_marker(data, size, q + 2);
+    }
+}
+
+// A Huffman-coded segment, with byte stuffing undone, read as jdhuff.c
+// reads it: the buffer is filled to 57 bits or more only when a read
+// needs more bits than it holds (CHECK_BIT_BUFFER, HUFF_DECODE's 8-bit
+// lookahead, then one bit at a time), so the reader stands where
+// libjpeg's stands.  At a marker it feeds zeros, as libjpeg does.  A read
+// that takes any of those zeros is out of data (jpeg_fill_bit_buffer sets
+// insufficient_data), after which libjpeg leaves the segment's remaining
+// MCUs alone; the zeros come last, so a read has taken one exactly when
+// fewer bits are left in buf than zeros were fed, which out_of_data()
+// asks between MCUs.  A fill that runs into the end of the file sets
+// `eof`: libjpeg waits there for more, and PIL reports the file
+// truncated.
 struct BitReader {
     const uint8_t* data;
     long size;
     long pos;
     uint64_t buf = 0;
-    int count = 0;
+    int count = 0;  // bits in buf
+    int fed = 0;    // zero bits fed since the segment began
     bool at_marker = false;
+    bool eof = false;
+    bool insufficient = false;  // out of data before the last restart()
 
     void fill() {
         while (count <= 56) {
@@ -111,44 +203,57 @@ struct BitReader {
                     if (q < size && data[q] == 0x00) {
                         pos = q + 1;
                     } else {
-                        at_marker = true;
+                        at_marker = q < size;
+                        eof |= q >= size;
                         byte = 0;
+                        fed += 8;
                     }
                 } else {
                     ++pos;
                 }
+            } else {
+                eof |= !at_marker;
+                fed += 8;
             }
             buf |= (uint64_t)byte << (56 - count);
             count += 8;
         }
     }
-    int get(int n) {
-        if (n == 0) return 0;
-        fill();
-        int v = (int)(buf >> (64 - n));
+    bool out_of_data() const { return insufficient || fed > count; }
+    void consume(int n) {
         buf <<= n;
         count -= n;
+    }
+    int get(int n) {
+        if (n == 0) return 0;
+        if (count < n) fill();
+        int v = (int)(buf >> (64 - n));
+        consume(n);
         return v;
     }
     int decode(const Huffman& h) {
-        fill();
+        if (count < 8) fill();
         int look = (int)(buf >> (64 - kLookBits));
         int len = h.look_len[look];
+        if ((len == 0 || len > 8) && count < 9) {  // libjpeg's slow path
+            fill();
+            look = (int)(buf >> (64 - kLookBits));
+            len = h.look_len[look];
+        }
         if (len) {
-            buf <<= len;
-            count -= len;
+            consume(len);
             return h.look_sym[look];
         }
         for (int l = kLookBits + 1; l <= 16; ++l) {
+            if (count < l) fill();
             int32_t code = (int32_t)(buf >> (64 - l));
             if (code <= h.maxcode[l]) {
-                buf <<= l;
-                count -= l;
+                consume(l);
                 return h.vals[(h.valoffset[l] + code) & 0xFF];
             }
         }
-        buf <<= 16;  // damaged: libjpeg warns and returns 0
-        count -= 16;
+        if (count < 17) fill();
+        consume(17);  // damaged: libjpeg reads to its sentinel, returns 0
         return 0;
     }
     // jdhuff.c HUFF_EXTEND of the next s bits
@@ -158,21 +263,152 @@ struct BitReader {
         if (v < (1 << (s - 1))) v += (int)((~0u) << s) + 1;
         return v;
     }
-    // the next marker at or after pos: skips what is left of the segment
-    long next_marker() const {
-        long q = pos;
-        while (q + 1 < size) {
-            if (data[q] == 0xFF && data[q + 1] != 0x00 && data[q + 1] != 0xFF)
-                return q;
-            ++q;
-        }
-        return size;
-    }
-    void restart_at(long p) {
-        pos = p;
+    long resume() const { return next_marker(data, size, pos); }
+    // jdhuff.c / jdphuff.c process_restart for restart number `want`:
+    // past the marker, the out-of-data flag cleared, unless the marker
+    // stays unread
+    void restart(int want) {
+        bool pending;
+        pos = resync(data, size, resume(), want, &pending);
+        insufficient = pending && out_of_data();
         buf = 0;
-        count = 0;
-        at_marker = false;
+        count = fed = 0;
+        at_marker = pending && pos < size;
+    }
+};
+
+// jaricom.c jpeg_aritab (ITU T.81 Table D.2): Qe << 16 | Next_Index_MPS
+// << 8 | Switch_MPS << 7 | Next_Index_LPS, and entry 113 the fixed 0.5
+// estimate of T.851
+#define V(qe, lps, mps, sw) \
+    (((int64_t)(qe) << 16) | ((mps) << 8) | ((sw) << 7) | (lps))
+const int64_t kAriTab[114] = {
+    V(0x5a1d, 1, 1, 1),     V(0x2586, 14, 2, 0),    V(0x1114, 16, 3, 0),
+    V(0x080b, 18, 4, 0),    V(0x03d8, 20, 5, 0),    V(0x01da, 23, 6, 0),
+    V(0x00e5, 25, 7, 0),    V(0x006f, 28, 8, 0),    V(0x0036, 30, 9, 0),
+    V(0x001a, 33, 10, 0),   V(0x000d, 35, 11, 0),   V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0),   V(0x0001, 12, 13, 0),   V(0x5a7f, 15, 15, 1),
+    V(0x3f25, 36, 16, 0),   V(0x2cf2, 38, 17, 0),   V(0x207c, 39, 18, 0),
+    V(0x17b9, 40, 19, 0),   V(0x1182, 42, 20, 0),   V(0x0cef, 43, 21, 0),
+    V(0x09a1, 45, 22, 0),   V(0x072f, 46, 23, 0),   V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0),   V(0x0303, 51, 26, 0),   V(0x0240, 52, 27, 0),
+    V(0x01b1, 54, 28, 0),   V(0x0144, 56, 29, 0),   V(0x00f5, 57, 30, 0),
+    V(0x00b7, 59, 31, 0),   V(0x008a, 60, 32, 0),   V(0x0068, 62, 33, 0),
+    V(0x004e, 63, 34, 0),   V(0x003b, 32, 35, 0),   V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1),   V(0x484c, 64, 38, 0),   V(0x3a0d, 65, 39, 0),
+    V(0x2ef1, 67, 40, 0),   V(0x261f, 68, 41, 0),   V(0x1f33, 69, 42, 0),
+    V(0x19a8, 70, 43, 0),   V(0x1518, 72, 44, 0),   V(0x1177, 73, 45, 0),
+    V(0x0e74, 74, 46, 0),   V(0x0bfb, 75, 47, 0),   V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0),   V(0x0706, 79, 50, 0),   V(0x05cd, 48, 51, 0),
+    V(0x04de, 50, 52, 0),   V(0x040f, 50, 53, 0),   V(0x0363, 51, 54, 0),
+    V(0x02d4, 52, 55, 0),   V(0x025c, 53, 56, 0),   V(0x01f8, 54, 57, 0),
+    V(0x01a4, 55, 58, 0),   V(0x0160, 56, 59, 0),   V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0),   V(0x00cb, 59, 62, 0),   V(0x00ab, 61, 63, 0),
+    V(0x008f, 61, 32, 0),   V(0x5b12, 65, 65, 1),   V(0x4d04, 80, 66, 0),
+    V(0x412c, 81, 67, 0),   V(0x37d8, 82, 68, 0),   V(0x2fe8, 83, 69, 0),
+    V(0x293c, 84, 70, 0),   V(0x2379, 86, 71, 0),   V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0),   V(0x174e, 72, 74, 0),   V(0x1424, 72, 75, 0),
+    V(0x119c, 74, 76, 0),   V(0x0f6b, 74, 77, 0),   V(0x0d51, 75, 78, 0),
+    V(0x0bb6, 77, 79, 0),   V(0x0a40, 77, 48, 0),   V(0x5832, 80, 81, 1),
+    V(0x4d1c, 88, 82, 0),   V(0x438e, 89, 83, 0),   V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0),   V(0x2eae, 92, 86, 0),   V(0x299a, 93, 87, 0),
+    V(0x2516, 86, 71, 0),   V(0x5570, 88, 89, 1),   V(0x4ca9, 95, 90, 0),
+    V(0x44d9, 96, 91, 0),   V(0x3e22, 97, 92, 0),   V(0x3824, 99, 93, 0),
+    V(0x32b4, 99, 94, 0),   V(0x2e17, 93, 86, 0),   V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0),  V(0x47e5, 102, 98, 0),  V(0x41cf, 103, 99, 0),
+    V(0x3c3d, 104, 100, 0), V(0x375e, 99, 93, 0),   V(0x5231, 105, 102, 0),
+    V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0), V(0x415e, 103, 99, 0),
+    V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1),
+    V(0x5522, 112, 109, 0), V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)};
+#undef V
+
+// jdarith.c's arithmetic decoder: reads to a marker, then zeros (legal in
+// arithmetic coding); ct == -1 marks a damaged segment, whose remaining
+// MCUs are left alone until the next restart.  A read at the end of the
+// file sets `eof`: jdarith.c cannot wait for more (JERR_CANT_SUSPEND).
+struct ArithReader {
+    const uint8_t* data;
+    long size;
+    long pos;
+    long marker = -1;  // the marker the decoder ran into, or -1
+    bool eof = false;
+    int64_t c = 0, a = 0;
+    int ct = -16;  // force reading 2 initial bytes to fill C
+
+    int byte() {
+        if (marker >= 0) return 0;
+        if (pos >= size) {
+            eof = true;
+            marker = size;
+            return 0;
+        }
+        int d = data[pos++];
+        if (d != 0xFF) return d;
+        while (pos < size && data[pos] == 0xFF) ++pos;
+        if (pos >= size) {
+            eof = true;
+            marker = size;
+            return 0;
+        }
+        if (data[pos] == 0x00) {
+            ++pos;
+            return 0xFF;  // stuffed zero
+        }
+        marker = pos - 1;
+        return 0;
+    }
+    // jdarith.c arith_decode: one decision in the statistics bin *st
+    int decode(uint8_t* st) {
+        while (a < 0x8000) {
+            if (--ct < 0) {
+                c = (c << 8) | byte();
+                if ((ct += 8) < 0)
+                    if (++ct == 0) a = 0x8000;  // got 2 initial bytes
+            }
+            a <<= 1;
+        }
+        int sv = *st;
+        int64_t qe = kAriTab[sv & 0x7F];
+        int nl = (int)(qe & 0xFF);
+        qe >>= 8;
+        int nm = (int)(qe & 0xFF);
+        qe >>= 8;
+        int64_t temp = a - qe;
+        a = temp;
+        temp <<= ct;
+        if (c >= temp) {
+            c -= temp;
+            if (a < qe) {
+                a = qe;
+                *st = (uint8_t)((sv & 0x80) ^ nm);
+            } else {
+                a = qe;
+                *st = (uint8_t)((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            }
+        } else if (a < 0x8000) {
+            if (a < qe) {
+                *st = (uint8_t)((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            } else {
+                *st = (uint8_t)((sv & 0x80) ^ nm);
+            }
+        }
+        return sv >> 7;
+    }
+    long resume() const {
+        return marker >= 0 ? marker : next_marker(data, size, pos);
+    }
+    // jdarith.c process_restart for restart number `want`, with the
+    // statistics reset by the caller
+    void restart(int want) {
+        bool pending;
+        pos = resync(data, size, resume(), want, &pending);
+        eof |= pos >= size;
+        marker = pending ? pos : -1;
+        c = a = 0;
+        ct = -16;
     }
 };
 
@@ -182,7 +418,22 @@ struct Component {
     bool latched = false;
     int bw = 0, bh = 0;   // blocks allocated (whole MCUs)
     int dw = 0, dh = 0;   // downsampled size in samples
+    int coef_bits[64];    // progressive: the Al each coefficient is at
+    int prev_bits[10];    // coef_bits 1..9 before the component's last scan
     std::vector<int16_t> coef;
+};
+
+enum Color { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
+
+// One scan's parameters and the MCU loop's state.
+struct Scan {
+    int ns = 0;
+    int idx[4], td[4], ta[4];
+    int ss = 0, se = 63, ah = 0, al = 0;
+    int pred[4] = {0, 0, 0, 0};
+    int dc_context[4] = {0, 0, 0, 0};
+    unsigned eobrun = 0;
+    int next_rst = 0;  // the restart number due next
 };
 
 struct Decoder {
@@ -191,19 +442,41 @@ struct Decoder {
     int width = 0, height = 0, ncomp = 0, hmax = 1, vmax = 1;
     int mcux = 0, mcuy = 0;
     int restart_interval = 0;
-    bool frame = false, jfif = false, adobe = false, scanned = false;
+    int scans = 0;      // SOS segments so far (input_scan_number)
+    int last_good = 0;  // jdcoefct.c last_good_iMCU_row
+    bool frame = false, progressive = false, arithmetic = false;
+    bool jfif = false, adobe = false, scanned = false, color_set = false;
+    int adobe_transform = 0;
+    Color color = kGray;
     int quant[4][64] = {};
     bool quant_defined[4] = {false, false, false, false};
     Huffman dc[4], ac[4];
-    Component comp[3];
+    uint8_t dc_l[16], dc_u[16], ac_k[16];  // arithmetic conditioning
+    uint8_t dc_stats[16][64], ac_stats[16][256];
+    uint8_t fixed_bin[1] = {113};
+    Component comp[4];
+
+    Decoder(const uint8_t* d, long n) : data(d), size(n) {
+        for (int t = 0; t < 16; ++t) {  // jdmarker.c get_soi's defaults
+            dc_l[t] = 0;
+            dc_u[t] = 1;
+            ac_k[t] = 5;
+        }
+    }
 
     int u16(long p) const { return (data[p] << 8) | data[p + 1]; }
 
+    // The table segments are read as jdmarker.c reads them, from their
+    // stated end, which may lie past the file's (kTruncated when a read
+    // gets there first).
+    // get_dqt: any precision but 0 is 16-bit
     int parse_dqt(long p, long end) {
         while (p < end) {
-            int pq = data[p] >> 4, tq = data[p] & 15;
+            if (p >= size) return kTruncated;
+            int pq = data[p] >> 4 ? 1 : 0, tq = data[p] & 15;
             ++p;
-            if (tq > 3 || pq > 1) return kMalformed;
+            if (tq > 3) return kMalformed;
+            if (p + 64 * (pq + 1) > size) return kTruncated;
             if (p + 64 * (pq + 1) > end) return kMalformed;
             for (int k = 0; k < 64; ++k) {
                 int q = pq ? u16(p + 2 * k) : data[p + k];
@@ -215,18 +488,38 @@ struct Decoder {
         return kOk;
     }
 
+    // get_dht: a table whose codes do not fit is refused only by a scan
+    // that uses it (jdhuff.c jpeg_make_d_derived_tbl)
     int parse_dht(long p, long end) {
-        while (p < end) {
-            if (p + 17 > end) return kMalformed;
+        while (end - p > 16) {
+            if (p + 17 > size) return kTruncated;
             int tc = data[p] >> 4, th = data[p] & 15;
             const uint8_t* bits = data + p + 1;
             int count = 0;
             for (int i = 0; i < 16; ++i) count += bits[i];
-            if (tc > 1 || th > 3 || count > 256 || p + 17 + count > end)
-                return kMalformed;
+            if (count > 256 || p + 17 + count > end) return kMalformed;
+            if (p + 17 + count > size) return kTruncated;
+            if (tc > 1 || th > 3) return kMalformed;
             Huffman& h = tc ? ac[th] : dc[th];
-            if (!h.build(bits, data + p + 17, count)) return kMalformed;
+            h.valid = h.build(bits, data + p + 17, count);
             p += 17 + count;
+        }
+        return p == end ? kOk : kMalformed;
+    }
+
+    // jdmarker.c get_dac
+    int parse_dac(long p, long end) {
+        if ((end - p) % 2) return kMalformed;
+        for (; p < end; p += 2) {
+            int index = data[p], val = data[p + 1];
+            if (index >= 32) return kMalformed;
+            if (index >= 16) {
+                ac_k[index - 16] = (uint8_t)val;
+            } else {
+                dc_l[index] = (uint8_t)(val & 15);
+                dc_u[index] = (uint8_t)(val >> 4);
+                if (dc_l[index] > dc_u[index]) return kMalformed;
+            }
         }
         return kOk;
     }
@@ -240,7 +533,7 @@ struct Decoder {
         ncomp = data[p + 5];
         if (height == 0) return kUnsupported;  // height from a DNL marker
         if (width == 0) return kMalformed;
-        if (ncomp != 1 && ncomp != 3) return kUnsupported;
+        if (ncomp != 1 && ncomp != 3 && ncomp != 4) return kUnsupported;
         if (end - p < 6 + 3 * ncomp) return kMalformed;
         hmax = vmax = 1;
         for (int c = 0; c < ncomp; ++c) {
@@ -253,18 +546,14 @@ struct Decoder {
                 return kMalformed;
             if (k.h > hmax) hmax = k.h;
             if (k.v > vmax) vmax = k.v;
+            for (int i = 0; i < 64; ++i) k.coef_bits[i] = -1;
         }
         if (ncomp == 1) {  // one component: its own sampling is the frame's
             hmax = comp[0].h;
             vmax = comp[0].v;
         }
-        for (int c = 0; c < ncomp; ++c) {
-            int rh = hmax / comp[c].h, rv = vmax / comp[c].v;
-            bool whole = hmax % comp[c].h == 0 && vmax % comp[c].v == 0;
-            if (!whole || !((rh == 1 && rv == 1) || (rh == 2 && rv == 1) ||
-                            (rh == 2 && rv == 2)))
-                return kUnsupported;
-        }
+        for (int c = 0; c < ncomp; ++c)  // jdsample.c: integral ratios only
+            if (hmax % comp[c].h || vmax % comp[c].v) return kUnsupported;
         mcux = (width + 8 * hmax - 1) / (8 * hmax);
         mcuy = (height + 8 * vmax - 1) / (8 * vmax);
         for (int c = 0; c < ncomp; ++c) {
@@ -278,54 +567,115 @@ struct Decoder {
         return kOk;
     }
 
-    bool rgb_labelled() const {
-        // jdapimin.c default_decompress_parms: without JFIF or Adobe
-        // markers, component IDs 'R', 'G', 'B' mean RGB
-        return ncomp == 3 && !jfif && comp[0].id == 82 && comp[1].id == 71 &&
-               comp[2].id == 66;
-    }
-
-    // Headers up to the first scan: size, channels, whether supported.
-    int header() {
-        if (size < 4 || data[0] != 0xFF || data[1] != 0xD8) return kMalformed;
-        long p = 2;
-        for (;;) {
-            while (p < size && data[p] != 0xFF) ++p;  // garbage: skip
-            while (p < size && data[p] == 0xFF) ++p;
-            if (p >= size) return kMalformed;
-            int marker = data[p++];
-            if (marker == 0xD8 || (marker >= 0xD0 && marker <= 0xD7) ||
-                marker == 0x01)
-                continue;
-            if (marker == 0xD9) return kMalformed;  // no scan
-            if (p + 2 > size) return kMalformed;
-            int len = u16(p);
-            if (len < 2 || p + len > size) return kMalformed;
-            long body = p + 2, end = p + len;
-            p = end;
-            int err = kOk;
-            if (marker == 0xC0 || marker == 0xC1) {
-                err = parse_sof(body, end);
-            } else if ((marker >= 0xC2 && marker <= 0xCF) && marker != 0xC4 &&
-                       marker != 0xC8 && marker != 0xCC) {
-                return kUnsupported;  // progressive, lossless, hierarchical,
-                                      // arithmetic frames
-            } else if (marker == 0xCC) {
-                return kUnsupported;  // arithmetic conditioning tables
-            } else if (marker == 0xE0) {
-                if (end - body >= 5 && std::memcmp(data + body, "JFIF\0", 5) == 0)
-                    jfif = true;
-            } else if (marker == 0xEE) {
-                if (end - body >= 5 && std::memcmp(data + body, "Adobe", 5) == 0)
-                    adobe = true;
-            } else if (marker == 0xDA) {
-                if (!frame) return kMalformed;
-                if (adobe || rgb_labelled()) return kUnsupported;
-                return kOk;
-            }
-            if (err) return err;
+    // jdapimin.c default_decompress_parms, at the first scan
+    void settle_color() {
+        color_set = true;
+        int c0 = comp[0].id, c1 = comp[1].id, c2 = comp[2].id;
+        if (ncomp == 1) {
+            color = kGray;
+        } else if (ncomp == 3) {
+            if (jfif)
+                color = kYCbCr;
+            else if (adobe)
+                color = adobe_transform == 0 ? kRGB : kYCbCr;
+            else
+                color = (c0 == 82 && c1 == 71 && c2 == 66) ? kRGB : kYCbCr;
+        } else {
+            color = adobe && adobe_transform != 0 ? kYCCK : kCMYK;
         }
     }
+
+    // The markers from SOI: with `decode`, every scan is decoded to the
+    // end of the file; without, it stops at the first scan (the header).
+    int run(bool decode) {
+        if (size < 4 || data[0] != 0xFF || data[1] != 0xD8) return kMalformed;
+        long p = 2;
+        // A single-scan sequential image is out once its scan is decoded;
+        // PIL then takes a file that ends before its EOI.  Otherwise
+        // libjpeg waits for the rest, and PIL reports the file truncated.
+        bool out = false;
+        for (;;) {
+            // jdmarker.c next_marker: garbage, fill bytes and FF 00 skipped
+            p = next_marker(data, size, p) + 1;
+            if (p >= size) return out ? kOk : kMalformed;
+            int marker = data[p++];
+            if (marker == 0xD9) break;
+            if ((marker >= 0xD0 && marker <= 0xD7) || marker == 0x01)
+                continue;  // RSTn, TEM: no segment
+            // jdmarker.c read_markers: a second SOI, or a reserved marker
+            if (marker == 0xD8 || marker < 0xC0 || marker == 0xDE ||
+                marker == 0xDF || (marker >= 0xF0 && marker <= 0xFD))
+                return kMalformed;
+            if (p + 2 > size) return out ? kOk : kMalformed;
+            int len = u16(p);
+            if (len < 2) return kMalformed;
+            long body = p + 2, end = p + len;
+            p = end;
+            int err = end > size && marker != 0xC4 && marker != 0xDB
+                          ? kTruncated
+                          : kOk;
+            if (!err) switch (marker) {
+                case 0xC0: case 0xC1:  // sequential Huffman
+                    err = parse_sof(body, end);
+                    break;
+                case 0xC2:  // progressive Huffman
+                    progressive = true;
+                    err = parse_sof(body, end);
+                    break;
+                case 0xC9:  // sequential arithmetic
+                    arithmetic = true;
+                    err = parse_sof(body, end);
+                    break;
+                case 0xCA:  // progressive arithmetic
+                    progressive = arithmetic = true;
+                    err = parse_sof(body, end);
+                    break;
+                case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC8:
+                case 0xCB: case 0xCD: case 0xCE: case 0xCF:
+                    return kUnsupported;  // lossless, hierarchical, JPG
+                case 0xC4:
+                    err = parse_dht(body, end);
+                    break;
+                case 0xCC:
+                    err = parse_dac(body, end);
+                    break;
+                case 0xDB:
+                    err = parse_dqt(body, end);
+                    break;
+                case 0xDD:
+                    if (end - body < 2) return kMalformed;
+                    restart_interval = u16(body);
+                    break;
+                case 0xE0:  // jdmarker.c examine_app0
+                    if (end - body >= 14 &&
+                        std::memcmp(data + body, "JFIF\0", 5) == 0)
+                        jfif = true;
+                    break;
+                case 0xEE:  // jdmarker.c examine_app14
+                    if (end - body >= 12 &&
+                        std::memcmp(data + body, "Adobe", 5) == 0) {
+                        adobe = true;
+                        adobe_transform = data[body + 11];
+                    }
+                    break;
+                case 0xDA:
+                    // jdinput.c consume_markers: EOI expected after it
+                    if (!frame || out) return kMalformed;
+                    if (!color_set) settle_color();
+                    if (!decode) return kOk;
+                    err = scan(body, end, &p);
+                    out = !progressive && scans == 1 && data[body] == ncomp;
+                    break;
+                default:
+                    break;
+            }
+            if (err == kTruncated) return out ? kOk : kMalformed;
+            if (err) return err;
+        }
+        return decode && scanned ? kOk : kMalformed;
+    }
+
+    // ------------------------------------------------ Huffman MCU decoders
 
     int decode_block(BitReader& br, int16_t* blk, int& pred,
                      const Huffman& hd, const Huffman& ha) {
@@ -349,26 +699,267 @@ struct Decoder {
         return kOk;
     }
 
-    // One scan: the SOS body at [p, end), entropy data from end.
+    // jdphuff.c decode_mcu_DC_first
+    int dc_first(BitReader& br, Scan& sc, int16_t* blk, int slot) {
+        int s = br.decode(dc[sc.td[slot]]);
+        if (s) s = br.receive_extend(s);
+        int64_t v = (int64_t)sc.pred[slot] + s;
+        if (v > INT32_MAX || v < INT32_MIN) return kMalformed;
+        sc.pred[slot] = (int)v;
+        blk[0] = (int16_t)((uint32_t)v << sc.al);
+        return kOk;
+    }
+
+    // jdphuff.c decode_mcu_AC_first
+    void ac_first(BitReader& br, Scan& sc, int16_t* blk) {
+        if (sc.eobrun > 0) {
+            --sc.eobrun;
+            return;
+        }
+        const Huffman& h = ac[sc.ta[0]];
+        for (int k = sc.ss; k <= sc.se; ++k) {
+            int rs = br.decode(h);
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+                k += r;
+                int v = br.receive_extend(s);
+                blk[kNatural[k]] = (int16_t)((uint32_t)v << sc.al);
+            } else if (r == 15) {
+                k += 15;
+            } else {
+                sc.eobrun = 1u << r;
+                if (r) sc.eobrun += br.get(r);
+                --sc.eobrun;
+                break;
+            }
+        }
+    }
+
+    // jdphuff.c decode_mcu_AC_refine
+    void ac_refine(BitReader& br, Scan& sc, int16_t* blk) {
+        const int p1 = 1 << sc.al, m1 = -1 * (1 << sc.al);
+        const Huffman& h = ac[sc.ta[0]];
+        int k = sc.ss;
+        auto correct = [&](int16_t& coef) {
+            if (br.get(1) && (coef & p1) == 0)
+                coef = (int16_t)(coef >= 0 ? coef + p1 : coef + m1);
+        };
+        if (sc.eobrun == 0) {
+            for (; k <= sc.se; ++k) {
+                int rs = br.decode(h);
+                int r = rs >> 4, s = rs & 15;
+                if (s) {  // a new coefficient of size 1 (other sizes: warned)
+                    s = br.get(1) ? p1 : m1;
+                } else if (r != 15) {
+                    sc.eobrun = 1u << r;
+                    if (r) sc.eobrun += br.get(r);
+                    break;
+                }
+                do {
+                    int16_t& coef = blk[kNatural[k]];
+                    if (coef != 0) {
+                        correct(coef);
+                    } else if (--r < 0) {
+                        break;
+                    }
+                    ++k;
+                } while (k <= sc.se);
+                if (s) blk[kNatural[k]] = (int16_t)s;
+            }
+        }
+        if (sc.eobrun > 0) {
+            for (; k <= sc.se; ++k) {
+                int16_t& coef = blk[kNatural[k]];
+                if (coef != 0) correct(coef);
+            }
+            --sc.eobrun;
+        }
+    }
+
+    // --------------------------------------------- arithmetic MCU decoders
+
+    // jdarith.c: a DC difference (Figures F.19, F.21-F.24) in table t,
+    // with its conditioning category
+    int arith_dc_diff(ArithReader& ar, Scan& sc, int slot, int t) {
+        uint8_t* st = dc_stats[t] + sc.dc_context[slot];
+        if (ar.decode(st) == 0) {
+            sc.dc_context[slot] = 0;
+            return 0;
+        }
+        int sign = ar.decode(st + 1);
+        st += 2 + sign;
+        int m = ar.decode(st);
+        if (m != 0) {
+            st = dc_stats[t] + 20;  // X1
+            while (ar.decode(st)) {
+                if ((m <<= 1) == 0x8000) {
+                    ar.ct = -1;  // magnitude overflow
+                    return 0;
+                }
+                st += 1;
+            }
+        }
+        if (m < (int)((1L << dc_l[t]) >> 1))
+            sc.dc_context[slot] = 0;
+        else if (m > (int)((1L << dc_u[t]) >> 1))
+            sc.dc_context[slot] = 12 + sign * 4;
+        else
+            sc.dc_context[slot] = 4 + sign * 4;
+        int v = m;
+        st += 14;
+        while (m >>= 1)
+            if (ar.decode(st)) v |= m;
+        v += 1;
+        return sign ? -v : v;
+    }
+
+    // jdarith.c: the AC coefficients of a band (Figure F.20); false on a
+    // damaged segment
+    bool arith_ac(ArithReader& ar, int16_t* blk, int t, int ss, int se,
+                  int al) {
+        for (int k = ss; k <= se; ++k) {
+            uint8_t* st = ac_stats[t] + 3 * (k - 1);
+            if (ar.decode(st)) break;  // EOB
+            while (ar.decode(st + 1) == 0) {
+                st += 3;
+                if (++k > se) {
+                    ar.ct = -1;  // spectral overflow
+                    return false;
+                }
+            }
+            int sign = ar.decode(fixed_bin);
+            st += 2;
+            int m = ar.decode(st);
+            if (m != 0 && ar.decode(st)) {
+                m <<= 1;
+                st = ac_stats[t] + (k <= ac_k[t] ? 189 : 217);
+                while (ar.decode(st)) {
+                    if ((m <<= 1) == 0x8000) {
+                        ar.ct = -1;  // magnitude overflow
+                        return false;
+                    }
+                    st += 1;
+                }
+            }
+            int v = m;
+            st += 14;
+            while (m >>= 1)
+                if (ar.decode(st)) v |= m;
+            v += 1;
+            if (sign) v = -v;
+            blk[kNatural[k]] = (int16_t)((uint32_t)v << al);
+        }
+        return true;
+    }
+
+    // jdarith.c decode_mcu_AC_refine
+    void arith_ac_refine(ArithReader& ar, Scan& sc, int16_t* blk) {
+        const int t = sc.ta[0];
+        const int p1 = 1 << sc.al, m1 = -1 * (1 << sc.al);
+        int kex = sc.se;
+        for (; kex > 0; --kex)
+            if (blk[kNatural[kex]]) break;
+        for (int k = sc.ss; k <= sc.se; ++k) {
+            uint8_t* st = ac_stats[t] + 3 * (k - 1);
+            if (k > kex && ar.decode(st)) break;  // EOB
+            for (;;) {
+                int16_t& coef = blk[kNatural[k]];
+                if (coef) {  // previously nonzero: a correction bit
+                    if (ar.decode(st + 2))
+                        coef = (int16_t)(coef < 0 ? coef + m1 : coef + p1);
+                    break;
+                }
+                if (ar.decode(st + 1)) {  // newly nonzero
+                    coef = (int16_t)(ar.decode(fixed_bin) ? m1 : p1);
+                    break;
+                }
+                st += 3;
+                if (++k > sc.se) {
+                    ar.ct = -1;  // spectral overflow
+                    return;
+                }
+            }
+        }
+    }
+
+    // jdarith.c start_pass / process_restart: fresh statistics for the
+    // scan's tables
+    void arith_reset(Scan& sc) {
+        for (int i = 0; i < sc.ns; ++i) {
+            if (!progressive || (sc.ss == 0 && sc.ah == 0)) {
+                std::memset(dc_stats[sc.td[i]], 0, 64);
+                sc.pred[i] = 0;
+                sc.dc_context[i] = 0;
+            }
+            if (!progressive || sc.ss)
+                std::memset(ac_stats[sc.ta[i]], 0, 256);
+        }
+    }
+
+    // ----------------------------------------------------------- one scan
+
+    // jdphuff.c start_pass_phuff_decoder (and jdarith.c start_pass): a
+    // bad script is damaged; the progression's status per coefficient
+    // (with jdphuff.c's prev_coef_bits, libjpeg-turbo >= 2.1)
+    bool start_progressive(Scan& sc) {
+        bool bad;
+        if (sc.ss == 0)
+            bad = sc.se != 0;
+        else
+            bad = sc.ss > sc.se || sc.se > 63 || sc.ns != 1;
+        if (sc.ah != 0 && sc.al != sc.ah - 1) bad = true;
+        if (sc.al > 13) bad = true;
+        if (bad) return false;
+        for (int i = 0; i < sc.ns; ++i) {
+            Component& k = comp[sc.idx[i]];
+            for (int j = 1; j <= 9; ++j)
+                k.prev_bits[j] = scans > 1 ? k.coef_bits[j] : 0;
+            for (int j = sc.ss; j <= sc.se; ++j) k.coef_bits[j] = sc.al;
+        }
+        return true;
+    }
+
+    // The SOS body at [p, end), entropy data from end.
     int scan(long p, long end, long* resume) {
-        int ns = data[p];
-        if (ns < 1 || ns > ncomp || end - p < 1 + 2 * ns + 3) return kMalformed;
-        int idx[3], td[3], ta[3];
-        for (int i = 0; i < ns; ++i) {
+        Scan sc;
+        sc.ns = data[p];
+        if (sc.ns < 1 || sc.ns > 4 || sc.ns > ncomp ||
+            end - p < 1 + 2 * sc.ns + 3)
+            return kMalformed;
+        for (int i = 0; i < sc.ns; ++i) {
             int cid = data[p + 1 + 2 * i];
-            idx[i] = -1;
-            for (int c = 0; c < ncomp; ++c)
-                if (comp[c].id == cid) idx[i] = c;
-            if (idx[i] < 0) return kMalformed;
-            td[i] = data[p + 2 + 2 * i] >> 4;
-            ta[i] = data[p + 2 + 2 * i] & 15;
-            if (td[i] > 3 || ta[i] > 3 || !dc[td[i]].defined ||
-                !ac[ta[i]].defined)
-                return kMalformed;
+            sc.idx[i] = -1;
+            for (int c = 0; c < ncomp && sc.idx[i] < 0; ++c) {
+                bool used = false;
+                for (int j = 0; j < i; ++j) used |= sc.idx[j] == c;
+                if (comp[c].id == cid && !used) sc.idx[i] = c;
+            }
+            if (sc.idx[i] < 0) return kMalformed;
+            sc.td[i] = data[p + 2 + 2 * i] >> 4;
+            sc.ta[i] = data[p + 2 + 2 * i] & 15;
+        }
+        long q = p + 1 + 2 * sc.ns;
+        sc.ss = data[q];
+        sc.se = data[q + 1];
+        sc.ah = data[q + 2] >> 4;
+        sc.al = data[q + 2] & 15;
+        ++scans;
+        if (progressive && !start_progressive(sc)) return kMalformed;
+        const bool dc_scan = !progressive || sc.ss == 0;
+        const bool ac_scan = !progressive || sc.ss > 0;
+        if (!arithmetic) {  // the Huffman tables the scan decodes with
+            for (int i = 0; i < sc.ns; ++i) {
+                if (dc_scan && sc.ah == 0 &&
+                    (sc.td[i] > 3 || !dc[sc.td[i]].valid ||
+                     !dc[sc.td[i]].dc_ok))
+                    return kMalformed;
+                if (ac_scan && (sc.ta[i] > 3 || !ac[sc.ta[i]].valid))
+                    return kMalformed;
+            }
         }
         int blocks_in_mcu = 0;
-        for (int i = 0; i < ns; ++i) {
-            Component& k = comp[idx[i]];
+        for (int i = 0; i < sc.ns; ++i) {
+            Component& k = comp[sc.idx[i]];
             if (!k.latched) {  // jdinput.c latch_quant_tables
                 if (!quant_defined[k.tq]) return kMalformed;
                 std::memcpy(k.quant, quant[k.tq], sizeof(k.quant));
@@ -377,10 +968,10 @@ struct Decoder {
             if (k.coef.empty()) k.coef.assign((size_t)k.bw * k.bh * 64, 0);
             blocks_in_mcu += k.h * k.v;
         }
-        if (ns > 1 && blocks_in_mcu > 10) return kMalformed;
+        if (sc.ns > 1 && blocks_in_mcu > kMaxBlocksInMcu) return kMalformed;
         int cols, rows;
-        if (ns == 1) {  // non-interleaved: one block an MCU, in raster order
-            Component& k = comp[idx[0]];
+        if (sc.ns == 1) {  // non-interleaved: one block an MCU, in raster order
+            Component& k = comp[sc.idx[0]];
             cols = (k.dw + 7) / 8;
             rows = (k.dh + 7) / 8;
         } else {
@@ -388,224 +979,358 @@ struct Decoder {
             rows = mcuy;
         }
         BitReader br{data, size, end};
-        int pred[3] = {0, 0, 0};
-        long total = (long)cols * rows;
+        ArithReader ar{data, size, end};
+        if (arithmetic) arith_reset(sc);
+        int16_t* blk[kMaxBlocksInMcu];
+        int slot[kMaxBlocksInMcu];
+        const long total = (long)cols * rows;
+        // block rows an iMCU row: one MCU row interleaved, v alone
+        const int imcu_rows = sc.ns == 1 ? comp[sc.idx[0]].v : 1;
         int to_go = restart_interval;
         for (long m = 0; m < total; ++m) {
+            int mx = (int)(m % cols), my = (int)(m / cols), n = 0;
+            // jdcoefct.c consume_data, before each MCU (jdarith.c never
+            // runs out of data)
+            if (progressive && (arithmetic || !br.out_of_data()))
+                last_good = my / imcu_rows;
             if (restart_interval) {
-                if (to_go == 0) {  // jdhuff.c process_restart
-                    long q = br.next_marker();
-                    if (q + 1 < size && data[q + 1] >= 0xD0 &&
-                        data[q + 1] <= 0xD7)
-                        q += 2;
-                    br.restart_at(q);
-                    pred[0] = pred[1] = pred[2] = 0;
+                if (to_go == 0) {
+                    if (arithmetic) {
+                        ar.restart(sc.next_rst);
+                        arith_reset(sc);
+                    } else {
+                        br.restart(sc.next_rst);
+                        for (int i = 0; i < sc.ns; ++i) sc.pred[i] = 0;
+                        sc.eobrun = 0;
+                    }
+                    sc.next_rst = (sc.next_rst + 1) & 7;
                     to_go = restart_interval;
                 }
                 --to_go;
             }
-            int mx = (int)(m % cols), my = (int)(m / cols);
-            for (int i = 0; i < ns; ++i) {
-                Component& k = comp[idx[i]];
-                int nh = ns == 1 ? 1 : k.h, nv = ns == 1 ? 1 : k.v;
-                for (int y = 0; y < nv; ++y) {
+            for (int i = 0; i < sc.ns; ++i) {
+                Component& k = comp[sc.idx[i]];
+                int nh = sc.ns == 1 ? 1 : k.h, nv = sc.ns == 1 ? 1 : k.v;
+                for (int y = 0; y < nv; ++y)
                     for (int x = 0; x < nh; ++x) {
                         int bx = mx * nh + x, by = my * nv + y;
-                        int16_t* blk =
-                            k.coef.data() + ((size_t)by * k.bw + bx) * 64;
-                        int err = decode_block(br, blk, pred[i], dc[td[i]],
-                                               ac[ta[i]]);
-                        if (err) return err;
+                        blk[n] = k.coef.data() + ((size_t)by * k.bw + bx) * 64;
+                        slot[n++] = i;
                     }
-                }
             }
+            int err = arithmetic    ? arith_mcu(ar, sc, blk, slot, n)
+                      : progressive ? huffman_mcu(br, sc, blk, slot, n)
+                                    : sequential_mcu(br, sc, blk, slot, n);
+            if (err) return err;
         }
-        *resume = br.next_marker();
+        if (br.eof || ar.eof) return kMalformed;  // PIL: truncated
+        *resume = arithmetic ? ar.resume() : br.resume();
         scanned = true;
         return kOk;
     }
 
-    int decode_all() {
-        int err = header();
-        if (err) return err;
-        // parse again from the start, now decoding each scan
-        jfif = adobe = frame = false;
-        long p = 2;
-        for (;;) {
-            while (p < size && data[p] != 0xFF) ++p;
-            while (p < size && data[p] == 0xFF) ++p;
-            if (p >= size) break;  // no EOI: libjpeg warns and ends
-            int marker = data[p++];
-            if (marker == 0xD9) break;
-            if (marker == 0xD8 || (marker >= 0xD0 && marker <= 0xD7) ||
-                marker == 0x01)
-                continue;
-            if (p + 2 > size) break;
-            int len = u16(p);
-            if (len < 2 || p + len > size) return kMalformed;
-            long body = p + 2, end = p + len;
-            p = end;
-            if (marker == 0xC0 || marker == 0xC1) {
-                err = parse_sof(body, end);
-            } else if (marker == 0xC4) {
-                err = parse_dht(body, end);
-            } else if (marker == 0xDB) {
-                err = parse_dqt(body, end);
-            } else if (marker == 0xDD) {
-                if (end - body < 2) return kMalformed;
-                restart_interval = u16(body);
-            } else if (marker == 0xE0) {
-                if (end - body >= 5 && std::memcmp(data + body, "JFIF\0", 5) == 0)
-                    jfif = true;
-            } else if (marker == 0xDA) {
-                if (!frame) return kMalformed;
-                err = scan(body, end, &p);
-            } else if ((marker >= 0xC2 && marker <= 0xCF) && marker != 0xC8) {
-                return kUnsupported;
-            }
+    // jdhuff.c decode_mcu
+    int sequential_mcu(BitReader& br, Scan& sc, int16_t** blk, int* slot,
+                       int n) {
+        if (br.out_of_data()) return kOk;  // MCU left alone
+        for (int b = 0; b < n; ++b) {
+            const int i = slot[b];
+            int err = decode_block(br, blk[b], sc.pred[i], dc[sc.td[i]],
+                                   ac[sc.ta[i]]);
             if (err) return err;
         }
-        return scanned ? kOk : kMalformed;
+        return kOk;
+    }
+
+    // jdphuff.c's decode_mcu_* by the scan's kind
+    int huffman_mcu(BitReader& br, Scan& sc, int16_t** blk, int* slot,
+                    int n) {
+        if (sc.ss == 0 && sc.ah != 0) {  // DC refinement
+            for (int b = 0; b < n; ++b)
+                if (br.get(1)) blk[b][0] |= (int16_t)(1 << sc.al);
+            return kOk;
+        }
+        if (br.out_of_data()) return kOk;  // MCU left alone
+        for (int b = 0; b < n; ++b) {
+            int err = kOk;
+            if (sc.ss == 0)
+                err = dc_first(br, sc, blk[b], slot[b]);
+            else if (sc.ah == 0)
+                ac_first(br, sc, blk[b]);
+            else
+                ac_refine(br, sc, blk[b]);
+            if (err) return err;
+        }
+        return kOk;
+    }
+
+    int arith_mcu(ArithReader& ar, Scan& sc, int16_t** blk, int* slot,
+                  int n) {
+        if (progressive && sc.ss == 0 && sc.ah != 0) {  // DC refinement
+            for (int b = 0; b < n; ++b)
+                if (ar.decode(fixed_bin)) blk[b][0] |= (int16_t)(1 << sc.al);
+            return kOk;
+        }
+        if (ar.ct == -1) return kOk;  // damaged segment: MCU left alone
+        for (int b = 0; b < n; ++b) {
+            int i = slot[b];
+            if (!progressive || sc.ss == 0) {
+                int diff = arith_dc_diff(ar, sc, i, sc.td[i]);
+                if (ar.ct == -1) return kOk;
+                sc.pred[i] = (sc.pred[i] + diff) & 0xFFFF;
+                blk[b][0] = (int16_t)((uint32_t)sc.pred[i] << sc.al);
+                if (!progressive &&
+                    !arith_ac(ar, blk[b], sc.ta[i], 1, 63, 0))
+                    return kOk;
+            } else if (sc.ah == 0) {
+                if (!arith_ac(ar, blk[b], sc.ta[i], sc.ss, sc.se, sc.al))
+                    return kOk;
+            } else {
+                arith_ac_refine(ar, sc, blk[b]);
+            }
+        }
+        return kOk;
+    }
+
+    // jdcoefct.c smoothing_ok (libjpeg-turbo >= 2.1): whether libjpeg
+    // smooths the blocks of this progressive file
+    bool smoothing_needed() const {
+        if (!progressive) return false;
+        bool useful = false;
+        for (int c = 0; c < ncomp; ++c) {
+            const Component& k = comp[c];
+            if (!k.latched) return false;
+            for (int i = 0; i <= 9; ++i)
+                if (k.quant[kNatural[i]] == 0) return false;
+            if (k.coef_bits[0] < 0) return false;
+            for (int i = 1; i <= 9; ++i)
+                if (k.coef_bits[i] != 0) useful = true;
+        }
+        return useful;
     }
 };
 
-// jidctint.c jpeg_idct_islow, for 8-bit samples
+// jidctint.c jpeg_idct_islow as libjpeg-turbo's x86 SIMD code
+// (jidctint-avx2.asm, jidctint-sse2.asm) computes it, which is what PIL
+// runs there: the same arithmetic on 16-bit lanes.  The dequantised
+// coefficients and the sums in0 +- in4, in7 + in3 and in5 + in1 wrap to
+// 16 bits; products and their sums are 32-bit and wrap; each pass's
+// outputs saturate to 16 bits and the samples to 0..255, where
+// jidctint.c's range-limit table wraps.  A block whose rows 1..7 are all
+// zero takes the first pass's shortcut, whose shift wraps to 16 bits.
+// On the coefficients of a valid file this is jidctint.c's result; a
+// damaged file's can overflow, and then PIL's pixels are these.
 constexpr int kConstBits = 13;
 constexpr int kPass1Bits = 2;
-constexpr int64_t FIX_0_298631336 = 2446;
-constexpr int64_t FIX_0_390180644 = 3196;
-constexpr int64_t FIX_0_541196100 = 4433;
-constexpr int64_t FIX_0_765366865 = 6270;
-constexpr int64_t FIX_0_899976223 = 7373;
-constexpr int64_t FIX_1_175875602 = 9633;
-constexpr int64_t FIX_1_501321110 = 12299;
-constexpr int64_t FIX_1_847759065 = 15137;
-constexpr int64_t FIX_1_961570560 = 16069;
-constexpr int64_t FIX_2_053119869 = 16819;
-constexpr int64_t FIX_2_562915447 = 20995;
-constexpr int64_t FIX_3_072711026 = 25172;
 
-inline int64_t descale(int64_t x, int n) {
-    return (x + ((int64_t)1 << (n - 1))) >> n;
+inline int32_t wrap16(int32_t x) { return (int16_t)(uint16_t)(uint32_t)x; }
+inline int32_t add32(int32_t a, int32_t b) {
+    return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+inline int32_t sub32(int32_t a, int32_t b) {
+    return (int32_t)((uint32_t)a - (uint32_t)b);
+}
+inline int32_t sat16(int32_t x) {
+    return x < -32768 ? -32768 : (x > 32767 ? 32767 : x);
+}
+inline uint8_t sample(int32_t x) {
+    return (uint8_t)((x < -128 ? -128 : (x > 127 ? 127 : x)) + 128);
 }
 
-// jdmaster.c's post-IDCT range limit: x & 1023 read as a signed 10-bit
-// value, plus 128, clamped to 0..255
-inline uint8_t idct_limit(int64_t x) {
-    int v = (int)(x & 1023);
-    if (v >= 512) v -= 1024;
-    v += 128;
-    return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+// One 8-point pass: the 16-bit values in[0], in[s], ... in[7s] to
+// out[0], out[os], ..., descaled by n bits and saturated to 16 bits.
+// The constants are jidctint.c's FIX_* folded as the SIMD code folds them.
+inline void idct_pass(const int32_t* in, int s, int32_t* out, int os,
+                      int n) {
+    const int32_t i0 = in[0], i1 = in[s], i2 = in[2 * s], i3 = in[3 * s];
+    const int32_t i4 = in[4 * s], i5 = in[5 * s], i6 = in[6 * s];
+    const int32_t i7 = in[7 * s];
+    const int32_t tmp3 = i2 * 10703 + i6 * 4433;
+    const int32_t tmp2 = i2 * 4433 + i6 * -10704;
+    const int32_t tmp0 = wrap16(i0 + i4) * (1 << kConstBits);
+    const int32_t tmp1 = wrap16(i0 - i4) * (1 << kConstBits);
+    const int32_t r = 1 << (n - 1);
+    const int32_t t10 = add32(add32(tmp0, tmp3), r);
+    const int32_t t13 = add32(sub32(tmp0, tmp3), r);
+    const int32_t t11 = add32(add32(tmp1, tmp2), r);
+    const int32_t t12 = add32(sub32(tmp1, tmp2), r);
+    const int32_t z3 = wrap16(i7 + i3), z4 = wrap16(i5 + i1);
+    const int32_t z3p = z3 * -6436 + z4 * 9633;
+    const int32_t z4p = z3 * 9633 + z4 * 6437;
+    const int32_t o0 = add32(i7 * -4927 + i1 * -7373, z3p);
+    const int32_t o3 = add32(i7 * -7373 + i1 * 4926, z4p);
+    const int32_t o1 = add32(i5 * -4176 + i3 * -20995, z4p);
+    const int32_t o2 = add32(i5 * -20995 + i3 * 4177, z3p);
+    out[0] = sat16(add32(t10, o3) >> n);
+    out[7 * os] = sat16(sub32(t10, o3) >> n);
+    out[os] = sat16(add32(t11, o2) >> n);
+    out[6 * os] = sat16(sub32(t11, o2) >> n);
+    out[2 * os] = sat16(add32(t12, o1) >> n);
+    out[5 * os] = sat16(sub32(t12, o1) >> n);
+    out[3 * os] = sat16(add32(t13, o0) >> n);
+    out[4 * os] = sat16(sub32(t13, o0) >> n);
 }
 
 void idct_islow(const int16_t* in, const int* q, uint8_t* out, int stride) {
-    int ws[64];
-    for (int c = 0; c < 8; ++c) {
-        const int16_t* ip = in + c;
-        const int* qp = q + c;
-        if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 &&
-            ip[40] == 0 && ip[48] == 0 && ip[56] == 0) {
-            int dc = (ip[0] * qp[0]) * (1 << kPass1Bits);
+    int32_t deq[64], ws[64], row[8];
+    int32_t ac_rows = 0;
+    for (int i = 0; i < 64; ++i) deq[i] = wrap16(in[i] * q[i]);
+    for (int i = 8; i < 64; ++i) ac_rows |= in[i];
+    if (!ac_rows) {  // the SIMD code's shortcut, its shift wrapping
+        for (int c = 0; c < 8; ++c) {
+            const int32_t dc = wrap16(deq[c] * (1 << kPass1Bits));
             for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dc;
-            continue;
         }
-        int64_t z2 = ip[16] * qp[16], z3 = ip[48] * qp[48];
-        int64_t z1 = (z2 + z3) * FIX_0_541196100;
-        int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-        int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-        z2 = ip[0] * qp[0];
-        z3 = ip[32] * qp[32];
-        int64_t tmp0 = (z2 + z3) * (1 << kConstBits);
-        int64_t tmp1 = (z2 - z3) * (1 << kConstBits);
-        int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-        int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-        tmp0 = ip[56] * qp[56];
-        tmp1 = ip[40] * qp[40];
-        tmp2 = ip[24] * qp[24];
-        tmp3 = ip[8] * qp[8];
-        z1 = tmp0 + tmp3;
-        z2 = tmp1 + tmp2;
-        z3 = tmp0 + tmp2;
-        int64_t z4 = tmp1 + tmp3;
-        int64_t z5 = (z3 + z4) * FIX_1_175875602;
-        tmp0 *= FIX_0_298631336;
-        tmp1 *= FIX_2_053119869;
-        tmp2 *= FIX_3_072711026;
-        tmp3 *= FIX_1_501321110;
-        z1 *= -FIX_0_899976223;
-        z2 *= -FIX_2_562915447;
-        z3 *= -FIX_1_961570560;
-        z4 *= -FIX_0_390180644;
-        z3 += z5;
-        z4 += z5;
-        tmp0 += z1 + z3;
-        tmp1 += z2 + z4;
-        tmp2 += z2 + z3;
-        tmp3 += z1 + z4;
-        const int sh = kConstBits - kPass1Bits;
-        ws[0 * 8 + c] = (int)descale(tmp10 + tmp3, sh);
-        ws[7 * 8 + c] = (int)descale(tmp10 - tmp3, sh);
-        ws[1 * 8 + c] = (int)descale(tmp11 + tmp2, sh);
-        ws[6 * 8 + c] = (int)descale(tmp11 - tmp2, sh);
-        ws[2 * 8 + c] = (int)descale(tmp12 + tmp1, sh);
-        ws[5 * 8 + c] = (int)descale(tmp12 - tmp1, sh);
-        ws[3 * 8 + c] = (int)descale(tmp13 + tmp0, sh);
-        ws[4 * 8 + c] = (int)descale(tmp13 - tmp0, sh);
+    } else {
+        for (int c = 0; c < 8; ++c) {
+            const int32_t* v = deq + c;
+            if (v[8] | v[16] | v[24] | v[32] | v[40] | v[48] | v[56]) {
+                idct_pass(v, 8, ws + c, 8, kConstBits - kPass1Bits);
+            } else {  // what the pass gives a column of its DC alone
+                const int32_t dc = sat16(v[0] * (1 << kPass1Bits));
+                for (int r = 0; r < 8; ++r) ws[r * 8 + c] = dc;
+            }
+        }
     }
-    const int sh = kConstBits + kPass1Bits + 3;
     for (int r = 0; r < 8; ++r) {
-        const int* w = ws + r * 8;
+        const int32_t* w = ws + r * 8;
         uint8_t* o = out + (size_t)r * stride;
-        if (w[1] == 0 && w[2] == 0 && w[3] == 0 && w[4] == 0 && w[5] == 0 &&
-            w[6] == 0 && w[7] == 0) {
-            uint8_t dc = idct_limit(descale(w[0], kPass1Bits + 3));
-            for (int c = 0; c < 8; ++c) o[c] = dc;
+        if (!(w[1] | w[2] | w[3] | w[4] | w[5] | w[6] | w[7])) {
+            // what the pass gives a row of its DC alone
+            std::memset(o, sample((w[0] + 16) >> 5), 8);
             continue;
         }
-        int64_t z2 = w[2], z3 = w[6];
-        int64_t z1 = (z2 + z3) * FIX_0_541196100;
-        int64_t tmp2 = z1 + z3 * -FIX_1_847759065;
-        int64_t tmp3 = z1 + z2 * FIX_0_765366865;
-        int64_t tmp0 = ((int64_t)w[0] + w[4]) * (1 << kConstBits);
-        int64_t tmp1 = ((int64_t)w[0] - w[4]) * (1 << kConstBits);
-        int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-        int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-        tmp0 = w[7];
-        tmp1 = w[5];
-        tmp2 = w[3];
-        tmp3 = w[1];
-        z1 = tmp0 + tmp3;
-        z2 = tmp1 + tmp2;
-        z3 = tmp0 + tmp2;
-        int64_t z4 = tmp1 + tmp3;
-        int64_t z5 = (z3 + z4) * FIX_1_175875602;
-        tmp0 *= FIX_0_298631336;
-        tmp1 *= FIX_2_053119869;
-        tmp2 *= FIX_3_072711026;
-        tmp3 *= FIX_1_501321110;
-        z1 *= -FIX_0_899976223;
-        z2 *= -FIX_2_562915447;
-        z3 *= -FIX_1_961570560;
-        z4 *= -FIX_0_390180644;
-        z3 += z5;
-        z4 += z5;
-        tmp0 += z1 + z3;
-        tmp1 += z2 + z4;
-        tmp2 += z2 + z3;
-        tmp3 += z1 + z4;
-        o[0] = idct_limit(descale(tmp10 + tmp3, sh));
-        o[7] = idct_limit(descale(tmp10 - tmp3, sh));
-        o[1] = idct_limit(descale(tmp11 + tmp2, sh));
-        o[6] = idct_limit(descale(tmp11 - tmp2, sh));
-        o[2] = idct_limit(descale(tmp12 + tmp1, sh));
-        o[5] = idct_limit(descale(tmp12 - tmp1, sh));
-        o[3] = idct_limit(descale(tmp13 + tmp0, sh));
-        o[4] = idct_limit(descale(tmp13 - tmp0, sh));
+        idct_pass(w, 1, row, 1, kConstBits + kPass1Bits + 3);
+        for (int c = 0; c < 8; ++c) o[c] = sample(row[c]);
+    }
+}
+
+// decompress_smooth_data's estimate of a coefficient with quantiser q from
+// a weighted DC sum num, clamped below 2^al (the bits still unknown)
+int16_t smooth_estimate(int64_t q, int64_t num, int al) {
+    const bool neg = num < 0;
+    int pred = (int)(((q << 7) + (neg ? -num : num)) / (q << 8));
+    if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    return (int16_t)(neg ? -pred : pred);
+}
+
+// jdcoefct.c decompress_smooth_data (libjpeg-turbo >= 2.1): the IDCT of
+// each of a component's blocks in the image after its coefficients 1..9
+// that are still zero and not known exact (coef_bits) are estimated from
+// the DC values of the 5x5 blocks around it, and, where none of those AC
+// coefficients was coded at all, its DC too.  The rows around a block are
+// libjpeg's: it walks `total` iMCU rows and repeats edge rows by its own
+// count of them.
+void smooth_idct(const Component& k, int total, int last_good, bool first,
+                 uint8_t* plane) {
+    // iMCU rows past the last one decoded whole take the progression as
+    // it was before the component's last scan (-1s after a file's first)
+    int prev[10];
+    for (int i = 1; i <= 9; ++i) prev[i] = first ? -1 : k.prev_bits[i];
+    const int* qv = k.quant;
+    const int64_t q00 = qv[0];
+    const int wib = (k.dw + 7) / 8, hib = (k.dh + 7) / 8, last = wib - 1;
+    const int stride = k.bw * 8;
+    auto dc_at = [&](int row, int col) {
+        return (int)k.coef[((size_t)row * k.bw + col) * 64];
+    };
+    for (int r = 0; r < total; ++r) {
+        const int* cb = r > last_good ? prev : k.coef_bits;
+        bool change_dc = true;
+        for (int i = 1; i <= 9; ++i)
+            if (cb[i] != -1) change_dc = false;
+        int block_rows = k.v;
+        if (r == total - 1) {
+            block_rows = hib % k.v;
+            if (block_rows == 0) block_rows = k.v;
+        }
+        const int image_block_rows = block_rows * total;
+        for (int b = 0; b < block_rows; ++b) {
+            const int ibr = r * block_rows + b, row = r * k.v + b;
+            int rows[5];
+            rows[2] = row;
+            rows[1] = ibr > 0 ? row - 1 : row;
+            rows[0] = ibr > 1 ? row - 2 : rows[1];
+            rows[3] = ibr < image_block_rows - 1 ? row + 1 : row;
+            rows[4] = ibr < image_block_rows - 2 ? row + 2 : rows[3];
+            for (int col = 0; col <= last; ++col) {
+                // DC01..DC25: rows[0..4] by columns col - 2 .. col + 2,
+                // the edge columns repeated
+                int d[26];
+                for (int i = 0; i < 25; ++i) {
+                    int cc = col + i % 5 - 2;
+                    cc = cc < 0 ? 0 : (cc > last ? last : cc);
+                    d[i + 1] = dc_at(rows[i / 5], cc);
+                }
+                int16_t ws[64];
+                std::memcpy(ws, k.coef.data() + ((size_t)row * k.bw + col) * 64,
+                            sizeof(ws));
+                // (coefficient index, natural position, weighted DC sum)
+                auto apply = [&](int i, int pos, int64_t sum) {
+                    if (cb[i] != 0 && ws[pos] == 0)
+                        ws[pos] = smooth_estimate(qv[pos], q00 * sum, cb[i]);
+                };
+                if (change_dc) {
+                    apply(1, 1, -d[1] - d[2] + d[4] + d[5] - 3 * d[6] +
+                                    13 * d[7] - 13 * d[9] + 3 * d[10] -
+                                    3 * d[11] + 38 * d[12] - 38 * d[14] +
+                                    3 * d[15] - 3 * d[16] + 13 * d[17] -
+                                    13 * d[19] + 3 * d[20] - d[21] - d[22] +
+                                    d[24] + d[25]);
+                    apply(2, 8, -d[1] - 3 * d[2] - 3 * d[3] - 3 * d[4] -
+                                    d[5] - d[6] + 13 * d[7] + 38 * d[8] +
+                                    13 * d[9] - d[10] + d[16] - 13 * d[17] -
+                                    38 * d[18] - 13 * d[19] + d[20] + d[21] +
+                                    3 * d[22] + 3 * d[23] + 3 * d[24] + d[25]);
+                    apply(3, 16, d[3] + 2 * d[7] + 7 * d[8] + 2 * d[9] -
+                                     5 * d[12] - 14 * d[13] - 5 * d[14] +
+                                     2 * d[17] + 7 * d[18] + 2 * d[19] + d[23]);
+                    apply(4, 9, -d[1] + d[5] + 9 * d[7] - 9 * d[9] -
+                                    9 * d[17] + 9 * d[19] + d[21] - d[25]);
+                    apply(5, 2, 2 * d[7] - 5 * d[8] + 2 * d[9] + d[11] +
+                                    7 * d[12] - 14 * d[13] + 7 * d[14] +
+                                    d[15] + 2 * d[17] - 5 * d[18] + 2 * d[19]);
+                    apply(6, 3, d[7] - d[9] + 2 * d[12] - 2 * d[14] + d[17] -
+                                    d[19]);
+                    apply(7, 10, d[7] - 3 * d[8] + d[9] - d[17] + 3 * d[18] -
+                                     d[19]);
+                    apply(8, 17, d[7] - d[9] - 3 * d[12] + 3 * d[14] + d[17] -
+                                     d[19]);
+                    apply(9, 24, d[7] + 2 * d[8] + d[9] - d[17] - 2 * d[18] -
+                                     d[19]);
+                    ws[0] = smooth_estimate(
+                        q00,
+                        q00 * (-2 * d[1] - 6 * d[2] - 8 * d[3] - 6 * d[4] -
+                               2 * d[5] - 6 * d[6] + 6 * d[7] + 42 * d[8] +
+                               6 * d[9] - 6 * d[10] - 8 * d[11] + 42 * d[12] +
+                               152 * d[13] + 42 * d[14] - 8 * d[15] -
+                               6 * d[16] + 6 * d[17] + 42 * d[18] + 6 * d[19] -
+                               6 * d[20] - 2 * d[21] - 6 * d[22] - 8 * d[23] -
+                               6 * d[24] - 2 * d[25]),
+                        0);
+                } else {
+                    apply(1, 1, -7 * d[11] + 50 * d[12] - 50 * d[14] +
+                                    7 * d[15]);
+                    apply(2, 8, -7 * d[3] + 50 * d[8] - 50 * d[18] +
+                                    7 * d[23]);
+                    apply(3, 16, -d[3] + 13 * d[8] - 24 * d[13] + 13 * d[18] -
+                                     d[23]);
+                    apply(4, 9, d[10] + d[16] - 10 * d[17] + 10 * d[19] -
+                                    d[2] - d[20] + d[22] - d[24] + d[4] -
+                                    d[6] + 10 * d[7] - 10 * d[9]);
+                    apply(5, 2, -d[11] + 13 * d[12] - 24 * d[13] +
+                                    13 * d[14] - d[15]);
+                }
+                idct_islow(ws, qv, plane + (size_t)row * 8 * stride + col * 8,
+                           stride);
+            }
+        }
     }
 }
 
 // A component's samples (bw*8 wide) upsampled to one row of the output
-// width (jdsample.c): `row` is the output row, `out` width samples.
+// width, by the method jdsample.c jinit_upsampler picks: `row` is the
+// output row, `out` width samples.
 void upsample_row(const Component& k, const uint8_t* plane, int hmax,
                   int vmax, int row, int width, uint8_t* out) {
     const int stride = k.bw * 8;
@@ -614,14 +1339,31 @@ void upsample_row(const Component& k, const uint8_t* plane, int hmax,
         std::memcpy(out, plane + (size_t)row * stride, width);
         return;
     }
-    const bool fancy = k.dw > 2;
-    if (rv == 1) {  // h2v1
+    // the row above (even output rows) or below (odd ones) the nearer
+    // input row, repeated at the edges (jdmainct.c)
+    auto other_row = [&](int r) {
+        int r1 = (row & 1) ? r + 1 : r - 1;
+        return r1 < 0 ? 0 : (r1 > k.dh - 1 ? k.dh - 1 : r1);
+    };
+    if (rh == 1 && rv == 2) {  // h1v2_fancy_upsample
+        const int r = row >> 1, bias = (row & 1) ? 2 : 1;
+        const uint8_t* in0 = plane + (size_t)r * stride;
+        const uint8_t* in1 = plane + (size_t)other_row(r) * stride;
+        for (int x = 0; x < width; ++x)
+            out[x] = (uint8_t)((in0[x] * 3 + in1[x] + bias) >> 2);
+        return;
+    }
+    const bool fancy = (rh == 2 && (rv == 1 || rv == 2)) && k.dw > 2;
+    if (!fancy) {  // h2v1_upsample, h2v2_upsample, int_upsample
+        const uint8_t* in = plane + (size_t)(row / rv) * stride;
+        for (int x = 0; x < width; ++x) out[x] = in[x / rh];
+        return;
+    }
+    if (rv == 1) {  // h2v1_fancy_upsample
         const uint8_t* in = plane + (size_t)row * stride;
         for (int x = 0; x < width; ++x) {
             int j = x >> 1;
-            if (!fancy) {
-                out[x] = in[j];
-            } else if (x & 1) {
+            if (x & 1) {
                 out[x] = j == k.dw - 1 ? in[j]
                                        : (uint8_t)((in[j] * 3 + in[j + 1] + 2) >> 2);
             } else {
@@ -631,19 +1373,10 @@ void upsample_row(const Component& k, const uint8_t* plane, int hmax,
         }
         return;
     }
-    // h2v2: the nearer input row, and the row above (even output rows) or
-    // below (odd ones), repeated at the edges (jdmainct.c)
+    // h2v2_fancy_upsample
     const int r = row >> 1;
-    if (!fancy) {
-        const uint8_t* in = plane + (size_t)r * stride;
-        for (int x = 0; x < width; ++x) out[x] = in[x >> 1];
-        return;
-    }
-    int r1 = (row & 1) ? r + 1 : r - 1;
-    if (r1 < 0) r1 = 0;
-    if (r1 > k.dh - 1) r1 = k.dh - 1;
     const uint8_t* in0 = plane + (size_t)r * stride;
-    const uint8_t* in1 = plane + (size_t)r1 * stride;
+    const uint8_t* in1 = plane + (size_t)other_row(r) * stride;
     auto colsum = [&](int j) { return in0[j] * 3 + in1[j]; };
     for (int x = 0; x < width; ++x) {
         int j = x >> 1;
@@ -670,7 +1403,7 @@ extern "C" {
 // Returns 0, 1 (a JPEG this decoder does not read) or 2 (damaged).
 int jpeg_decode_header(const uint8_t* data, long size, int* dims) {
     Decoder d{data, size};
-    int err = d.header();
+    int err = d.run(false);
     if (err) return err;
     dims[0] = d.height;
     dims[1] = d.width;
@@ -681,11 +1414,12 @@ int jpeg_decode_header(const uint8_t* data, long size, int* dims) {
 // Decodes into out (height * width * channels bytes, row-major).
 int jpeg_decode(const uint8_t* data, long size, uint8_t* out, long out_size) {
     Decoder d{data, size};
-    int err = d.decode_all();
+    int err = d.run(true);
     if (err) return err;
+    const bool smooth = d.smoothing_needed();
     const int H = d.height, W = d.width, n = d.ncomp;
     if (out_size != (long)H * W * n) return kMalformed;
-    std::vector<uint8_t> planes[3];
+    std::vector<uint8_t> planes[4];
     for (int c = 0; c < n; ++c) {
         Component& k = d.comp[c];
         if (k.coef.empty()) k.coef.assign((size_t)k.bw * k.bh * 64, 0);
@@ -700,6 +1434,9 @@ int jpeg_decode(const uint8_t* data, long size, uint8_t* out, long out_size) {
                            k.quant,
                            planes[c].data() + (size_t)by * 8 * stride + bx * 8,
                            stride);
+        if (smooth)  // the image's blocks again; the padding keeps the above
+            smooth_idct(k, d.mcuy, d.last_good, d.scans == 1,
+                        planes[c].data());
     }
     if (n == 1) {
         for (int y = 0; y < H; ++y)
@@ -707,7 +1444,7 @@ int jpeg_decode(const uint8_t* data, long size, uint8_t* out, long out_size) {
                          out + (size_t)y * W);
         return kOk;
     }
-    // jdcolor.c build_ycc_rgb_table and ycc_rgb_convert
+    // jdcolor.c build_ycc_rgb_table (ycc_rgb_convert, ycck_cmyk_convert)
     int cr_r[256], cb_b[256];
     int64_t cr_g[256], cb_g[256];
     const int64_t one_half = (int64_t)1 << 15;
@@ -718,20 +1455,52 @@ int jpeg_decode(const uint8_t* data, long size, uint8_t* out, long out_size) {
         cr_g[i] = -46802 * x;
         cb_g[i] = -22554 * x + one_half;
     }
-    std::vector<uint8_t> rows(3 * (size_t)W);
+    std::vector<uint8_t> rows((size_t)n * W);
     for (int y = 0; y < H; ++y) {
-        for (int c = 0; c < 3; ++c)
+        for (int c = 0; c < n; ++c)
             upsample_row(d.comp[c], planes[c].data(), d.hmax, d.vmax, y, W,
                          rows.data() + (size_t)c * W);
-        const uint8_t* Y = rows.data();
-        const uint8_t* Cb = Y + W;
-        const uint8_t* Cr = Cb + W;
-        uint8_t* o = out + (size_t)y * W * 3;
-        for (int x = 0; x < W; ++x) {
-            int yy = Y[x], cb = Cb[x], cr = Cr[x];
-            o[3 * x] = clamp255(yy + cr_r[cr]);
-            o[3 * x + 1] = clamp255(yy + (int)((cb_g[cb] + cr_g[cr]) >> 16));
-            o[3 * x + 2] = clamp255(yy + cb_b[cb]);
+        const uint8_t* c0 = rows.data();
+        const uint8_t* c1 = c0 + W;
+        const uint8_t* c2 = c1 + W;
+        const uint8_t* c3 = c2 + W;
+        uint8_t* o = out + (size_t)y * W * n;
+        switch (d.color) {
+            case kYCbCr:
+                for (int x = 0; x < W; ++x) {
+                    int yy = c0[x], cb = c1[x], cr = c2[x];
+                    o[3 * x] = clamp255(yy + cr_r[cr]);
+                    o[3 * x + 1] =
+                        clamp255(yy + (int)((cb_g[cb] + cr_g[cr]) >> 16));
+                    o[3 * x + 2] = clamp255(yy + cb_b[cb]);
+                }
+                break;
+            case kRGB:
+                for (int x = 0; x < W; ++x) {
+                    o[3 * x] = c0[x];
+                    o[3 * x + 1] = c1[x];
+                    o[3 * x + 2] = c2[x];
+                }
+                break;
+            case kCMYK:  // null_convert, then PIL's "CMYK;I" inversion
+                for (int x = 0; x < W; ++x) {
+                    o[4 * x] = (uint8_t)(255 - c0[x]);
+                    o[4 * x + 1] = (uint8_t)(255 - c1[x]);
+                    o[4 * x + 2] = (uint8_t)(255 - c2[x]);
+                    o[4 * x + 3] = (uint8_t)(255 - c3[x]);
+                }
+                break;
+            default:  // kYCCK: ycck_cmyk_convert, then "CMYK;I"
+                for (int x = 0; x < W; ++x) {
+                    int yy = c0[x], cb = c1[x], cr = c2[x];
+                    int rgb[3] = {yy + cr_r[cr],
+                                  yy + (int)((cb_g[cb] + cr_g[cr]) >> 16),
+                                  yy + cb_b[cb]};
+                    for (int i = 0; i < 3; ++i)
+                        o[4 * x + i] = (uint8_t)(255 - clamp255(255 - rgb[i]));
+                    o[4 * x + 3] = (uint8_t)(255 - c3[x]);
+                }
+                break;
         }
     }
     return kOk;

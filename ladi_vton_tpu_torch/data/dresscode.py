@@ -158,8 +158,8 @@ class DressCodeDataset:
             # background removal via inverted-mask composite
             # (reference dresscode.py:123-131)
             inv = resample.invert(mask.convert_l().pixels)
-            cloth = Image(resample.composite(inv, cloth.pixels, inv),
-                          cloth.mode)
+            cloth = Image(resample.composite(inv, cloth.pixels, inv,
+                                             cloth.mode), cloth.mode)
             cloth = cloth.resize((self.height, self.width), resample.BICUBIC)
             out["cloth"] = _to_float(cloth)
 

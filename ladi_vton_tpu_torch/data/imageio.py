@@ -8,11 +8,15 @@
     ``data/native.py``).  A P image keeps its palette indices as its
     pixels, as ``np.asarray(PIL.Image.open(path))`` gives them, and its
     palette beside them.  Anything else raises.
-  - a baseline JPEG (sequential Huffman, 8 bits, 1 or 3 components,
-    luma sampled 1x1, 2x1 or 2x2) is decoded here by the host C++
-    (``csrc/host/jpeg_decode.cpp``), to the pixels PIL gives: libjpeg's
-    integer IDCT, fancy upsampling and fixed-point YCbCr -> RGB.
-  - any other JPEG (progressive, arithmetic-coded, 12-bit, Adobe/CMYK) is
+  - a JPEG is decoded here by the host C++ (``csrc/host/jpeg_decode.cpp``)
+    to the pixels PIL gives: sequential or progressive, Huffman or
+    arithmetic-coded, 8 bits, every integral sampling ratio, one
+    component (L), three (RGB, from YCbCr or stored as RGB) or four
+    (CMYK, from CMYK or YCCK, inverted as PIL inverts them), with
+    libjpeg's integer IDCT, block smoothing, fancy upsampling and
+    fixed-point colour.
+  - a JPEG the decoder refuses (lossless; 12-bit samples, a height left
+    to a DNL marker or hierarchical frames, which PIL refuses too) is
     read from its decoded sidecar ``<file>.png`` (for example
     ``000000_0.jpg.png``), which holds the pixels PIL decodes from it,
     written losslessly by ``tools/decode_images.py`` where PIL is
@@ -46,6 +50,8 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SOI = b"\xff\xd8\xff"
 DECODE_TOOL = "tools/decode_images.py"
 SIDECAR_SUFFIX = ".png"
+# a decoded JPEG's mode by its channels, as PIL names it
+JPEG_MODES = {(): "L", (3,): "RGB", (4,): "CMYK"}
 
 # PNG colour type -> (mode, channels), 8 bits per sample
 PNG_COLOR_TYPES = {0: ("L", 1), 2: ("RGB", 3), 3: ("P", 1), 4: ("LA", 2),
@@ -83,6 +89,8 @@ class Image:
             px = resample.convert_l(self.pixels)
         elif self.mode == "P":
             px = resample.convert_l(self.palette)[self.pixels]
+        elif self.mode == "CMYK":  # PIL goes through RGB
+            px = resample.convert_l(resample.cmyk_to_rgb(self.pixels))
         else:
             raise ValueError(f"cannot convert {self.mode} to L")
         return Image(np.ascontiguousarray(px), "L")
@@ -149,13 +157,14 @@ def open_image(path) -> Image:
     if data.startswith(JPEG_SOI):
         pixels = native.jpeg_decode(data)
         if pixels is not None:
-            return Image(pixels, "L" if pixels.ndim == 2 else "RGB")
+            return Image(pixels, JPEG_MODES[pixels.shape[2:]])
         side = sidecar_path(path)
         if not side.exists():
             raise FileNotFoundError(
                 f"{path} is a JPEG the port's decoder does not read "
-                f"(progressive, arithmetic-coded, 12-bit or Adobe/CMYK) and "
-                f"has no decoded sidecar {side.name}: run "
+                f"(lossless, 12-bit, a height left to DNL, or "
+                f"hierarchical) and has no decoded sidecar {side.name}: "
+                f"run "
                 f"`python {DECODE_TOOL} <dataset root>` once where PIL is "
                 f"installed")
         return decode_png(side.read_bytes())

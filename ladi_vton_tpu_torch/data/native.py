@@ -1,5 +1,5 @@
 """ctypes binding of the data layer's host C++ (``csrc/host/*.cpp``:
-``preprocess.cpp`` and the baseline JPEG decoder ``jpeg_decode.cpp``).
+``preprocess.cpp`` and the JPEG decoder ``jpeg_decode.cpp``).
 
 The library is compiled at first use with the host C++ compiler (``$CXX``,
 else ``g++`` or ``c++``) into ``build/host/<hash>/`` at the repository
@@ -160,10 +160,11 @@ JPEG_UNSUPPORTED, JPEG_MALFORMED = 1, 2
 
 
 def jpeg_decode(data: bytes) -> Optional[np.ndarray]:
-    """PIL's pixels of a baseline JPEG: (H, W) uint8 for one component,
-    (H, W, 3) RGB for three; None for a JPEG the decoder does not read
-    (``csrc/host/jpeg_decode.cpp`` lists what it reads).  A damaged file
-    raises."""
+    """PIL's pixels of a JPEG, sequential or progressive (smoothed as
+    libjpeg smooths it), Huffman or arithmetic-coded: (H, W) uint8 for one component, (H, W, 3) RGB for
+    three, (H, W, 4) CMYK for four (PIL's inverted bytes); None for a
+    JPEG the decoder refuses (``csrc/host/jpeg_decode.cpp`` lists what
+    it reads and what it refuses).  A damaged file raises."""
     lib = library()
     dims = (ctypes.c_int * 3)()
     err = lib.jpeg_decode_header(data, len(data), dims)

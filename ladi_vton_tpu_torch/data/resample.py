@@ -19,8 +19,9 @@ Pillow's C code computes, integer for integer:
   order.
 * ``invert`` is ``255 - x``; ``convert_l`` is ITU-R 601-2 luma in
   Pillow's fixed point, ``(19595 R + 38470 G + 7471 B + 0x8000) >> 16``;
-  ``composite`` is ``Image.composite``'s blend, ``t = a m + b (255 - m) +
-  128`` then ``(t + (t >> 8)) >> 8``.
+  ``cmyk_to_rgb`` is ``Convert.c cmyk2rgb``, ``from_l`` its ``l2rgb``,
+  ``l2rgba`` and ``l2cmyk``; ``composite`` is ``Image.composite``'s
+  blend, ``t = a m + b (255 - m) + 128`` then ``(t + (t >> 8)) >> 8``.
 
 Images are (H, W) or (H, W, C) uint8 arrays; the channels of one pixel
 are resampled independently, as PIL does for L, P and RGB images.  PIL
@@ -141,22 +142,44 @@ def convert_l(rgb: np.ndarray) -> np.ndarray:
         np.uint8)
 
 
-def composite(a: np.ndarray, b: np.ndarray, mask: np.ndarray) -> np.ndarray:
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """(H, W, 4) CMYK -> (H, W, 3) RGB, as PIL's ``convert("RGB")``:
+    ``nk - c nk / 255`` (rounded as PIL's MULDIV255) with ``nk = 255 - k``."""
+    c = cmyk.astype(np.int32)
+    nk = 255 - c[..., 3:]
+    t = c[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
+def from_l(l: np.ndarray, mode: str) -> np.ndarray:
+    """An L image's pixels in ``mode`` (L, RGB, RGBA or CMYK), as PIL's
+    ``convert`` from L gives them."""
+    if mode == "L":
+        return l
+    if mode == "RGB":
+        return np.repeat(l[..., None], 3, axis=2)
+    zero = np.zeros_like(l)
+    if mode == "RGBA":
+        return np.stack([l, l, l, zero + 255], axis=2)
+    if mode == "CMYK":
+        return np.stack([zero, zero, zero, 255 - l], axis=2)
+    raise ValueError(f"cannot convert L to {mode}")
+
+
+def composite(a: np.ndarray, b: np.ndarray, mask: np.ndarray,
+              mode: str | None = None) -> np.ndarray:
     """``Image.composite(a, b, mask)``: ``a`` where the L ``mask`` is 255,
-    ``b`` where it is 0, blended between.  An L ``a`` or ``b`` pasted with
-    an RGB one is repeated across the channels first, as PIL converts L to
-    RGB."""
-    channels = max(x.shape[2] if x.ndim == 3 else 1 for x in (a, b))
-
-    def widen(x):
-        x = x.astype(np.int32)
-        if channels > 1 and x.ndim == 2:
-            x = np.repeat(x[..., None], channels, axis=2)
-        return x
-
-    a, b = widen(a), widen(b)
+    ``b`` where it is 0, blended between.  The result has ``b``'s
+    ``mode`` (L or RGB if not given, by its channels), and an L ``a`` is
+    converted to it first (``from_l``), as PIL's ``paste`` converts."""
+    if mode is None:
+        mode = "L" if b.ndim == 2 else {3: "RGB"}[b.shape[2]]
+    if a.ndim == 2 and mode != "L":
+        a = from_l(a, mode)
+    if a.shape != b.shape:
+        raise ValueError(f"composite of {a.shape} over {b.shape} ({mode})")
     m = mask.astype(np.int32)
-    if a.ndim == 3:
+    if b.ndim == 3:
         m = m[..., None]
-    t = a * m + b * (255 - m) + 128
+    t = a.astype(np.int32) * m + b.astype(np.int32) * (255 - m) + 128
     return ((t + (t >> 8)) >> 8).astype(np.uint8)

@@ -10,7 +10,7 @@ LPIPS) loaded with a BILINEAR resize to the generated size, FID and KID
 against a per-dataset stats cache (``metrics.fid.StatsCache``, built
 from the raw GT images on first use, readable by either package), and
 category-scoped or ``all``.  Images are read by the port's
-``data/imageio.py`` (PNG, baseline JPEG, sidecars) and resized by
+``data/imageio.py`` (PNG, JPEG, sidecars) and resized by
 ``data/resample.py``, as PIL would.
 
 The towers run in fp32 with TF32 off for cuDNN and cuBLAS, in a scope
@@ -108,6 +108,8 @@ def rgb_pixels(path: str) -> np.ndarray:
         return np.ascontiguousarray(px[..., :3])
     if img.mode == "P":
         return img.palette[px]
+    if img.mode == "CMYK":
+        return resample.cmyk_to_rgb(px)
     if img.mode == "LA":
         px = px[..., 0]
     return np.repeat(px[..., None], 3, axis=2)

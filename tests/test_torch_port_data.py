@@ -10,13 +10,17 @@ must equal the JAX package's, key for key and bit for bit, except
 ``pose_map`` and ``im_pose`` (within 1e-6: the pose heatmaps come from a
 separately built copy of the same C++) and ``dense_uv`` (``F.interpolate``
 against ``cv2.resize``, within 5e-5, as ``test_torch_port_imageio.py``
-states).  Also: ``BatchLoader`` against the
+states).  The same splits with progressive JPEGs (PIL's default script)
+and no sidecars, read by the port's decoder, and a VITON-HD split with
+CMYK JPEGs, give the JAX datasets' items too.  Also: ``BatchLoader``
+against the
 JAX loader (order, ``shuffle``, ``pad_last``, collation, worker
 processes), the host C++ against ``data/raster.py`` and ``cv2.dilate``,
 ``tools/decode_images.py``'s idempotence, and the synthetic train split
 (pairs, warped cloths, CLIP features, captions) read by both packages.
 """
 
+import functools
 import random
 import sys
 from pathlib import Path
@@ -41,6 +45,7 @@ from ladi_vton_tpu_torch.data.dresscode import POSSIBLE_OUTPUTS
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 import decode_images  # noqa: E402
+import torch_port_jpeg as jpeg_writer  # noqa: E402
 
 SOURCE = (256, 192)
 SIZE = (128, 96)
@@ -51,11 +56,13 @@ VITONHD_KEYS = tuple(k for k in POSSIBLE_OUTPUTS
                      if k not in ("dense_labels", "dense_uv"))
 
 
-def pil_jpeg(path, rgb) -> None:
-    """JPEG content under a .jpg name, PNG otherwise, as the datasets
-    store them."""
+def pil_jpeg(path, rgb, mode="RGB", **kw) -> None:
+    """JPEG content under a .jpg name (quality 95, converted to ``mode``,
+    PIL's ``save`` options ``kw``), PNG otherwise, as the datasets store
+    them."""
     if str(path).endswith(".jpg"):
-        Image.fromarray(rgb).save(path, "JPEG", quality=95)
+        Image.fromarray(rgb).convert(mode).save(path, "JPEG", quality=95,
+                                                **kw)
     else:
         Image.fromarray(rgb).save(path, "PNG")
 
@@ -69,12 +76,13 @@ def pil_png(path, pixels, mode, palette=None) -> None:
 
 
 def make_trees(base: Path, size=SOURCE, n_pairs=2, clip_shape=(5, 8),
-               train_pairs=0) -> dict:
+               train_pairs=0, write_image=pil_jpeg,
+               sidecars=True) -> dict:
     """DressCode and VITON-HD test splits (and train splits of
-    ``train_pairs``) with PIL-written files and their sidecars;
-    {"dresscode": root, "vitonhd": root}."""
+    ``train_pairs``) with PIL-written files and, unless not
+    ``sidecars``, their sidecars; {"dresscode": root, "vitonhd": root}."""
     kw = dict(size=size, n_pairs=n_pairs, clip_shape=clip_shape,
-              write_image=pil_jpeg, write_png=pil_png,
+              write_image=write_image, write_png=pil_png,
               train_pairs=train_pairs)
     roots = {
         "dresscode": synthetic.write_dresscode(base / "dc" / "dresscode",
@@ -82,9 +90,10 @@ def make_trees(base: Path, size=SOURCE, n_pairs=2, clip_shape=(5, 8),
         "vitonhd": synthetic.write_vitonhd(base / "vh" / "vitonhd", seed=4,
                                            **kw),
     }
-    for root in roots.values():
-        for tree in (root, root.parent / "cache"):
-            decode_images.decode_tree(tree)
+    if sidecars:
+        for root in roots.values():
+            for tree in (root, root.parent / "cache"):
+                decode_images.decode_tree(tree)
     return roots
 
 
@@ -173,10 +182,64 @@ def test_a_jpeg_without_its_sidecar_raises(trees, tmp_path):
 
     src = trees["vitonhd"] / "test" / "image" / "000000_00.jpg"
     lone = tmp_path / "lone.jpg"
-    # a baseline JPEG decodes without its sidecar; a progressive one not
-    Image.open(src).save(lone, "JPEG", quality=95, progressive=True)
+    # baseline and progressive JPEGs decode without their sidecars; one
+    # whose frame says 12-bit samples (PIL refuses it too) not
+    img = np.asarray(Image.open(src))
+    frame = jpeg_writer.coefficients(jpeg_writer.rgb_to_ycc(img),
+                                     [(2, 2), (1, 1), (1, 1)])
+    lone.write_bytes(jpeg_writer.write(frame, precision=12, sof=0xC1))
     with pytest.raises(FileNotFoundError, match="tools/decode_images.py"):
         imageio.open_image(lone)
+
+
+@pytest.fixture(scope="module")
+def progressive_trees(tmp_path_factory):
+    roots = make_trees(tmp_path_factory.mktemp("port_progressive"),
+                       write_image=functools.partial(pil_jpeg,
+                                                     progressive=True),
+                       sidecars=False)
+    for root in roots.values():
+        assert not list(root.parent.rglob("*.jpg.png"))
+        assert Image.open(next(root.rglob("*.jpg"))).info.get("progressive")
+    return roots
+
+
+@pytest.mark.parametrize("order", ["paired", "unpaired"])
+@pytest.mark.parametrize("name,keys", [("dresscode", DRESSCODE_KEYS),
+                                       ("vitonhd", VITONHD_KEYS)])
+def test_progressive_trees_without_sidecars_equal_the_jax_datasets(
+        progressive_trees, name, keys, order):
+    ours, ref = _datasets(progressive_trees, name, order, keys)
+    assert len(ours) == len(ref) == 2
+    for i in range(len(ref)):
+        _assert_items_equal(ours[i], ref[i])
+
+
+def test_cmyk_jpegs_read_as_the_jax_dataset_reads_them(tmp_path):
+    """PIL gives a CMYK JPEG four channels and the JAX dataset keeps them
+    (``_to_float``); so does the port."""
+    roots = make_trees(tmp_path, size=(64, 48), n_pairs=1,
+                       write_image=functools.partial(pil_jpeg, mode="CMYK"),
+                       sidecars=False)
+    keys = ("c_name", "im_name", "cloth", "image", "warped_cloth")
+    ours, ref = _datasets(roots, "vitonhd", "paired", keys)
+    a, b = ours[0], ref[0]
+    _assert_items_equal(a, b)
+    assert a["image"].shape == SIZE + (4,)
+
+
+def test_cmyk_dresscode_cloth_reads_as_the_jax_dataset_reads_it(tmp_path):
+    """The DressCode cloth's background goes through ``Image.composite``,
+    which pastes the inverted L mask in the cloth's mode: for a CMYK
+    cloth PIL converts it to (0, 0, 0, 255 - l) first."""
+    roots = make_trees(tmp_path, size=(64, 48), n_pairs=1,
+                       write_image=functools.partial(pil_jpeg, mode="CMYK"),
+                       sidecars=False)
+    keys = ("c_name", "im_name", "cloth", "image", "warped_cloth")
+    ours, ref = _datasets(roots, "dresscode", "paired", keys)
+    a, b = ours[0], ref[0]
+    _assert_items_equal(a, b)
+    assert a["cloth"].shape == SIZE + (4,)
 
 
 def test_decode_images_is_idempotent(trees, capsys):

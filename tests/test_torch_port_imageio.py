@@ -13,8 +13,8 @@
   PSNR of its decode against the source is at most 0.1 dB below the PSNR
   of PIL's own file (the test prints both and the largest pixel
   difference between the two decodes).
-* A JPEG the port's decoder does not read (progressive) is read from its
-  decoded sidecar only, and raises without one, naming the tool.
+* A JPEG the port's decoder does not read (a lossless one) is read from
+  its decoded sidecar only, and raises without one, naming the tool.
 * ``dense_uv``'s resize (``F.interpolate``) against ``cv2.resize``
   (INTER_LINEAR) on float32 data in [0, 1], within 5e-5: the two
   interpolate between the same source pixels, but cv2 rounds its source
@@ -31,6 +31,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 from PIL import Image, ImageOps
 
+import torch_port_jpeg as jpeg_writer
 from ladi_vton_tpu_torch.data import imageio, resample
 from ladi_vton_tpu_torch.data.dresscode import resize_chw
 
@@ -159,6 +160,31 @@ def test_invert_composite_and_convert_l_equal_pil():
                                       np.asarray(im.convert("L")))
 
 
+def test_cmyk_conversions_and_composite_equal_pil():
+    """A CMYK JPEG's pixels (PIL's mode for four components): PIL's
+    ``convert`` to RGB and L, and the DressCode cloth's composite, whose
+    L mask PIL converts to the cloth's mode (``l2cmyk``: 0, 0, 0, 255 -
+    l) before it blends; and the L mask over an RGBA image."""
+    rng = np.random.default_rng(5)
+    mask = rng.integers(0, 256, (19, 23), dtype=np.uint8)
+    pil_inv = ImageOps.invert(Image.fromarray(mask))
+    inv = resample.invert(mask)
+    for mode in ("RGBA", "CMYK"):  # the CMYK one stays for the converts
+        px = rng.integers(0, 256, (19, 23, 4), dtype=np.uint8)
+        im = Image.fromarray(px, mode)
+        np.testing.assert_array_equal(
+            resample.composite(inv, px, inv, mode),
+            np.asarray(Image.composite(pil_inv, im, pil_inv)))
+        np.testing.assert_array_equal(resample.from_l(mask, mode),
+                                      np.asarray(Image.fromarray(
+                                          mask).convert(mode)))
+    np.testing.assert_array_equal(resample.cmyk_to_rgb(px),
+                                  np.asarray(im.convert("RGB")))
+    np.testing.assert_array_equal(
+        imageio.Image(px, "CMYK").convert_l().pixels,
+        np.asarray(im.convert("L")))
+
+
 def _psnr(a: np.ndarray, b: np.ndarray) -> float:
     mse = np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2)
     return float(10 * np.log10(255.0 ** 2 / mse))
@@ -195,7 +221,8 @@ def test_a_jpeg_is_read_from_its_sidecar_only(tmp_path):
     rgb = np.random.default_rng(5).integers(0, 256, (12, 10, 3),
                                             dtype=np.uint8)
     path = tmp_path / "x.jpg"
-    Image.fromarray(rgb).save(path, "JPEG", quality=95, progressive=True)
+    # a lossless JPEG: PIL decodes it, the port's decoder refuses it
+    path.write_bytes(jpeg_writer.lossless(12, 10))
     with pytest.raises(FileNotFoundError, match="tools/decode_images.py"):
         imageio.open_image(path)
     Image.open(path).save(imageio.sidecar_path(path), "PNG")

@@ -48,6 +48,7 @@ from ladi_vton_tpu_torch.metrics import fid
 from ladi_vton_tpu_torch.metrics.compute import (
     MetricModels,
     fid_between_folders,
+    rgb_pixels,
 )
 from ladi_vton_tpu_torch.metrics.inception import clean_resize_to_299
 from ladi_vton_tpu_torch.metrics.lpips import lpips_state
@@ -150,6 +151,19 @@ def test_clean_resize_to_299_is_bitwise(h, w, seed):
                                               dtype=np.uint8)
     np.testing.assert_array_equal(clean_resize_to_299(u8),
                                   jax_resize_299(u8))
+
+
+@pytest.mark.parametrize("mode,fmt", [("CMYK", "JPEG"), ("L", "JPEG"),
+                                      ("RGBA", "PNG"), ("P", "PNG")])
+def test_rgb_pixels_convert_as_pil(mode, fmt, tmp_path):
+    """The loaders' decode of each mode equals PIL's
+    ``Image.open(p).convert("RGB")``, which the JAX main reads."""
+    rgb = np.random.default_rng(4).integers(0, 256, (21, 17, 3),
+                                            dtype=np.uint8)
+    path = tmp_path / f"x.{fmt.lower()}"
+    Image.fromarray(rgb).convert(mode).save(path, fmt)
+    np.testing.assert_array_equal(
+        rgb_pixels(str(path)), np.asarray(Image.open(path).convert("RGB")))
 
 
 # ---------------------------------------------------------------- towers

@@ -3,9 +3,10 @@
     python tools/decode_images.py <dataset root> [<more roots>] [--force]
 
 The port (``ladi_vton_tpu_torch``) reads images without PIL.  Its own
-decoder reads baseline JPEGs (the datasets' and the mains' own files)
-bit for bit as PIL does; a progressive, arithmetic-coded, 12-bit or
-Adobe/CMYK JPEG needs a sidecar.  This tool walks each root, and the
+decoder reads bit for bit as PIL does every JPEG PIL reads but a
+lossless (SOF3) one, which needs a sidecar.  It also refuses 12-bit, DNL
+and hierarchical frames, which PIL cannot decode either.  This tool
+walks each root, and the
 warped-cloth and CLIP-feature cache the datasets read beside it
 (``<root>/../cache``, their default ``cache_root``), and writes beside
 every file with JPEG content a lossless PNG of the pixels exactly as
@@ -42,7 +43,7 @@ def is_jpeg(path: Path) -> bool:
 def _decode(path: Path, side: Path) -> None:
     with Image.open(path) as im:
         if im.mode not in ("L", "RGB"):
-            raise ValueError(f"{path}: a {im.mode} JPEG; the port reads L "
+            raise ValueError(f"{path}: a {im.mode} JPEG; sidecars hold L "
                              f"and RGB images")
         tmp = side.with_name(side.name + ".tmp")
         im.save(tmp, format="PNG")
