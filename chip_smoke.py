@@ -1944,11 +1944,15 @@ def check_jpegs(save_dir: pathlib.Path, label: str) -> int:
     return len(files)
 
 
-# phase 7's JPEG checks: the committed fixtures (tools/make_jpeg_fixtures.py
-# writes them where PIL is installed, each beside PIL's pixels as a PNG),
-# the decodes timed per kind, and a VITON-HD item's loads timed
+# phase 7's JPEG and PNG checks: the committed fixtures
+# (tools/make_jpeg_fixtures.py and tools/make_png_fixtures.py write them
+# where PIL is installed, each beside PIL's pixels), the decodes timed per
+# kind, and a VITON-HD item's loads timed
 JPEG_FIXTURES = pathlib.Path(__file__).resolve().parent / "tests" / \
     "fixtures" / "jpeg"
+PNG_FIXTURES = JPEG_FIXTURES.parent / "png"
+# the keys of the lossless item beside JPEG_ITEM_KEYS: its parse map's
+LOSSLESS_ITEM_KEYS = ("parse_array", "im_head", "shape")
 JPEG_DECODE_REPS = 20
 JPEG_ITEM_REPS = 5
 JPEG_ITEM_KEYS = ("c_name", "im_name", "image", "cloth", "pose_map",
@@ -1962,16 +1966,28 @@ def same_item(a: dict, b: dict) -> bool:
 
 
 def jpeg_path(work: pathlib.Path, smi: str) -> None:
-    """Phase 7's JPEG decoder, on the host: every committed fixture
-    decoded by the library this machine's compiler built, bitwise against
-    PIL's pixels beside it; a VITON-HD item whose person and cloth are
-    the progressive fixtures, read with no sidecar present; the decode of
-    a 1024x768 image's coefficients written baseline, progressive and
-    arithmetic-coded (``tools/bench_jpeg_decode.py``), all three bitwise
-    equal, timed; and a 1024x768 VITON-HD item's load with baseline,
-    progressive and arithmetic person and cloth, timed, the items bitwise
-    equal."""
+    """Phase 7's JPEG and PNG readers, on the host: every committed JPEG
+    fixture (lossless ones among them) decoded by the library this
+    machine's compiler built, and every committed PNG fixture (interlaced,
+    1, 4 and 16 bits), bitwise against PIL's pixels beside it; a lossless
+    YCbCr JPEG refused as PIL refuses it; a VITON-HD item whose person
+    and cloth are the progressive fixtures, and one whose person is the
+    lossless fixture and label map the 4-bit palette fixture, read with
+    no sidecar present, the latter bitwise equal to the item read from
+    8-bit PNGs of the same pixels; the decode of a 1024x768 image's
+    coefficients written baseline, progressive and arithmetic-coded
+    (``tools/bench_jpeg_decode.py``), all three bitwise equal, timed; the
+    decode of the same image as a lossless JPEG and as an interlaced PNG,
+    each its pixels, timed; and a 1024x768 VITON-HD item's load with
+    baseline, progressive and arithmetic person and cloth, timed, the
+    items bitwise equal."""
     t0 = time.perf_counter()
+    # loaded from its file, as it loads the tests' writer: sys.path stays
+    spec = importlib.util.spec_from_file_location(
+        "bench_jpeg_decode", REPO / "tools" / "bench_jpeg_decode.py")
+    bench_jpeg_decode = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = bench_jpeg_decode
+    spec.loader.exec_module(bench_jpeg_decode)
     manifest = json.loads((JPEG_FIXTURES / "fixtures.json").read_text())
     for kind, entry in manifest.items():
         got = imageio.open_image(JPEG_FIXTURES / f"{kind}.jpg")
@@ -1982,6 +1998,16 @@ def jpeg_path(work: pathlib.Path, smi: str) -> None:
                                  f"the port's decode is not PIL's pixels")
     log(f"phase 7 JPEG: {len(manifest)} committed fixtures decode bitwise "
         f"to PIL's pixels with {native.build()}: {', '.join(manifest)}")
+    png_manifest = json.loads((PNG_FIXTURES / "fixtures.json").read_text())
+    for kind, entry in png_manifest.items():
+        got = imageio.open_image(PNG_FIXTURES / f"{kind}.png")
+        want = np.load(PNG_FIXTURES / f"{kind}.npy")
+        if (got.mode != entry["mode"] or got.pixels.dtype != want.dtype
+                or not np.array_equal(got.pixels, want)):
+            raise AssertionError(f"PNG fixture {kind} ({entry['what']}): "
+                                 f"the port's decode is not PIL's array")
+    log(f"phase 7 PNG: {len(png_manifest)} committed fixtures decode "
+        f"bitwise to PIL's arrays and modes: {', '.join(png_manifest)}")
 
     root = synthetic.write_vitonhd(work / "jpeg_item" / "vitonhd",
                                    n_pairs=1, size=(128, 96), seed=72)
@@ -2002,16 +2028,13 @@ def jpeg_path(work: pathlib.Path, smi: str) -> None:
     log("phase 7 JPEG: a VITON-HD item with the progressive person and "
         "cloth fixtures, no sidecar, read through VitonHDDataset, its image "
         "and cloth the fixtures' pixels")
+    lossless_item(work, bench_jpeg_decode._writer("jpeg"))
 
-    # loaded from its file, as it loads the tests' writer: sys.path stays
-    spec = importlib.util.spec_from_file_location(
-        "bench_jpeg_decode", REPO / "tools" / "bench_jpeg_decode.py")
-    bench_jpeg_decode = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = bench_jpeg_decode
-    spec.loader.exec_module(bench_jpeg_decode)
 
     t_write = time.perf_counter()
     files = bench_jpeg_decode.timing_files()
+    lossless = bench_jpeg_decode.lossless_file()
+    interlaced = bench_jpeg_decode.interlaced_png()
     t_write = time.perf_counter() - t_write
     decoded = {kind: native.jpeg_decode(data) for kind, data in files.items()}
     if any(px is None or not np.array_equal(px, decoded["baseline"])
@@ -2024,6 +2047,21 @@ def jpeg_path(work: pathlib.Path, smi: str) -> None:
             native.jpeg_decode, data, JPEG_DECODE_REPS))
         log(f"phase 7 JPEG decode 1024x768 q{bench_jpeg_decode.QUALITY} "
             f"4:2:0 {kind} ({len(data)} bytes): median "
+            f"{t['median_ms']:.3f} ms, min {t['min_ms']:.3f}, max "
+            f"{t['max_ms']:.3f} over {t['reps']} decodes, host clock "
+            f"[{smi}]")
+    source = bench_jpeg_decode.timing_image()
+    for what, data, decode in (
+            ("lossless JPEG (predictor 1, Adobe RGB)", lossless,
+             native.jpeg_decode),
+            ("Adam7-interlaced 8-bit RGB PNG", interlaced,
+             lambda b: imageio.decode_png(b).pixels)):
+        if not np.array_equal(decode(data), source):
+            raise AssertionError(f"the 1024x768 {what} does not decode to "
+                                 f"its pixels")
+        t = bench_jpeg_decode.summary(bench_jpeg_decode.decode_ms(
+            decode, data, JPEG_DECODE_REPS))
+        log(f"phase 7 decode 1024x768 {what} ({len(data)} bytes): median "
             f"{t['median_ms']:.3f} ms, min {t['min_ms']:.3f}, max "
             f"{t['max_ms']:.3f} over {t['reps']} decodes, host clock "
             f"[{smi}]")
@@ -2051,6 +2089,64 @@ def jpeg_path(work: pathlib.Path, smi: str) -> None:
         raise AssertionError("the VITON-HD items differ by the JPEGs' kind")
     log(f"phase 7 JPEG: the decoder's checks ({time.perf_counter() - t0:.1f}"
         f" s, {t_write:.1f} s of it writing the timing files)")
+
+
+def lossless_item(work: pathlib.Path, jpeg_writer) -> None:
+    """Phase 7: a VITON-HD item whose person is the lossless JPEG fixture
+    and whose label map is the 4-bit palette PNG fixture, read through
+    ``VitonHDDataset`` with no sidecar: its image and parse map are the
+    fixtures' pixels, and every key equals the item read from the same
+    pixels written as 8-bit PNGs.  A lossless YCbCr JPEG, which PIL
+    refuses, raises: ``jpeg_writer`` (``tests/torch_port_jpeg.py``)
+    writes it."""
+    ycc = jpeg_writer.lossless(jpeg_writer.lossless_frame(
+        np.zeros((8, 8, 3), np.uint8)))  # JFIF: YCbCr
+    try:
+        native.jpeg_decode(ycc)
+    except ValueError as e:
+        if "lossless frame in YCbCr" not in str(e):
+            raise
+    else:
+        raise AssertionError("a lossless YCbCr JPEG decoded; PIL refuses "
+                             "it")
+
+    person = JPEG_FIXTURES / "lossless_person.jpg"
+    label_map = PNG_FIXTURES / "palette_4bit_label_map.png"
+    keys = JPEG_ITEM_KEYS + LOSSLESS_ITEM_KEYS
+    items = {}
+    for how in ("fixtures", "8-bit PNGs"):
+        root = synthetic.write_vitonhd(work / "lossless_item" / how
+                                       / "vitonhd", n_pairs=1,
+                                       size=(128, 96), seed=74)
+        image = root / "test" / "image" / "000000_00.jpg"
+        parse = root / "test" / "image-parse-v3" / "000000_00.png"
+        if how == "fixtures":
+            shutil.copyfile(person, image)
+            shutil.copyfile(label_map, parse)
+        else:
+            labels = imageio.open_image(label_map)
+            imageio.write_png(image, imageio.open_image(person).pixels)
+            imageio.write_png(parse, labels.pixels, "P", labels.palette)
+        if list(root.parent.rglob("*.jpg.png")):
+            raise AssertionError("a sidecar in the lossless item's tree")
+        items[how] = VitonHDDataset(str(root), phase="test", size=(128, 96),
+                                    outputlist=keys)[0]
+    item = items["fixtures"]
+    px = imageio.decode_png((JPEG_FIXTURES / "lossless_person.png")
+                            .read_bytes())
+    if not (np.array_equal(item["image"], dresscode_to_float(px))
+            and np.array_equal(item["parse_array"], np.load(
+                PNG_FIXTURES / "palette_4bit_label_map.npy"))):
+        raise AssertionError("the lossless item's image or parse map is "
+                             "not the fixtures' pixels")
+    if not same_item(item, items["8-bit PNGs"]):
+        raise AssertionError("the lossless item differs from the item of "
+                             "the same pixels as 8-bit PNGs")
+    log("phase 7 JPEG: a VITON-HD item with the lossless person and the "
+        "4-bit palette label map fixtures, no sidecar, read through "
+        "VitonHDDataset: its image and parse map the fixtures' pixels, "
+        "every key equal to the item of 8-bit PNGs of the same pixels; a "
+        "lossless YCbCr JPEG refused as PIL refuses it")
 
 
 def mains_path(work: pathlib.Path, pipe: TryOnPipeline, cond: Conditioner,

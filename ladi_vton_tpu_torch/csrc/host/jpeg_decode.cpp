@@ -16,6 +16,18 @@
 //   uses them (quantisation tables latched at a component's first scan);
 //   a scan script that libjpeg only warns about decodes on, one that it
 //   rejects (jdphuff.c start_pass_phuff_decoder) is damaged;
+// * lossless Huffman frames (SOF3) at 8 bits (jdlhuff.c, jddiffct.c,
+//   jdlossls.c of libjpeg-turbo 3.1): predictors 1-7 from each scan's Ss,
+//   a first row (of a scan, a restart interval, or after an MCU row met
+//   out of data) predicted from the left and its first sample from
+//   2^(P-Pt-1), a first column from above, differences of categories 0-16
+//   (16: 32768, no bits) undifferenced to 16 bits, each sample the low
+//   byte of its value shifted left by the point transform Pt (Al);
+//   restart intervals of whole MCU rows only (jddiffct.c), interleaved or
+//   one scan per component, up to 10 samples an MCU; every component must
+//   have been scanned (jmemmgr.c refuses to read a whole-image buffer no
+//   scan wrote).  Subsampled components are replicated, never
+//   upsampled fancily (jdsample.c: the lossless DCT size is 1);
 // * the "islow" integer IDCT after the last scan, as libjpeg-turbo's x86
 //   SIMD code computes it on 16-bit lanes (jidctint.c's result wherever
 //   nothing overflows), and libjpeg-turbo's block smoothing where a
@@ -29,10 +41,16 @@
 //   for example 4:1:1);
 // * colour as jdapimin.c default_decompress_parms settles it: YCbCr ->
 //   RGB in jdcolor.c's fixed point; RGB without transform under an Adobe
-//   marker with transform 0, or component ids 'R', 'G', 'B' without JFIF;
-//   four components as CMYK, or YCCK under Adobe transform 2
+//   marker with transform 0, or component ids 'R', 'G', 'B' without JFIF
+//   (any three components without a marker in a lossless frame); four
+//   components as CMYK, or YCCK under Adobe transform 2
 //   (ycck_cmyk_convert), each byte then inverted as PIL's "CMYK;I" raw
-//   mode inverts every CMYK JPEG;
+//   mode inverts every CMYK JPEG.  A lossless frame in YCbCr or YCCK
+//   returns kLosslessColor: libjpeg-turbo converts no colour in lossless
+//   mode (jdcolor.c), so PIL cannot read it either;
+// * a scan's components as jdmarker.c get_sos finds them: scan component
+//   i matches only a frame component at position i or later, so a scan
+//   listing them out of the frame's order is damaged;
 // * damaged data as libjpeg meets it through PIL: a segment that runs
 //   into a marker reads zeros, and a Huffman segment leaves its remaining
 //   MCUs alone once a read took them; a bad Huffman code reads 17 bits
@@ -45,20 +63,21 @@
 //   of a single-scan sequential image, which PIL has already put out.
 //
 // It returns kUnsupported, so the caller can read the file's decoded
-// sidecar instead, for: lossless frames (SOF3, which PIL decodes at 8
-// bits, and SOF11); 12-bit samples and a height left to a DNL marker (PIL
-// refuses both when it opens the file); hierarchical frames (SOF5-7,
-// SOF13-15) and the reserved SOF8 (libjpeg refuses them); 2 or more than
-// 4 components (PIL refuses them); non-integral sampling ratios (libjpeg
-// refuses them).  A damaged file returns kMalformed.
+// sidecar instead, for: lossless arithmetic frames (SOF11, which libjpeg
+// cannot decode); 12-bit samples (lossless ones too) and a height left to
+// a DNL marker (PIL refuses both when it opens the file); hierarchical
+// frames (SOF5-7, SOF13-15) and the reserved SOF8 (libjpeg refuses them);
+// 2 or more than 4 components (PIL refuses them); non-integral sampling
+// ratios (libjpeg refuses them).  A damaged file returns kMalformed.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <vector>
 
 namespace {
 
-enum { kOk = 0, kUnsupported = 1, kMalformed = 2 };
+enum { kOk = 0, kUnsupported = 1, kMalformed = 2, kLosslessColor = 4 };
 // internal: the file ends inside a marker segment, where libjpeg waits
 constexpr int kTruncated = 3;
 
@@ -77,6 +96,7 @@ constexpr int kMaxBlocksInMcu = 10;  // libjpeg's D_MAX_BLOCKS_IN_MCU
 struct Huffman {
     bool valid = false;  // defined, its codes fitting
     bool dc_ok = false;  // every symbol <= 15: usable as a DC table
+    bool lossless_ok = false;  // every symbol <= 16: a lossless table
     int32_t maxcode[18];
     int32_t valoffset[18];
     uint8_t vals[256];
@@ -110,9 +130,11 @@ struct Huffman {
         }
         maxcode[17] = 0x7FFFFFFF;
         std::memcpy(vals, symbols, count);
-        dc_ok = true;
-        for (int i = 0; i < count; ++i)
+        dc_ok = lossless_ok = true;
+        for (int i = 0; i < count; ++i) {
             if (symbols[i] > 15) dc_ok = false;
+            if (symbols[i] > 16) lossless_ok = false;
+        }
         std::memset(look_len, 0, sizeof(look_len));
         p = 0;
         for (int l = 1; l <= kLookBits; ++l) {
@@ -421,6 +443,7 @@ struct Component {
     int coef_bits[64];    // progressive: the Al each coefficient is at
     int prev_bits[10];    // coef_bits 1..9 before the component's last scan
     std::vector<int16_t> coef;
+    std::vector<uint8_t> samples;  // lossless: dh rows of dw samples
 };
 
 enum Color { kGray, kYCbCr, kRGB, kCMYK, kYCCK };
@@ -445,6 +468,7 @@ struct Decoder {
     int scans = 0;      // SOS segments so far (input_scan_number)
     int last_good = 0;  // jdcoefct.c last_good_iMCU_row
     bool frame = false, progressive = false, arithmetic = false;
+    bool lossless = false;
     bool jfif = false, adobe = false, scanned = false, color_set = false;
     int adobe_transform = 0;
     Color color = kGray;
@@ -554,8 +578,10 @@ struct Decoder {
         }
         for (int c = 0; c < ncomp; ++c)  // jdsample.c: integral ratios only
             if (hmax % comp[c].h || vmax % comp[c].v) return kUnsupported;
-        mcux = (width + 8 * hmax - 1) / (8 * hmax);
-        mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+        // an MCU's data unit: an 8x8 block, or one sample in lossless
+        const int unit = lossless ? 1 : 8;
+        mcux = (width + unit * hmax - 1) / (unit * hmax);
+        mcuy = (height + unit * vmax - 1) / (unit * vmax);
         for (int c = 0; c < ncomp; ++c) {
             Component& k = comp[c];
             k.bw = mcux * k.h;
@@ -578,8 +604,10 @@ struct Decoder {
                 color = kYCbCr;
             else if (adobe)
                 color = adobe_transform == 0 ? kRGB : kYCbCr;
-            else
-                color = (c0 == 82 && c1 == 71 && c2 == 66) ? kRGB : kYCbCr;
+            else  // libjpeg-turbo >= 3.0 takes a lossless frame for RGB
+                color = lossless || (c0 == 82 && c1 == 71 && c2 == 66)
+                            ? kRGB
+                            : kYCbCr;
         } else {
             color = adobe && adobe_transform != 0 ? kYCCK : kCMYK;
         }
@@ -630,9 +658,14 @@ struct Decoder {
                     progressive = arithmetic = true;
                     err = parse_sof(body, end);
                     break;
-                case 0xC3: case 0xC5: case 0xC6: case 0xC7: case 0xC8:
+                case 0xC3:  // lossless Huffman
+                    lossless = true;
+                    err = parse_sof(body, end);
+                    break;
+                case 0xC5: case 0xC6: case 0xC7: case 0xC8:
                 case 0xCB: case 0xCD: case 0xCE: case 0xCF:
-                    return kUnsupported;  // lossless, hierarchical, JPG
+                    // hierarchical, JPG, lossless arithmetic
+                    return kUnsupported;
                 case 0xC4:
                     err = parse_dht(body, end);
                     break;
@@ -662,6 +695,9 @@ struct Decoder {
                     // jdinput.c consume_markers: EOI expected after it
                     if (!frame || out) return kMalformed;
                     if (!color_set) settle_color();
+                    // jdcolor.c converts no colour in lossless mode
+                    if (lossless && (color == kYCbCr || color == kYCCK))
+                        return kLosslessColor;
                     if (!decode) return kOk;
                     err = scan(body, end, &p);
                     out = !progressive && scans == 1 && data[body] == ncomp;
@@ -927,13 +963,14 @@ struct Decoder {
             end - p < 1 + 2 * sc.ns + 3)
             return kMalformed;
         for (int i = 0; i < sc.ns; ++i) {
+            // jdmarker.c get_sos takes the first frame component c with
+            // the id whose slot cur_comp_info[c] is still empty: the scan
+            // fills slots 0..i-1 before its component i, so c >= i, and a
+            // scan listing components out of the frame's order is refused
             int cid = data[p + 1 + 2 * i];
             sc.idx[i] = -1;
-            for (int c = 0; c < ncomp && sc.idx[i] < 0; ++c) {
-                bool used = false;
-                for (int j = 0; j < i; ++j) used |= sc.idx[j] == c;
-                if (comp[c].id == cid && !used) sc.idx[i] = c;
-            }
+            for (int c = i; c < ncomp && sc.idx[i] < 0; ++c)
+                if (comp[c].id == cid) sc.idx[i] = c;
             if (sc.idx[i] < 0) return kMalformed;
             sc.td[i] = data[p + 2 + 2 * i] >> 4;
             sc.ta[i] = data[p + 2 + 2 * i] & 15;
@@ -944,6 +981,7 @@ struct Decoder {
         sc.ah = data[q + 2] >> 4;
         sc.al = data[q + 2] & 15;
         ++scans;
+        if (lossless) return lossless_scan(sc, end, resume);
         if (progressive && !start_progressive(sc)) return kMalformed;
         const bool dc_scan = !progressive || sc.ss == 0;
         const bool ac_scan = !progressive || sc.ss > 0;
@@ -1027,6 +1065,145 @@ struct Decoder {
         *resume = arithmetic ? ar.resume() : br.resume();
         scanned = true;
         return kOk;
+    }
+
+    // ------------------------------------------- lossless (SOF3) scans
+
+    // The rows of a component in its last iMCU row (last_row_height).
+    static int last_rows(const Component& k) {
+        return k.dh % k.v ? k.dh % k.v : k.v;
+    }
+
+    // A lossless scan (jdlhuff.c decode_mcus, jddiffct.c decompress_data,
+    // jdlossls.c): the differences of one iMCU row are decoded MCU row by
+    // MCU row, then each component's rows are undifferenced and scaled by
+    // the point transform into its samples.  A restart, or an MCU row met
+    // out of data (whose differences are zeros), resets the predictor of
+    // the next row undifferenced, the iMCU row's first: libjpeg
+    // undifferences after decoding the whole iMCU row.
+    int lossless_scan(Scan& sc, long end, long* resume) {
+        // jdlossls.c start_pass_lossless
+        if (sc.ss < 1 || sc.ss > 7 || sc.se != 0 || sc.ah != 0 || sc.al >= 8)
+            return kMalformed;
+        const bool interleaved = sc.ns > 1;
+        int blocks_in_mcu = 0, nh[4], nv[4];
+        for (int i = 0; i < sc.ns; ++i) {
+            if (sc.td[i] > 3 || !dc[sc.td[i]].valid ||
+                !dc[sc.td[i]].lossless_ok)
+                return kMalformed;
+            const Component& k = comp[sc.idx[i]];
+            nh[i] = interleaved ? k.h : 1;
+            nv[i] = interleaved ? k.v : 1;
+            blocks_in_mcu += k.h * k.v;
+        }
+        if (interleaved && blocks_in_mcu > kMaxBlocksInMcu) return kMalformed;
+        const int per_row = interleaved ? mcux : comp[sc.idx[0]].dw;
+        // jddiffct.c start_input_pass: restarts at whole MCU rows only
+        if (restart_interval % per_row) return kMalformed;
+        const int restart_rows = restart_interval / per_row;
+        std::vector<int> diff[4], prev[4], cur[4];
+        for (int i = 0; i < sc.ns; ++i) {
+            Component& k = comp[sc.idx[i]];
+            diff[i].assign((size_t)k.v * per_row * nh[i], 0);
+            prev[i].assign(k.dw, 0);
+            cur[i].assign(k.dw, 0);
+            if (k.samples.empty()) k.samples.assign((size_t)k.dw * k.dh, 0);
+        }
+        const int imcu_rows = (height + vmax - 1) / vmax;
+        const int initial = 1 << (8 - sc.al - 1);
+        BitReader br{data, size, end};
+        bool first = true;
+        int to_go = restart_rows;
+        for (int r = 0; r < imcu_rows; ++r) {
+            const bool last = r == imcu_rows - 1;
+            const Component& k0 = comp[sc.idx[0]];
+            const int mcu_rows =
+                interleaved ? 1 : (last ? last_rows(k0) : k0.v);
+            for (int y = 0; y < mcu_rows; ++y) {
+                if (restart_interval) {
+                    if (to_go == 0) {
+                        br.restart(sc.next_rst);
+                        sc.next_rst = (sc.next_rst + 1) & 7;
+                        first = true;
+                        to_go = restart_rows;
+                    }
+                    --to_go;
+                }
+                if (br.out_of_data()) {  // zeros, the predictor reset
+                    for (int i = 0; i < sc.ns; ++i) {
+                        const size_t w = (size_t)per_row * nh[i];
+                        std::fill(diff[i].begin() + y * w,
+                                  diff[i].begin() + (y + nv[i]) * w, 0);
+                    }
+                    first = true;
+                    continue;
+                }
+                for (int m = 0; m < per_row; ++m)
+                    for (int i = 0; i < sc.ns; ++i) {
+                        const Huffman& h = dc[sc.td[i]];
+                        const size_t w = (size_t)per_row * nh[i];
+                        int* d = diff[i].data() + y * w + (size_t)m * nh[i];
+                        for (int yy = 0; yy < nv[i]; ++yy)
+                            for (int xx = 0; xx < nh[i]; ++xx) {
+                                const int s = br.decode(h);
+                                d[yy * w + xx] =
+                                    s == 16 ? 32768 : br.receive_extend(s);
+                            }
+                    }
+            }
+            for (int i = 0; i < sc.ns; ++i) {
+                Component& k = comp[sc.idx[i]];
+                const size_t w = (size_t)per_row * nh[i];
+                const int rows = last ? last_rows(k) : k.v;
+                for (int y = 0; y < rows; ++y) {
+                    undifference(diff[i].data() + y * w, prev[i].data(),
+                                 cur[i].data(), k.dw, sc.ss, first && y == 0,
+                                 initial);
+                    uint8_t* o =
+                        k.samples.data() + (size_t)(r * k.v + y) * k.dw;
+                    for (int x = 0; x < k.dw; ++x)
+                        o[x] = (uint8_t)(cur[i][x] << sc.al);
+                    std::swap(prev[i], cur[i]);
+                }
+            }
+            first = false;
+        }
+        if (br.eof) return kMalformed;  // PIL: truncated
+        *resume = br.resume();
+        scanned = true;
+        return kOk;
+    }
+
+    // jdlossls.c's undifferencers: one row from its differences and the
+    // row above by predictor psv (Table H.1), the first sample from the one
+    // above; or a first row, each sample from the one before it and the
+    // first from `initial`.  Values wrap to 16 bits.
+    static void undifference(const int* diff, const int* above, int* row,
+                             int width, int psv, bool first, int initial) {
+        if (first) {
+            int ra = (diff[0] + initial) & 0xFFFF;
+            row[0] = ra;
+            for (int x = 1; x < width; ++x)
+                row[x] = ra = (diff[x] + ra) & 0xFFFF;
+            return;
+        }
+        int rb = above[0], ra = (diff[0] + rb) & 0xFFFF;
+        row[0] = ra;
+        for (int x = 1; x < width; ++x) {
+            const int rc = rb;
+            rb = above[x];
+            int p;
+            switch (psv) {
+                case 1: p = ra; break;
+                case 2: p = rb; break;
+                case 3: p = rc; break;
+                case 4: p = ra + rb - rc; break;
+                case 5: p = ra + ((rb - rc) >> 1); break;
+                case 6: p = rb + ((ra - rc) >> 1); break;
+                default: p = (ra + rb) >> 1; break;
+            }
+            row[x] = ra = (diff[x] + p) & 0xFFFF;
+        }
     }
 
     // jdhuff.c decode_mcu
@@ -1328,12 +1505,13 @@ void smooth_idct(const Component& k, int total, int last_good, bool first,
     }
 }
 
-// A component's samples (bw*8 wide) upsampled to one row of the output
-// width, by the method jdsample.c jinit_upsampler picks: `row` is the
-// output row, `out` width samples.
-void upsample_row(const Component& k, const uint8_t* plane, int hmax,
-                  int vmax, int row, int width, uint8_t* out) {
-    const int stride = k.bw * 8;
+// A component's samples (rows `stride` apart) upsampled to one row of the
+// output width, by the method jdsample.c jinit_upsampler picks: `row` is
+// the output row, `out` width samples.  A lossless frame is never
+// upsampled fancily (its DCT scaled size is 1, jdsample.c's do_fancy).
+void upsample_row(const Component& k, const uint8_t* plane, int stride,
+                  bool fancy_ok, int hmax, int vmax, int row, int width,
+                  uint8_t* out) {
     const int rh = hmax / k.h, rv = vmax / k.v;
     if (rh == 1 && rv == 1) {
         std::memcpy(out, plane + (size_t)row * stride, width);
@@ -1345,7 +1523,7 @@ void upsample_row(const Component& k, const uint8_t* plane, int hmax,
         int r1 = (row & 1) ? r + 1 : r - 1;
         return r1 < 0 ? 0 : (r1 > k.dh - 1 ? k.dh - 1 : r1);
     };
-    if (rh == 1 && rv == 2) {  // h1v2_fancy_upsample
+    if (rh == 1 && rv == 2 && fancy_ok) {  // h1v2_fancy_upsample
         const int r = row >> 1, bias = (row & 1) ? 2 : 1;
         const uint8_t* in0 = plane + (size_t)r * stride;
         const uint8_t* in1 = plane + (size_t)other_row(r) * stride;
@@ -1353,7 +1531,8 @@ void upsample_row(const Component& k, const uint8_t* plane, int hmax,
             out[x] = (uint8_t)((in0[x] * 3 + in1[x] + bias) >> 2);
         return;
     }
-    const bool fancy = (rh == 2 && (rv == 1 || rv == 2)) && k.dw > 2;
+    const bool fancy =
+        fancy_ok && (rh == 2 && (rv == 1 || rv == 2)) && k.dw > 2;
     if (!fancy) {  // h2v1_upsample, h2v2_upsample, int_upsample
         const uint8_t* in = plane + (size_t)(row / rv) * stride;
         for (int x = 0; x < width; ++x) out[x] = in[x / rh];
@@ -1420,28 +1599,41 @@ int jpeg_decode(const uint8_t* data, long size, uint8_t* out, long out_size) {
     const int H = d.height, W = d.width, n = d.ncomp;
     if (out_size != (long)H * W * n) return kMalformed;
     std::vector<uint8_t> planes[4];
+    const uint8_t* plane[4];
+    int stride[4];
     for (int c = 0; c < n; ++c) {
         Component& k = d.comp[c];
+        if (d.lossless) {
+            // a component no scan wrote: libjpeg's whole-image buffer is
+            // not zeroed, and reading it is an error (jmemmgr.c
+            // access_virt_sarray)
+            if (k.samples.empty()) return kMalformed;
+            plane[c] = k.samples.data();
+            stride[c] = k.dw;
+            continue;
+        }
         if (k.coef.empty()) k.coef.assign((size_t)k.bw * k.bh * 64, 0);
         if (!k.latched) {
             std::memcpy(k.quant, d.quant[k.tq], sizeof(k.quant));
         }
-        const int stride = k.bw * 8;
-        planes[c].assign((size_t)stride * k.bh * 8, 0);
+        const int stride_c = k.bw * 8;
+        planes[c].assign((size_t)stride_c * k.bh * 8, 0);
         for (int by = 0; by < k.bh; ++by)
             for (int bx = 0; bx < k.bw; ++bx)
-                idct_islow(k.coef.data() + ((size_t)by * k.bw + bx) * 64,
-                           k.quant,
-                           planes[c].data() + (size_t)by * 8 * stride + bx * 8,
-                           stride);
+                idct_islow(
+                    k.coef.data() + ((size_t)by * k.bw + bx) * 64, k.quant,
+                    planes[c].data() + (size_t)by * 8 * stride_c + bx * 8,
+                    stride_c);
         if (smooth)  // the image's blocks again; the padding keeps the above
             smooth_idct(k, d.mcuy, d.last_good, d.scans == 1,
                         planes[c].data());
+        plane[c] = planes[c].data();
+        stride[c] = stride_c;
     }
     if (n == 1) {
         for (int y = 0; y < H; ++y)
-            upsample_row(d.comp[0], planes[0].data(), d.hmax, d.vmax, y, W,
-                         out + (size_t)y * W);
+            upsample_row(d.comp[0], plane[0], stride[0], !d.lossless, d.hmax,
+                         d.vmax, y, W, out + (size_t)y * W);
         return kOk;
     }
     // jdcolor.c build_ycc_rgb_table (ycc_rgb_convert, ycck_cmyk_convert)
@@ -1458,8 +1650,8 @@ int jpeg_decode(const uint8_t* data, long size, uint8_t* out, long out_size) {
     std::vector<uint8_t> rows((size_t)n * W);
     for (int y = 0; y < H; ++y) {
         for (int c = 0; c < n; ++c)
-            upsample_row(d.comp[c], planes[c].data(), d.hmax, d.vmax, y, W,
-                         rows.data() + (size_t)c * W);
+            upsample_row(d.comp[c], plane[c], stride[c], !d.lossless, d.hmax,
+                         d.vmax, y, W, rows.data() + (size_t)c * W);
         const uint8_t* c0 = rows.data();
         const uint8_t* c1 = c0 + W;
         const uint8_t* c2 = c1 + W;

@@ -3,23 +3,31 @@
 * ``open_image`` sniffs a file's content, as ``PIL.Image.open`` does, and
   never trusts its extension:
 
-  - a PNG is decoded here: 8-bit L, LA, P, RGB or RGBA, not interlaced,
-    any of the five row filters (un-filtered by the host C++,
-    ``data/native.py``).  A P image keeps its palette indices as its
-    pixels, as ``np.asarray(PIL.Image.open(path))`` gives them, and its
-    palette beside them.  Anything else raises.
+  - a PNG is decoded here, to the mode and the array
+    ``np.asarray(PIL.Image.open(path))`` gives: every legal (colour type,
+    bit depth) pair, Adam7-interlaced or not, any of the five row filters
+    (un-filtered by the host C++, ``data/native.py``, pass by pass when
+    interlaced).  Grey at 1 bit is PIL's ``1`` (a bool array); at 2 and 4
+    bits ``L``, the samples scaled by 85 and 17; at 16 bits ``I;16``
+    (uint16).  RGB and RGBA at 16 bits keep each sample's high byte, and
+    grey+alpha at 16 bits becomes ``RGBA`` (the grey's high byte thrice,
+    then the alpha's).  A palette image at 1, 2, 4 or 8 bits is ``P``:
+    its indices as its pixels and its palette beside them.  ``tRNS`` and
+    the other ancillary chunks change no pixel.  An illegal pair raises.
   - a JPEG is decoded here by the host C++ (``csrc/host/jpeg_decode.cpp``)
     to the pixels PIL gives: sequential or progressive, Huffman or
-    arithmetic-coded, 8 bits, every integral sampling ratio, one
-    component (L), three (RGB, from YCbCr or stored as RGB) or four
-    (CMYK, from CMYK or YCCK, inverted as PIL inverts them), with
-    libjpeg's integer IDCT, block smoothing, fancy upsampling and
-    fixed-point colour.
-  - a JPEG the decoder refuses (lossless; 12-bit samples, a height left
-    to a DNL marker or hierarchical frames, which PIL refuses too) is
-    read from its decoded sidecar ``<file>.png`` (for example
-    ``000000_0.jpg.png``), which holds the pixels PIL decodes from it,
-    written losslessly by ``tools/decode_images.py`` where PIL is
+    arithmetic-coded, or lossless Huffman-coded (SOF3: any predictor,
+    point transform and restart interval), 8 bits, every integral
+    sampling ratio, one component (L), three (RGB, from YCbCr or stored
+    as RGB) or four (CMYK, from CMYK or YCCK, inverted as PIL inverts
+    them), with libjpeg's integer IDCT, block smoothing, fancy
+    upsampling and fixed-point colour.  A lossless YCbCr or YCCK frame
+    raises, as PIL raises on it.
+  - a JPEG the decoder refuses (lossless arithmetic SOF11, 12-bit
+    samples, a height left to a DNL marker or hierarchical frames, none
+    of which PIL decodes either) is read from its decoded sidecar
+    ``<file>.png`` (for example ``000000_0.jpg.png``), a lossless PNG of
+    its pixels as ``tools/decode_images.py`` writes one where PIL is
     installed.  Such a JPEG without one raises, naming the tool: no
     silent fallback.
 * ``write_png`` writes L, LA, P, RGB or RGBA, choosing each row's filter
@@ -53,26 +61,41 @@ SIDECAR_SUFFIX = ".png"
 # a decoded JPEG's mode by its channels, as PIL names it
 JPEG_MODES = {(): "L", (3,): "RGB", (4,): "CMYK"}
 
-# PNG colour type -> (mode, channels), 8 bits per sample
+# PNG colour type -> (mode, channels) at 8 bits per sample, as written
 PNG_COLOR_TYPES = {0: ("L", 1), 2: ("RGB", 3), 3: ("P", 1), 4: ("LA", 2),
                    6: ("RGBA", 4)}
 MODE_COLOR_TYPE = {mode: (ct, ch) for ct, (mode, ch) in
                    PNG_COLOR_TYPES.items()}
+# the legal bit depths of each colour type, and PIL's mode where it is
+# not the 8-bit one
+PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+              4: (8, 16), 6: (8, 16)}
+PNG_MODES = {(0, 1): "1", (0, 16): "I;16", (4, 16): "RGBA"}
+# Adam7: (first row, first column, row step, column step) of each pass
+ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+         (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 
 
 @dataclasses.dataclass
 class Image:
-    """Decoded pixels: (H, W) for L and P, (H, W, C) otherwise; ``palette``
-    (n, 3) uint8 for P."""
+    """Decoded pixels: (H, W) for 1 (bool), L, I;16 (uint16) and P,
+    (H, W, C) uint8 otherwise; ``palette`` (n, 3) uint8 for P."""
 
     pixels: np.ndarray
     mode: str
     palette: Optional[np.ndarray] = None
 
+    def palette_rgb(self) -> np.ndarray:
+        """The palette over all 256 indices: PIL's entries past a short
+        ``PLTE`` are black."""
+        full = np.zeros((256, 3), np.uint8)
+        full[:len(self.palette)] = self.palette[:256]
+        return full
+
     def resize(self, out_hw: tuple[int, int], method: str) -> "Image":
-        """PIL's ``resize`` rules: P resizes only with NEAREST; LA and
-        RGBA would need premultiplied alpha, which no path uses."""
-        if self.mode == "P":
+        """PIL's ``resize`` rules: P and 1 resize only with NEAREST; LA
+        and RGBA would need premultiplied alpha, which no path uses."""
+        if self.mode in ("P", "1"):
             method = resample.NEAREST
         elif self.mode in ("LA", "RGBA") and method != resample.NEAREST:
             raise NotImplementedError(f"resizing {self.mode} with {method}")
@@ -83,12 +106,16 @@ class Image:
         """PIL's ``convert("L")``."""
         if self.mode == "L":
             return self
-        if self.mode == "LA":
+        if self.mode == "1":
+            px = self.pixels.astype(np.uint8) * 255
+        elif self.mode == "I;16":  # clamped, not shifted
+            px = np.minimum(self.pixels, 255).astype(np.uint8)
+        elif self.mode == "LA":
             px = self.pixels[..., 0]
         elif self.mode in ("RGB", "RGBA"):
             px = resample.convert_l(self.pixels)
         elif self.mode == "P":
-            px = resample.convert_l(self.palette)[self.pixels]
+            px = resample.convert_l(self.palette_rgb())[self.pixels]
         elif self.mode == "CMYK":  # PIL goes through RGB
             px = resample.convert_l(resample.cmyk_to_rgb(self.pixels))
         else:
@@ -114,6 +141,40 @@ def _chunks(data: bytes):
     raise ValueError("PNG: truncated file (no IEND)")
 
 
+def _unpack(rows: np.ndarray, width: int, channels: int,
+            depth: int) -> np.ndarray:
+    """(rows, row bytes) un-filtered bytes -> (rows, width, channels)
+    samples: below 8 bits MSB first, 16 bits big-endian."""
+    n = rows.shape[0]
+    if depth == 8:
+        return rows.reshape(n, width, channels)
+    if depth == 16:
+        return rows.view(">u2").reshape(n, width, channels)
+    per = 8 // depth
+    shifts = (8 - depth) - depth * np.arange(per, dtype=np.uint8)
+    samples = (rows[:, :, None] >> shifts) & ((1 << depth) - 1)
+    return samples.reshape(n, -1)[:, :width * channels].reshape(
+        n, width, channels)
+
+
+def _pil_pixels(s: np.ndarray, color_type: int, depth: int) -> np.ndarray:
+    """(H, W, C) samples -> the array ``np.asarray`` of PIL's image."""
+    if color_type in (0, 3):
+        s = s[..., 0]
+        if color_type == 3 or depth == 8:
+            return s.astype(np.uint8, copy=False)
+        if depth == 16:
+            return s.astype(np.uint16)
+        if depth == 1:
+            return s.astype(bool)
+        return (s * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    if depth == 16:
+        s = s >> 8
+        if color_type == 4:  # PIL reads LA;16B as RGBA
+            s = s[..., [0, 0, 0, 1]]
+    return s.astype(np.uint8, copy=False)
+
+
 def decode_png(data: bytes) -> Image:
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG file")
@@ -128,18 +189,39 @@ def decode_png(data: bytes) -> Image:
     if header is None:
         raise ValueError("PNG: no IHDR chunk")
     width, height, depth, color_type, _, _, interlace = header
-    if depth != 8 or color_type not in PNG_COLOR_TYPES or interlace:
+    if (depth not in PNG_DEPTHS.get(color_type, ()) or interlace > 1
+            or width == 0 or height == 0):
         raise ValueError(f"PNG: unsupported format (bit depth {depth}, "
                          f"colour type {color_type}, interlace "
-                         f"{interlace}); the reader takes 8-bit L, LA, P, "
-                         f"RGB and RGBA, not interlaced")
+                         f"{interlace}): not a legal PNG")
     mode, channels = PNG_COLOR_TYPES[color_type]
+    mode = PNG_MODES.get((color_type, depth), mode)
     if mode == "P" and palette is None:
         raise ValueError("PNG: a palette image without PLTE")
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = native.png_unfilter(raw, height, width * channels, channels)
-    shape = (height, width) if channels == 1 else (height, width, channels)
-    return Image(rows.reshape(shape), mode, palette if mode == "P" else None)
+    bits = channels * depth
+    bpp = max(1, bits // 8)
+    parts, pos = [], 0
+    for r0, c0, dr, dc in ADAM7 if interlace else ((0, 0, 1, 1),):
+        rows = -(-(height - r0) // dr) if height > r0 else 0
+        cols = -(-(width - c0) // dc) if width > c0 else 0
+        if rows == 0 or cols == 0:
+            continue  # an empty pass holds no bytes
+        row_bytes = -(-cols * bits // 8)
+        size = rows * (row_bytes + 1)
+        part = native.png_unfilter(raw[pos:pos + size], rows, row_bytes, bpp)
+        parts.append((r0, c0, dr, dc, _unpack(part, cols, channels, depth)))
+        pos += size
+    if pos != raw.size:
+        raise ValueError(f"PNG: {raw.size} bytes of image data, expected "
+                         f"{pos}")
+    samples = parts[0][4]
+    if interlace:  # the passes' pixels into place
+        samples = np.empty((height, width, channels), samples.dtype)
+        for r0, c0, dr, dc, part in parts:
+            samples[r0::dr, c0::dc] = part
+    return Image(_pil_pixels(samples, color_type, depth), mode,
+                 palette if mode == "P" else None)
 
 
 def sidecar_path(path) -> Path:
@@ -162,7 +244,7 @@ def open_image(path) -> Image:
         if not side.exists():
             raise FileNotFoundError(
                 f"{path} is a JPEG the port's decoder does not read "
-                f"(lossless, 12-bit, a height left to DNL, or "
+                f"(lossless arithmetic, 12-bit, a height left to DNL, or "
                 f"hierarchical) and has no decoded sidecar {side.name}: "
                 f"run "
                 f"`python {DECODE_TOOL} <dataset root>` once where PIL is "

@@ -156,15 +156,17 @@ def jpeg_encode_blocks(blocks: np.ndarray, comp: np.ndarray,
     return out[:n].tobytes()
 
 
-JPEG_UNSUPPORTED, JPEG_MALFORMED = 1, 2
+JPEG_UNSUPPORTED, JPEG_MALFORMED, JPEG_LOSSLESS_COLOR = 1, 2, 4
 
 
 def jpeg_decode(data: bytes) -> Optional[np.ndarray]:
     """PIL's pixels of a JPEG, sequential or progressive (smoothed as
-    libjpeg smooths it), Huffman or arithmetic-coded: (H, W) uint8 for one component, (H, W, 3) RGB for
+    libjpeg smooths it), Huffman or arithmetic-coded, or lossless
+    Huffman-coded: (H, W) uint8 for one component, (H, W, 3) RGB for
     three, (H, W, 4) CMYK for four (PIL's inverted bytes); None for a
     JPEG the decoder refuses (``csrc/host/jpeg_decode.cpp`` lists what
-    it reads and what it refuses).  A damaged file raises."""
+    it reads and what it refuses).  A damaged file raises, and so does a
+    lossless one whose colour libjpeg would have to convert."""
     lib = library()
     dims = (ctypes.c_int * 3)()
     err = lib.jpeg_decode_header(data, len(data), dims)
@@ -176,4 +178,8 @@ def jpeg_decode(data: bytes) -> Optional[np.ndarray]:
             return out
     if err == JPEG_UNSUPPORTED:
         return None
+    if err == JPEG_LOSSLESS_COLOR:
+        raise ValueError("JPEG: a lossless frame in YCbCr or YCCK colour, "
+                         "which libjpeg does not convert (PIL refuses it "
+                         "too)")
     raise ValueError("JPEG: damaged or truncated file")

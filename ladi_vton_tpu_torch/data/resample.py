@@ -1,4 +1,4 @@
-"""PIL-exact resampling and pixel operations on uint8 numpy images.
+"""PIL-exact resampling and pixel operations on numpy images.
 
 The port cannot import PIL, and the datasets must give the pixels the
 JAX package's datasets get from it, so this module computes what
@@ -13,20 +13,32 @@ Pillow's C code computes, integer for integer:
   (rounded half away from zero); each sum starts at ``1 << 21`` and is
   shifted right by 22 and clipped to 0..255.  Bicubic uses a = -0.5.  A
   pass whose size does not change is skipped, as in PIL.
+* ``resize`` of a 16-bit (uint16, PIL's ``I;16``) image with ``BILINEAR``
+  or ``BICUBIC`` is ``Resample.c``'s 16bpc passes: the same windows and
+  normalised weights, kept in float64; each sum starts at 0.0, adds pixel
+  times weight in tap order, and is rounded half away from zero to an
+  int; the low byte is ``CLIP8(n % 256)`` and the high byte
+  ``CLIP8(n >> 8)`` (C's remainder and arithmetic shift), so a negative
+  sum gives 0 and one above 65535 keeps its low byte under a high byte
+  of 255.
 * ``resize`` with ``NEAREST`` is ``Geometry.c ImagingScaleAffine``:
   source pixel ``int(xo)``, where ``xo`` starts at ``in / out / 2`` and
   grows by ``in / out`` per output pixel, summed in float64 in that
-  order.
+  order.  A uint16 image (``I;16``, a "special" type to PIL) takes
+  ``ImagingGenericTransform`` instead: source pixel ``int((x + 0.5) *
+  (in / out))``, each computed afresh.
 * ``invert`` is ``255 - x``; ``convert_l`` is ITU-R 601-2 luma in
   Pillow's fixed point, ``(19595 R + 38470 G + 7471 B + 0x8000) >> 16``;
   ``cmyk_to_rgb`` is ``Convert.c cmyk2rgb``, ``from_l`` its ``l2rgb``,
   ``l2rgba`` and ``l2cmyk``; ``composite`` is ``Image.composite``'s
   blend, ``t = a m + b (255 - m) + 128`` then ``(t + (t >> 8)) >> 8``.
 
-Images are (H, W) or (H, W, C) uint8 arrays; the channels of one pixel
-are resampled independently, as PIL does for L, P and RGB images.  PIL
-resizes a P image only with NEAREST, whatever the filter asked for
-(``imageio.Image.resize`` applies that rule).
+Images are (H, W) or (H, W, C) uint8 arrays, or (H, W) uint16 ones;
+the channels of one pixel are resampled independently, as PIL does for
+L, P and RGB images.  ``NEAREST`` takes any dtype (a ``bool`` image is
+PIL's 1-bit ``1``).  PIL resizes P and 1 images only with NEAREST,
+whatever the filter asked for (``imageio.Image.resize`` applies that
+rule).
 """
 
 from __future__ import annotations
@@ -57,10 +69,10 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
 FILTERS = {BILINEAR: _bilinear, BICUBIC: _bicubic}
 
 
-def coefficients(in_size: int, out_size: int, method: str):
-    """(first source index (out,), fixed-point weights (out, ksize)) of
-    one pass, as ``precompute_coeffs`` and ``normalize_coeffs_8bpc``
-    compute them."""
+def weights(in_size: int, out_size: int, method: str):
+    """(first source index (out,), normalised float64 weights (out,
+    ksize)) of one pass, as ``precompute_coeffs`` computes them; the
+    weights past a window's end are 0."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = SUPPORT[method] * filterscale
@@ -80,6 +92,14 @@ def coefficients(in_size: int, out_size: int, method: str):
         total = total + w[:, k]
     w = np.where(total[:, None] != 0.0,
                  w / np.where(total == 0.0, 1.0, total)[:, None], w)
+    return xmin, w
+
+
+def coefficients(in_size: int, out_size: int, method: str):
+    """(first source index (out,), fixed-point weights (out, ksize)) of
+    one pass, as ``precompute_coeffs`` and ``normalize_coeffs_8bpc``
+    compute them."""
+    xmin, w = weights(in_size, out_size, method)
     fixed = w * (1 << PRECISION_BITS)
     fixed = np.trunc(np.where(w < 0, fixed - 0.5, fixed + 0.5))
     return xmin, fixed.astype(np.int64)
@@ -101,6 +121,23 @@ def _pass(img: np.ndarray, axis: int, out_size: int, method: str):
     return np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
+def _pass16(img: np.ndarray, axis: int, out_size: int, method: str):
+    """One 16-bit pass (``ImagingResampleHorizontal_16bpc`` and its
+    vertical twin) along ``axis`` of (H, W) uint16."""
+    in_size = img.shape[axis]
+    xmin, kk = weights(in_size, out_size, method)
+    shape = [1, 1]
+    shape[axis] = out_size
+    ss = np.zeros(img.shape[:axis] + (out_size,) + img.shape[axis + 1:])
+    for k in range(kk.shape[1]):
+        idx = np.minimum(xmin + k, in_size - 1)
+        ss = ss + np.take(img, idx, axis=axis) * kk[:, k].reshape(shape)
+    n = np.where(ss >= 0.0, ss + 0.5, ss - 0.5).astype(np.int64)
+    low = np.clip(np.fmod(n, 256), 0, 255)
+    high = np.clip(n >> 8, 0, 255)
+    return (high * 256 + low).astype(np.uint16)
+
+
 def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
     step = float(in_size) / out_size
     xo = np.add.accumulate(np.concatenate(
@@ -108,20 +145,37 @@ def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
     return np.clip(xo.astype(np.int64), 0, in_size - 1)
 
 
+def _nearest_index_16(in_size: int, out_size: int) -> np.ndarray:
+    step = float(in_size) / out_size
+    xo = (np.arange(out_size, dtype=np.float64) + 0.5) * step
+    return np.clip(xo.astype(np.int64), 0, in_size - 1)
+
+
 def resize(img: np.ndarray, out_hw: tuple[int, int],
            method: str = BICUBIC) -> np.ndarray:
-    """``img`` (H, W) or (H, W, C) uint8 resized to ``out_hw`` = (height,
-    width), as PIL's ``Image.resize((width, height), method)``."""
-    if img.dtype != np.uint8:
-        raise TypeError(f"resize takes uint8 images, got {img.dtype}")
+    """``img`` (H, W) or (H, W, C) uint8, or (H, W) uint16, resized to
+    ``out_hw`` = (height, width), as PIL's ``Image.resize((width,
+    height), method)``; NEAREST takes any dtype."""
     oh, ow = out_hw
     h, w = img.shape[:2]
     if (h, w) == (oh, ow):
         return img.copy()
     if method == NEAREST:
-        return img[_nearest_index(h, oh)][:, _nearest_index(w, ow)]
+        index = _nearest_index_16 if img.dtype == np.uint16 else \
+            _nearest_index
+        return img[index(h, oh)][:, index(w, ow)]
     if method not in FILTERS:
         raise ValueError(f"unknown resampling method {method!r}")
+    if img.dtype == np.uint16 and img.ndim == 2:
+        out = img
+        if w != ow:
+            out = _pass16(out, 1, ow, method)
+        if h != oh:
+            out = _pass16(out, 0, oh, method)
+        return out
+    if img.dtype != np.uint8:
+        raise TypeError(f"resize with {method} takes uint8 images or "
+                        f"(H, W) uint16 ones, got {img.dtype} {img.shape}")
     out = img if img.ndim == 3 else img[..., None]
     if w != ow:
         out = _pass(out, 1, ow, method)

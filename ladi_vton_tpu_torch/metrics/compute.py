@@ -107,11 +107,13 @@ def rgb_pixels(path: str) -> np.ndarray:
     if img.mode == "RGBA":
         return np.ascontiguousarray(px[..., :3])
     if img.mode == "P":
-        return img.palette[px]
+        return img.palette_rgb()[px]
     if img.mode == "CMYK":
         return resample.cmyk_to_rgb(px)
     if img.mode == "LA":
         px = px[..., 0]
+    elif img.mode in ("1", "I;16"):  # 0/255, and clamped at 255
+        px = img.convert_l().pixels
     return np.repeat(px[..., None], 3, axis=2)
 
 

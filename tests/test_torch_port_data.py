@@ -12,7 +12,13 @@ separately built copy of the same C++) and ``dense_uv`` (``F.interpolate``
 against ``cv2.resize``, within 5e-5, as ``test_torch_port_imageio.py``
 states).  The same splits with progressive JPEGs (PIL's default script)
 and no sidecars, read by the port's decoder, and a VITON-HD split with
-CMYK JPEGs, give the JAX datasets' items too.  Also: ``BatchLoader``
+CMYK JPEGs, give the JAX datasets' items too, and so do the splits
+rewritten in the kinds PIL reads beyond those, with no sidecars: lossless
+JPEG persons and cloths, 4-bit palette label maps (interlaced or not),
+skeletons interlaced (16-bit or 8-bit RGB), 1-bit or 16-bit grey (PIL's
+``1`` and ``I;16`` through ``_to_float``), 16-bit and 1-bit DressCode
+cloth masks, 16-bit and 4-bit grey dense labels, a 16-bit RGB VITON-HD
+cloth.  Also: ``BatchLoader``
 against the
 JAX loader (order, ``shuffle``, ``pad_last``, collation, worker
 processes), the host C++ against ``data/raster.py`` and ``cv2.dilate``,
@@ -46,6 +52,7 @@ from ladi_vton_tpu_torch.data.dresscode import POSSIBLE_OUTPUTS
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 import decode_images  # noqa: E402
 import torch_port_jpeg as jpeg_writer  # noqa: E402
+import torch_port_png as png_writer  # noqa: E402
 
 SOURCE = (256, 192)
 SIZE = (128, 96)
@@ -242,17 +249,133 @@ def test_cmyk_dresscode_cloth_reads_as_the_jax_dataset_reads_it(tmp_path):
     assert a["cloth"].shape == SIZE + (4,)
 
 
+def _rewrite(path: Path, kind: str, rng) -> None:
+    """The file at ``path`` rewritten, pixels kept, as a kind PIL reads:
+    a lossless JPEG (``lossless_rgb``, ``lossless_422``), a 4-bit palette
+    PNG of its labels clipped to 15 (``palette4``, ``palette4_interlaced``),
+    an interlaced RGB PNG at 8 or 16 bits (``interlaced``,
+    ``interlaced16``), a 16-bit RGB PNG (``rgb16``), 16-bit grey
+    (``gray16``: 0 and 255 become 0 and 65535, a few pixels small values
+    that pass PIL's clamp), 1-bit grey (``gray1``), or 4-bit grey labels
+    (``gray4``); the grey kinds take an RGB file's first channel."""
+    im = Image.open(path)
+    px = np.asarray(im)
+    if kind.startswith("gray") and px.ndim == 3:
+        px = px[..., 0]
+    if kind == "lossless_rgb":
+        data = jpeg_writer.lossless(jpeg_writer.lossless_frame(px), psv=4,
+                                    markers=jpeg_writer.adobe(0))
+    elif kind == "lossless_422":
+        frame = jpeg_writer.lossless_frame(px, [(2, 1), (1, 1), (1, 1)])
+        data = jpeg_writer.lossless(frame, psv=7, pt=1, markers=b"",
+                                    ids=b"RGB", restart=frame.mcus()[1])
+    elif kind.startswith("palette4"):
+        palette = np.asarray(im.getpalette(), np.uint8).reshape(-1, 3)[:16]
+        data = png_writer.encode(np.minimum(px, 15), 3, 4, palette=palette,
+                                 interlace=kind.endswith("interlaced"),
+                                 rng=rng)
+    elif kind in ("interlaced", "interlaced16", "rgb16"):
+        sixteen = kind != "interlaced"
+        samples = px.astype(np.int64) * (257 if sixteen else 1)
+        data = png_writer.encode(samples, 2, 16 if sixteen else 8,
+                                 interlace=kind != "rgb16", rng=rng)
+    elif kind == "gray16":
+        samples = px.astype(np.int64) * 257
+        few = rng.random(px.shape) < 0.05
+        samples[few] = rng.integers(0, 300, few.sum())
+        data = png_writer.encode(samples, 0, 16, rng=rng)
+    elif kind == "gray1":
+        data = png_writer.encode(px > 127, 0, 1, interlace=True, rng=rng)
+    else:  # gray4
+        data = png_writer.encode(np.minimum(px, 15), 0, 4, rng=rng)
+    path.write_bytes(data)
+
+
+# (path pattern under the root, kind of item 0, kind of item 1)
+NEW_KINDS = {
+    "vitonhd": [("test/image/{i:06d}_00.jpg", "lossless_rgb",
+                 "lossless_422"),
+                ("test/image-parse-v3/{i:06d}_00.png", "palette4",
+                 "palette4_interlaced"),
+                ("test/openpose_img/{i:06d}_00_rendered.png",
+                 "interlaced16", "gray1"),
+                ("test/cloth/{i:06d}_00.jpg", "lossless_422", "rgb16")],
+    "dresscode": [("upper_body/images/{i:06d}_0.jpg", "lossless_rgb",
+                   "lossless_422"),
+                  ("upper_body/images/{i:06d}_1.jpg", "lossless_422",
+                   "lossless_rgb"),
+                  ("upper_body/label_maps/{i:06d}_4.png", "palette4",
+                   "palette4_interlaced"),
+                  ("upper_body/skeletons/{i:06d}_5.jpg", "interlaced",
+                   "gray16"),
+                  ("upper_body/masks/{i:06d}_1.png", "gray16", "gray1"),
+                  ("upper_body/dense/{i:06d}_5.png", "gray16", "gray4")],
+}
+
+
+@pytest.fixture(scope="module")
+def new_kind_trees(tmp_path_factory):
+    roots = make_trees(tmp_path_factory.mktemp("port_new_kinds"),
+                       sidecars=False)
+    rng = np.random.default_rng(6)
+    for name, files in NEW_KINDS.items():
+        for pattern, *kinds in files:
+            for i, kind in enumerate(kinds):
+                _rewrite(roots[name] / pattern.format(i=i), kind, rng)
+    for root in roots.values():
+        assert not list(root.parent.rglob("*.jpg.png"))
+    return roots
+
+
+@pytest.mark.parametrize("order", ["paired", "unpaired"])
+@pytest.mark.parametrize("name,keys", [("dresscode", DRESSCODE_KEYS),
+                                       ("vitonhd", VITONHD_KEYS)])
+def test_new_kinds_without_sidecars_equal_the_jax_datasets(
+        new_kind_trees, name, keys, order):
+    """Every key of both splits, rewritten in the new kinds, against the
+    JAX datasets, which read the same files with PIL."""
+    ours, ref = _datasets(new_kind_trees, name, order, keys)
+    assert len(ours) == len(ref) == 2
+    for i in range(len(ref)):
+        _assert_items_equal(ours[i], ref[i])
+    if name == "dresscode":  # the 16-bit dense labels stay 16-bit
+        assert ours[0]["dense_labels"].dtype == np.uint16
+        # a 16-bit skeleton, resampled in 16 bits, over 255 / 255
+        assert ours[1]["skeleton"].max() > 1.0
+
+
 def test_decode_images_is_idempotent(trees, capsys):
     root = trees["dresscode"]
     side = root / "upper_body" / "images" / "000000_0.jpg.png"
     before = side.stat().st_mtime_ns
-    written, kept = decode_images.decode_tree(root)
-    assert written == 0 and kept > 0
+    written, kept, lossless = decode_images.decode_tree(root)
+    assert written == 0 and kept > 0 and lossless == 0
     assert side.stat().st_mtime_ns == before
     decode_images.main([str(root)])
     assert "0 sidecars written" in capsys.readouterr().out
     assert np.array_equal(np.asarray(Image.open(side)),
                           np.asarray(Image.open(str(side)[:-4])))
+
+
+def test_decode_images_writes_no_sidecar_for_a_lossless_jpeg(tmp_path,
+                                                            capsys):
+    """An 8-bit lossless (SOF3) JPEG, which the port reads, gets no
+    sidecar and is counted apart; a baseline one beside it still gets
+    its sidecar, and a 12-bit lossless one is not taken for SOF3."""
+    rgb = np.random.default_rng(7).integers(0, 256, (9, 11, 3), np.uint8)
+    frame = jpeg_writer.lossless_frame(rgb)
+    (tmp_path / "a.jpg").write_bytes(jpeg_writer.lossless(frame))
+    Image.fromarray(rgb).save(tmp_path / "b.jpg", "JPEG")
+    (tmp_path / "c.jpg").write_bytes(jpeg_writer.lossless(frame,
+                                                          precision=12))
+    assert [decode_images.port_reads(tmp_path / f"{n}.jpg")
+            for n in "abc"] == [True, False, False]
+    (tmp_path / "c.jpg").unlink()  # PIL refuses it: no sidecar to write
+    decode_images.main([str(tmp_path)])
+    assert ("1 sidecars written, 0 up to date, 1 lossless JPEGs need none"
+            in capsys.readouterr().out)
+    assert not (tmp_path / "a.jpg.png").exists()
+    assert (tmp_path / "b.jpg.png").exists()
 
 
 @pytest.mark.parametrize("batch_size,shuffle,pad_last,drop_last", [

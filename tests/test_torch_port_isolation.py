@@ -98,7 +98,8 @@ def test_port_sources_import_no_jax():
     # with what chip_smoke.py loads from its file on the card's machine
     files = sorted(PORT.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "tools" / "bench_jpeg_decode.py",
-        ROOT / "tests" / "torch_port_jpeg.py"]
+        ROOT / "tests" / "torch_port_jpeg.py",
+        ROOT / "tests" / "torch_port_png.py"]
     for path in files:
         bad = _imported_roots(path) & set(BLOCKED)
         assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"

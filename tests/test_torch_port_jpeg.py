@@ -31,14 +31,23 @@ islow IDCT, fancy upsampling, fixed-point YCbCr -> RGB):
   (markers made or broken among them), files that end before their EOI
   (which PIL reports truncated), and blocks whose coefficients overflow
   the IDCT's 16-bit lanes;
-* the kinds that stay refused (lossless, 12-bit samples, a height left
-  to DNL, hierarchical frames, two components) go to their sidecar, or
-  raise naming ``tools/decode_images.py`` without one; a damaged file
-  raises.
+* lossless (SOF3) files from the tests' writer: every predictor at
+  point transforms 0 to 3, restarts, interleaved or one scan per
+  component, grey, RGB (Adobe, ``R``/``G``/``B`` ids, or no marker) and
+  CMYK, subsampled or not, over hypothesis draws; differences taken
+  modulo 2^16 (category 16 among them); damaged and truncated copies as
+  above; and the colours libjpeg-turbo will not convert in lossless mode
+  (JFIF or Adobe YCbCr, YCCK), which PIL and the port both refuse;
+* the kinds that stay refused (lossless arithmetic SOF11, 12-bit
+  samples, lossless ones too, a height left to DNL, hierarchical frames,
+  two components) go to their sidecar, or raise naming
+  ``tools/decode_images.py`` without one; a damaged file raises.
 """
 
 import io
+import itertools
 import json
+import struct
 from pathlib import Path
 
 import numpy as np
@@ -320,6 +329,193 @@ def test_committed_fixtures_equal_pil():
         np.testing.assert_array_equal(got.pixels, want.pixels, err_msg=kind)
 
 
+# ------------------------------------------------------- lossless (SOF3)
+
+# a lossless frame's colour: (channels, lossless() arguments).  Without a
+# marker libjpeg-turbo takes a lossless frame for RGB, whatever its ids.
+LOSSLESS_COLOURS = {
+    "gray": (1, {}),
+    "adobe_rgb": (3, dict(markers=writer.adobe(0))),
+    "rgb_labelled": (3, dict(markers=b"", ids=b"RGB")),
+    "ids_123_no_marker": (3, dict(markers=b"")),
+    "cmyk": (4, dict(markers=b"")),
+    "adobe_cmyk": (4, dict(markers=writer.adobe(0))),
+}
+# colours libjpeg-turbo would have to convert, which it refuses in
+# lossless mode (jdcolor.c): PIL raises, and so does the port
+LOSSLESS_CONVERTED = {
+    "jfif_ycc": (3, dict(markers=writer.JFIF)),
+    "adobe_ycc": (3, dict(markers=writer.adobe(1))),
+    "adobe_ycck": (4, dict(markers=writer.adobe(2))),
+}
+
+
+def _lossless_planes(rng, h: int, w: int, channels: int) -> np.ndarray:
+    img = _photo(rng, h, w, noise=8)
+    if channels == 4:
+        img = np.concatenate([img, _photo(rng, h, w)[..., :1]], axis=2)
+    return img[..., 0] if channels == 1 else img[..., :channels]
+
+
+def _lossless(rng, h: int, w: int, colour: str, sampling=None,
+              **kw) -> bytes:
+    channels, marks = {**LOSSLESS_COLOURS, **LOSSLESS_CONVERTED}[colour]
+    frame = writer.lossless_frame(_lossless_planes(rng, h, w, channels),
+                                  sampling)
+    return writer.lossless(frame, **marks, **kw)
+
+
+@pytest.mark.parametrize("psv", range(1, 8))
+def test_lossless_predictors_and_point_transforms_equal_pil(psv, tmp_path):
+    """Each predictor (the scan's Ss) at point transforms 0-3: grey with
+    a restart every MCU row, RGB 4:2:0 with a restart every two (each
+    resetting the predictor), and grey decoding to its samples shifted
+    by Pt, exactly."""
+    rng = np.random.default_rng(40 + psv)
+    for pt in range(4):
+        gray = _lossless_planes(rng, 23, 29, 1)
+        data = writer.lossless(writer.lossless_frame(gray), psv=psv, pt=pt,
+                               restart=29)
+        np.testing.assert_array_equal(_check(data, tmp_path),
+                                      (gray >> pt) << pt)
+        data = _lossless(rng, 23, 29, "adobe_rgb", YCC_420, psv=psv, pt=pt,
+                         restart=30)
+        _check(data, tmp_path)
+
+
+@pytest.mark.parametrize("colour", list(LOSSLESS_COLOURS))
+def test_lossless_colours_and_scans_equal_pil(colour, tmp_path):
+    """Each colour convention, in one interleaved scan, one scan per
+    component, and scans of components out of the frame's order (as far
+    as libjpeg takes them), subsampled where there is more than one
+    component (replicated, never fancy: libjpeg's lossless DCT size of
+    1)."""
+    rng = np.random.default_rng(50)
+    channels = LOSSLESS_COLOURS[colour][0]
+    sampling = None if channels == 1 else [(2, 2)] + [(1, 1)] * (
+        channels - 2) + [(1, 2)]
+    shuffled = {1: [(0,)], 3: [(2, 1), (0,)], 4: [(3, 1), (0, 2)]}
+    for scans in (None, shuffled[channels],
+                  [(c,) for c in range(channels)]):
+        _check(_lossless(rng, 31, 27, colour, psv=4, scans=scans),
+               tmp_path)
+        _check(_lossless(rng, 31, 27, colour, sampling, psv=6, pt=2,
+                         scans=scans), tmp_path)
+
+
+@pytest.mark.parametrize("lossless", [False, True])
+def test_scan_component_order_equals_pil(lossless):
+    """Scans listing the frame's components in every order: libjpeg's
+    get_sos matches scan component i only to a frame component at or
+    after position i, and refuses the others."""
+    rng = np.random.default_rng(72)
+    img = _photo(rng, 16, 16)
+    frame = (writer.lossless_frame(img) if lossless else
+             writer.coefficients(writer.rgb_to_ycc(img), [(1, 1)] * 3))
+    for order in itertools.permutations(range(3)):
+        for split in (3, 2, 1):
+            scans = [order[:split], order[split:]] if split < 3 else [order]
+            if lossless:
+                data = writer.lossless(frame, scans=scans, markers=b"")
+            else:
+                data = writer.write(frame, script=[(c, 0, 63, 0, 0)
+                                                   for c in scans])
+            _equals_pil_or_both_raise(data)
+
+
+@settings(max_examples=60, deadline=None)
+@given(h=st.integers(1, 40), w=st.integers(1, 40),
+       colour=st.sampled_from(list(LOSSLESS_COLOURS)),
+       sampling=st.sampled_from([None, "2x2", "2x1", "1x2", "4x1", "mixed"]),
+       psv=st.integers(1, 7), pt=st.integers(0, 7),
+       restart_rows=st.sampled_from([0, 0, 1, 3]),
+       separate=st.booleans(), seed=st.integers(0, 2 ** 16))
+def test_lossless_equals_pil_over_draws(h, w, colour, sampling, psv, pt,
+                                        restart_rows, separate, seed,
+                                        tmp_path_factory):
+    """Sizes, colours, sampling factors (the first component's, or a
+    mix), predictors, point transforms, restarts every few MCU rows and
+    one scan per component, drawn together."""
+    channels = LOSSLESS_COLOURS[colour][0]
+    first = {None: (1, 1), "2x2": (2, 2), "2x1": (2, 1), "1x2": (1, 2),
+             "4x1": (4, 1), "mixed": (2, 2)}[sampling]
+    factors = [first] + [(1, 1)] * (channels - 1)
+    if sampling == "mixed" and channels > 2:
+        factors[1:3] = [(2, 1), (1, 2)]
+    rng = np.random.default_rng(seed)
+    frame = writer.lossless_frame(_lossless_planes(rng, h, w, channels),
+                                  factors)
+    scans = [(c,) for c in range(channels)] if separate else None
+    # a whole number of MCU rows in every scan (a scan of one component
+    # has an MCU a sample)
+    widths = ([s.shape[1] for s in frame.samples]
+              if separate or channels == 1 else [frame.mcus()[1]])
+    restart = restart_rows * int(np.lcm.reduce(widths))
+    data = writer.lossless(frame, psv=psv, pt=pt, scans=scans,
+                           restart=restart if restart < 65536 else 0,
+                           **LOSSLESS_COLOURS[colour][1])
+    _check(data, tmp_path_factory.mktemp("jpeg"))
+
+
+@pytest.mark.parametrize("psv", range(1, 8))
+def test_lossless_differences_wrap_as_pil(psv):
+    """Differences given outright, of every category to 16 (the
+    difference 32768, coded without bits): libjpeg undifferences them
+    to 16 bits and keeps the low byte of each value shifted by Pt; the
+    dummy samples of partial MCUs are decoded and dropped."""
+    rng = np.random.default_rng(60 + psv)
+    frame = writer.lossless_frame(_lossless_planes(rng, 13, 11, 3),
+                                  [(2, 2), (1, 1), (1, 1)])
+    rows, cols = frame.mcus()
+    for pt in (0, 3):
+        differences = {}
+        for c, (h, v) in enumerate(frame.comps):
+            shape = (rows * v, cols * h)
+            differences[c] = np.where(
+                rng.random(shape) < 0.3,
+                rng.choice([32768, -32767, 32767, 255, -256], shape),
+                rng.integers(-32767, 32769, shape))
+        data = writer.lossless(frame, psv=psv, pt=pt, restart=2 * cols,
+                               differences=differences, markers=b"")
+        np.testing.assert_array_equal(
+            native.jpeg_decode(data), np.asarray(Image.open(io.BytesIO(data))))
+
+
+@pytest.mark.parametrize("colour", list(LOSSLESS_CONVERTED))
+def test_lossless_in_a_converted_colour_raises_as_pil(colour):
+    """libjpeg-turbo converts no colour in lossless mode, so PIL cannot
+    read a lossless YCbCr or YCCK frame; the port raises too."""
+    data = _lossless(np.random.default_rng(70), 9, 12, colour)
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(data)).load()
+    with pytest.raises(ValueError, match="lossless frame in YCbCr or YCCK"):
+        native.jpeg_decode(data)
+
+
+def test_lossless_scan_headers_libjpeg_rejects_raise_as_pil():
+    """A predictor outside 1-7, Se or Ah not 0, a point transform of 8
+    bits or more, a restart interval that is not whole MCU rows, a
+    table symbol above 16, more than 10 samples an MCU: PIL raises, and
+    so does the port; a point transform of 7 and a symbol of 16 decode."""
+    rng = np.random.default_rng(71)
+    data = _lossless(rng, 9, 12, "gray", psv=3)
+    sos = data.index(b"\xff\xda") + 7
+    dht = data.index(b"\xff\xc4")
+    last = dht + 2 + struct.unpack(">H", data[dht + 2:dht + 4])[0] - 1
+    variants = [(sos, 0), (sos, 8), (sos + 1, 1), (sos + 2, 0x10),
+                (sos + 2, 7), (sos + 2, 8), (last, 16), (last, 17)]
+    cases = []
+    for at, value in variants:
+        damaged = bytearray(data)
+        damaged[at] = value
+        cases.append(bytes(damaged))
+    cases.append(_lossless(rng, 9, 12, "gray", restart=5))
+    cases.append(_lossless(rng, 9, 12, "rgb_labelled",
+                           [(4, 4), (1, 1), (1, 1)]))
+    for case in cases:
+        _equals_pil_or_both_raise(case)
+
+
 # ------------------------------------------------------------ still refused
 
 
@@ -389,6 +585,7 @@ def test_random_progressions_equal_pil_over_draws(sampling, h, w, quality,
 def _refused(kind: str) -> bytes:
     img = _photo(np.random.default_rng(11), 16, 24)
     frame = writer.coefficients(writer.rgb_to_ycc(img), [(1, 1)] * 3)
+    lossless = writer.lossless_frame(img[..., 0])
     if kind == "12-bit":
         return _twelve_bit(img)
     if kind == "dnl":
@@ -399,23 +596,30 @@ def _refused(kind: str) -> bytes:
         two = writer.Frame(16, 24, frame.comps[:2], frame.coef[:2],
                            frame.quant)
         return writer.write(two)
-    return writer.lossless(8, 8)  # PIL decodes it
+    if kind == "lossless_12_bit":
+        return writer.lossless(lossless, precision=12)
+    if kind == "lossless_dnl":
+        return writer.lossless(lossless, height=0)
+    # lossless arithmetic (SOF11): libjpeg has no decoder for it
+    return writer.lossless(lossless, sof=0xCB)
 
 
 @pytest.mark.parametrize("kind", ["12-bit", "dnl", "hierarchical",
-                                  "two_components", "lossless"])
+                                  "two_components", "lossless",
+                                  "lossless_12_bit", "lossless_dnl"])
 def test_refused_kinds_take_the_sidecar_route(kind, tmp_path):
+    """Kinds PIL refuses too (``lossless`` is SOF11, lossless arithmetic
+    coding): no PIL decode can write their sidecar, so the test writes
+    known pixels there."""
     data = _refused(kind)
     assert native.jpeg_decode(data) is None
+    with pytest.raises(OSError):
+        Image.open(io.BytesIO(data)).load()
     path = tmp_path / "r.jpg"
     path.write_bytes(data)
     with pytest.raises(FileNotFoundError, match="tools/decode_images.py"):
         imageio.open_image(path)
-    if kind == "lossless":  # PIL decodes it, so it writes the sidecar
-        want = np.asarray(Image.open(path))
-        assert (want == 128).all()
-    else:
-        want = np.full((3, 5), 7, np.uint8)
+    want = np.full((3, 5), 7, np.uint8)
     imageio.write_png(imageio.sidecar_path(path), want)
     np.testing.assert_array_equal(imageio.open_image(path).pixels, want)
 
@@ -434,12 +638,21 @@ DAMAGED = {
     "arithmetic": "arithmetic",
     "arithmetic_dac_restarts": "arithmetic_dac_restarts",
     "arithmetic_progressive": "arithmetic_progressive",
+    "lossless": lambda rng: _lossless(rng, 40, 45, "adobe_rgb", [
+        (2, 1), (1, 1), (1, 1)], psv=int(rng.integers(1, 8)), pt=1),
+    "lossless_restarts": lambda rng: _lossless(
+        rng, 40, 45, "gray", psv=int(rng.integers(1, 8)), restart=45),
+    "lossless_scans_restarts": lambda rng: _lossless(
+        rng, 40, 45, "rgb_labelled", psv=int(rng.integers(1, 8)),
+        scans=[(2,), (0,), (1,)], restart=90),
 }
 
 
 def _damageable(kind: str, seed: int) -> bytes:
     rng = np.random.default_rng(seed)
     how = DAMAGED[kind]
+    if callable(how):
+        return how(rng)
     if isinstance(how, str):
         return _written(how, rng, 40, 45, 85)[0]
     return _pil_jpeg(_photo(rng, 40, 45), gray=kind.endswith("gray"), **how)
@@ -510,7 +723,8 @@ def test_restart_markers_out_of_order_equal_pil(kind):
         _equals_pil_or_both_raise(bytes(damaged))
 
 
-@pytest.mark.parametrize("kind", ["baseline", "progressive", "arithmetic"])
+@pytest.mark.parametrize("kind", ["baseline", "progressive", "arithmetic",
+                                  "lossless"])
 def test_a_jpeg_without_its_eoi_raises(kind):
     """PIL reports a file that ends before its EOI truncated, wherever
     it ends; the port's decoder says it is damaged."""

@@ -8,6 +8,11 @@
   other.
 * SSIM against the JAX ``ssim`` to 1e-6; ``clean_resize_to_299`` bit for
   bit equal to the JAX one (PIL bicubic) over hypothesis sizes.
+* The loaders (``_load_batch``, BILINEAR to a size, and
+  ``_load_batch_u8``) bit for bit equal to the JAX ones on the files PIL
+  reads beyond 8-bit PNGs and lossy JPEGs: lossless JPEGs, 1-bit,
+  2-bit, 16-bit and 16-bit grey+alpha PNGs, 16-bit RGB and 4-bit
+  palette ones interlaced.
 * InceptionV3 (pool3 and logits, a batch of 4 at 299x299) and LPIPS (both
   checkpoint layouts) against the JAX towers on the weights
   ``tools/make_metric_weights.py`` writes, to 1e-4 of the largest value.
@@ -36,6 +41,7 @@ from PIL import Image
 from threadpoolctl import threadpool_limits
 
 from ladi_vton_tpu.cli import val_metrics as jax_val_main
+from ladi_vton_tpu.metrics import compute as jax_compute
 from ladi_vton_tpu.metrics import fid as jax_fid
 from ladi_vton_tpu.metrics.compute import MetricModels as JaxModels
 from ladi_vton_tpu.metrics.inception import (
@@ -44,7 +50,7 @@ from ladi_vton_tpu.metrics.inception import (
 from ladi_vton_tpu.metrics.ssim import ssim as jax_ssim
 from ladi_vton_tpu_torch.cli import generate_fid_stats as stats_main
 from ladi_vton_tpu_torch.cli import val_metrics as val_main
-from ladi_vton_tpu_torch.metrics import fid
+from ladi_vton_tpu_torch.metrics import compute, fid
 from ladi_vton_tpu_torch.metrics.compute import (
     MetricModels,
     fid_between_folders,
@@ -56,6 +62,9 @@ from ladi_vton_tpu_torch.metrics.ssim import ssim
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 from make_metric_weights import make_metric_weights  # noqa: E402
+
+import torch_port_jpeg as jpeg_writer  # noqa: E402
+import torch_port_png as png_writer  # noqa: E402
 
 import torch  # noqa: E402
 
@@ -164,6 +173,46 @@ def test_rgb_pixels_convert_as_pil(mode, fmt, tmp_path):
     Image.fromarray(rgb).convert(mode).save(path, fmt)
     np.testing.assert_array_equal(
         rgb_pixels(str(path)), np.asarray(Image.open(path).convert("RGB")))
+
+
+def _new_kind(kind: str, rng) -> bytes:
+    """A 23x19 file of a kind the loaders newly read."""
+    h, w = 23, 19
+    if kind.startswith("lossless"):
+        rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        planes = rgb[..., 0] if kind.endswith("gray") else rgb
+        return jpeg_writer.lossless(jpeg_writer.lossless_frame(planes),
+                                    psv=5, markers=b"")
+    color_type, depth, interlace = {
+        "png_1bit": (0, 1, False), "png_2bit": (0, 2, True),
+        "png_16bit_gray": (0, 16, False),
+        "png_16bit_gray_alpha": (4, 16, True),
+        "png_16bit_rgb": (2, 16, True),
+        "png_4bit_palette": (3, 4, True)}[kind]
+    samples = png_writer.draw(rng, h, w, color_type, depth, smooth=True)
+    palette = rng.integers(0, 256, (16, 3)) if color_type == 3 else None
+    return png_writer.encode(samples, color_type, depth, interlace=interlace,
+                             palette=palette, rng=rng)
+
+
+@pytest.mark.parametrize("kind", [
+    "lossless_rgb", "lossless_gray", "png_1bit", "png_2bit",
+    "png_16bit_gray", "png_16bit_gray_alpha", "png_16bit_rgb",
+    "png_4bit_palette"])
+def test_loaders_read_new_kinds_as_the_jax_loaders(kind, tmp_path):
+    """``Image.open(p).convert("RGB")`` then BILINEAR, or alone, as the
+    JAX main reads the generated and ground-truth images."""
+    rng = np.random.default_rng(5)
+    paths = []
+    for i in range(2):
+        path = tmp_path / f"{i}.{'jpg' if 'lossless' in kind else 'png'}"
+        path.write_bytes(_new_kind(kind, rng))
+        paths.append(str(path))
+    for size in ((11, 30), (23, 19)):
+        np.testing.assert_array_equal(compute._load_batch(paths, size),
+                                      jax_compute._load_batch(paths, size))
+    np.testing.assert_array_equal(compute._load_batch_u8(paths),
+                                  jax_compute._load_batch_u8(paths))
 
 
 # ---------------------------------------------------------------- towers

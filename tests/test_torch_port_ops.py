@@ -266,7 +266,10 @@ def test_group_norm_cluster_vectors_match_the_kernel():
 # ---------------------------------------------------------------- K4
 
 
-def test_geglu_matches_pallas_and_xla():
+@pytest.mark.parametrize("oracle", ["xla", "pallas"])
+def test_geglu_matches_pallas_and_xla(oracle):
+    """The port's GEGLU on the CPU against each JAX oracle, one case
+    each, so that a failure names the oracle it failed against."""
     rng = np.random.default_rng(4)
     C, I = 640, 2560
     x = rng.standard_normal((1, 64, C)).astype(np.float32)
@@ -275,8 +278,8 @@ def test_geglu_matches_pallas_and_xla():
     w2 = (rng.standard_normal((I, C)) * I ** -0.5).astype(np.float32)
     b2 = (rng.standard_normal(C) * 0.1).astype(np.float32)
     args = [jnp.asarray(a) for a in (x, w1, b1, w2, b2)]
-    xla = np.asarray(geglu_xla(*args))
-    pallas = np.asarray(jax_geglu_pallas(*args, 32, True))
+    want = np.asarray(geglu_xla(*args) if oracle == "xla"
+                      else jax_geglu_pallas(*args, 32, True))
     before = geglu.launches
     # the port takes Linear-layout weights: (2I, C) and (C, I)
     ours = geglu(T(x), T(np.ascontiguousarray(w1.T)), T(b1),
@@ -284,8 +287,8 @@ def test_geglu_matches_pallas_and_xla():
     assert geglu.launches == before
     # fp32 products over C=640 and I=2560 in another order, 2e-6 seen;
     # the Pallas kernel's A&S erf (abs error 1.5e-7) adds less: 1e-5
-    np.testing.assert_allclose(ours, xla, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(ours, pallas, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ours, want, rtol=1e-5, atol=1e-5,
+                               err_msg=f"against the {oracle} oracle")
 
 
 @pytest.mark.parametrize("rows,C", [(4 * 3072, 320), (4 * 768, 640),

@@ -2,16 +2,20 @@
 
 It writes what PIL cannot: the same quantised coefficients as a baseline
 file, a progressive file under any scan script, an arithmetic-coded file
-(sequential or progressive), at any sampling factors, with JFIF, Adobe or
-no colour marker and any component ids.  A test holds each such file
+(sequential or progressive), a lossless file (SOF3: any predictor and
+point transform, restarts, interleaved or one scan per component, or
+differences given outright), at any sampling factors, with JFIF, Adobe
+or no colour marker and any component ids.  A test holds each such file
 twice: PIL's decode of it equals PIL's decode of the same coefficients
 written as a baseline file (which checks this writer), and the port's
 decoder equals PIL.
 
 The entropy coders follow libjpeg's encoders: ``jchuff.c`` (sequential
 Huffman and ``jpeg_gen_optimal_table``), ``jcphuff.c`` (progressive
-Huffman: end-of-band runs, buffered correction bits) and ``jcarith.c``
-(the QM coder, its statistics bins and conditioning).  It imports no PIL,
+Huffman: end-of-band runs, buffered correction bits), ``jcarith.c``
+(the QM coder, its statistics bins and conditioning) and ``jclhuff.c``
+with ``jcdiffct.c`` (lossless differences, Huffman tables fitted to
+them).  It imports no PIL,
 so ``chip_smoke.py`` can make its timing files on a machine without it.
 
     frame = coefficients(rgb, sampling=((2, 2), (1, 1), (1, 1)))
@@ -246,18 +250,6 @@ def random_progression(rng, ncomps: int) -> list:
             continue
         b[ss:se + 1] = [al] * (se - ss + 1)
     return scans
-
-
-def lossless(height: int, width: int) -> bytes:
-    """An 8-bit lossless (SOF3) grey file, predictor 1, every difference 0
-    coded in one bit: every sample is 2^(P - 1) = 128."""
-    return b"".join([
-        b"\xff\xd8",
-        _segment(0xC3, struct.pack(">BHHB", 8, height, width, 1)
-                 + bytes([1, 0x11, 0])),
-        _segment(0xC4, bytes([0, 1] + [0] * 15 + [0])),
-        _segment(0xDA, bytes([1, 1, 0x00, 1, 0, 0])),
-        bytes(-(-height * width // 8)), b"\xff\xd9"])
 
 
 # --------------------------------------------------------------- Huffman
@@ -985,3 +977,216 @@ def _arith_scan(frame, comps, ss, se, ah, al, restart, progressive,
                 scan.ac_refine(block, ss, se, ah, al, t)
     scan.e.finish()
     return bytes(out + scan.e.out)
+
+
+# -------------------------------------------------------------- lossless
+
+
+@dataclasses.dataclass
+class LosslessFrame:
+    """A lossless (SOF3) frame: ``samples[c]`` is component c's (rows,
+    cols) plane of 8-bit samples, before the point transform;
+    ``comps[c]`` = (h, v)."""
+
+    height: int
+    width: int
+    comps: list
+    samples: list
+
+    @property
+    def hmax(self) -> int:
+        return max(h for h, _ in self.comps)
+
+    @property
+    def vmax(self) -> int:
+        return max(v for _, v in self.comps)
+
+    def mcus(self) -> tuple:
+        """(MCU rows, MCU columns) of an interleaved scan, whose MCU
+        holds h x v samples of each component."""
+        return -(-self.height // self.vmax), -(-self.width // self.hmax)
+
+
+def lossless_frame(planes: np.ndarray,
+                   sampling: Optional[Sequence[tuple]] = None
+                   ) -> LosslessFrame:
+    """The frame of (H, W) or (H, W, C) uint8 planes (already in the
+    file's colour space), each downsampled by box means (rounded down) to
+    its (h, v) factors."""
+    planes = np.asarray(planes)
+    if planes.ndim == 2:
+        planes = planes[..., None]
+    height, width, n = planes.shape
+    sampling = list(sampling or [(1, 1)] * n)
+    hmax = max(h for h, _ in sampling)
+    vmax = max(v for _, v in sampling)
+    samples = []
+    for c, (h, v) in enumerate(sampling):
+        fy, fx = vmax // v, hmax // h
+        rows, cols = -(-height * v // vmax), -(-width * h // hmax)
+        full = np.pad(planes[..., c].astype(np.int64),
+                      ((0, rows * fy - height), (0, cols * fx - width)),
+                      mode="edge")
+        samples.append(full.reshape(rows, fy, cols, fx).sum(axis=(1, 3))
+                       // (fy * fx))
+    return LosslessFrame(height, width, sampling, samples)
+
+
+def _predict(psv: int, ra, rb, rc):
+    """jdlossls.c's predictors 1-7 (Table H.1), shifts arithmetic."""
+    return {1: lambda: ra, 2: lambda: rb, 3: lambda: rc,
+            4: lambda: ra + rb - rc, 5: lambda: ra + ((rb - rc) >> 1),
+            6: lambda: rb + ((ra - rc) >> 1),
+            7: lambda: (ra + rb) >> 1}[psv]()
+
+
+def lossless_differences(x: np.ndarray, psv: int, initial: int,
+                         first: np.ndarray) -> np.ndarray:
+    """The differences of samples x (rows, cols) from their predictions:
+    a row where ``first`` is set predicts from its left neighbour and its
+    first sample from ``initial`` (a scan's or restart interval's first
+    row), every other row's first sample from the one above it."""
+    x = np.asarray(x, np.int64)
+    ra = np.zeros_like(x)
+    ra[:, 1:] = x[:, :-1]
+    rb = np.zeros_like(x)
+    rb[1:] = x[:-1]
+    rc = np.zeros_like(x)
+    rc[1:, 1:] = x[:-1, :-1]
+    pred = _predict(psv, ra, rb, rc)
+    pred[:, 0] = rb[:, 0]
+    pred[first] = ra[first]
+    pred[first, 0] = initial
+    return x - pred
+
+
+def _first_rows(rows: int, v: int, interleaved: bool,
+                restart_rows: int) -> np.ndarray:
+    """Which of a component's sample rows libjpeg undifferences as a
+    first row: the first of each iMCU row (v rows) that a scan's start or
+    a restart precedes.  A restart is processed before an MCU row
+    (interleaved: an iMCU row; otherwise one sample row), but the
+    predictor is reset for the next row undifferenced, after the whole
+    iMCU row is decoded (jddiffct.c decompress_data)."""
+    first = np.zeros(rows, bool)
+    for i in range(-(-rows // v)):
+        mcu_rows = [i] if interleaved else range(i * v, min(rows, i * v + v))
+        first[i * v] = i == 0 or any(
+            restart_rows and j and j % restart_rows == 0 for j in mcu_rows)
+    return first
+
+
+def _categories(d: np.ndarray) -> tuple:
+    """(category, extra bits) of lossless differences taken modulo 2^16:
+    category 16 is the difference 32768, with no extra bits."""
+    d = ((np.asarray(d, np.int64) + 32768) & 0xFFFF) - 32768
+    a = np.abs(d)
+    _, e = np.frexp(a.astype(np.float64))
+    s = np.where(a == 0, 0, e).astype(np.int64)
+    s[d == -32768] = 16
+    bits = np.where(d >= 0, d, d - 1) & ((1 << s) - 1)
+    bits[s == 16] = 0
+    return s, bits
+
+
+def _pack_bits(values: np.ndarray, lengths: np.ndarray) -> bytes:
+    """Codes MSB first, padded with ones, 0xFF stuffed with 0x00."""
+    values = np.asarray(values, np.int64)
+    lengths = np.asarray(lengths, np.int64)
+    chunks = []
+    for lo in range(0, len(values), 1 << 18):
+        v, n = values[lo:lo + (1 << 18)], lengths[lo:lo + (1 << 18)]
+        idx = np.repeat(np.arange(len(v)), n)
+        pos = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+        chunks.append(((v[idx] >> (n[idx] - 1 - pos)) & 1).astype(np.uint8))
+    bits = np.concatenate(chunks + [np.ones(0, np.uint8)])
+    bits = np.concatenate([bits, np.ones(-len(bits) % 8, np.uint8)])
+    out = np.packbits(bits)
+    return np.insert(out, np.flatnonzero(out == 0xFF) + 1, 0).tobytes()
+
+
+def lossless(frame: LosslessFrame, *, psv: int = 1, pt: int = 0,
+             scans: Optional[Sequence[tuple]] = None, restart: int = 0,
+             markers: bytes = JFIF, ids: Optional[Sequence[int]] = None,
+             tables: Optional[Sequence[int]] = None,
+             differences: Optional[dict] = None, sof: int = 0xC3,
+             precision: int = 8, height: Optional[int] = None) -> bytes:
+    """The frame as a lossless Huffman-coded JPEG (SOF3), as
+    libjpeg-turbo's jclhuff.c and jcdiffct.c code one.
+
+    ``psv`` is the predictor (the scans' Ss), ``pt`` the point transform
+    (Al): samples are coded shifted right by it.  ``scans`` lists each
+    scan's components (one interleaved scan of all by default);
+    ``restart`` is the restart interval in MCUs, which libjpeg needs to
+    be a whole number of MCU rows.  Each scan gets Huffman tables fitted
+    to it (``tables``: each component's, 0 for the first and 1 for the
+    others by default).  ``differences`` maps a component to the
+    differences its scan codes instead of its samples', over the scan's
+    whole MCUs ((MCU rows * v, MCU columns * h) interleaved, its samples'
+    shape alone), any of -32767..32768.  ``markers``, ``ids``, ``sof``,
+    ``precision`` and ``height`` as in ``write``."""
+    n = len(frame.comps)
+    ids = list(ids) if ids is not None else list(range(1, n + 1))
+    tables = list(tables) if tables is not None else [
+        _dc_table(c) for c in range(n)]
+    scans = list(scans) if scans is not None else [tuple(range(n))]
+    initial = 1 << (precision - pt - 1)
+    out = [b"\xff\xd8", markers]
+    body = struct.pack(">BHHB", precision,
+                       frame.height if height is None else height,
+                       frame.width, n)
+    for c, (h, v) in enumerate(frame.comps):
+        body += bytes([ids[c], (h << 4) | v, 0])
+    out.append(_segment(sof, body))
+    if restart:
+        out.append(_segment(0xDD, struct.pack(">H", restart)))
+    for comps in scans:
+        interleaved = len(comps) > 1
+        mcu_rows, mcu_cols = frame.mcus()
+        cells, cell_tables = [], []
+        for c in comps:
+            h, v = frame.comps[c] if interleaved else (1, 1)
+            x = frame.samples[c] >> pt
+            rows, cols = x.shape
+            if not interleaved:
+                mcu_rows, mcu_cols = rows, cols
+            per_row = mcu_cols
+            rr = restart // per_row if restart else 0
+            if differences is not None and c in differences:
+                d = np.asarray(differences[c], np.int64)
+            else:
+                d = np.zeros((mcu_rows * v, mcu_cols * h), np.int64)
+                first = _first_rows(rows, frame.comps[c][1], interleaved, rr)
+                d[:rows, :cols] = lossless_differences(x, psv, initial, first)
+            # MCU order: each MCU's v rows of h samples
+            cells.append(d.reshape(mcu_rows, v, mcu_cols, h).transpose(
+                0, 2, 1, 3).reshape(mcu_rows, mcu_cols, v * h))
+            cell_tables.append(np.full(v * h, tables[c]))
+        mcus = np.concatenate(cells, axis=2).reshape(mcu_rows * mcu_cols, -1)
+        tbl = np.broadcast_to(np.concatenate(cell_tables), mcus.shape)
+        s, bits = _categories(mcus)
+        specs = {}
+        for t in sorted(set(tables[c] for c in comps)):
+            specs[t] = optimal_table(np.bincount(s[tbl == t], minlength=17))
+            counts, symbols = specs[t]
+            out.append(_segment(0xC4, bytes([t]) + bytes(counts) + symbols))
+        code = np.zeros((4, 17), np.int64)
+        size = np.zeros((4, 17), np.int64)
+        for t, spec in specs.items():
+            for sym, (cd, ln) in huffman_codes(spec).items():
+                code[t, sym], size[t, sym] = cd, ln
+        values = (code[tbl, s] << s) | bits
+        lengths = size[tbl, s] + np.where(s == 16, 0, s)
+        every = restart or len(mcus)
+        segments = [_pack_bits(values[m:m + every].ravel(),
+                               lengths[m:m + every].ravel())
+                    for m in range(0, len(mcus), every)]
+        data = b"".join(seg + (bytes([0xFF, 0xD0 + i % 8])
+                               if i < len(segments) - 1 else b"")
+                        for i, seg in enumerate(segments))
+        sel = b"".join(bytes([ids[c], tables[c] << 4]) for c in comps)
+        out.append(_segment(0xDA, bytes([len(comps)]) + sel
+                            + bytes([psv, 0, pt])))
+        out.append(data)
+    out.append(b"\xff\xd9")
+    return b"".join(out)

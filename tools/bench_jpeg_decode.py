@@ -10,7 +10,10 @@ coefficients are written three ways by the tests' writer
 (``tests/torch_port_jpeg.py``): baseline (the standard Huffman tables, as
 PIL writes by default), progressive (libjpeg's default script with
 optimised tables, as PIL writes with ``progressive=True``) and sequential
-arithmetic-coded.
+arithmetic-coded.  The same image's pixels are also written lossless
+(SOF3, predictor 1, RGB under an Adobe marker, Huffman tables fitted to
+it); ``interlaced_png`` gives them as an Adam7-interlaced PNG
+(``tests/torch_port_png.py``), which ``chip_smoke.py`` times beside.
 
 Alone, each file is decoded ``--reps`` times by
 ``ladi_vton_tpu_torch/data/native.py jpeg_decode`` of the checkout at
@@ -47,6 +50,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SIZE = (1024, 768)
 QUALITY = 95
 KINDS = ("baseline", "progressive", "arithmetic")
+LOSSLESS = "lossless"
 
 
 def load(path: Path, name: str):
@@ -64,15 +68,37 @@ def native(repo: Path, name: str = "bench_native"):
     return load(repo / "ladi_vton_tpu_torch" / "data" / "native.py", name)
 
 
-def timing_files(seed: int = 0) -> dict:
-    """{kind: JPEG bytes}: one image's coefficients in each kind."""
+def timing_image(seed: int = 0) -> np.ndarray:
+    """The (1024, 768, 3) uint8 image every timing file holds."""
     from ladi_vton_tpu_torch.data import synthetic
 
-    w = load(ROOT / "tests" / "torch_port_jpeg.py", "bench_jpeg_writer")
-    img = synthetic._smooth(np.random.default_rng(seed), SIZE)
-    frame = w.coefficients(w.rgb_to_ycc(img), [(2, 2), (1, 1), (1, 1)],
-                           QUALITY)
+    return synthetic._smooth(np.random.default_rng(seed), SIZE)
+
+
+def _writer(name: str):
+    return load(ROOT / "tests" / f"torch_port_{name}.py",
+                f"bench_{name}_writer")
+
+
+def timing_files(seed: int = 0) -> dict:
+    """{kind: JPEG bytes}: one image's coefficients in each kind."""
+    w = _writer("jpeg")
+    frame = w.coefficients(w.rgb_to_ycc(timing_image(seed)),
+                           [(2, 2), (1, 1), (1, 1)], QUALITY)
     return {kind: w.write(frame, kind) for kind in KINDS}
+
+
+def lossless_file(seed: int = 0) -> bytes:
+    """The image's pixels as a lossless JPEG, which decodes to them."""
+    w = _writer("jpeg")
+    return w.lossless(w.lossless_frame(timing_image(seed)), psv=1,
+                      markers=w.adobe(0))
+
+
+def interlaced_png(seed: int = 0) -> bytes:
+    """The image's pixels as an Adam7-interlaced 8-bit RGB PNG, each row
+    with the filter of the least sum of absolute bytes."""
+    return _writer("png").encode(timing_image(seed), 2, 8, interlace=True)
 
 
 def decode_ms(decode, data: bytes, reps: int) -> list:
@@ -128,9 +154,12 @@ def main(argv=None) -> None:
     others = [native(p.resolve(), f"bench_native_{i}")
               for i, p in enumerate(args.against)]
 
-    for kind, data in timing_files().items():
+    files = dict(timing_files(), **{LOSSLESS: lossless_file()})
+    for kind, data in files.items():
         row = {"repo": str(args.repo), "kind": kind, "bytes": len(data),
-               "size": list(SIZE), "quality": QUALITY}
+               "size": list(SIZE)}
+        if kind != LOSSLESS:
+            row["quality"] = QUALITY
         want = ours.jpeg_decode(data)
         if want is None:
             print(json.dumps(dict(row, refused=True)), flush=True)

@@ -9,8 +9,12 @@ person and cloth of a VITON-HD item), progressive files under other scan
 scripts (two that stop early, whose blocks libjpeg smooths),
 arithmetic-coded files (SOF9 with a DAC segment and restarts, SOF10),
 4:4:0 and 4:1:1 sampling, CMYK from PIL's writer, YCCK,
-Adobe-RGB and RGB-labelled colour, and a baseline file.  The files PIL
-cannot write come from the tests' writer (``tests/torch_port_jpeg.py``).
+Adobe-RGB and RGB-labelled colour, a baseline file, and lossless (SOF3)
+files: predictors 1 and 7, a point transform of 2 with restarts over
+4:2:0, three components in scans of their own (RGB: libjpeg-turbo reads
+a lossless frame without a marker so), and the person of a VITON-HD item.
+The files PIL cannot write come from the tests' writer
+(``tests/torch_port_jpeg.py``).
 
 Beside each ``<kind>.jpg`` goes ``<kind>.png``: the pixels
 ``np.asarray(PIL.Image.open(<kind>.jpg))`` gives (a CMYK image's four
@@ -40,8 +44,9 @@ import torch_port_jpeg as writer  # noqa: E402
 from ladi_vton_tpu_torch.data import resample  # noqa: E402
 
 OUT = ROOT / "tests" / "fixtures" / "jpeg"
-# the VITON-HD item chip_smoke.py reads: its person and cloth
+# the VITON-HD items chip_smoke.py reads: their persons and cloth
 PERSON, CLOTH = "progressive_person", "progressive_cloth"
+LOSSLESS_PERSON = "lossless_person"
 
 
 def _smooth(rng, h: int, w: int, channels: int = 3,
@@ -133,6 +138,36 @@ def fixtures() -> dict:
             w.write(frame(40, 56, [(1, 1)] * 3, ycc=False), "arithmetic",
                     markers=b"", ids=b"RGB"),
             "arithmetic RGB, component ids 'R', 'G', 'B' without JFIF"),
+        **lossless_fixtures(np.random.default_rng(16)),
+    }
+
+
+def lossless_fixtures(rng) -> dict:
+    """{kind: (JPEG bytes, what it holds)} of the lossless (SOF3) files."""
+    w = writer
+    gray = w.lossless_frame(_smooth(rng, 40, 56, 1)[..., 0])
+    rgb = w.lossless_frame(_smooth(rng, 40, 56))
+    sub = w.lossless_frame(_smooth(rng, 40, 56), [(2, 2), (1, 1), (1, 1)])
+    ids = w.lossless_frame(_smooth(rng, 40, 56))
+    person = w.lossless_frame(_smooth(rng, 128, 96))
+    return {
+        "lossless_predictor1": (
+            w.lossless(gray, psv=1), "lossless grey, predictor 1"),
+        "lossless_predictor7": (
+            w.lossless(rgb, psv=7, markers=w.adobe(0)),
+            "lossless Adobe RGB, predictor 7"),
+        "lossless_pt2_restarts": (
+            w.lossless(sub, psv=5, pt=2, markers=b"", ids=b"RGB",
+                       restart=sub.mcus()[1]),
+            "lossless RGB 4:2:0 (replicated), predictor 5, point "
+            "transform 2, a restart every MCU row"),
+        "lossless_3_components": (
+            w.lossless(ids, psv=6, markers=b"", scans=[(0,), (1,), (2,)]),
+            "lossless, ids 1, 2, 3 without a marker (RGB in lossless "
+            "mode), a scan per component, predictor 6"),
+        LOSSLESS_PERSON: (
+            w.lossless(person, psv=4, markers=w.adobe(0)),
+            "lossless Adobe RGB, predictor 4 (a person)"),
     }
 
 
