@@ -9,6 +9,7 @@
     python3 chip_smoke.py --distributed-only  # phase 2's TP rows, phase 11
     python3 chip_smoke.py --graphs-only       # phases 12, 13 and 14
     python3 chip_smoke.py --jpeg-only         # phase 7's JPEG decoder
+    python3 chip_smoke.py --sd15-only         # phase 2's SD-1.5 K1 rows, 15
 
 Phases, each printing its numbers before the last line:
 
@@ -38,7 +39,9 @@ Phases, each printing its numbers before the last line:
    a stated relative L2 of fp32 autograd of the plain version on the same
    bf16 inputs, and the forward plus backward is timed against the
    library's (SDPA, ``F.group_norm`` then SiLU, ``F.linear``-gelu-
-   ``F.linear``, ``F.layer_norm``).  Last, K1 and K4 at the shapes a
+   ``F.linear``, ``F.layer_norm``).  K1 also runs at the SD-1.5 UNet's
+   shapes (eight heads of 40, 80 and 160, ``ATTN_SD15_SHAPES``), and a
+   call at D = 96 must raise.  Last, K1 and K4 at the shapes a
    tensor-parallel UNet (model 2, batch 4) gives them: K1 on half the
    heads of levels 1 and 2 and the mid block, K4 at half the inner
    width of each level, each row as above.  Then an A/B of
@@ -136,8 +139,8 @@ Phases, each printing its numbers before the last line:
    then on the card ``cli.generate_fid_stats`` over phase 7's trees,
    ``cli.val_metrics`` over phase 7's PNG and JPEG runs (the JPEGs read by
    the port's decoder, within a stated PSNR of the pixels written),
-   ``cli.inference --compute_metrics`` (its JSON equal to
-   ``val_metrics``' over its folder) and
+   ``cli.inference --compute_metrics`` (its images byte for byte the PNG
+   run's, its JSON equal to ``val_metrics``' over them) and
    ``cli.compute_cloth_clip_features`` over the VITON-HD test split (each
    feature equal to the zoo-loaded tower called directly, K5 launched),
    each main's seconds logged;
@@ -167,11 +170,12 @@ Phases, each printing its numbers before the last line:
    ``cli.eval`` reads the warped cloths ``train_tps`` extracted with the
    trained exports.  Each run logs its step seconds, peak memory and
    launches;
-11. distribution, after this process lets go of the card (it holds a
-   fraction of a GiB when the ranks start) and of phase 10's checkpoints:
-   ranks as processes with torchrun's variables (``parallel.launch``),
-   two sharing the card over gloo (NCCL refuses two ranks on one
-   device), each killed with the others on a failure or a timeout.
+11. distribution, most of it after this process lets go of the card (it
+   holds a fraction of a GiB when those ranks start) and of phase 10's
+   checkpoints: ranks as processes with torchrun's variables
+   (``parallel.launch``), two sharing the card over gloo (NCCL refuses
+   two ranks on one device), each killed with the others on a failure
+   or a timeout.
    (a) the full-width VTO step (512x384, fp32 UNet and AdamW, frozen
    bf16 towers) over two ranks at a global batch of 2 against this
    process's step at batch 2 on the same batch and draws: the loss and
@@ -188,12 +192,12 @@ Phases, each printing its numbers before the last line:
    the limit; K1's and K4's calls counted and their shard shapes held to
    phase 2's tensor-parallel rows; one tensor-parallel step's loss and
    its gradient, gathered to the reference layout, by UNet part against
-   (a)'s.  (d) the mains over two ranks: ``train_vto
-   --shard_optimizer_states`` two steps, then from ``checkpoint-1``
-   alone, resumed, its ``unet_2.pth`` bitwise the first run's, and the
-   peak memory of each run, its checkpoints included, below (a)'s
-   unsharded step's;
-   ``train_vto --tensor_parallel 2``, its gathered ``unet_2.pth``
+   (a)'s.  (d) the mains over two ranks, one step each: ``train_vto
+   --shard_optimizer_states``, the peak memory of each rank,
+   its consolidated checkpoint included, below (a)'s unsharded step's
+   (the resume of a ZeRO-1 checkpoint into the sharded optimizer runs on
+   the card in (e)'s phase 2);
+   ``train_vto --tensor_parallel 2``, its gathered ``unet_1.pth``
    loaded through the zoo; ``cli.inference`` over phase 7's VITON-HD
    split against phase 7's images.  (e) ``dryrun_multichip(2)`` on the
    card, every kernel launched in its tensor-parallel step.  (f)
@@ -203,16 +207,19 @@ Phases, each printing its numbers before the last line:
    process's answer to the same flags, a planted missing gather (the
    follower's rows replaced by rank 0's) outside it, K1, K2, K4 and K5
    launched on each rank, and SIGINT to rank 0 ending both ranks with
-   exit 0.  (d)'s ``train_vto`` runs, bound by the host, run one after
-   another in this process's main thread (each writes 10.5 GB
-   checkpoints) while a second thread runs (b), (c), (d)'s
-   ``cli.inference``, (e) and (f) beside them on the card;
+   exit 0.  (d)'s ``cli.inference``, (e) and (f), ranks alone, start
+   before phase 10 and run beside its mains (``ServedLane``); after phase
+   10 and the one-process references, the rest runs in stages of jobs
+   that fit on the card together (``DIST_STAGES``): (a) beside (b), the
+   ZeRO-1 ``train_vto`` beside (c), then the tensor-parallel one (each
+   trainer writes a 10.5 GB checkpoint);
 12. the sampler as CUDA graphs (``TryOnPipeline.jit_sample``; run right
    after phase 3, on phase 4's full-width modules at 512x384 and CFG
    7.5): each mode (``split=False``; ``split=True`` with ``"scan"`` and
-   with ``"host"``) under DDIM-50 at batch 2, ``"host"`` under DDIM-20
-   at batch 8, and ``"host"`` under dpm-20, pndm-20 and lms-20 and
-   DDIM-20 with ``cloth_cond_rate`` 0.5 at batch 2, two requests each with their own inputs and draws: every graphed
+   with ``"host"``) under DDIM-20 at batch 2, ``"host"`` under DDIM-10
+   at batch 8, and ``"host"`` under dpm-10, pndm-10 and lms-10 and
+   DDIM-10 with ``cloth_cond_rate`` 0.5 at batch 2, two requests each
+   with their own inputs and draws: every graphed
    image bitwise equal to the eager ``sample``; the capture seconds,
    each request's seconds and peak memory graphed and eager, the memory
    the graphs hold; two planted faults that must break the equality (a
@@ -230,8 +237,9 @@ Phases, each printing its numbers before the last line:
    seconds and peak memory graphed and eager, the memory the graph
    holds; a replay over the first request's static inputs must not give
    the second request's outputs (a planted fault); the boolean-mask
-   splice the port had must fail to capture, in a process of its own,
-   where the static splice captures (a planted fault); and at batch 2
+   splice the port had must fail to capture, in a process of its own
+   that runs beside the phase, where the static splice captures (a
+   planted fault); and at batch 2
    one request under torch.profiler, graphed and eager, K5's kernels by
    name equal to the launch counters on the one trace.  Then the
    drivers' programs (the VAE reconstruction, the try-on driver on the
@@ -246,7 +254,7 @@ Phases, each printing its numbers before the last line:
    batch 2 with gradient accumulation 2), EMASC, the inversion adapter
    (the stock 9-channel UNet frozen), TPS at 256x192 and the refinement
    (batch 2), each graphed against its eager body from a copy of the
-   same modules over five steps, under a warm-up schedule whose learning
+   same modules over three steps, under a warm-up schedule whose learning
    rate changes at every step (TPS and the refinement: their constant
    Adam): after every step the metrics, parameters, BatchNorm
    statistics, AdamW moments and step counters, count and learning rate
@@ -261,9 +269,27 @@ Phases, each printing its numbers before the last line:
    gradient sequence; and the TPS evaluation (warped, refined) and extraction
    and the three metric towers (TF32 off) must replay bitwise their
    eager bodies, with each graph's pool and the FFT kernels a replay
-   runs.
+   runs.  First, one graph of K2 at its phase-2 shapes replayed 1000 times
+   in one trace, its kernel records counted against the launches, with
+   the replays right after the trace starts and after a margin (where a
+   trace loses records; a profile check that disagrees is taken again,
+   up to three traces);
+15. the SD-1.5 family (run right after phase 5): ``sd15_unet_config``'s
+   31-channel UNet (1x1-conv projections, eight heads at every width, a
+   768-wide context) with seeded bf16 weights beside phase 4's VAE and
+   EMASC, the SD-1.5 text tower (12 x 768, quick_gelu) and an inversion
+   adapter to 16 x 768 beside phase 5's vision tower, TPS and refinement:
+   a ``Transformer2D`` at each level at 512x384 (B=2) and one UNet step
+   at 256x192 (batch 1) on the card against the CPU, the step with its
+   hoisted context K/V bitwise the inline one, the text tower against the
+   CPU;
+   one graphed DDIM-50, CFG 7.5 request of 2 images (its capture and a
+   replay) bitwise its eager body, K1's calls by shape; then a raw
+   2-image request through ``ConditionService`` and
+   ``TryOnService(context_dim=768)`` with its seconds, peak memory and
+   every kernel launched.
 
-Phases 4, 5, 6, 7, 8 and 11 sample through ``jit_sample``
+Phases 4, 5, 6, 7, 8, 11 and 15 sample through ``jit_sample``
 (``TryOnService``, the mains, ``split=True`` with ``"host"``), and
 phases 5 to 10 condition, encode prompts, run the vision tower, the VAE
 reconstruction and the adapter's validation through the other programs
@@ -282,7 +308,7 @@ the fp32 refinement through FFT convolutions that take ~60x longer and
 a ~20 GiB workspace (``tools/profile_raw_request.py``).
 
 The line before the last is ``{"kernels": [...]}``, with the launches
-of phase 5 (phase 6's as ``zoo_launches``, phase 7's five CLI runs' as
+of phase 5 (phase 15's as ``sd15_launches``, phase 6's as ``zoo_launches``, phase 7's five CLI runs' as
 ``mains_launches``, phase 8's served requests as ``serve_launches``,
 phase 9's metric mains as ``metrics_launches``, phase 10's training
 runs as ``train_launches``, phase 11's ranks summed as
@@ -362,11 +388,13 @@ from ladi_vton_tpu_torch.models.clip import (
     CLIPTextModel,
     CLIPVisionModel,
     sd2_text_config,
+    sd15_text_config,
     vit_h_vision_config,
 )
 from ladi_vton_tpu_torch.models.emasc import EMASC
 from ladi_vton_tpu_torch.models.inversion_adapter import InversionAdapter
 from ladi_vton_tpu_torch.models.layers import (
+    CrossAttention,
     GroupNorm,
     LayerNorm,
     Transformer2D,
@@ -376,6 +404,7 @@ from ladi_vton_tpu_torch.models.tps import ConvNetTPS
 from ladi_vton_tpu_torch.models.unet_condition import (
     UNet2DCondition,
     sd2_unet_config,
+    sd15_unet_config,
 )
 from ladi_vton_tpu_torch.models.vae import AutoencoderKL, MidBlock, VAEConfig
 from ladi_vton_tpu_torch.models.vgg import VGG19Features
@@ -522,13 +551,14 @@ def bound(flops: float, rate: float, moved: int) -> dict:
 
 
 _LOG_LOCK = threading.Lock()
+_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    """One line to stdout, whole even while phase 11's second thread
-    logs too."""
+    """One line to stdout, after the seconds since the process started,
+    whole even while phase 11's lanes log too."""
     with _LOG_LOCK:
-        sys.stdout.write(msg + "\n")
+        sys.stdout.write(f"[{time.perf_counter() - _START:7.1f} s] {msg}\n")
         sys.stdout.flush()
 
 
@@ -639,17 +669,36 @@ def attention_row(gen: Gen, B: int, Sq: int, Sk: int, H: int,
     return r
 
 
+# K1 at the SD-1.5 UNet's shapes at the path's batch 4: eight heads at
+# every level, self- and cross-attention (Sk = 77) at each level and in
+# the mid block (S = 48)
+ATTN_SD15_SHAPES = [(4, 3072, 3072, 8, 40), (4, 3072, 77, 8, 40),
+                    (4, 768, 768, 8, 80), (4, 768, 77, 8, 80),
+                    (4, 192, 192, 8, 160), (4, 192, 77, 8, 160),
+                    (4, 48, 48, 8, 160), (4, 48, 77, 8, 160)]
+
+
 def check_attention(gen: Gen) -> dict:
     # (B, Sq, Sk, H, D): UNet self-attention at the three levels at batch
     # 2B = 8 and at the path's batch 4 (service batch 2 with CFG),
     # cross-attention (Sk = 77), the mid block (S = 48) and the VAE's
-    # single-head mid block (D = 512)
+    # single-head mid block (D = 512); then the SD-1.5 UNet's shapes
     shapes = [(8, 3072, 3072, 5, 64), (4, 3072, 3072, 5, 64),
               (8, 768, 768, 10, 64), (4, 768, 768, 10, 64),
               (8, 192, 192, 20, 64), (4, 192, 192, 20, 64),
               (8, 3072, 77, 5, 64), (8, 48, 48, 20, 64),
-              (4, 3072, 3072, 1, 512)]
-    return summarize([attention_row(gen, *shape) for shape in shapes])
+              (4, 3072, 3072, 1, 512)] + ATTN_SD15_SHAPES
+    rows = [attention_row(gen, *shape) for shape in shapes]
+    # a head dim no configuration reaches raises on the card: nothing
+    # falls back to the plain version or SDPA
+    q = gen.normal(1, 128, 2, 96)
+    try:
+        flash_attention(q, q, q)
+    except ValueError as e:
+        log(f"K1 at D=96 raises on the card: {e}")
+    else:
+        raise AssertionError("flash_attention took D=96")
+    return summarize(rows)
 
 
 # K2's phase-2 shapes (B, N, C, silu, eps, weight and bias dtype): every
@@ -1220,9 +1269,33 @@ def seeded(factory, seed: int, device: str, dtype=torch.float32):
     return module.to(device=device, dtype=dtype).eval()
 
 
+# torch.nn.init's functions that the layers' reset_parameters call
+_INIT_FNS = ("uniform_", "normal_", "trunc_normal_", "constant_", "ones_",
+             "zeros_", "xavier_uniform_", "xavier_normal_",
+             "kaiming_uniform_", "kaiming_normal_")
+
+
+@contextlib.contextmanager
+def no_init():
+    """Modules built inside skip their random initialisation, for a module
+    whose every parameter and persistent buffer is loaded right after (a
+    full-width UNet's initialisation takes about ten seconds of the host).
+    It patches ``torch.nn.init`` for the whole process: nothing else may
+    build a module meanwhile."""
+    saved = {name: getattr(torch.nn.init, name) for name in _INIT_FNS}
+    for name in _INIT_FNS:
+        setattr(torch.nn.init, name, lambda tensor, *_, **__: tensor)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(torch.nn.init, name, fn)
+
+
 def cpu_copy(module: torch.nn.Module, factory) -> torch.nn.Module:
     """fp32 CPU twin with the card module's (bf16-rounded) weights."""
-    twin = factory().eval()
+    with no_init():
+        twin = factory().eval()
     twin.load_state_dict({k: v.float().cpu()
                           for k, v in module.state_dict().items()})
     return twin
@@ -1272,7 +1345,8 @@ def full_width_pipeline() -> TryOnPipeline:
         scheduler=DDIMScheduler())
 
 
-def request(rng: np.random.Generator, n: int, h: int, w: int) -> dict:
+def request(rng: np.random.Generator, n: int, h: int, w: int,
+            ctx: int = 1024) -> dict:
     mask = np.zeros((n, h, w, 1), np.float32)
     mask[:, h // 8: h - h // 16, w // 6: w - w // 6] = 1.0
     f = np.float32
@@ -1281,8 +1355,8 @@ def request(rng: np.random.Generator, n: int, h: int, w: int) -> dict:
         inpaint_mask=mask,
         pose_map=rng.uniform(0, 1, (n, h, w, 18)).astype(f),
         warped_cloth=rng.uniform(-1, 1, (n, h, w, 3)).astype(f),
-        prompt_embeds=rng.standard_normal((n, 77, 1024)).astype(f),
-        negative_prompt_embeds=rng.standard_normal((n, 77, 1024)).astype(f),
+        prompt_embeds=rng.standard_normal((n, 77, ctx)).astype(f),
+        negative_prompt_embeds=rng.standard_normal((n, 77, ctx)).astype(f),
     )
 
 
@@ -1522,12 +1596,13 @@ def answer(cond: ConditionService, service: TryOnService, raw: dict,
             "total": time.perf_counter() - t0, "ln_cond": ln_cond}
 
 
-def check_raw_output(r: dict, n: int, h: int, w: int, what: str) -> None:
+def check_raw_output(r: dict, n: int, h: int, w: int, what: str,
+                     ctx: int = 1024) -> None:
     warped, embeds, negative, out = (r[k] for k in (
         "warped", "embeds", "negative", "out"))
     if not (warped.shape == (n, h, w, 3) and np.isfinite(warped).all()
             and warped.min() >= -1.0 and warped.max() <= 1.0
-            and embeds.shape == negative.shape == (n, 77, 1024)
+            and embeds.shape == negative.shape == (n, 77, ctx)
             and np.isfinite(embeds).all() and np.isfinite(negative).all()
             and out.shape == (n, h, w, 3) and np.isfinite(out).all()
             and out.min() >= 0.0 and out.max() <= 1.0):
@@ -2637,8 +2712,9 @@ def metrics_path(work: pathlib.Path, roots: dict, cond: Conditioner,
     """Phase 9: the metric towers against the CPU, then the metric mains
     over phase 7's trees and outputs on the card: ``generate_fid_stats``,
     ``val_metrics`` over the PNG and the JPEG run (the JPEGs through the
-    decoder), ``inference --compute_metrics`` (its JSON equal to
-    ``val_metrics``' over its folder) and ``compute_cloth_clip_features``
+    decoder), ``inference --compute_metrics`` (its images the PNG run's,
+    its JSON equal to ``val_metrics``' over them) and
+    ``compute_cloth_clip_features``
     (each feature equal to the tower called directly).  Returns the
     kernels' launches over the mains."""
     weights = write_metric_weights(work / "metric_weights")
@@ -2681,16 +2757,21 @@ def metrics_path(work: pathlib.Path, roots: dict, cond: Conditioner,
     metrics_dir = out / "inference_metrics" / "paired"
     written = json.loads((metrics_dir / "metrics_paired_upper_body.json")
                          .read_text())
-    again = timed("val_metrics over its folder", val_main.main,
-                  val_argv(metrics_dir), smi)
+    # its folder holds the PNG run's images, byte for byte (the same argv
+    # and seed), so val_metrics over it is the PNG run's m_png
+    ours = sorted((metrics_dir / "upper_body").glob("*.png"))
+    images_same = [p.name for p in ours] == [pathlib.Path(p).name
+                                             for p in paths] and all(
+        p.read_bytes() == (png_dir / "upper_body" / p.name).read_bytes()
+        for p in ours)
     same = json.dumps(written, sort_keys=True) == json.dumps(
-        again, sort_keys=True)
-    log(f"phase 9: inference --compute_metrics wrote {written}; "
-        f"val_metrics over the same folder equal: {same}; equal to the PNG "
-        f"run's (the same images): {m_png == written}")
-    if not same:
+        m_png, sort_keys=True)
+    log(f"phase 9: inference --compute_metrics wrote {written}; its images "
+        f"byte for byte the PNG run's: {images_same}; equal to val_metrics "
+        f"over the PNG run: {same}")
+    if not (images_same and same):
         raise AssertionError("inference --compute_metrics and val_metrics "
-                             "disagree over one folder")
+                             "disagree over the same images")
 
     ln_before = layer_norm.launches
     with ProgramLog() as programs:
@@ -3040,7 +3121,8 @@ def check_train_step(zpipe: TryOnPipeline, zcond: Conditioner, tokenizer,
     draws = vto_draws(batch, torch.Generator().manual_seed(101))
     config = VTOStepConfig(num_vstar=NUM_VSTAR)
     empty = torch.from_numpy(tokenizer([""])[0].astype(np.int64))
-    unet = UNet2DCondition(sd2_unet_config(31)).to("cuda")
+    with no_init():
+        unet = UNet2DCondition(sd2_unet_config(31)).to("cuda")
     unet.load_state_dict(zpipe.unet.state_dict())
     tcfg = zcond.text_model.config
     cpu = {"unet": cpu_copy(unet, lambda: UNet2DCondition(
@@ -3641,24 +3723,29 @@ def tp_inputs() -> tuple:
     return x, torch.tensor([981, 500, 250, 1]), ctx
 
 
-def tp_reference(work: pathlib.Path) -> None:
-    """Phase 11c's fp32 reference, in this process: the bf16 UNet the
-    ranks seed, its weights in an fp32 CPU twin, whose forward on
-    ``tp_inputs`` is written under ``work``."""
+def tp_twin() -> torch.nn.Module:
+    """Phase 11c's fp32 reference UNet, in this process: the bf16 UNet the
+    ranks seed, its weights in an fp32 CPU twin."""
     def factory():
         return UNet2DCondition(sd2_unet_config(31))
 
-    t0 = time.perf_counter()
     unet = seeded(factory, DIST_SEEDS["unet"], "cuda", BF16)
     twin = cpu_copy(unet, factory)
     del unet
     torch.cuda.empty_cache()
+    return twin
+
+
+def tp_reference(twin: torch.nn.Module, work: pathlib.Path) -> None:
+    """The twin's forward on ``tp_inputs``, on the host, written under
+    ``work`` for phase 11c's ranks."""
+    t0 = time.perf_counter()
     x, t, ctx = tp_inputs()
     with torch.no_grad():
         torch.save(twin(x.float(), t, ctx.float()), work / "tp_fp32.pt")
-    log(f"phase 11c: the fp32 CPU twin of the bf16 UNet and its forward "
-        f"(batch {TP_FORWARD[0]}, {TP_FORWARD[1]}x{TP_FORWARD[2]} latents) "
-        f"in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 11c: the fp32 CPU twin's forward (batch {TP_FORWARD[0]}, "
+        f"{TP_FORWARD[1]}x{TP_FORWARD[2]} latents) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def tp_rank(work: str) -> dict:
@@ -3742,9 +3829,8 @@ def tp_rank(work: str) -> dict:
 
 
 def run_main(module: str, argv: list) -> dict:
-    """A CLI main on a rank (phase 11d), with cuDNN deterministic so that
-    a resumed run can be held bitwise to an uninterrupted one; its result,
-    kernel launches and peak memory."""
+    """A CLI main on a rank (phase 11d), with cuDNN deterministic as in
+    phase 11's other ranks; its result, kernel launches and peak memory."""
     import importlib
 
     rank_setup(cudnn_tf32=True)
@@ -3822,26 +3908,28 @@ def distributed_only(work: pathlib.Path, checked: dict, smi: str) -> dict:
         work / "out")
     log(f"phase 11: the one-process inference over the VITON-HD split, "
         f"{r['result']['images']} images in {seconds:.1f} s wall")
-    return distributed_path(work, roots, train_roots, single / "paired",
-                            tokenizer, checked, smi)
+    served = ServedLane(work, roots, single / "paired", smi).start()
+    return distributed_path(work, train_roots, tokenizer, checked, served,
+                            smi)
 
 
 def dist_mains(work: pathlib.Path, train_roots: dict, out: pathlib.Path,
-               total: dict, smi: str, dp_peak: float, which: str) -> None:
-    """Phase 11d's trainer runs, two ranks with torchrun's variables.
-    ``which`` "zero1": ``cli.train_vto --shard_optimizer_states`` two steps
-    with a checkpoint each, then again from ``checkpoint-1`` alone,
-    resumed: the second ``unet_2.pth`` bitwise the first's, and each
-    run's peak memory a rank, its checkpoints included, below ``dp_peak``
-    (phase 11a's unsharded step's); "tp": ``cli.train_vto
-    --tensor_parallel 2`` two steps, its gathered ``unet_2.pth`` loaded
-    through the zoo."""
+               smi: str, which: str) -> tuple:
+    """Phase 11d's trainer runs, two ranks with torchrun's variables, one
+    step each (11a holds ZeRO-1 over two); (the launches summed
+    over the ranks, each rank's peak GiB).  ``which`` "zero1":
+    ``cli.train_vto --shard_optimizer_states``, its consolidated
+    checkpoint written at the end (phase 11 holds each rank's peak, the
+    checkpoint included, below phase 11a's unsharded step's); "tp":
+    ``cli.train_vto --tensor_parallel 2``, its gathered ``unet_1.pth``
+    loaded through the zoo."""
     sd2 = work / "sd2"
     vto = ["--dataset", "vitonhd", "--vitonhd_dataroot",
            str(train_roots["vitonhd"]), "--sd2_model_dir", str(sd2),
            "--train_batch_size", str(DIST_BATCH), "--test_batch_size", "1",
            "--num_workers", "2", "--num_workers_test", "2",
-           "--max_train_steps", "2", "--lr_warmup_steps", "0",
+           "--max_train_steps", "1", "--checkpointing_steps", "1",
+           "--lr_warmup_steps", "0",
            "--report_to", "none", "--test_order", "paired", "--seed", "9",
            "--device", "cuda", "--dist_backend", "gloo",
            "--height", str(TRAIN_SIZE[0]), "--width", str(TRAIN_SIZE[1]),
@@ -3849,91 +3937,71 @@ def dist_mains(work: pathlib.Path, train_roots: dict, out: pathlib.Path,
            "--inversion_adapter_dir", str(work / "ladi"),
            "--tokenizer_dir", str(sd2 / "tokenizer")]
     runs = out / "mains"
-    full, part, tp_out = (runs / "zero1", runs / "zero1_resumed",
-                          runs / "tp")
-    module = "ladi_vton_tpu_torch.cli.train_vto"
-
-    def run(label: str, argv: list) -> list:
-        results, seconds = ranks("run_main", 2, (module, argv), label, runs)
-        for r in results:
-            add_launches(total, r["launches"])
-        lines = metric_lines(pathlib.Path(argv[argv.index("--output_dir")
-                                               + 1]) / "metrics.jsonl")
-        log(f"phase 11d {label}: {seconds:.1f} s wall for two ranks on one "
-            f"card, step {[r['result'] for r in results]}, losses "
-            f"{[x['loss'] for x in lines]}, step seconds "
-            f"{[round(1 / x['steps_per_sec'], 3) for x in lines]} (host "
-            f"clock, each with its batch's loading), peak device memory over "
-            f"the run, its checkpoints included, "
-            f"{[round(r['peak_gib'], 2) for r in results]} GiB a rank, "
-            f"launches {[r['launches'] for r in results]} [{smi}]")
-        if any(r["result"] != 2 for r in results):
-            raise AssertionError(f"{label}: the ranks ended at "
-                                 f"{[r['result'] for r in results]}")
-        if "--shard_optimizer_states" in argv and any(
-                r["peak_gib"] >= dp_peak for r in results):
-            raise AssertionError(f"{label}: a rank's peak is not below the "
-                                 f"unsharded step's {dp_peak:.2f} GiB")
-        return lines
-
+    target = runs / which
+    if which == "zero1":
+        label, flags = ("train_vto --shard_optimizer_states",
+                        ["--shard_optimizer_states"])
+    else:
+        label, flags = ("train_vto --tensor_parallel 2",
+                        ["--tensor_parallel", "2"])
+    argv = vto + flags + ["--output_dir", str(target)]
+    results, seconds = ranks("run_main", 2,
+                             ("ladi_vton_tpu_torch.cli.train_vto", argv),
+                             label, runs)
+    launches = {name: 0 for name, _, _, _, _ in KERNELS}
+    for r in results:
+        add_launches(launches, r["launches"])
+    lines = metric_lines(target / "metrics.jsonl")
+    log(f"phase 11d {label}: {seconds:.1f} s wall for two ranks on one "
+        f"card, step {[r['result'] for r in results]}, losses "
+        f"{[x['loss'] for x in lines]}, step seconds "
+        f"{[round(1 / x['steps_per_sec'], 3) for x in lines]} (host "
+        f"clock, each with its batch's loading), peak device memory over "
+        f"the run, its checkpoint included, "
+        f"{[round(r['peak_gib'], 2) for r in results]} GiB a rank, "
+        f"launches {[r['launches'] for r in results]} [{smi}]")
+    if any(r["result"] != 1 for r in results):
+        raise AssertionError(f"{label}: the ranks ended at "
+                             f"{[r['result'] for r in results]}")
     if which == "tp":
-        run("train_vto --tensor_parallel 2", vto + [
-            "--output_dir", str(tp_out), "--checkpointing_steps", "2",
-            "--tensor_parallel", "2"])
-        unet = zoo.extended_unet(checkpoint=str(tp_out / "unet_2.pth"),
+        unet = zoo.extended_unet(checkpoint=str(target / "unet_1.pth"),
                                  device="cuda", dtype=BF16)
         q = unet.down_blocks[1].attentions[0].transformer_blocks[0].attn1.to_q
-        log(f"phase 11d: the tensor-parallel run's gathered unet_2.pth "
+        log(f"phase 11d: the tensor-parallel run's gathered unet_1.pth "
             f"loads through the zoo (to_q {tuple(q.weight.shape)}, "
             f"{sum(p.numel() for p in unet.parameters())} parameters)")
         del unet
         torch.cuda.empty_cache()
-        shutil.rmtree(tp_out)
-        return
-    zero = vto + ["--checkpointing_steps", "1", "--shard_optimizer_states"]
-    lines = run("train_vto --shard_optimizer_states",
-                zero + ["--output_dir", str(full)])
-    # the first run's checkpoint-1 alone, moved (each is 10.5 GB)
-    part.mkdir(parents=True)
-    shutil.move(str(full / "checkpoint-1"), part / "checkpoint-1")
-    shutil.rmtree(full / "checkpoint-2")
-    resumed = run("train_vto --shard_optimizer_states resumed",
-                  zero + ["--output_dir", str(part),
-                          "--resume_from_checkpoint", "latest"])
-    a = torch.load(full / "unet_2.pth", weights_only=True)
-    b = torch.load(part / "unet_2.pth", weights_only=True)
-    if not same_params(a, b) or resumed[-1]["loss"] != lines[-1]["loss"]:
-        raise AssertionError("the resumed ZeRO-1 run differs from the "
-                             "uninterrupted one")
-    del a, b
-    shutil.rmtree(full)
-    shutil.rmtree(part)
-    log(f"phase 11d: the resumed ZeRO-1 run's unet_2.pth is bitwise the "
-        f"uninterrupted run's, its step-2 loss {resumed[-1]['loss']}")
+    shutil.rmtree(target)
+    return launches, [r["peak_gib"] for r in results]
 
 
 def dist_inference(work: pathlib.Path, roots: dict,
                    single_inference: pathlib.Path, out: pathlib.Path,
-                   total: dict, smi: str) -> None:
+                   smi: str) -> dict:
     """Phase 11d's ``cli.inference`` as two ranks over phase 7's VITON-HD
-    split, against the one process's images (``single_inference``)."""
+    split, against the one process's images (``single_inference``); the
+    launches summed over the ranks."""
     runs = out / "mains"
     two = runs / "inference"
     results, seconds = ranks("run_main", 2, (
         "ladi_vton_tpu_torch.cli.inference",
         inference_argv(work, roots, two) + ["--dist_backend", "gloo"]),
         "inference", runs)
+    launches = {name: 0 for name, _, _, _, _ in KERNELS}
     for r in results:
-        add_launches(total, r["launches"])
+        add_launches(launches, r["launches"])
     ours, ref, diff = mean_abs_png(two / "paired", single_inference)
     log(f"phase 11d inference over two ranks (data 2, batch 2, DDIM-50): "
         f"{seconds:.1f} s wall, {[r['result']['images'] for r in results]} "
         f"images, {len(ours)} files; mean absolute difference from the one "
-        f"process's images {diff:.3e} (limit {DIST_IMAGE_LIMIT}); launches "
-        f"{[r['launches'] for r in results]} [{smi}]")
+        f"process's images {diff:.3e} (limit {DIST_IMAGE_LIMIT}); peak "
+        f"device memory {[round(r['peak_gib'], 2) for r in results]} GiB a "
+        f"rank; launches {[r['launches'] for r in results]} [{smi}]")
     if ours != ref or not len(ours) or not diff <= DIST_IMAGE_LIMIT:
         raise AssertionError("the two-rank inference differs from the one "
                              "process's")
+    return launches
 
 
 # phase 11f: cli.serve over two ranks sharing the card over gloo, at data 2
@@ -3945,7 +4013,7 @@ def dist_inference(work: pathlib.Path, roots: dict,
 SERVE_DIST_BATCH = 2
 # DDIM steps of its requests: the tensor-parallel sampler's collectives
 # go through the host under gloo, about a second a CFG step, beside
-# phase 11d's trainers on the same host
+# phase 11's other ranks on the same host
 SERVE_DIST_STEPS = 10
 SERVE_DIST_KERNELS = ("flash_attention", "group_norm", "geglu", "layer_norm")
 
@@ -3953,12 +4021,13 @@ SERVE_DIST_KERNELS = ("flash_attention", "group_norm", "geglu", "layer_norm")
 def serve_rank(argv: list) -> dict:
     """Phase 11f on one rank: ``cli.serve``'s main in the ranks' process
     group (rank 0 serves until SIGINT, the other rank follows it); the
-    kernels' launches over the rank's run."""
+    kernels' launches and the peak memory over the rank's run."""
     wrappers = {name: fn for name, fn, _, _, _ in KERNELS}
     reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
     serve_cli.main(argv)
     torch.cuda.synchronize()
-    return {"launches": main_counts(wrappers)}
+    return {"launches": main_counts(wrappers), "peak_gib": peak_gib()}
 
 
 def serve_dist_argv(work: pathlib.Path, *flags: str) -> list:
@@ -3972,19 +4041,27 @@ def serve_dist_argv(work: pathlib.Path, *flags: str) -> list:
             "--device", "cuda", *flags]
 
 
-def serve_reference(work: pathlib.Path, raw: dict) -> dict:
+def serve_reference(work: pathlib.Path, raw: dict, smi: str) -> dict:
     """The one-process answer to ``raw``: request 0 of the services
     ``cli.serve`` builds from the same flags, called in this process under
     cli.serve's cuDNN setting (TF32 allowed, PyTorch's default)."""
+    t0 = time.perf_counter()
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
     try:
         service, cond = serve_cli.build_services(
             serve_cli.parse_args(serve_dist_argv(work)),
             torch.device("cuda"))
-        return direct_raw(cond, service, raw)
+        ref = direct_raw(cond, service, raw)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+    del service, cond
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 11f: the one-process answer to the raw request, "
+        f"{time.perf_counter() - t0:.1f} s with the weights' load (the "
+        f"request {ref['total']:.3f} s) [{smi}]")
+    return ref
 
 
 def served_url(started) -> str:
@@ -4001,104 +4078,207 @@ def served_url(started) -> str:
         f"{(started.logs / 'rank0.err').read_text()[-4000:]}")
 
 
-def serve_over_ranks(work: pathlib.Path, out: pathlib.Path, total: dict,
-                     smi: str) -> None:
-    """Phase 11f: ``cli.serve`` as two ranks sharing the card over gloo, at
-    data 2 and at ``--tensor_parallel 2`` (DDIM-10, CFG 7.5, 512x384,
-    batch 2), each answering phase 8's
-    2-image raw request over HTTP: the image within a mean absolute error
-    of ``DIST_IMAGE_LIMIT`` of the one-process answer of the same flags,
-    and at data 2 the same answer with the follower's rows replaced by
-    rank 0's (a planted fault: what a missing gather would serve) outside
-    it; every kernel of ``SERVE_DIST_KERNELS`` launched on each rank;
-    SIGINT to rank 0 ending both ranks with exit 0."""
-    t_phase = time.perf_counter()
-    raw = raw_request(np.random.default_rng(80), 2, 512, 384)
+def serve_over_ranks(work: pathlib.Path, out: pathlib.Path, raw: dict,
+                     ref: dict, label: str, smi: str) -> dict:
+    """Phase 11f at one layout (``label`` "data 2" or "model 2"):
+    ``cli.serve`` as two ranks sharing the card over gloo (DDIM-10, CFG
+    7.5, 512x384, batch 2), answering phase 8's 2-image raw request over
+    HTTP: the image within a mean absolute error of ``DIST_IMAGE_LIMIT``
+    of ``ref``, the one-process answer of the same flags, and at data 2
+    the same answer with the follower's rows replaced by rank 0's (a
+    planted fault: what a missing gather would serve) outside it; every
+    kernel of ``SERVE_DIST_KERNELS`` launched on each rank; SIGINT to
+    rank 0 ending both ranks with exit 0.  Returns the launches summed
+    over the ranks."""
+    flags = [] if label == "data 2" else ["--tensor_parallel", "2"]
+    argv = serve_dist_argv(work, "--dist_backend", "gloo", *flags)
     t0 = time.perf_counter()
-    ref = serve_reference(work, raw)
-    log(f"phase 11f: the one-process answer to the raw request, "
-        f"{time.perf_counter() - t0:.1f} s with the weights' load (the "
-        f"request {ref['total']:.3f} s) [{smi}]")
-    gc.collect()
-    torch.cuda.empty_cache()
-    for label, flags in (("data 2", []), ("model 2", ["--tensor_parallel",
-                                                      "2"])):
-        argv = serve_dist_argv(work, "--dist_backend", "gloo", *flags)
-        t0 = time.perf_counter()
-        with spawn("chip_smoke:serve_rank", 2, (argv,),
-                   timeout=DIST_TIMEOUT_S,
-                   log_dir=out / "serve" / label.replace(" ", "_"),
-                   wait=False) as started:
-            url = served_url(started)
-            t_up = time.perf_counter() - t0
-            answer = client_raw(TryOnClient(url, timeout_s=SERVE_TIMEOUT_S),
-                                raw)
-            t1 = time.perf_counter()
-            started.procs[0].send_signal(signal.SIGINT)
-            results = started.results()  # raises unless every rank exits 0
-            codes = [p.returncode for p in started.procs]
-            t_exit = time.perf_counter() - t1
-        err = float(np.abs(answer["out"] - ref["out"]).mean())
-        cond_err = max(float(np.abs(a - b).max())
-                       for a, b in zip(answer["cond"], ref["cond"]))
-        fault = ""
-        if label == "data 2":
-            per = SERVE_DIST_BATCH // 2  # rank 0's rows, then rank 1's
-            planted = answer["out"].copy()
-            planted[per:2 * per] = answer["out"][:per]
-            fault_err = float(np.abs(planted - ref["out"]).mean())
-            fault = (f"; planted fault, the follower's rows replaced by rank "
-                     f"0's: {fault_err:.3e}")
-        for r in results:
-            add_launches(total, r["launches"])
-        log(f"phase 11f cli.serve over two ranks at {label} (batch "
-            f"{SERVE_DIST_BATCH}, DDIM-{SERVE_DIST_STEPS}, CFG 7.5): up in "
-            f"{t_up:.1f} s; "
-            f"the raw request of 2 images over HTTP (/condition "
-            f"{answer['t_cond']:.3f} s, with /tryon {answer['total']:.3f} s) "
-            f"against one process ({ref['total']:.3f} s direct): mean "
-            f"absolute error {err:.3e} (limit {DIST_IMAGE_LIMIT}){fault}; "
-            f"conditioning max abs {cond_err:.3e}; SIGINT -> exits {codes} "
-            f"in {t_exit:.2f} s; launches by rank "
-            f"{[r['launches'] for r in results]} [{smi}]")
-        if not err <= DIST_IMAGE_LIMIT:
-            raise AssertionError(f"phase 11f: {label} serves another answer "
-                                 f"than one process")
-        if label == "data 2" and fault_err <= DIST_IMAGE_LIMIT:
-            raise AssertionError("phase 11f: the limit does not tell a "
-                                 "missing gather")
-        missing = [(i, name) for i, r in enumerate(results)
-                   for name in SERVE_DIST_KERNELS if not r["launches"][name]]
-        if missing:
-            raise AssertionError(f"phase 11f: kernels never launched on a "
-                                 f"rank: {missing}")
-    log(f"phase 11f: serving over ranks ({time.perf_counter() - t_phase:.1f}"
-        f" s)")
+    with spawn("chip_smoke:serve_rank", 2, (argv,), timeout=DIST_TIMEOUT_S,
+               log_dir=out / "serve" / label.replace(" ", "_"),
+               wait=False) as started:
+        url = served_url(started)
+        t_up = time.perf_counter() - t0
+        answer = client_raw(TryOnClient(url, timeout_s=SERVE_TIMEOUT_S), raw)
+        t1 = time.perf_counter()
+        started.procs[0].send_signal(signal.SIGINT)
+        results = started.results()  # raises unless every rank exits 0
+        codes = [p.returncode for p in started.procs]
+        t_exit = time.perf_counter() - t1
+    err = float(np.abs(answer["out"] - ref["out"]).mean())
+    cond_err = max(float(np.abs(a - b).max())
+                   for a, b in zip(answer["cond"], ref["cond"]))
+    fault = ""
+    if label == "data 2":
+        per = SERVE_DIST_BATCH // 2  # rank 0's rows, then rank 1's
+        planted = answer["out"].copy()
+        planted[per:2 * per] = answer["out"][:per]
+        fault_err = float(np.abs(planted - ref["out"]).mean())
+        fault = (f"; planted fault, the follower's rows replaced by rank "
+                 f"0's: {fault_err:.3e}")
+    launches = {name: 0 for name, _, _, _, _ in KERNELS}
+    for r in results:
+        add_launches(launches, r["launches"])
+    log(f"phase 11f cli.serve over two ranks at {label} (batch "
+        f"{SERVE_DIST_BATCH}, DDIM-{SERVE_DIST_STEPS}, CFG 7.5): up in "
+        f"{t_up:.1f} s; "
+        f"the raw request of 2 images over HTTP (/condition "
+        f"{answer['t_cond']:.3f} s, with /tryon {answer['total']:.3f} s) "
+        f"against one process ({ref['total']:.3f} s direct): mean "
+        f"absolute error {err:.3e} (limit {DIST_IMAGE_LIMIT}){fault}; "
+        f"conditioning max abs {cond_err:.3e}; SIGINT -> exits {codes} "
+        f"in {t_exit:.2f} s; peak device memory "
+        f"{[round(r['peak_gib'], 2) for r in results]} GiB a rank; launches "
+        f"by rank {[r['launches'] for r in results]} [{smi}]")
+    if not err <= DIST_IMAGE_LIMIT:
+        raise AssertionError(f"phase 11f: {label} serves another answer "
+                             f"than one process")
+    if label == "data 2" and fault_err <= DIST_IMAGE_LIMIT:
+        raise AssertionError("phase 11f: the limit does not tell a "
+                             "missing gather")
+    missing = [(i, name) for i, r in enumerate(results)
+               for name in SERVE_DIST_KERNELS if not r["launches"][name]]
+    if missing:
+        raise AssertionError(f"phase 11f: kernels never launched on a "
+                             f"rank: {missing}")
+    return launches
 
 
-def distributed_path(work: pathlib.Path, roots: dict, train_roots: dict,
-                     single_inference: pathlib.Path, tokenizer,
-                     checked: dict, smi: str) -> dict:
-    """Phase 11: the data-parallel, ZeRO-1, NCCL and tensor-parallel steps,
-    the mains over ranks and the dry run, with the files of phases 6, 7
-    and 10 under ``work``; every check of the comment above.  Returns the
-    kernels' launches summed over every rank of the phase."""
+# the card this process leaves to ServedLane's ranks while they run beside
+# it: their largest peak (11d's inference, 5.5 GiB a rank) twice and a
+# margin for the ranks' CUDA contexts
+SERVED_ROOM_GIB = 16.0
+
+
+class ServedLane:
+    """Phase 11's 11d inference, 11e and 11f, one after another in a
+    thread: ranks alone (this process only reads their files and
+    answers), which hold at most 11 GiB of the card and write little, so
+    they run beside phase 10's mains.  ``start`` first takes 11f's
+    one-process answer in this process, so it is called where no launch
+    count is open, then caps this process's caching allocator to leave
+    ``SERVED_ROOM_GIB`` free (the cache would grow to fill the card: the
+    allocator frees cached blocks at the cap instead); ``result`` waits
+    for the lane, lifts the cap and gives the ranks' launches."""
+
+    def __init__(self, work: pathlib.Path, roots: dict,
+                 single_inference: pathlib.Path, smi: str):
+        self.work, self.roots, self.smi = work, roots, smi
+        self.single_inference = single_inference
+        self.out = work / "dist"
+        self.pool = ThreadPoolExecutor(1)
+        self.future = None
+
+    def start(self) -> "ServedLane":
+        self.out.mkdir()
+        raw = raw_request(np.random.default_rng(80), 2, 512, 384)
+        ref = serve_reference(self.work, raw, self.smi)
+        torch.cuda.empty_cache()
+        total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+        torch.cuda.set_per_process_memory_fraction(
+            (total - SERVED_ROOM_GIB) / total)
+        log("phase 11: 11d's inference, 11e and 11f start, ranks beside "
+            "this process")
+        self.future = self.pool.submit(self._run, raw, ref)
+        return self
+
+    def _run(self, raw: dict, ref: dict) -> dict:
+        work, out, smi = self.work, self.out, self.smi
+        total = {name: 0 for name, _, _, _, _ in KERNELS}
+        for job in (lambda: dist_inference(work, self.roots,
+                                           self.single_inference, out, smi),
+                    lambda: dist_dryrun(out),
+                    lambda: serve_over_ranks(work, out, raw, ref, "data 2",
+                                             smi),
+                    lambda: serve_over_ranks(work, out, raw, ref, "model 2",
+                                             smi)):
+            add_launches(total, job())
+        return total
+
+    def result(self) -> dict:
+        try:
+            return self.future.result()
+        finally:
+            self.pool.shutdown()
+            torch.cuda.set_per_process_memory_fraction(1.0)
+
+
+# phase 11's stages after phase 10, the jobs of each at once on the card:
+# each stage's peaks (phase 11's logs, allocated, summed over the jobs'
+# ranks) stay within the 58.4 GiB that 11c and the ZeRO-1 trainer held
+# when they first shared the card; 11a beside the ZeRO-1 trainer (62.8
+# GiB) ran it out of memory.  The two trainers, each writing a 10.5 GB
+# checkpoint, run in different stages.
+DIST_STAGES = (("dp", "nccl"), ("zero1", "tp"), ("tp_main",))
+
+
+def distributed_path(work: pathlib.Path, train_roots: dict, tokenizer,
+                     checked: dict, served: ServedLane, smi: str) -> dict:
+    """Phase 11: the data-parallel, ZeRO-1, NCCL and tensor-parallel steps
+    and the trainers over ranks, with the files of phases 6 and 10 under
+    ``work``, after ``served`` (started before, see ``ServedLane``);
+    every check of the comment above.  Returns the kernels' launches
+    summed over every rank of the phase.
+
+    The one-process references come first, in this process (the fp32
+    twin's forward on the host beside the ranks), then ``DIST_STAGES``."""
     t_phase = time.perf_counter()
-    out = work / "dist"
-    out.mkdir()
+    out = served.out
+    total = served.result()  # its ranks leave the card to the stages
     log(f"phase 11: this process holds "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB of the card "
-        f"before the ranks start; two ranks share the one card over gloo "
+        f"before 11a's reference; two ranks share the one card over gloo "
         f"(NCCL refuses two ranks on one device) and one rank runs over "
-        f"NCCL, without gradient checkpointing")
-    total = {name: 0 for name, _, _, _, _ in KERNELS}
+        f"NCCL, without gradient checkpointing; stages {DIST_STAGES}")
     ref = dist_reference(out, tokenizer)
+    twin = tp_twin()
+    peaks = {}
 
+    def trainer(which: str):
+        def job() -> dict:
+            launches, peaks[which] = dist_mains(work, train_roots, out, smi,
+                                                which)
+            return launches
+        return job
+
+    def tp_job() -> dict:
+        forward.result()  # the fp32 twin's forward, which the ranks read
+        return tp_steps(out, ref, checked, smi)
+
+    jobs = {"dp": lambda: dp_steps(out, ref, peaks, smi),
+            "nccl": lambda: nccl_step(out, smi), "tp": tp_job,
+            "zero1": trainer("zero1"), "tp_main": trainer("tp")}
+    with ThreadPoolExecutor(2) as pool:
+        forward = pool.submit(tp_reference, twin, out)
+        del twin
+        for stage in DIST_STAGES:
+            others = [pool.submit(jobs[name]) for name in stage[1:]]
+            for launches in [jobs[stage[0]]()] + [f.result() for f in others]:
+                add_launches(total, launches or {})
+    if any(p >= peaks["dp"] for p in peaks["zero1"]):
+        raise AssertionError(f"phase 11d: a ZeRO-1 rank's peak "
+                             f"{peaks['zero1']} GiB is not below the "
+                             f"unsharded step's {peaks['dp']:.2f} GiB")
+    log(f"phase 11d: the ZeRO-1 ranks' peaks "
+        f"{[round(p, 2) for p in peaks['zero1']]} GiB, checkpoint included, "
+        f"below the unsharded step's {peaks['dp']:.2f} GiB")
+    missing = [name for name, n in total.items() if not n]
+    if missing:
+        raise AssertionError(f"kernels never launched in phase 11: {missing}")
+    log(f"phase 11: distribution after phase 10 "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+    return total
+
+
+def dp_steps(out: pathlib.Path, ref: dict, peaks: dict, smi: str) -> dict:
+    """Phase 11a over two ranks against this process's step (``ref``);
+    the unsharded step's peak under ``peaks["dp"]``; the launches of the
+    ranks' steps."""
     results, seconds = ranks("dp_rank", 2, (str(out),), "dp", out)
-    for r in results:
+    total = {name: 0 for name, _, _, _, _ in KERNELS}
+    for i, r in enumerate(results):
         for tag in ("dp", "zero1"):
             add_launches(total, r[tag]["launches"])
-        log(f"phase 11a rank {results.index(r)}: data-parallel steps "
+        log(f"phase 11a rank {i}: data-parallel steps "
             f"{[round(x, 3) for x in r['dp']['seconds']]} s (the first with "
             f"its warm-up), first loss "
             f"{r['dp']['loss']:.6f} against {ref['loss']:.6f}, gradient "
@@ -4120,64 +4300,40 @@ def distributed_path(work: pathlib.Path, roots: dict, train_roots: dict,
         if not (rel <= DIST_LOSS_LIMIT and r["zero1_bitwise"]
                 and min(r["cosine"].values()) >= DIST_GRAD_COS
                 and 0.3 < half < 0.7):
-            raise AssertionError(f"phase 11a: rank {results.index(r)} "
-                                 f"disagrees (loss {rel:.3e} relative, ZeRO "
-                                 f"state share {half:.3f})")
+            raise AssertionError(f"phase 11a: rank {i} disagrees (loss "
+                                 f"{rel:.3e} relative, ZeRO state share "
+                                 f"{half:.3f})")
         if min(r["fault_cosine"].values()) >= DIST_GRAD_COS:
             raise AssertionError("phase 11a: the gradient limit does not "
                                  "tell a step without its all_reduce")
         if not (r["dp"]["eager_reason"] and r["zero1"]["eager_reason"]):
             raise AssertionError("phase 11a: a step over ranks did not run "
                                  "eagerly")
-    dp_peak = max(r["dp"]["peak_gib"] for r in results)
+    peaks["dp"] = max(r["dp"]["peak_gib"] for r in results)
     log(f"phase 11a: two ranks in {seconds:.1f} s wall")
-
-    # 11d's trainer runs are the phase's longest and bound by the host
-    # (gloo's host-staged gradient all_reduce, 10.5 GB checkpoints, which
-    # run one after another so that the disk holds one run's at a time);
-    # 11b, 11c, 11d's inference, 11e and 11f, which fit on the card beside
-    # them and write little, run meanwhile in a second thread
-    with ThreadPoolExecutor(1) as pool:
-        side = pool.submit(side_phases, work, roots, single_inference, out,
-                           ref, checked, smi)
-        dist_mains(work, train_roots, out, total, smi, dp_peak, "zero1")
-        dist_mains(work, train_roots, out, total, smi, dp_peak, "tp")
-        add_launches(total, side.result())
-    missing = [name for name, n in total.items() if not n]
-    if missing:
-        raise AssertionError(f"kernels never launched in phase 11: {missing}")
-    log(f"phase 11: distribution ({time.perf_counter() - t_phase:.1f} s)")
     return total
 
 
-def side_phases(work: pathlib.Path, roots: dict,
-                single_inference: pathlib.Path, out: pathlib.Path,
-                ref: dict, checked: dict, smi: str) -> dict:
-    """Phase 11b, 11c, 11d's inference, 11e and 11f, in that order; the
-    kernels' launches summed over their ranks."""
-    total = {name: 0 for name, _, _, _, _ in KERNELS}
-    nccl_and_tp(out, ref, checked, total, smi)
-    dist_inference(work, roots, single_inference, out, total, smi)
-    dist_dryrun(out, total)
-    serve_over_ranks(work, out, total, smi)
-    return total
-
-
-def nccl_and_tp(out: pathlib.Path, ref: dict, checked: dict, total: dict,
-                smi: str) -> None:
-    """Phase 11b (one rank over NCCL) and 11c (the tensor-parallel
-    forward and step over two ranks), against phase 11a's one-process
-    ``ref``; ``checked``: the tensor-parallel shapes phase 2 checked."""
+def nccl_step(out: pathlib.Path, smi: str) -> None:
+    """Phase 11b: one rank over NCCL, its step bitwise the one without a
+    process group."""
     (r,), seconds = ranks("nccl_rank", 1, (str(out),), "nccl", out,
                           backend="nccl")
     log(f"phase 11b: one rank over {r['backend']} (world {r['world']}): "
         f"loss {r['loss']:.6f}, the step and its update bitwise the one "
-        f"without a process group: {r['bitwise']} ({seconds:.1f} s wall)")
+        f"without a process group: {r['bitwise']} ({seconds:.1f} s wall) "
+        f"[{smi}]")
     if r["backend"] != "nccl" or not r["bitwise"]:
         raise AssertionError("phase 11b: the NCCL step differs")
 
-    tp_reference(out)
+
+def tp_steps(out: pathlib.Path, ref: dict, checked: dict, smi: str) -> dict:
+    """Phase 11c (the tensor-parallel forward and step over two ranks),
+    against phase 11a's one-process ``ref`` and the fp32 twin's forward
+    (written before this is called); ``checked``: the tensor-parallel
+    shapes phase 2 checked.  Returns the launches of the ranks."""
     results, seconds = ranks("tp_rank", 2, (str(out),), "tp", out)
+    total = {name: 0 for name, _, _, _, _ in KERNELS}
     for i, r in enumerate(results):
         add_launches(total, r["forward_launches"])
         add_launches(total, r["step_launches"])
@@ -4215,16 +4371,19 @@ def nccl_and_tp(out: pathlib.Path, ref: dict, checked: dict, total: dict,
             raise AssertionError("phase 11c: the forward's limit does not "
                                  "tell unreduced partial sums")
     log(f"phase 11c: two ranks in {seconds:.1f} s wall")
+    return total
 
 
-def dist_dryrun(out: pathlib.Path, total: dict) -> None:
+def dist_dryrun(out: pathlib.Path) -> dict:
     """Phase 11e: ``dryrun_multichip(2)`` on the card, its
-    tensor-parallel step launching K1, K2, K4 and K5 on each rank."""
+    tensor-parallel step launching K1, K2, K4 and K5 on each rank; the
+    launches summed over its ranks and phases."""
     from ladi_vton_tpu_torch.parallel.dryrun import dryrun_multichip
 
     t0 = time.perf_counter()
     results = dryrun_multichip(2, "cuda", timeout=DIST_TIMEOUT_S,
                                log_dir=out / "dryrun")
+    total = {name: 0 for name, _, _, _, _ in KERNELS}
     for r in results:
         for counts in r["launches"].values():
             add_launches(total, counts)
@@ -4238,6 +4397,7 @@ def dist_dryrun(out: pathlib.Path, total: dict) -> None:
     if missing:
         raise AssertionError(f"the dry run's TP step never launched "
                              f"{missing}")
+    return total
 
 
 KERNELS = (
@@ -4264,16 +4424,17 @@ KERNELS = (
 # bit for bit
 GRAPH_MODES = ((False, "scan"), (True, "scan"), (True, "host"))
 GRAPH_GROUPS = (
-    ("ddim", 50, 2, 1.0, GRAPH_MODES),
+    ("ddim", 20, 2, 1.0, GRAPH_MODES),
     # batch 8 in the callers' mode only (every mode is checked at batch
-    # 2), and the other groups at 20 steps: the check is the graphs'
-    # bits, which the loop's length does not change
-    ("ddim", 20, 8, 1.0, ((True, "host"),)),
-    ("dpm", 20, 2, 1.0, ((True, "host"),)),
-    ("pndm", 20, 2, 1.0, ((True, "host"),)),
-    ("lms", 20, 2, 1.0, ((True, "host"),)),
-    # the cloth gate closes at step 10 of 20, inside the loop
-    ("ddim", 20, 2, 0.5, ((True, "host"),)),
+    # 2), every group at 20 steps or 10: the check is the graphs' bits,
+    # which the loop's length does not change (phase 15 graphs a DDIM-50
+    # request at batch 2)
+    ("ddim", 10, 8, 1.0, ((True, "host"),)),
+    ("dpm", 10, 2, 1.0, ((True, "host"),)),
+    ("pndm", 10, 2, 1.0, ((True, "host"),)),
+    ("lms", 10, 2, 1.0, ((True, "host"),)),
+    # the cloth gate closes at step 5 of 10, inside the loop
+    ("ddim", 10, 2, 0.5, ((True, "host"),)),
 )
 # the case profiled and planted with a stale replay: the callers' sampler
 # (``parallel.sharding.make_sampler``)
@@ -4304,8 +4465,9 @@ def mode_label(split: bool, mode: str) -> str:
     return f"split=True {mode}" if split else "split=False"
 
 
-def graph_request(rng: np.random.Generator, n: int) -> list:
-    r = request(rng, n, 512, 384)
+def graph_request(rng: np.random.Generator, n: int,
+                  ctx: int = 1024) -> list:
+    r = request(rng, n, 512, 384, ctx)
     return [torch.from_numpy(r[k]).cuda() for k in REQUEST_KEYS]
 
 
@@ -4370,30 +4532,32 @@ def launches_of(fn) -> dict:
 
 def confirmed_profile(fn, launched: dict, what: str) -> dict:
     """``profiled_request(fn)``, whose kernel names must confirm the
-    launch counters' rise over one call (``launched``), on its one trace:
-    one K1 and one K5 kernel a launch, K2's cluster form one and its
-    split form two (stats, apply), K4 two or three (the split-K
-    reduction)."""
+    launch counters' rise over one call (``launched``), on one trace: one
+    K1 and one K5 kernel a launch, K2's cluster form one and its split
+    form two (stats, apply), K4 two or three (the split-K reduction).  A
+    trace can lose records (``cupti_graph_records``), so one that
+    disagrees is logged and taken again, up to three in all."""
     k2 = {"cluster": launched["group_norm.cluster"],
           "split": 2 * launched["group_norm.split"]}
-    prof = profiled_request(fn)
-    k = prof["ours"]
-    split = sum(n for name, n in prof["by_name"].items()
-                if "gn_split" in name)
-    ok = (k["K1"] == launched["flash_attention"]
-          and k["K5"] == launched["layer_norm"]
-          and k["K2"] == k2["cluster"] + k2["split"]
-          and split == k2["split"]
-          and 2 * launched["geglu"] <= k["K4"] <= 3 * launched["geglu"])
-    log(f"{what}: the profiler's kernels by name {k} (K2's split form "
-        f"{split}) against the counters {launched}: "
-        f"{'agree' if ok else 'DISAGREE'}")
-    if not ok:
-        log(f"{what}: the trace's kernels of K1, K2, K4 and K5 by name: "
-            f"{prof['by_name']}")
-        raise AssertionError(f"{what}: the profiler does not confirm the "
-                             f"launch counters")
-    return prof
+    for trace in range(1, 4):
+        prof = profiled_request(fn)
+        k = prof["ours"]
+        split = sum(n for name, n in prof["by_name"].items()
+                    if "gn_split" in name)
+        ok = (k["K1"] == launched["flash_attention"]
+              and k["K5"] == launched["layer_norm"]
+              and k["K2"] == k2["cluster"] + k2["split"]
+              and split == k2["split"]
+              and 2 * launched["geglu"] <= k["K4"] <= 3 * launched["geglu"])
+        log(f"{what}: trace {trace}, the profiler's kernels by name {k} "
+            f"(K2's split form {split}) against the counters {launched}: "
+            f"{'agree' if ok else 'DISAGREE'}")
+        if ok:
+            return prof
+        log(f"{what}: trace {trace}, the kernels of K1, K2, K4 and K5 by "
+            f"name: {prof['by_name']}")
+    raise AssertionError(f"{what}: the profiler does not confirm the launch "
+                         f"counters on any of three traces")
 
 
 def graph_case(spipe: TryOnPipeline, kw: dict, split: bool, mode: str,
@@ -4615,25 +4779,37 @@ def planted_splice_capture() -> None:
     print(json.dumps(result), flush=True)
 
 
-def check_splice_capture(smi: str) -> None:
-    """Run ``planted_splice_capture`` in a child process and fail unless
-    the boolean-mask splice was refused and the static one captured."""
-    t0 = time.perf_counter()
-    done = subprocess.run(
+def start_splice_capture() -> tuple:
+    """``planted_splice_capture`` in a child process, started now and
+    read by ``check_splice_capture``: (the process, its start time)."""
+    proc = subprocess.Popen(
         [sys.executable, "-c",
          "import chip_smoke; chip_smoke.planted_splice_capture()"],
-        cwd=pathlib.Path(__file__).resolve().parent, capture_output=True,
-        text=True, timeout=600)
-    lines = [line for line in done.stdout.splitlines()
-             if line.startswith("{")]
-    if done.returncode or not lines:
+        cwd=pathlib.Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def check_splice_capture(started: tuple, smi: str) -> None:
+    """Wait for ``start_splice_capture``'s process and fail unless the
+    boolean-mask splice was refused and the static one captured."""
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    lines = [line for line in stdout.splitlines() if line.startswith("{")]
+    if proc.returncode or not lines:
         raise AssertionError(f"the splice capture process failed "
-                             f"({done.returncode}): {done.stderr[-2000:]}")
+                             f"({proc.returncode}): {stderr[-2000:]}")
     result = json.loads(lines[-1])
     caught = (result["static"].endswith("True")
               and result["index_write"].startswith("refused"))
     log(f"phase 13 planted fault, the boolean-mask splice captured in a "
-        f"program (a process of its own, {time.perf_counter() - t0:.1f} s): "
+        f"program (a process of its own, run beside the phase, "
+        f"{time.perf_counter() - t0:.1f} s): "
         f"{result['index_write']}; the static splice "
         f"{result['static']}: {'detected' if caught else 'MISSED'} [{smi}]")
     if not caught:
@@ -4655,9 +4831,27 @@ def same_outputs(a: tuple, b: tuple) -> bool:
 def condition_graphs_path(towers: Conditioner, tokenizer: CLIPTokenizer,
                           smi: str) -> dict:
     """Phase 13: ``ConditionService``'s graphed conditioning against the
-    eager ``Conditioner``, its numbers, the two planted faults and the
-    profiled request.  Returns the numbers by batch size."""
+    eager ``Conditioner``, its numbers, the two planted faults (the second
+    in a process of its own, beside the rest) and the profiled request.
+    Returns the numbers by batch size."""
     t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # room on the card for the child's context
+    splice = start_splice_capture()
+    try:
+        results = condition_graphs(towers, tokenizer, smi)
+        check_splice_capture(splice, smi)
+    finally:
+        if splice[0].poll() is None:  # a check above failed first
+            splice[0].kill()
+            splice[0].wait()
+    log(f"phase 13: the conditioning as CUDA graphs "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+    return results
+
+
+def condition_graphs(towers: Conditioner, tokenizer: CLIPTokenizer,
+                     smi: str) -> dict:
+    """Phase 13 but its second planted fault."""
     h, w = towers.image_size
     rng = np.random.default_rng(13)
     results = {}
@@ -4741,9 +4935,6 @@ def condition_graphs_path(towers: Conditioner, tokenizer: CLIPTokenizer,
         del svc
         gc.collect()
         torch.cuda.empty_cache()
-    check_splice_capture(smi)
-    log(f"phase 13: the conditioning as CUDA graphs "
-        f"({time.perf_counter() - t_phase:.1f} s)")
     return results
 
 
@@ -4919,7 +5110,7 @@ def driver_programs(pipe: TryOnPipeline, towers: Conditioner, tokenizer,
 # device against float64 on the host) on one gradient sequence, each
 # element within the bound below; and a card optimizer resumed from a
 # CPU optimizer's state, graphed against eager (``resume_host_state``)
-TRAIN_GRAPH_STEPS = 5
+TRAIN_GRAPH_STEPS = 3
 TRAIN_GRAPH_LR = dict(lr=1e-4, warmup_steps=10)
 # (label, batch, gradient accumulation, gradient checkpointing)
 VTO_GRAPH_CASES = (("VTO batch 1", 1, 1, False),
@@ -5467,12 +5658,94 @@ def inference_programs(work: pathlib.Path, smi: str) -> dict:
     return results
 
 
+# phase 14's open question (a graphed EMASC step's trace once held 26
+# split-form stats kernels against 27 launches): whether CUPTI drops
+# records of a graph's kernel nodes.  One CUDA graph of K2 at each of its
+# phase-2 shapes (both forms), replayed this many times inside one trace,
+# its kernel records (by form, in device time order) laid against the
+# replays' launch sequence, which ``group_norm_plan`` gives: the replays
+# start at once after the profiler starts and, in a second trace, after
+# PROFILE_MARGIN_S of host sleep (and as long after the last)
+CUPTI_REPLAYS = 1000
+K2_FORMS = (("gn_cluster", "cluster"), ("gn_split_stats", "stats"),
+            ("gn_split_apply", "apply"))
+
+
+def lost_records(records: list, sequence: list, replays: int) -> list:
+    """The replay index of each launch of ``replays`` x ``sequence`` (by
+    form) that ``records`` (by form, in device time order) lacks: a
+    record is matched to the next launch of its form."""
+    lost, i = [], 0
+    for r in range(replays):
+        for form in sequence:
+            if i < len(records) and records[i] == form:
+                i += 1
+            else:
+                lost.append(r)
+    return lost
+
+
+@torch.no_grad()
+def cupti_graph_records(smi: str) -> dict:
+    gen = Gen(14)
+    calls, sequence = [], []
+    for B, N, C, silu, eps, wdt in GN_SHAPES:
+        calls.append((gen.normal(B, N, C),
+                      gen.normal(C, scale=0.1, dtype=wdt) + 1.0,
+                      gen.normal(C, scale=0.1, dtype=wdt), eps,
+                      "silu" if silu else "none"))
+        sequence += (["stats", "apply"] if gn_plan(B, N, C).form == "split"
+                     else ["cluster"])
+
+    def body():
+        for x, w, b, eps, act in calls:
+            group_norm(x, w, b, eps=eps, act=act)
+
+    launched = launches_of(body)
+    if len(sequence) != (launched["group_norm.cluster"]
+                         + 2 * launched["group_norm.split"]):
+        raise AssertionError("K2's plans disagree with its launch counters")
+    stream = capture_stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        body()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        body()
+    graph.replay()
+    torch.cuda.synchronize()
+    lost = {}
+    for margin in (0.0, PROFILE_MARGIN_S):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin)
+            for _ in range(CUPTI_REPLAYS):
+                graph.replay()
+            torch.cuda.synchronize()
+            time.sleep(margin)
+        events = sorted((e.time_range.start, form) for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        for key, form in K2_FORMS if key in e.name)
+        where = lost_records([form for _, form in events], sequence,
+                             CUPTI_REPLAYS)
+        lost[margin] = where
+        log(f"phase 14: CUPTI over {CUPTI_REPLAYS} replays of one graph of "
+            f"{len(sequence)} K2 kernels ({len(calls)} calls, both forms), "
+            f"{margin} s of margin: {len(events)} records of "
+            f"{CUPTI_REPLAYS * len(sequence)}, the replays short of a record "
+            f"{where or 'none'} [{smi}]")
+    graph.reset()
+    return {"replays": CUPTI_REPLAYS, "sequence": sequence, "lost": lost}
+
+
 def train_graphs_path(pipe: TryOnPipeline, towers: Conditioner, tokenizer,
                       work: pathlib.Path, smi: str) -> dict:
     """Phase 14: every step kind graphed against its eager body, the
     planted faults, the capturable optimizer's drift, and the inference
     programs.  Returns the numbers by label."""
     t0 = time.perf_counter()
+    cupti = cupti_graph_records(smi)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     # index_add (the backward of the resize in the EMASC step's VGG loss
@@ -5497,6 +5770,7 @@ def train_graphs_path(pipe: TryOnPipeline, towers: Conditioner, tokenizer,
         gc.collect()
         torch.cuda.empty_cache()
         results["inference"] = inference_programs(work, smi)
+        results["cupti"] = cupti
     finally:
         torch.backends.cudnn.deterministic = deterministic
         torch.use_deterministic_algorithms(False)
@@ -5505,6 +5779,201 @@ def train_graphs_path(pipe: TryOnPipeline, towers: Conditioner, tokenizer,
         f"the metric towers as CUDA graphs ({time.perf_counter() - t0:.1f} "
         f"s)")
     return results
+
+
+# phase 15: the SD-1.5 family of the extended UNet (``sd15_unet_config``:
+# 1x1-conv projections, eight heads at every width, so K1 at head dims 40,
+# 80 and 160, and a 768-wide context from the quick_gelu ViT-L/14 text
+# tower) at full width with seeded bf16 weights, beside phase 4's VAE and
+# EMASC and phase 5's vision tower, TPS and refinement.  The levels' (C,
+# latent height, width) of a 512x384 image: levels 0-2 and the mid block
+SD15_CTX = 768
+SD15_LEVELS = ((320, 64, 48), (640, 32, 24), (1280, 16, 12), (1280, 8, 6))
+SD15_SEEDS = {"unet": 30, "adapter": 33, "text": 34, "blocks": 40}
+
+
+class AttentionCensus(Census):
+    """(B, Sq, Sk, H, D) -> calls of the attentions."""
+
+    kind = CrossAttention
+
+    def hook(self, module, args, output) -> None:
+        x = args[0]
+        context = args[1] if len(args) > 1 and args[1] is not None else x
+        key = (x.shape[0], x.shape[1], context.shape[1], module.heads,
+               module.dim_head)
+        self.calls[key] = self.calls.get(key, 0) + 1
+
+
+def sd15_unet() -> UNet2DCondition:
+    return UNet2DCondition(sd15_unet_config(31))
+
+
+def sd15_pipeline(pipe: TryOnPipeline) -> TryOnPipeline:
+    """The SD-1.5 UNet, seeded, in bf16 beside ``pipe``'s VAE and EMASC."""
+    return dataclasses.replace(pipe, unet=seeded(
+        sd15_unet, SD15_SEEDS["unet"], "cuda", BF16))
+
+
+def sd15_conditioner(towers: Conditioner) -> Conditioner:
+    """``towers`` with the SD-1.5 text tower (12 x 768, quick_gelu) and an
+    inversion adapter to ``NUM_VSTAR`` x 768, seeded, in bf16."""
+    return dataclasses.replace(
+        towers,
+        adapter=seeded(lambda: InversionAdapter(
+            num_encoder_layers=1, output_dim=SD15_CTX * NUM_VSTAR),
+            SD15_SEEDS["adapter"], "cuda", BF16),
+        text_model=seeded(lambda: CLIPTextModel(sd15_text_config()),
+                          SD15_SEEDS["text"], "cuda", BF16))
+
+
+@torch.no_grad()
+def check_sd15_blocks(gen: Gen, spipe: TryOnPipeline, text, tokenizer) -> None:
+    """The SD-1.5 ``Transformer2D`` at each level at 512x384, one UNet step
+    at 256x192 (batch 1; as phase 3's small sampler, the CPU's cost) with
+    the hoisted K/V bitwise the inline form, and the text tower, each on
+    the card against its fp32 CPU twin."""
+    for i, (C, h, w) in enumerate(SD15_LEVELS):
+        def tfm(C=C):
+            return Transformer2D(8, C // 8, C, SD15_CTX, linear=False)
+
+        block = seeded(tfm, SD15_SEEDS["blocks"] + i, "cuda", BF16)
+        x = gen.normal(2, C, h, w).contiguous(
+            memory_format=torch.channels_last)
+        ctx = gen.normal(2, 77, SD15_CTX)
+        out = block(x, ctx)
+        torch.cuda.synchronize()
+        err = rel_l2(out, cpu_copy(block, tfm)(x.float().cpu(),
+                                               ctx.float().cpu()))
+        log(f"phase 15: SD-1.5 Transformer2D C={C} {h}x{w} B=2 (8 heads of "
+            f"{C // 8}, 1x1-conv projections): rel_l2 {err:.3e} (limit "
+            f"{BLOCK_LIMIT})")
+        if not err <= BLOCK_LIMIT:
+            raise AssertionError(f"the SD-1.5 Transformer2D C={C} disagrees")
+    unet = spipe.unet
+    x = gen.normal(1, 31, 32, 24, dtype=torch.float32)
+    t = torch.tensor([981], device="cuda")
+    ctx = gen.normal(1, 77, SD15_CTX, dtype=torch.float32)
+    out = unet(x, t, ctx)
+    kv = unet.precompute_context_kv(ctx)
+    hoisted = unet(x, t, ctx, context_kv=kv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = cpu_copy(unet, sd15_unet)(x.cpu(), t.cpu(), ctx.cpu())
+    t_cpu = time.perf_counter() - t0
+    err = rel_l2(out, ref)
+    same = torch.equal(hoisted, out)
+    log(f"phase 15: one SD-1.5 UNet step at 32x24 latents, batch 1, on the "
+        f"card (bf16) against the CPU (fp32, {t_cpu:.1f} s): rel_l2 "
+        f"{err:.3e} (limit {BLOCK_LIMIT}); {len(kv)} hoisted context K/V "
+        f"pairs, the step with them bitwise the inline one: {same}")
+    if not (err <= BLOCK_LIMIT and same and len(kv) == 16
+            and torch.isfinite(out).all()):
+        raise AssertionError("the SD-1.5 UNet step disagrees")
+    ids = torch.from_numpy(tokenizer(["a photo of a red dress $ $ $",
+                                      ""]).astype(np.int64))
+    emb = text(ids.cuda())[0]
+    err = rel_l2(emb, cpu_copy(text, lambda: CLIPTextModel(
+        sd15_text_config()))(ids)[0])
+    log(f"phase 15: the SD-1.5 text tower (12 x 768, quick_gelu) on the "
+        f"card against the CPU: rel_l2 {err:.3e} (limit {EMBEDS_LIMIT})")
+    if not err <= EMBEDS_LIMIT:
+        raise AssertionError("the SD-1.5 text tower disagrees")
+
+
+@torch.no_grad()
+def sd15_graphed_request(spipe: TryOnPipeline, smi: str) -> dict:
+    """One 2-image DDIM-50, CFG 7.5 request at 512x384 through the callers'
+    sampler (``split=True``, ``"host"``): its capture and a replay, each
+    bitwise its eager body; K1's calls by shape (a census over the eager
+    request) and the launches of a replay."""
+    kw = dict(num_inference_steps=50, guidance_scale=7.5)
+    reqs = graph_request(np.random.default_rng(15), 2, SD15_CTX)
+    with AttentionCensus(spipe.unet) as census:
+        ref, eager_s, eager_peak = run_timed(
+            lambda: eager_request(spipe, reqs, 1500, kw))
+    sampler = spipe.jit_sample(split=True, denoise_mode="host", **kw)
+    outs, seconds, peaks = [], [], []
+    for _ in range(2):
+        out, dt, peak = run_timed(lambda: sampler(
+            *reqs, generator=torch.Generator("cuda").manual_seed(1500)))
+        outs.append(out)
+        seconds.append(dt)
+        peaks.append(peak)
+    same = [torch.equal(o, ref) for o in outs]
+    launched = launches_of(lambda: sampler(
+        *reqs, generator=torch.Generator("cuda").manual_seed(1500)))
+    log(f"phase 15: a graphed SD-1.5 DDIM-50 request, CFG 7.5, 2 images at "
+        f"512x384: eager {eager_s:.3f} s (peak {eager_peak:.2f} GiB); graphed "
+        f"with its capture {seconds[0]:.3f} s (capture "
+        f"{sum(sampler.capture_seconds.values()):.3f} s, peak "
+        f"{peaks[0]:.2f} GiB), replayed {seconds[1]:.3f} s (peak "
+        f"{peaks[1]:.2f} GiB); bitwise equal to the eager sample: "
+        f"{same}; launches a graphed request {launched}; the UNet's K1 "
+        f"calls (B, Sq, Sk, H, D) in the eager request {census.calls} "
+        f"[{smi}]")
+    if not all(same):
+        raise AssertionError("the graphed SD-1.5 request != its eager body")
+    del sampler
+    return {"eager_s": eager_s, "graphed_s": seconds[1],
+            "launched": launched, "calls": census.calls}
+
+
+@torch.no_grad()
+def sd15_raw_request(spipe: TryOnPipeline, scond: Conditioner, tokenizer,
+                     wrappers: dict, smi: str) -> dict:
+    """A raw 2-image request through ``ConditionService`` (the SD-1.5
+    text tower, an adapter to 16 x 768) then ``TryOnService(context_dim=
+    768)``, after a warm-up request that captures both services' graphs;
+    returns the kernels' launches over the request."""
+    h, w = 512, 384
+    cond = ConditionService(scond, tokenizer, batch_size=2,
+                            num_vstar=NUM_VSTAR)
+    service = TryOnService(spipe, batch_size=2, height=h, width=w,
+                           num_inference_steps=50, guidance_scale=7.5,
+                           context_dim=SD15_CTX, seed=0)
+    rng = np.random.default_rng(150)
+    t0 = time.perf_counter()
+    answer(cond, service, raw_request(rng, 2, h, w), seed=150)
+    log(f"phase 15: warm-up raw request (2 images) "
+        f"{time.perf_counter() - t0:.3f} s, the captures of the "
+        f"conditioning's and the sampler's graphs of it")
+    raw = raw_request(rng, 2, h, w)
+    reset_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    r = answer(cond, service, raw, seed=151)
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"phase 15: raw SD-1.5 request of 2 images ({', '.join(raw['categories'])}"
+        f") at {h}x{w}: conditioning {r['t_cond']:.3f} s, total "
+        f"{r['total']:.3f} s (DDIM-50, CFG 7.5, batch 2), peak device "
+        f"memory {peak:.2f} GiB, prompt embeds {r['embeds'].shape} std "
+        f"{r['embeds'].std():.4f}, output in [{r['out'].min():.4f}, "
+        f"{r['out'].max():.4f}] std {r['out'].std():.4f}; launches "
+        f"{launches} [{smi}]")
+    check_raw_output(r, 2, h, w, "the raw SD-1.5 request", ctx=SD15_CTX)
+    missing = [name for name, count in launches.items() if count == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the SD-1.5 path: "
+                             f"{missing}")
+    return launches
+
+
+def sd15_path(gen: Gen, pipe: TryOnPipeline, towers: Conditioner,
+              tokenizer, wrappers: dict, smi: str) -> dict:
+    """Phase 15; returns the kernels' launches over its raw request."""
+    t0 = time.perf_counter()
+    spipe = sd15_pipeline(pipe)
+    scond = sd15_conditioner(towers)
+    check_sd15_blocks(gen, spipe, scond.text_model, tokenizer)
+    sd15_graphed_request(spipe, smi)
+    launches = sd15_raw_request(spipe, scond, tokenizer, wrappers, smi)
+    del spipe, scond
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 15: the SD-1.5 family at full width "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return launches
 
 
 def main() -> None:
@@ -5532,6 +6001,11 @@ def main() -> None:
                         help="phase 2's tensor-parallel rows and phase 11 "
                         "alone (its files written from freshly seeded "
                         "modules), then exit without the result lines")
+    parser.add_argument("--sd15-only", action="store_true",
+                        help="phase 2's SD-1.5 K1 rows and phase 15 alone "
+                        "(the SD-1.5 family at full width, from freshly "
+                        "seeded modules), then exit without the result "
+                        "lines")
     parser.add_argument("--jpeg-only", action="store_true",
                         help="phase 7's JPEG decoder checks alone (no "
                         "kernel build), then exit without the result lines")
@@ -5545,7 +6019,7 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    log(smi)
+    print(smi, flush=True)  # as nvidia-smi gives it, on a line alone
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)}")
 
@@ -5581,6 +6055,18 @@ def main() -> None:
             driver_programs(pipe, towers, tokenizer, smi)
             train_graphs_path(pipe, towers, tokenizer, pathlib.Path(work),
                               smi)
+        return
+    if args.sd15_only:
+        for shape in ATTN_SD15_SHAPES:
+            attention_row(gen, *shape)
+        pipe = full_width_pipeline()
+        torch.backends.cudnn.allow_tf32 = True  # as in run_phases
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+            tokenizer = synthetic_tokenizer(pathlib.Path(work))
+            towers = conditioner("cuda", (512, 384), tokenizer)
+            wrappers = {name: wrapper for name, wrapper, _, _, _ in KERNELS}
+            log(f"launches during phase 15's raw request: "
+                f"{sd15_path(gen, pipe, towers, tokenizer, wrappers, smi)}")
         return
     if args.training_only:
         check_gradients(gen)
@@ -5689,6 +6175,9 @@ def run_phases(work: pathlib.Path, gen: Gen, smi: str, checked: dict) -> dict:
         raise AssertionError(f"kernels never launched on the raw-request "
                              f"path: {missing}")
 
+    sd15_launches = sd15_path(gen, pipe, towers, tokenizer, wrappers, smi)
+    log(f"launches during phase 15's raw SD-1.5 request: {sd15_launches}")
+
     t0 = time.perf_counter()
     zoo_launches, zpipe, zcond = zoo_path(work, pipe, cond, record, wrappers)
     log(f"launches during phase 6's four raw requests: {zoo_launches}")
@@ -5703,9 +6192,9 @@ def run_phases(work: pathlib.Path, gen: Gen, smi: str, checked: dict) -> dict:
     log(f"launches during phase 7's five CLI runs: {mains_launches}")
 
     t0 = time.perf_counter()
-    serve_launches, raw, served = serving_path(work, zpipe, zcond, wrappers,
-                                               smi)
-    serve_process(work, raw, served, smi)
+    serve_launches, raw, served_http = serving_path(work, zpipe, zcond,
+                                                    wrappers, smi)
+    serve_process(work, raw, served_http, smi)
     log(f"phase 8: serving ({time.perf_counter() - t0:.1f} s)")
 
     t0 = time.perf_counter()
@@ -5713,22 +6202,27 @@ def run_phases(work: pathlib.Path, gen: Gen, smi: str, checked: dict) -> dict:
     log(f"launches during phase 9's metric mains: {metrics_launches}")
     log(f"phase 9: the metrics ({time.perf_counter() - t0:.1f} s)")
 
+    # phase 11's lane of ranks alone runs beside phase 10's mains, from
+    # phase 6's and 7's files (its one-process answer taken here, between
+    # the phases' launch counts)
+    served = ServedLane(work, roots, work / "out" / "inference_vitonhd"
+                        / "paired", smi).start()
     train_launches = training_path(work, zpipe, zcond, tokenizer, wrappers,
                                    smi)
     log(f"launches during phase 10's training runs: {train_launches}")
 
-    # phase 11's ranks need the card: this process lets go of its modules,
-    # and of phase 10's checkpoints on disk
-    del pipe, service, cond, towers, record, zpipe, zcond, raw, served
+    # phase 11's other ranks need the card: this process lets go of its
+    # modules, and of phase 10's checkpoints on disk
+    del pipe, service, cond, towers, record, zpipe, zcond, raw, served_http
     gc.collect()
     torch.cuda.empty_cache()
     shutil.rmtree(work / "train", ignore_errors=True)
     dist_launches = distributed_path(
-        work, roots, {"vitonhd": work / "train_data" / "vh" / "vitonhd"},
-        work / "out" / "inference_vitonhd" / "paired", tokenizer, checked,
-        smi)
+        work, {"vitonhd": work / "train_data" / "vh" / "vitonhd"}, tokenizer,
+        checked, served, smi)
     log(f"launches during phase 11: {dist_launches}")
-    return {"launches": launches, "zoo_launches": zoo_launches,
+    return {"launches": launches, "sd15_launches": sd15_launches,
+            "zoo_launches": zoo_launches,
             "mains_launches": mains_launches,
             "serve_launches": serve_launches,
             "metrics_launches": metrics_launches,

@@ -14,8 +14,10 @@
 // so the tensor cores bound it, and next to them the softmax's
 // exponentials (one per score, on the 16-per-clock special-function
 // units); at Sk = 77 (cross-attention) and S = 48 (mid block) the launch
-// and the tile loads do.  At D = 512 (the VAE's single-head mid block) the
-// problem is capacity: a 64-row fp32 output tile is 128 KB.
+// and the tile loads do.  The SD-1.5 UNet's eight heads give D = 40
+// (S = 3072), 80 (S = 768) and 160 (S = 192, 48) at the same widths.  At
+// D = 512 (the VAE's single-head mid block) the problem is capacity: a
+// 64-row fp32 output tile is 128 KB.
 //
 // Design (hopper.cuh has the PTX pieces): blocks of three warpgroups.
 // Warpgroup 0 is the producer: one thread issues TMA copies of Q and of
@@ -23,7 +25,12 @@
 // full/empty mbarriers, and the warpgroup gives its registers to the
 // consumers (setmaxnreg).  The two consumer warpgroups run both products
 // as wgmma with the accumulators in registers:
-//   D = 64: persistent, at most one block per SM, each walking work items
+//   D = 40, 64, 80, 160 (one template, Panels<D>): D padded to 64-column
+//     panels (one, one, two, three), each a 64-wide TMA box whose columns
+//     past D are zero-filled; Q K^T's k-steps stop at the last 16 columns
+//     with data, P V runs one m64n64k16 per panel, and only D columns are
+//     stored (8 x 40 heads interleave in the output).  At D = 64:
+//     persistent, at most one block per SM, each walking work items
 //     (a 128-row q tile of one batch * head, q tiles fastest) with a
 //     two-stage Q ring and a three-stage K/V ring (128-row tiles) that
 //     runs on across items, so an item's loads overlap the previous one's
@@ -33,12 +40,16 @@
 //     parts of two rows: two quad shuffles per row statistic, exp2 with a
 //     prescaled max); P is packed to bf16 in registers and is the A
 //     operand of O += P V (m64n64k16, V read MN-major with the transpose
-//     bit); O (32 fp32 per thread) is rescaled in registers.  S of tile i
-//     is issued before P V of tile i-1, so the softmax of one tile runs
-//     while the tensor cores finish the other's product.  A power-of-two
-//     scale (1/8 here) is folded into the softmax's exponent, which gives
-//     the bits of pre-scaling q in bf16; another scale pre-scales q in
-//     shared memory.
+//     bit); O (32 fp32 per thread and panel) is rescaled in registers.  S
+//     of tile i is issued before P V of tile i-1, so the softmax of one
+//     tile runs while the tensor cores finish the other's product.  A
+//     power-of-two scale (1/8 at D = 64) is folded into the softmax's
+//     exponent, which gives the bits of pre-scaling q in bf16; another
+//     scale (40^-1/2, 80^-1/2, 160^-1/2) pre-scales q in shared memory.
+//     Two panels (D = 80) keep 128-row K/V tiles in a two-stage ring;
+//     three (D = 160) take 64-row tiles, so that O (96 fp32 per thread)
+//     and S (32) fit the consumers' 232 registers, and both fit Q's
+//     two-stage ring and the K/V ring in 197 KB of shared memory.
 //   D = 512: one block per 64-row q tile, a two-stage ring of 32-row K/V
 //     tiles; each consumer owns one 256-wide half of D, for O (m64n256k16,
 //     128 fp32 per thread) and for its part of S: each computes the
@@ -135,20 +146,25 @@ __device__ __forceinline__ void pack_p(const float (&s)[R], int kk,
   a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
 }
 
-// O / l of a consumer's 64 rows, columns [col0, col0 + R / 2), as bf16
-template <int R>
-__device__ __forceinline__ void store_o(const float (&o)[R], float (&l)[2],
-                                        bf16* ob, const OutStrides& os,
-                                        int row0, int col0, int Sq, int t) {
-  const int lane = t % 32;
-  const int r0 = row0 + 16 * (t / 32) + lane / 4;
-  float inv[2];
+// 1 / l of a thread's two rows, from the quad's partial sums
+__device__ __forceinline__ void row_inverse(float (&l)[2], float (&inv)[2]) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     inv[r] = 1.0f / l[r];
   }
+}
+
+// O / l of a consumer's 64 rows, columns [col0, col0 + min(R / 2,
+// valid)), as bf16 (valid is a multiple of 8, so a column pair is whole)
+template <int R>
+__device__ __forceinline__ void store_o(const float (&o)[R],
+                                        const float (&inv)[2], bf16* ob,
+                                        const OutStrides& os, int row0,
+                                        int col0, int valid, int Sq, int t) {
+  const int lane = t % 32;
+  const int r0 = row0 + 16 * (t / 32) + lane / 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
@@ -156,37 +172,55 @@ __device__ __forceinline__ void store_o(const float (&o)[R], float (&l)[2],
     bf16* dst = ob + (int64_t)row * os.s + col0 + 2 * (lane % 4);
 #pragma unroll
     for (int j = 0; j < R / 4; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
-          o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+      if (8 * j < valid)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv[r],
+                                  o[4 * j + 2 * r + 1] * inv[r]);
   }
 }
 
-// ------------------------------------------------------------ D = 64
+// ------------------------------------------------ D = 40, 64, 80, 160
 
-namespace d64 {
-constexpr int BQ = 128, BK = 128, ST = 3, QST = 2;
-constexpr int Q_BYTES = 64 * 128;   // one consumer's 64 rows
-constexpr int KV_BYTES = BK * 128;  // one K or V tile
-constexpr int K_OFF = QST * 2 * Q_BYTES;
-constexpr int V_OFF = K_OFF + ST * KV_BYTES;
-constexpr int BAR_OFF = V_OFF + ST * KV_BYTES;
-constexpr int SMEM = BAR_OFF + 128 + 1024;
-}  // namespace d64
+// The head dim padded to 64-column panels: a 64-wide TMA box over a
+// tensor D wide fills the columns past D with zeros, which add nothing to
+// Q K^T (whose k-steps stop at the last 16 columns holding data) and give
+// zero columns of O that are not stored.
+template <int D>
+struct Panels {
+  static constexpr int NP = (D + 63) / 64;      // 64-column panels
+  static constexpr int KSTEPS = (D + 15) / 16;  // 16-deep steps of Q K^T
+  static constexpr int BQ = 128;
+  // 192 padded columns: O is 96 fp32 a thread, so S takes 64-column tiles
+  static constexpr int BK = NP == 3 ? 64 : 128;
+  static constexpr int ST = NP == 1 ? 3 : 2;  // K/V ring stages
+  static constexpr int QST = 2;               // Q ring stages
+  static constexpr int Q_PANEL = 64 * 128;    // one consumer's 64 rows
+  static constexpr int Q_BYTES = NP * Q_PANEL;
+  static constexpr int KV_PANEL = BK * 128;
+  static constexpr int KV_BYTES = NP * KV_PANEL;  // one K or V tile
+  static constexpr int K_OFF = QST * 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + ST * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + ST * KV_BYTES;
+  static constexpr int SMEM = BAR_OFF + 128 + 1024;
+};
 
 // Block j takes the work items (q tile, batch * head) j, j + grid, ...
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_d64_kernel(const __grid_constant__ CUtensorMap tq,
-                     const __grid_constant__ CUtensorMap tk,
-                     const __grid_constant__ CUtensorMap tv,
-                     bf16* __restrict__ o, OutStrides os, int H, int Sq,
-                     int Sk, int items, float scale) {
-  using namespace d64;
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 bf16* __restrict__ o, OutStrides os, int H, int Sq, int Sk,
+                 int items, float scale) {
+  using P = Panels<D>;
+  constexpr int NP = P::NP, BQ = P::BQ, BK = P::BK, ST = P::ST,
+                QST = P::QST;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* Qs = smem;
-  unsigned char* Ks = smem + K_OFF;
-  unsigned char* Vs = smem + V_OFF;
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  unsigned char* Ks = smem + P::K_OFF;
+  unsigned char* Vs = smem + P::V_OFF;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BAR_OFF);
   uint64_t* empty = full + ST;
   uint64_t* qfull = empty + ST;
   uint64_t* qempty = qfull + QST;
@@ -223,16 +257,21 @@ flash_fwd_d64_kernel(const __grid_constant__ CUtensorMap tq,
         const int h = item / q_tiles % H;
         const int qs = j % QST;
         if (j >= QST) mbar_wait(&qempty[qs], ((j / QST) & 1) ^ 1);
-        unsigned char* Qj = Qs + qs * 2 * Q_BYTES;
-        mbar_expect_tx(&qfull[qs], 2 * Q_BYTES);
-        tma_load_4d(Qj, &tq, &qfull[qs], 0, q0, h, b);
-        tma_load_4d(Qj + Q_BYTES, &tq, &qfull[qs], 0, q0 + 64, h, b);
+        unsigned char* Qj = Qs + qs * 2 * P::Q_BYTES;
+        mbar_expect_tx(&qfull[qs], 2 * P::Q_BYTES);
+        for (int c = 0; c < 2; ++c)
+          for (int pn = 0; pn < NP; ++pn)
+            tma_load_4d(Qj + c * P::Q_BYTES + pn * P::Q_PANEL, &tq,
+                        &qfull[qs], 64 * pn, q0 + 64 * c, h, b);
         for (int i = 0; i < n_tiles; ++i, ++kv) {
           const int s = kv % ST;
           if (kv >= ST) mbar_wait(&empty[s], ((kv / ST) & 1) ^ 1);
-          mbar_expect_tx(&full[s], 2 * KV_BYTES);
-          tma_load_4d(Ks + s * KV_BYTES, &tk, &full[s], 0, i * BK, h, b);
-          tma_load_4d(Vs + s * KV_BYTES, &tv, &full[s], 0, i * BK, h, b);
+          mbar_expect_tx(&full[s], 2 * P::KV_BYTES);
+          for (int pn = 0; pn < NP; ++pn) {
+            const int off = s * P::KV_BYTES + pn * P::KV_PANEL;
+            tma_load_4d(Ks + off, &tk, &full[s], 64 * pn, i * BK, h, b);
+            tma_load_4d(Vs + off, &tv, &full[s], 64 * pn, i * BK, h, b);
+          }
         }
       }
     }
@@ -243,14 +282,14 @@ flash_fwd_d64_kernel(const __grid_constant__ CUtensorMap tq,
     const int lane = t % 32;
     // A power-of-two scale (1/8 at D = 64) commutes exactly with the bf16
     // rounding of q and the fp32 sums, so it is applied to the scores in
-    // the softmax instead, with the same bits; any other scale is applied
-    // to q in shared memory first.
+    // the softmax instead, with the same bits; any other scale (D = 40,
+    // 80, 160) is applied to q in shared memory first.
     const bool fold =
         scale > 0.0f && (__float_as_uint(scale) & 0x7FFFFFu) == 0;
     const float k2 = fold ? scale * kLog2e : kLog2e;
-    float acc[32], sc[64];
+    float acc[NP][32], sc[BK / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) sc[i] = 0.0f;
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.0f;
     uint32_t p[BK / 16][4];
     int kv = 0;
     int j = 0;
@@ -259,38 +298,50 @@ flash_fwd_d64_kernel(const __grid_constant__ CUtensorMap tq,
       const int b = item / q_tiles / H;
       const int h = item / q_tiles % H;
       const int qs = j % QST;
-      unsigned char* Qw = Qs + qs * 2 * Q_BYTES + c * Q_BYTES;
+      unsigned char* Qw = Qs + qs * 2 * P::Q_BYTES + c * P::Q_BYTES;
       mbar_wait(&qfull[qs], (j / QST) & 1);
       if (!fold) {
-        prescale(Qw, Q_BYTES, t, scale);
+        prescale(Qw, P::Q_BYTES, t, scale);
         fence_proxy_async();
         bar_sync(1 + c, 128);
       }
 
 #pragma unroll
-      for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
-      float m[2] = {kNegInit, kNegInit}, l[2] = {0.0f, 0.0f}, alpha[2];
-      const uint64_t dq = desc(Qw, 0, 1024);
-
-      // S of the item's K/V tile i, one wgmma group (32 bytes a step)
-      auto issue_s = [&](int i) {
-        const uint64_t dk = desc(Ks + ((kv + i) % ST) * KV_BYTES, 0, 1024);
+      for (int pn = 0; pn < NP; ++pn)
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_ss<0>(sc, dq + 2 * kk, dk + 2 * kk, kk > 0);
+        for (int i = 0; i < 32; ++i) acc[pn][i] = 0.0f;
+      float m[2] = {kNegInit, kNegInit}, l[2] = {0.0f, 0.0f}, alpha[2];
+
+      // S of the item's K/V tile i, one wgmma group (32 bytes a step
+      // within a panel)
+      auto issue_s = [&](int i) {
+        const unsigned char* Kt = Ks + ((kv + i) % ST) * P::KV_BYTES;
+#pragma unroll
+        for (int ks = 0; ks < P::KSTEPS; ++ks) {
+          const int pn = ks / 4, kk = ks % 4;
+          wgmma_ss<0>(sc, desc(Qw + pn * P::Q_PANEL, 0, 1024) + 2 * kk,
+                      desc(Kt + pn * P::KV_PANEL, 0, 1024) + 2 * kk, ks > 0);
+        }
         wgmma_commit();
       };
-      // O += P V of tile i (16 K rows = 2048 bytes a step)
+      // O += P V of tile i, panel by panel (16 K rows = 2048 bytes a step)
       auto issue_pv = [&](int i) {
-        const uint64_t dv =
-            desc(Vs + ((kv + i) % ST) * KV_BYTES, KV_BYTES, 1024);
+        const unsigned char* Vt = Vs + ((kv + i) % ST) * P::KV_BYTES;
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk)
-          wgmma_rs<1>(acc, p[kk], dv + 128 * kk, 1);
+        for (int pn = 0; pn < NP; ++pn) {
+          const uint64_t dv = desc(Vt + pn * P::KV_PANEL, P::KV_PANEL, 1024);
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            wgmma_rs<1>(acc[pn], p[kk], dv + 128 * kk, 1);
+        }
         wgmma_commit();
       };
       auto release = [&](int i) {
         if (t == 0) mbar_arrive(&empty[(kv + i) % ST]);
+      };
+      auto fence_acc = [&]() {
+#pragma unroll
+        for (int pn = 0; pn < NP; ++pn) fence_regs(acc[pn]);
       };
 
       mbar_wait(&full[kv % ST], (kv / ST) & 1);
@@ -314,23 +365,32 @@ flash_fwd_d64_kernel(const __grid_constant__ CUtensorMap tq,
         fence_regs(sc);
         online_softmax(sc, m, l, alpha, Sk - i * BK, lane, k2);
         wgmma_wait<0>();
-        fence_regs(acc);
+        fence_acc();
         keep_regs(p);  // P_{i-1} stays live until its product is done
         release(i - 1);
 #pragma unroll
-        for (int jj = 0; jj < 32; ++jj) acc[jj] *= alpha[(jj >> 1) & 1];
+        for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+          for (int jj = 0; jj < 32; ++jj) acc[pn][jj] *= alpha[(jj >> 1) & 1];
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) pack_p(sc, kk, p[kk]);
       }
       wgmma_fence();
       issue_pv(n_tiles - 1);
       wgmma_wait<0>();
-      fence_regs(acc);
+      fence_acc();
       keep_regs(p);
       release(n_tiles - 1);
       if (t == 0) mbar_arrive(&qempty[qs]);
       kv += n_tiles;
-      store_o(acc, l, o + b * os.b + h * os.h, os, q0 + 64 * c, 0, Sq, t);
+      float inv[2];
+      row_inverse(l, inv);
+      // only the D columns of each head: at D = 40 the next head's
+      // columns follow the 40th
+#pragma unroll
+      for (int pn = 0; pn < NP; ++pn)
+        store_o(acc[pn], inv, o + b * os.b + h * os.h, os, q0 + 64 * c,
+                64 * pn, D - 64 * pn, Sq, t);
     }
   }
 }
@@ -471,7 +531,10 @@ flash_fwd_d512_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(acc);
       if (t == 0) mbar_arrive(&empty[s]);
     }
-    store_o(acc, l, o + b * os.b + h * os.h, os, q0, 256 * hw, Sq, t);
+    float inv[2];
+    row_inverse(l, inv);
+    store_o(acc, inv, o + b * os.b + h * os.h, os, q0, 256 * hw, 256, Sq,
+            t);
   }
 }
 
@@ -513,6 +576,17 @@ cudaError_t launch(Kernel kern, int smem, uint64_t& smem_set, bool persistent,
   return cudaGetLastError();
 }
 
+// the padded-panel kernel for head dim D, persistent
+template <int D>
+int padded(uint64_t& smem_set, const void* q, const void* k, const void* v,
+           bf16* o, int B, int H, int Sq, int Sk, const int64_t* st,
+           float scale, int block_q, int block_k, cudaStream_t stream) {
+  using P = Panels<D>;
+  if (block_q != P::BQ || block_k != P::BK) return (int)cudaErrorInvalidValue;
+  return (int)launch(flash_fwd_kernel<D>, P::SMEM, smem_set, true, P::BQ,
+                     P::BK, q, k, v, o, B, H, Sq, Sk, D, st, scale, stream);
+}
+
 }  // namespace
 
 // strides: (batch, head, seq) of q, k, v and o in elements; block_q and
@@ -527,10 +601,21 @@ extern "C" int ladi_flash_attention_fwd(
   const int64_t st[12] = {qb, qh, qs, kb, kh, ks, vb, vh, vs, ob, oh, os};
   bf16* op = static_cast<bf16*>(o);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static uint64_t set64 = 0, set512 = 0;
-  if (D == 64 && block_q == d64::BQ && block_k == d64::BK)
-    return (int)launch(flash_fwd_d64_kernel, d64::SMEM, set64, true, d64::BQ,
-                       d64::BK, q, k, v, op, B, H, Sq, Sk, D, st, scale, s);
+  static uint64_t set[4] = {}, set512 = 0;
+  switch (D) {
+    case 40:
+      return padded<40>(set[0], q, k, v, op, B, H, Sq, Sk, st, scale,
+                        block_q, block_k, s);
+    case 64:
+      return padded<64>(set[1], q, k, v, op, B, H, Sq, Sk, st, scale,
+                        block_q, block_k, s);
+    case 80:
+      return padded<80>(set[2], q, k, v, op, B, H, Sq, Sk, st, scale,
+                        block_q, block_k, s);
+    case 160:
+      return padded<160>(set[3], q, k, v, op, B, H, Sq, Sk, st, scale,
+                         block_q, block_k, s);
+  }
   if (D == 512 && block_q == d512::BQ && block_k == d512::BK)
     return (int)launch(flash_fwd_d512_kernel, d512::SMEM, set512, false,
                        d512::BQ, d512::BK, q, k, v, op, B, H, Sq, Sk, D, st,

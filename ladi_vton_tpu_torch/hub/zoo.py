@@ -147,7 +147,10 @@ def _dir_config(model_dir: str, subfolder: str) -> Optional[dict]:
 
 
 def _config_kwargs(cfg_cls, raw: dict) -> dict:
-    """Keep only the keys the dataclass knows; tuple-ify sequences."""
+    """Keep only the keys the dataclass knows; tuple-ify sequences.  As in
+    the JAX zoo, a diffusers ``attention_head_dim`` is not one of them:
+    a diffusers SD-1.5 ``unet/config.json`` gets 64-wide heads, and the
+    eight-head form comes from a sidecar's ``head_dim: -1``."""
     fields = {f.name for f in dataclasses.fields(cfg_cls)}
     return {k: tuple(v) if isinstance(v, list) else v
             for k, v in raw.items() if k in fields}
@@ -205,7 +208,10 @@ def _build(factory: Callable[[], torch.nn.Module], state: dict, *, dtype,
 def extended_unet(dataset: str = "vitonhd", *, checkpoint=None,
                   checkpoint_dir=None, dtype=torch.float32, device="cuda"):
     """The 31-channel SD-2 UNet with trained try-on weights (reference
-    hubconf.py:30-37); a 9-channel file gets the conv_in surgery."""
+    hubconf.py:30-37); a 9-channel file gets the conv_in surgery.  A
+    ``.config.json`` sidecar overrides the architecture: one saying
+    ``use_linear_projection: false`` and ``head_dim: -1`` builds the
+    SD-1.5 UNet (1x1-conv projections, eight heads at every width)."""
     path = _resolve_checkpoint("unet", dataset, checkpoint, checkpoint_dir)
     side = _sidecar_config(path)
     cfg = (UNetConfig(**_config_kwargs(UNetConfig, side)) if side

@@ -16,8 +16,7 @@ state, and the inversion adapter brings its own post-norm.
 
 Every LayerNorm goes through ``ops.layer_norm`` (kernel K5 on CUDA).
 Attention stays the plain ``attention_ref`` (causal for text), as the
-JAX towers route ``impl="xla"``; the flash kernel takes head dims 64 and
-512 only, and ViT-H's is 80.  The vision tower takes NCHW pixels,
+JAX towers route ``impl="xla"``.  The vision tower takes NCHW pixels,
 CLIP-normalised, (B, 3, 224, 224).
 """
 

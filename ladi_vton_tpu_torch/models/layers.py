@@ -312,25 +312,42 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    """Spatial transformer with linear projections (SD-2):
-    GN -> proj_in -> blocks -> proj_out + skip."""
+    """Spatial transformer: GN -> proj_in -> blocks -> proj_out + skip.
+
+    SD-2 (``linear=True``) has ``nn.Linear`` projections; SD-1.5 has 1x1
+    ``nn.Conv2d`` ones, (C_out, C_in, 1, 1) weights under the same names,
+    computed as the same product on the (B, H*W, C) rows through a view
+    of the weight."""
 
     def __init__(self, heads: int, dim_head: int, in_channels: int,
-                 context_dim: int, depth: int = 1):
+                 context_dim: int, depth: int = 1, linear: bool = True):
         super().__init__()
         inner = heads * dim_head
         self.norm = GroupNorm(in_channels, 32, 1e-6)
-        self.proj_in = nn.Linear(in_channels, inner)
+        if linear:
+            self.proj_in = nn.Linear(in_channels, inner)
+        else:
+            self.proj_in = nn.Conv2d(in_channels, inner, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, heads, dim_head, context_dim)
             for _ in range(depth)])
-        self.proj_out = nn.Linear(inner, in_channels)
+        if linear:
+            self.proj_out = nn.Linear(inner, in_channels)
+        else:
+            self.proj_out = nn.Conv2d(inner, in_channels, 1)
 
     def forward(self, x: torch.Tensor, context: torch.Tensor,
                 kv_iter=None) -> torch.Tensor:
         """``kv_iter`` yields the hoisted cross-attention K/V of each
         block in call order, or is None to project them here."""
-        h = self.proj_in(_rows(self.norm(x)))
+        h = _project(self.proj_in, _rows(self.norm(x)))
         for block in self.transformer_blocks:
             h = block(h, context, None if kv_iter is None else next(kv_iter))
-        return x + _unrows(self.proj_out(h), x)
+        return x + _unrows(_project(self.proj_out, h), x)
+
+
+def _project(proj: nn.Module, rows: torch.Tensor) -> torch.Tensor:
+    """A Linear, or a 1x1 Conv2d as the Linear of its weight's view."""
+    if isinstance(proj, nn.Conv2d):
+        return F.linear(rows, proj.weight.flatten(1), proj.bias)
+    return proj(rows)

@@ -1,11 +1,13 @@
-"""Cross-attention-conditioned 2D UNet (SD-2-inpainting family).
+"""Cross-attention-conditioned 2D UNet (SD-2- and SD-1.5-inpainting).
 
-Counterpart of ``ladi_vton_tpu/models/unet_condition.py``: the SD-2
-denoiser with LaDI-VTON's 31-channel input (4 noisy latent + 1 mask +
-4 masked-image latent + 18 pose + 4 warped-cloth latent).  Blocks,
-channel plan and heads (C / head_dim: 5, 10, 20 and 20 in the mid block)
-follow the JAX module; names are diffusers' ``UNet2DConditionModel``
-keys.  Inputs and activations are NCHW in channels-last memory.
+Counterpart of ``ladi_vton_tpu/models/unet_condition.py``: the denoiser
+with LaDI-VTON's 31-channel input (4 noisy latent + 1 mask + 4
+masked-image latent + 18 pose + 4 warped-cloth latent).  Blocks, channel
+plan and heads follow the JAX module: SD-2 has C / head_dim heads (5,
+10, 20 and 20 in the mid block) and linear projections; SD-1.5
+(``sd15_unet_config``: ``head_dim <= 0``) has eight heads of C / 8 at
+every width (head dims 40, 80, 160), a 768-wide context and 1x1-conv
+projections.  Names are diffusers' ``UNet2DConditionModel`` keys.  Inputs and activations are NCHW in channels-last memory.
 ``precompute_context_kv`` computes the cross-attention K/V projections
 of a context once, and ``forward(..., context_kv=...)`` takes them in
 place of projecting the context at every call.
@@ -38,8 +40,9 @@ class UNetConfig:
     out_channels: int = 4
     block_out_channels: Sequence[int] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
-    head_dim: int = 64
+    head_dim: int = 64  # <= 0: eight heads at every width (SD-1.5)
     cross_attention_dim: int = 1024
+    use_linear_projection: bool = True
     norm_eps: float = 1e-5
     # which blocks carry cross-attention transformers (SD-2 pattern)
     down_block_has_attn: Sequence[bool] = (True, True, True, False)
@@ -54,17 +57,28 @@ def sd2_unet_config(in_channels: int = 31) -> UNetConfig:
     return UNetConfig(in_channels=in_channels)
 
 
+def sd15_unet_config(in_channels: int = 31) -> UNetConfig:
+    """SD-1.5-inpainting variant (cross_attention_dim 768, conv proj)."""
+    return UNetConfig(
+        in_channels=in_channels,
+        cross_attention_dim=768,
+        use_linear_projection=False,
+        head_dim=-1,  # SD-1.5 uses 8 heads at every width
+    )
+
+
 class CrossAttnDownBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb: int,
                  num_layers: int, heads: int, head_dim: int, ctx: int,
-                 has_attn: bool, add_downsample: bool, eps: float):
+                 has_attn: bool, add_downsample: bool, eps: float,
+                 linear: bool = True):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(in_channels if i == 0 else out_channels,
                           out_channels, temb, eps=eps)
             for i in range(num_layers)])
         self.attentions = nn.ModuleList([
-            Transformer2D(heads, head_dim, out_channels, ctx)
+            Transformer2D(heads, head_dim, out_channels, ctx, linear=linear)
             for _ in range(num_layers)] if has_attn else [])
         self.downsamplers = nn.ModuleList(
             [Downsample2D(out_channels, out_channels, padding=1)]
@@ -86,13 +100,14 @@ class CrossAttnDownBlock(nn.Module):
 class CrossAttnUpBlock(nn.Module):
     def __init__(self, in_channels: Sequence[int], out_channels: int,
                  temb: int, heads: int, head_dim: int, ctx: int,
-                 has_attn: bool, add_upsample: bool, eps: float):
+                 has_attn: bool, add_upsample: bool, eps: float,
+                 linear: bool = True):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(c, out_channels, temb, eps=eps)
             for c in in_channels])
         self.attentions = nn.ModuleList([
-            Transformer2D(heads, head_dim, out_channels, ctx)
+            Transformer2D(heads, head_dim, out_channels, ctx, linear=linear)
             for _ in in_channels] if has_attn else [])
         self.upsamplers = nn.ModuleList(
             [Upsample2D(out_channels, out_channels)] if add_upsample else [])
@@ -111,13 +126,13 @@ class CrossAttnUpBlock(nn.Module):
 
 class UNetMidBlockCrossAttn(nn.Module):
     def __init__(self, channels: int, temb: int, heads: int, head_dim: int,
-                 ctx: int, eps: float):
+                 ctx: int, eps: float, linear: bool = True):
         super().__init__()
         self.resnets = nn.ModuleList([
             ResnetBlock2D(channels, channels, temb, eps=eps)
             for _ in range(2)])
         self.attentions = nn.ModuleList([
-            Transformer2D(heads, head_dim, channels, ctx)])
+            Transformer2D(heads, head_dim, channels, ctx, linear=linear)])
 
     def forward(self, x, temb, context, kv_iter=None):
         x = self.resnets[0](x, temb)
@@ -137,7 +152,7 @@ class UNet2DCondition(nn.Module):
         temb = ch[0] * 4
         eps = cfg.norm_eps
         ctx = cfg.cross_attention_dim
-        heads = [c // cfg.head_dim for c in ch]
+        lin = cfg.use_linear_projection
 
         self.time_embedding = TimestepEmbedding(ch[0], temb)
         self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
@@ -148,15 +163,15 @@ class UNet2DCondition(nn.Module):
         prev = ch[0]
         for i, out in enumerate(ch):
             self.down_blocks.append(CrossAttnDownBlock(
-                prev, out, temb, cfg.layers_per_block, heads[i],
-                cfg.head_dim, ctx, cfg.down_block_has_attn[i], i < n - 1,
-                eps))
+                prev, out, temb, cfg.layers_per_block, *self._heads(out),
+                ctx, cfg.down_block_has_attn[i], i < n - 1, eps, lin))
             skip_ch += [out] * cfg.layers_per_block + ([out] if i < n - 1
                                                        else [])
             prev = out
 
-        self.mid_block = UNetMidBlockCrossAttn(ch[-1], temb, heads[-1],
-                                               cfg.head_dim, ctx, eps)
+        self.mid_block = UNetMidBlockCrossAttn(ch[-1], temb,
+                                               *self._heads(ch[-1]), ctx,
+                                               eps, lin)
 
         self.up_blocks = nn.ModuleList()
         for i, out in enumerate(reversed(ch)):
@@ -165,12 +180,18 @@ class UNet2DCondition(nn.Module):
                 ins.append(prev + skip_ch.pop())
                 prev = out
             self.up_blocks.append(CrossAttnUpBlock(
-                ins, out, temb, heads[n - 1 - i], cfg.head_dim, ctx,
-                cfg.up_block_has_attn[i], i < n - 1, eps))
+                ins, out, temb, *self._heads(out), ctx,
+                cfg.up_block_has_attn[i], i < n - 1, eps, lin))
 
         self.conv_norm_out = GroupNorm(ch[0], 32, eps, act="silu")
         self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
         self.gradient_checkpointing = False
+
+    def _heads(self, channels: int) -> tuple[int, int]:
+        """(heads, head dim) of a level ``channels`` wide."""
+        if self.config.head_dim > 0:
+            return channels // self.config.head_dim, self.config.head_dim
+        return 8, channels // 8  # SD-1.5 style: fixed 8 heads
 
     def _run(self, block, *args):
         """``block(*args)``, checkpointed where the forward records

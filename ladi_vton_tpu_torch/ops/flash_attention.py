@@ -11,7 +11,7 @@ head, seq) strides, so the (B, S, H, D) views that come straight out of
 the projections need no copy; the head dimension must be contiguous and
 the base and strides 16-byte aligned.  The output is a new contiguous
 (B, S, H, D) tensor.  ``flash_tiling`` picks the kernel's tiling from
-the head dimension.
+the head dimension, one of ``SUPPORTED_HEAD_DIMS``; any other raises.
 
 Where a gradient is wanted (or autocast is on), the call goes through
 ``FlashAttention``, a ``torch.autograd.Function`` (``ops._autograd``):
@@ -31,19 +31,26 @@ from ladi_vton_tpu_torch.ops import _build
 from ladi_vton_tpu_torch.ops._autograd import recompute_grads, through_function
 from ladi_vton_tpu_torch.ops.attention import attention_ref
 
-SUPPORTED_HEAD_DIMS = (64, 512)
+# the head dims the JAX package's UNet and VAE configurations reach: the
+# SD-2 UNet's 64, the SD-1.5 UNet's eight heads at widths 320, 640 and
+# 1280 (40, 80, 160), the VAE mid block's single head (512)
+SUPPORTED_HEAD_DIMS = (40, 64, 80, 160, 512)
 
 
 def flash_tiling(head_dim: int) -> tuple[int, int]:
     """(q rows, K/V rows) per block of the kernel compiled for head_dim.
 
-    D = 64: 128 q rows (two consumer warpgroups of 64) against 128-row
-    K/V tiles.  D = 512: 64 q rows, the two consumers splitting D, and
-    32-row K/V tiles so that Q (64 KB), a two-stage K/V ring (128 KB) and
-    the partial-score exchange (32 KB) fit in 227 KB of shared memory.
+    D = 40, 64, 80, 160: 128 q rows (two consumer warpgroups of 64), D
+    padded to 64-column panels, against 128-row K/V tiles (64-row at
+    D = 160, whose three panels make O 96 fp32 registers a thread).
+    D = 512: 64 q rows, the two consumers splitting D, and 32-row K/V
+    tiles so that Q (64 KB), a two-stage K/V ring (128 KB) and the
+    partial-score exchange (32 KB) fit in 227 KB of shared memory.
     """
-    if head_dim == 64:
+    if head_dim in (40, 64, 80):
         return 128, 128
+    if head_dim == 160:
+        return 128, 64
     if head_dim == 512:
         return 64, 32
     raise ValueError(f"flash_attention: unsupported head dim {head_dim} "

@@ -82,7 +82,11 @@ def _nhwc(x: torch.Tensor) -> np.ndarray:
 
 
 @pytest.mark.parametrize("sq,sk,heads,d", [(256, 256, 2, 64), (256, 77, 2, 64),
-                                           (128, 128, 1, 512)])
+                                           (128, 128, 1, 512),
+                                           # the SD-1.5 UNet's head dims
+                                           (256, 256, 2, 40), (256, 77, 2, 40),
+                                           (192, 192, 2, 80), (192, 77, 2, 80),
+                                           (96, 96, 2, 160), (96, 77, 2, 160)])
 def test_attention_matches_pallas_flash_and_xla(sq, sk, heads, d):
     rng = np.random.default_rng(1)
     q = rng.standard_normal((2, sq, heads, d)).astype(np.float32)
@@ -111,7 +115,16 @@ def test_flash_tiling_fits_each_head_dim():
     assert block_q == 64
     smem = block_q * 512 * 2 + 2 * 2 * block_k * 512 * 2 + 4 * 64 * block_k * 4
     assert smem <= 227 * 1024
-    for d in (32, 80, 128):
+    # D = 40, 80, 160: D padded to 64-column panels (1, 2, 3); a two-stage
+    # Q ring of 128 rows and a K/V ring of three stages (one panel) or two
+    for d, panels in ((40, 1), (64, 1), (80, 2), (160, 3)):
+        block_q, block_k = flash_tiling(d)
+        assert block_q == 128 and block_k == (64 if panels == 3 else 128)
+        row = 128 * panels  # bytes of a padded bf16 row
+        stages = 3 if panels == 1 else 2
+        smem = 2 * block_q * row + stages * 2 * block_k * row
+        assert smem <= 227 * 1024
+    for d in (32, 96, 128):
         with pytest.raises(ValueError, match="head dim"):
             flash_tiling(d)
 
