@@ -39,12 +39,15 @@ Phases, each printing its numbers before the last line:
    a stated relative L2 of fp32 autograd of the plain version on the same
    bf16 inputs, and the forward plus backward is timed against the
    library's (SDPA, ``F.group_norm`` then SiLU, ``F.linear``-gelu-
-   ``F.linear``, ``F.layer_norm``).  K1 also runs at the SD-1.5 UNet's
-   shapes (eight heads of 40, 80 and 160, ``ATTN_SD15_SHAPES``), and a
-   call at D = 96 must raise.  Last, K1 and K4 at the shapes a
-   tensor-parallel UNet (model 2, batch 4) gives them: K1 on half the
-   heads of levels 1 and 2 and the mid block, K4 at half the inner
-   width of each level, each row as above.  Then an A/B of
+   ``F.linear``, ``F.layer_norm``); K1's gradient rows include the SD-1.5
+   trainers' shapes (eight heads of 40, 80 and 160,
+   ``ATTN_SD15_GRAD_SHAPES``).  K1 also runs at the SD-1.5 UNet's
+   shapes (``ATTN_SD15_SHAPES``), and a call at D = 96 must raise.
+   Last, K1 and K4 at the shapes a tensor-parallel UNet (model 2, batch
+   4) gives them: K1 on half the heads of the SD-2 UNet's levels 1 and 2
+   and its mid block, and on four of the SD-1.5 UNet's eight heads at
+   every level (``ATTN_SD15_TP_SHAPES``), K4 at half the inner width of
+   each level, each row as above.  Then an A/B of
    ``Upsample2D``'s two forms at the path's 1280- and 512-channel sites
    (``UPSAMPLE_SITES``): the phase form of ``ops/upsample.py`` against
    interpolate then the 3x3 convolution, device times from CUDA graphs
@@ -190,7 +193,10 @@ Phases, each printing its numbers before the last line:
    the two also against an fp32 CPU forward of the same weights, and the
    forward with ``reduce_from_model`` left out (a planted fault) outside
    the limit; K1's and K4's calls counted and their shard shapes held to
-   phase 2's tensor-parallel rows; one tensor-parallel step's loss and
+   phase 2's tensor-parallel rows; then, in the same ranks, the same for
+   the eight-head SD-1.5 UNet (a 768-wide context), whose every attention
+   holds four heads a rank, held to its own fp32 CPU forward; one
+   tensor-parallel step's loss and
    its gradient, gathered to the reference layout, by UNet part against
    (a)'s.  (d) the mains over two ranks, one step each: ``train_vto
    --shard_optimizer_states``, the peak memory of each rank,
@@ -287,7 +293,12 @@ Phases, each printing its numbers before the last line:
    replay) bitwise its eager body, K1's calls by shape; then a raw
    2-image request through ``ConditionService`` and
    ``TryOnService(context_dim=768)`` with its seconds, peak memory and
-   every kernel launched.
+   every kernel launched; last, the eight-head VTO step at 512x384,
+   batch 1 (the SD-1.5 UNet trained in fp32, the VAE, text tower and
+   adapter frozen in bf16) as a ``TrainProgram`` against its eager body
+   over phase 14's three steps and schedule, as phase 14's VTO step:
+   bitwise after every step, its launches a step confirmed by the
+   profiler on one trace, every kernel launched.
 
 Phases 4, 5, 6, 7, 8, 11 and 15 sample through ``jit_sample``
 (``TryOnService``, the mains, ``split=True`` with ``"host"``), and
@@ -308,7 +319,9 @@ the fp32 refinement through FFT convolutions that take ~60x longer and
 a ~20 GiB workspace (``tools/profile_raw_request.py``).
 
 The line before the last is ``{"kernels": [...]}``, with the launches
-of phase 5 (phase 15's as ``sd15_launches``, phase 6's as ``zoo_launches``, phase 7's five CLI runs' as
+of phase 5 (phase 15's raw request as ``sd15_launches`` and a replay of
+its train step as ``sd15_train_launches``, phase 6's as
+``zoo_launches``, phase 7's five CLI runs' as
 ``mains_launches``, phase 8's served requests as ``serve_launches``,
 phase 9's metric mains as ``metrics_launches``, phase 10's training
 runs as ``train_launches``, phase 11's ranks summed as
@@ -676,6 +689,13 @@ ATTN_SD15_SHAPES = [(4, 3072, 3072, 8, 40), (4, 3072, 77, 8, 40),
                     (4, 768, 768, 8, 80), (4, 768, 77, 8, 80),
                     (4, 192, 192, 8, 160), (4, 192, 77, 8, 160),
                     (4, 48, 48, 8, 160), (4, 48, 77, 8, 160)]
+# the same at model 2 (phase 11c's eight-head forward): four heads a rank
+ATTN_SD15_TP_SHAPES = [(B, Sq, Sk, H // 2, D)
+                       for B, Sq, Sk, H, D in ATTN_SD15_SHAPES]
+# K1's gradient rows at the SD-1.5 trainers' batch-1 shapes at 512x384:
+# level-0 self- and cross-attention, the self-attention of levels 1 and 2
+ATTN_SD15_GRAD_SHAPES = [(1, 3072, 3072, 8, 40), (1, 3072, 77, 8, 40),
+                         (1, 768, 768, 8, 80), (1, 192, 192, 8, 160)]
 
 
 def check_attention(gen: Gen) -> dict:
@@ -931,15 +951,17 @@ def check_tensor_parallel_rows(gen: Gen, results: dict) -> dict:
     kernel's ``tp_shapes``; returns the shapes checked, for phase 11's
     census."""
     log("phase 2: K1 on each model rank's heads and K4 on its slice of the "
-        "inner width (tensor parallelism at model 2)")
-    attn = [attention_row(gen, *shape) for shape in ATTN_TP_SHAPES]
+        "inner width (tensor parallelism at model 2), the SD-2 UNet's and "
+        "the SD-1.5 UNet's four heads a rank")
+    attn_shapes = ATTN_TP_SHAPES + ATTN_SD15_TP_SHAPES
+    attn = [attention_row(gen, *shape) for shape in attn_shapes]
     ff = [geglu_row(gen, M, C, inner) for M, C, inner in GEGLU_TP_SHAPES]
     for name, rows in (("flash_attention", attn), ("geglu", ff)):
         entry = results.setdefault(name, {})
         entry["tp_shapes"] = rows
         entry["max_abs_err"] = max([entry.get("max_abs_err", 0.0)]
                                    + [r["err"] for r in rows])
-    return {"flash_attention": [list(s) for s in ATTN_TP_SHAPES],
+    return {"flash_attention": [list(s) for s in attn_shapes],
             "geglu": [list(s) for s in GEGLU_TP_SHAPES]}
 
 
@@ -1159,20 +1181,44 @@ def grad_row(gen: Gen, what: str, function, plain, library,
             "library_fwd_bwd_ms": cuda_ms(fwd_bwd(library, lib_leaves), 10)}
 
 
-def check_gradients(gen: Gen) -> dict:
-    """Phase 2's gradient rows of every kernel, by kernel name."""
-    rows = {"flash_attention": [], "group_norm": [], "geglu": [],
-            "layer_norm": []}
-    # (B, Sq, Sk, H, D): the UNet's level-0 and level-1 self-attention,
-    # its cross-attention, the VAE mid block (EMASC trains through it)
-    for B, Sq, Sk, H, D in ((1, 3072, 3072, 5, 64), (1, 768, 768, 10, 64),
-                            (1, 3072, 77, 5, 64), (1, 3072, 3072, 1, 512)):
+def attention_grad_rows(gen: Gen, shapes) -> list:
+    """K1's gradient rows at (B, Sq, Sk, H, D) ``shapes``, against SDPA's
+    forward plus backward on the (B, H, S, D) views of the same inputs."""
+    rows = []
+    for B, Sq, Sk, H, D in shapes:
         q, k, v = (gen.normal(B, S, H, D) for S in (Sq, Sk, Sk))
-        rows["flash_attention"].append(grad_row(
+        rows.append(grad_row(
             gen, f"B={B} Sq={Sq} Sk={Sk} H={H} D={D}", flash_attention,
             attention_ref,
             lambda q, k, v: F.scaled_dot_product_attention(q, k, v),
             [q, k, v], [t.transpose(1, 2) for t in (q, k, v)]))
+    return rows
+
+
+def check_grad_rows(rows: dict) -> None:
+    """Log each gradient row; raise on one outside ``GRAD_LIMIT``."""
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"{name} gradient {r['shape']} (kernel forward, recompute "
+                f"backward): grad_rel_l2 {r['grad_rel_l2']:.3e} (limit "
+                f"{GRAD_LIMIT}), every input a finite gradient; forward + "
+                f"backward {r['fwd_bwd_ms']:.4f} ms, library forward + "
+                f"backward {r['library_fwd_bwd_ms']:.4f} ms (CUDA events, "
+                f"back to back)")
+            if not r["grad_rel_l2"] <= GRAD_LIMIT:
+                raise AssertionError(f"{name} gradient disagrees: {r}")
+
+
+def check_gradients(gen: Gen) -> dict:
+    """Phase 2's gradient rows of every kernel, by kernel name."""
+    rows = {"group_norm": [], "geglu": [], "layer_norm": []}
+    # (B, Sq, Sk, H, D): the UNet's level-0 and level-1 self-attention,
+    # its cross-attention, the VAE mid block (EMASC trains through it),
+    # then the SD-1.5 UNet's eight heads of 40, 80 and 160
+    rows["flash_attention"] = attention_grad_rows(
+        gen, [(1, 3072, 3072, 5, 64), (1, 768, 768, 10, 64),
+              (1, 3072, 77, 5, 64), (1, 3072, 3072, 1, 512)]
+        + ATTN_SD15_GRAD_SHAPES)
     # (B, N, C, eps): the level-0 resnet, a 960-channel concat, the VAE
     # decoder's 512x384 block (split form)
     for B, N, C, eps in ((1, 3072, 320, 1e-5), (1, 3072, 960, 1e-5),
@@ -1210,16 +1256,7 @@ def check_gradients(gen: Gen) -> dict:
         rows["layer_norm"].append(grad_row(
             gen, f"rows={M} C={C}", layer_norm, layer_norm_ref,
             lambda x, w, b, C=C: F.layer_norm(x, (C,), w, b, 1e-5), args))
-    for name, rs in rows.items():
-        for r in rs:
-            log(f"{name} gradient {r['shape']} (kernel forward, recompute "
-                f"backward): grad_rel_l2 {r['grad_rel_l2']:.3e} (limit "
-                f"{GRAD_LIMIT}), every input a finite gradient; forward + "
-                f"backward {r['fwd_bwd_ms']:.4f} ms, library forward + "
-                f"backward {r['library_fwd_bwd_ms']:.4f} ms (CUDA events, "
-                f"back to back)")
-            if not r["grad_rel_l2"] <= GRAD_LIMIT:
-                raise AssertionError(f"{name} gradient disagrees: {r}")
+    check_grad_rows(rows)
     return {name: {"fwd_bwd_ms": rs[0]["fwd_bwd_ms"],
                    "library_fwd_bwd_ms": rs[0]["library_fwd_bwd_ms"],
                    "grad_rel_l2": max(r["grad_rel_l2"] for r in rs),
@@ -3713,58 +3750,61 @@ def nccl_rank(work: str) -> dict:
             and same_params(results[0][1], results[1][1])}
 
 
-def tp_inputs() -> tuple:
+# phase 11c's two UNets: name -> (factory, seed, context width); the
+# eight-head SD-1.5 UNet splits every attention into four heads a rank
+TP_UNETS = {"sd2": (lambda: UNet2DCondition(sd2_unet_config(31)),
+                    DIST_SEEDS["unet"], 1024),
+            "sd15": (lambda: UNet2DCondition(sd15_unet_config(31)),
+                     30, 768)}  # phase 15's seed
+
+
+def tp_inputs(ctx_width: int) -> tuple:
     """Phase 11c's UNet forward inputs, bf16 on the host: latents, steps
-    and text context."""
+    and a text context ``ctx_width`` wide."""
     B, lh, lw = TP_FORWARD
     g = torch.Generator().manual_seed(113)
     x = torch.randn((B, 31, lh, lw), generator=g).to(BF16)
-    ctx = torch.randn((B, 77, 1024), generator=g).to(BF16)
+    ctx = torch.randn((B, 77, ctx_width), generator=g).to(BF16)
     return x, torch.tensor([981, 500, 250, 1]), ctx
 
 
-def tp_twin() -> torch.nn.Module:
-    """Phase 11c's fp32 reference UNet, in this process: the bf16 UNet the
-    ranks seed, its weights in an fp32 CPU twin."""
-    def factory():
-        return UNet2DCondition(sd2_unet_config(31))
-
-    unet = seeded(factory, DIST_SEEDS["unet"], "cuda", BF16)
-    twin = cpu_copy(unet, factory)
-    del unet
+def tp_twins() -> dict:
+    """Phase 11c's fp32 reference UNets, in this process: each bf16 UNet
+    the ranks seed (``TP_UNETS``), its weights in an fp32 CPU twin."""
+    twins = {}
+    for name, (factory, seed, _) in TP_UNETS.items():
+        unet = seeded(factory, seed, "cuda", BF16)
+        twins[name] = cpu_copy(unet, factory)
+        del unet
     torch.cuda.empty_cache()
-    return twin
+    return twins
 
 
-def tp_reference(twin: torch.nn.Module, work: pathlib.Path) -> None:
-    """The twin's forward on ``tp_inputs``, on the host, written under
+def tp_reference(twins: dict, work: pathlib.Path) -> None:
+    """Each twin's forward on ``tp_inputs``, on the host, written under
     ``work`` for phase 11c's ranks."""
-    t0 = time.perf_counter()
-    x, t, ctx = tp_inputs()
-    with torch.no_grad():
-        torch.save(twin(x.float(), t, ctx.float()), work / "tp_fp32.pt")
-    log(f"phase 11c: the fp32 CPU twin's forward (batch {TP_FORWARD[0]}, "
-        f"{TP_FORWARD[1]}x{TP_FORWARD[2]} latents) in "
-        f"{time.perf_counter() - t0:.1f} s")
+    for name, twin in twins.items():
+        t0 = time.perf_counter()
+        x, t, ctx = tp_inputs(TP_UNETS[name][2])
+        with torch.no_grad():
+            torch.save(twin(x.float(), t, ctx.float()),
+                       work / f"tp_fp32_{name}.pt")
+        log(f"phase 11c: the {name} fp32 CPU twin's forward (batch "
+            f"{TP_FORWARD[0]}, {TP_FORWARD[1]}x{TP_FORWARD[2]} latents) in "
+            f"{time.perf_counter() - t0:.1f} s")
 
 
-def tp_rank(work: str) -> dict:
-    """Phase 11c on each of two ranks at data 1 x model 2: the full-width
-    UNet's forward (bf16, batch 4, 64x48 latents) unsharded and tensor
-    parallel, with the K1 and K4 calls of the parallel one counted and
-    their shapes recorded, each against the fp32 CPU forward; the
-    parallel one with its partial sums left unreduced (a planted fault);
-    then one tensor-parallel VTO step (fp32 parameters) on the global
-    batch, its loss and its gradient gathered to the reference layout."""
-    from ladi_vton_tpu_torch.core.mesh import MeshSpec, make_mesh
+def tp_forward(name: str, mesh, dev, work: pathlib.Path) -> dict:
+    """One of ``TP_UNETS`` at full width on this rank (bf16, batch 4,
+    64x48 latents): its forward unsharded and tensor parallel, with the K1
+    and K4 calls of the parallel one counted and their shapes recorded,
+    each against the fp32 CPU forward; the parallel one with its partial
+    sums left unreduced (a planted fault).  The UNet is freed after."""
     from ladi_vton_tpu_torch.parallel import tp
 
-    dev = rank_setup(deterministic=False)
-    work = pathlib.Path(work)
-    mesh = make_mesh(MeshSpec(data=1, model=2))
-    x, t, ctx = (v.to(dev) for v in tp_inputs())
-    unet = seeded(lambda: UNet2DCondition(sd2_unet_config(31)),
-                  DIST_SEEDS["unet"], dev, BF16)
+    factory, seed, ctx_width = TP_UNETS[name]
+    x, t, ctx = (v.to(dev) for v in tp_inputs(ctx_width))
+    unet = seeded(factory, seed, dev, BF16)
     with torch.no_grad():
         full = unet(x, t, ctx)
     tp.unet_tp(unet, mesh)
@@ -3786,7 +3826,7 @@ def tp_rank(work: str) -> dict:
              for m in unet.modules() if isinstance(m, tp.TPCrossAttention)]
     hooks += [m.register_forward_pre_hook(ff_hook) for m in unet.modules()
               if isinstance(m, tp.TPFeedForwardGEGLU)]
-    wrappers = {name: fn for name, fn, _, _, _ in KERNELS}
+    wrappers = {k: fn for k, fn, _, _, _ in KERNELS}
     reset_counts(wrappers)
     with torch.no_grad():
         sharded = unet(x, t, ctx)
@@ -3797,18 +3837,37 @@ def tp_rank(work: str) -> dict:
     with planted(tp, "reduce_from_model", lambda y, mesh: y.float()), \
             torch.no_grad():
         unreduced = unet(x, t, ctx)
-    fp32 = torch.load(work / "tp_fp32.pt", weights_only=True)
+    fp32 = torch.load(work / f"tp_fp32_{name}.pt", weights_only=True)
     q = unet.down_blocks[1].attentions[0].transformer_blocks[0].attn1.to_q
     out = {"forward_rel_l2": rel_l2(sharded.float(), full.float()),
            "full_vs_fp32": rel_l2(full.float(), fp32),
            "tp_vs_fp32": rel_l2(sharded.float(), fp32),
            "fault_rel_l2": rel_l2(unreduced.float(), full.float()),
+           "fault_vs_fp32": rel_l2(unreduced.float(), fp32),
            "forward_launches": launches,
            "shapes": {k: sorted(v) for k, v in shapes.items()},
            "to_q": tuple(q.weight.shape)}
     del unet, full, sharded, unreduced
     torch.cuda.empty_cache()
+    return out
 
+
+def tp_rank(work: str) -> dict:
+    """Phase 11c on each of two ranks at data 1 x model 2: ``tp_forward``
+    of the SD-2 UNet, then of the eight-head SD-1.5 UNet (under
+    ``"sd15"``); then one tensor-parallel VTO step (fp32 parameters) on
+    the global batch, its loss and its gradient gathered to the reference
+    layout."""
+    from ladi_vton_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from ladi_vton_tpu_torch.parallel import tp
+
+    dev = rank_setup(deterministic=False)
+    work = pathlib.Path(work)
+    mesh = make_mesh(MeshSpec(data=1, model=2))
+    out = tp_forward("sd2", mesh, dev, work)
+    out["sd15"] = tp_forward("sd15", mesh, dev, work)
+
+    wrappers = {name: fn for name, fn, _, _, _ in KERNELS}
     inputs = torch.load(work / "inputs.pt", weights_only=True)
     torch.cuda.reset_peak_memory_stats()
     towers = dist_towers(dev)
@@ -4230,7 +4289,7 @@ def distributed_path(work: pathlib.Path, train_roots: dict, tokenizer,
         f"(NCCL refuses two ranks on one device) and one rank runs over "
         f"NCCL, without gradient checkpointing; stages {DIST_STAGES}")
     ref = dist_reference(out, tokenizer)
-    twin = tp_twin()
+    twins = tp_twins()
     peaks = {}
 
     def trainer(which: str):
@@ -4241,15 +4300,15 @@ def distributed_path(work: pathlib.Path, train_roots: dict, tokenizer,
         return job
 
     def tp_job() -> dict:
-        forward.result()  # the fp32 twin's forward, which the ranks read
+        forward.result()  # the fp32 twins' forwards, which the ranks read
         return tp_steps(out, ref, checked, smi)
 
     jobs = {"dp": lambda: dp_steps(out, ref, peaks, smi),
             "nccl": lambda: nccl_step(out, smi), "tp": tp_job,
             "zero1": trainer("zero1"), "tp_main": trainer("tp")}
     with ThreadPoolExecutor(2) as pool:
-        forward = pool.submit(tp_reference, twin, out)
-        del twin
+        forward = pool.submit(tp_reference, twins, out)
+        del twins
         for stage in DIST_STAGES:
             others = [pool.submit(jobs[name]) for name in stage[1:]]
             for launches in [jobs[stage[0]]()] + [f.result() for f in others]:
@@ -4328,50 +4387,70 @@ def nccl_step(out: pathlib.Path, smi: str) -> None:
 
 
 def tp_steps(out: pathlib.Path, ref: dict, checked: dict, smi: str) -> dict:
-    """Phase 11c (the tensor-parallel forward and step over two ranks),
-    against phase 11a's one-process ``ref`` and the fp32 twin's forward
+    """Phase 11c (the tensor-parallel forwards and step over two ranks),
+    against phase 11a's one-process ``ref`` and the fp32 twins' forwards
     (written before this is called); ``checked``: the tensor-parallel
     shapes phase 2 checked.  Returns the launches of the ranks."""
     results, seconds = ranks("tp_rank", 2, (str(out),), "tp", out)
     total = {name: 0 for name, _, _, _, _ in KERNELS}
     for i, r in enumerate(results):
-        add_launches(total, r["forward_launches"])
+        for name, f in (("sd2", r), ("sd15", r["sd15"])):
+            check_tp_forward(i, name, f, checked, smi)
+            add_launches(total, f["forward_launches"])
         add_launches(total, r["step_launches"])
         rel = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
-        missing = {name: [s for s in r["shapes"][name]
-                          if list(s) not in checked[name]]
-                   for name in r["shapes"]}
-        log(f"phase 11c rank {i}: the tensor-parallel UNet forward (batch "
-            f"{TP_FORWARD[0]}, {TP_FORWARD[1]}x{TP_FORWARD[2]} latents, "
-            f"bf16) against the unsharded one: relative L2 "
-            f"{r['forward_rel_l2']:.3e} (limit {TP_FORWARD_LIMIT}); "
-            f"against the fp32 CPU forward, the unsharded "
-            f"{r['full_vs_fp32']:.3e} and the tensor-parallel "
-            f"{r['tp_vs_fp32']:.3e}; planted fault, the partial sums "
-            f"unreduced: {r['fault_rel_l2']:.3e}; its "
-            f"launches {r['forward_launches']}, K1 at "
-            f"{r['shapes']['flash_attention']}, K4 at "
-            f"{r['shapes']['geglu']}; to_q {r['to_q']}; the "
-            f"tensor-parallel step {r['step_seconds']:.3f} s (with its "
-            f"warm-up), loss {r['loss']:.6f} ({rel:.3e} relative, limit "
+        log(f"phase 11c rank {i}: the tensor-parallel step "
+            f"{r['step_seconds']:.3f} s (with its warm-up), loss "
+            f"{r['loss']:.6f} ({rel:.3e} relative, limit "
             f"{DIST_LOSS_LIMIT}), gathered gradient cosine by part "
             f"{({k: round(v, 6) for k, v in r['cosine'].items()})}, peak "
             f"{r['peak_gib']:.2f} GiB, launches {r['step_launches']} "
             f"[{smi}]")
-        if any(missing.values()):
-            raise AssertionError(f"phase 2 does not check the shard shapes "
-                                 f"{missing}")
-        if not (r["forward_rel_l2"] <= TP_FORWARD_LIMIT
-                and rel <= DIST_LOSS_LIMIT
-                and min(r["cosine"].values()) >= DIST_GRAD_COS
-                and r["forward_launches"]["flash_attention"]
-                and r["forward_launches"]["geglu"]):
-            raise AssertionError(f"phase 11c: rank {i} disagrees")
-        if r["fault_rel_l2"] <= TP_FORWARD_LIMIT:
-            raise AssertionError("phase 11c: the forward's limit does not "
-                                 "tell unreduced partial sums")
+        if not (rel <= DIST_LOSS_LIMIT
+                and min(r["cosine"].values()) >= DIST_GRAD_COS):
+            raise AssertionError(f"phase 11c: rank {i}'s step disagrees")
     log(f"phase 11c: two ranks in {seconds:.1f} s wall")
     return total
+
+
+def check_tp_forward(i: int, name: str, r: dict, checked: dict,
+                     smi: str) -> None:
+    """Rank ``i``'s tensor-parallel forward of one of ``TP_UNETS``: within
+    ``TP_FORWARD_LIMIT`` of the unsharded one (SD-2) or of the fp32 CPU
+    forward (SD-1.5), its planted fault outside that limit, K1 and K4
+    launched at shapes phase 2 checked."""
+    missing = {k: [s for s in r["shapes"][k] if list(s) not in checked[k]]
+               for k in r["shapes"]}
+    log(f"phase 11c rank {i}: the {name} tensor-parallel UNet forward "
+        f"(batch {TP_FORWARD[0]}, {TP_FORWARD[1]}x{TP_FORWARD[2]} latents, "
+        f"bf16) against the unsharded one: relative L2 "
+        f"{r['forward_rel_l2']:.3e} (limit {TP_FORWARD_LIMIT}); against "
+        f"the fp32 CPU forward, the unsharded {r['full_vs_fp32']:.3e} and "
+        f"the tensor-parallel {r['tp_vs_fp32']:.3e}; planted fault, the "
+        f"partial sums unreduced: {r['fault_rel_l2']:.3e} from the "
+        f"unsharded, {r['fault_vs_fp32']:.3e} from the fp32; its launches "
+        f"{r['forward_launches']}, K1 at {r['shapes']['flash_attention']}, "
+        f"K4 at {r['shapes']['geglu']}; to_q {r['to_q']} [{smi}]")
+    if any(missing.values()):
+        raise AssertionError(f"phase 2 does not check the {name} shard "
+                             f"shapes {missing}")
+    if name == "sd15" and not (
+            r["shapes"]["flash_attention"]
+            and all(s[3] == 4 for s in r["shapes"]["flash_attention"])):
+        raise AssertionError("phase 11c: the eight-head UNet's K1 calls are "
+                             "not on four heads a rank")
+    # the SD-2 forward is held to the unsharded one, the eight-head one to
+    # the fp32 CPU forward (every comparison is logged above)
+    err, fault = ((r["forward_rel_l2"], r["fault_rel_l2"]) if name == "sd2"
+                  else (r["tp_vs_fp32"], r["fault_vs_fp32"]))
+    if not (err <= TP_FORWARD_LIMIT
+            and r["forward_launches"]["flash_attention"]
+            and r["forward_launches"]["geglu"]):
+        raise AssertionError(f"phase 11c: rank {i}'s {name} forward "
+                             f"disagrees")
+    if fault <= TP_FORWARD_LIMIT:
+        raise AssertionError(f"phase 11c: the {name} forward's limit does "
+                             f"not tell unreduced partial sums")
 
 
 def dist_dryrun(out: pathlib.Path) -> dict:
@@ -5209,7 +5288,8 @@ class DoubleUpdateProgram(graphs.TrainProgram):
 
 
 def trajectories(label: str, make, inputs: list, smi: str,
-                 planted=None, profile: bool = False) -> dict:
+                 planted=None, profile: bool = False,
+                 phase: str = "phase 14") -> dict:
     """Two copies of a step (``make()`` -> modules, optimizer, step
     program), the first run eagerly (its body), the second graphed (or
     wrapped in ``planted``), over ``inputs`` (one (batch, draws) a step):
@@ -5260,7 +5340,7 @@ def trajectories(label: str, make, inputs: list, smi: str,
             lambda: eager["step"].run_eager(*args))
         r["profile"] = confirmed_profile(lambda: program(*args),
                                          r["launched"],
-                                         f"phase 14 {label}, graphed")
+                                         f"{phase} {label}, graphed")
         # the eager step's busy share; its trace has lost a split-form
         # GroupNorm launch at a window's edge (as phase 12's did before
         # PROFILE_MARGIN_S), so only the graphed trace confirms the
@@ -5268,13 +5348,13 @@ def trajectories(label: str, make, inputs: list, smi: str,
         r["eager_profile"] = profiled_request(
             lambda: eager["step"].run_eager(*args))
         if r["launched"] != r["eager_launched"]:
-            raise AssertionError(f"phase 14 {label}: a replay launches "
+            raise AssertionError(f"{phase} {label}: a replay launches "
                                  f"other kernels than the eager step")
     del eager, graphed, program, step
     gc.collect()
     torch.cuda.empty_cache()
     mean = lambda xs: float(np.mean(xs[1:]))  # noqa: E731
-    log(f"phase 14 {label}: steps graphed {mean(r['graphed_s']):.4f} s "
+    log(f"{phase} {label}: steps graphed {mean(r['graphed_s']):.4f} s "
         f"(2-{len(inputs)}; the first, eager then captured, "
         f"{r['graphed_s'][0]:.3f} s: warm-up {r['warmup_s']:.3f} s, "
         f"capture {r['capture_s']:.3f} s), eager {mean(r['eager_s']):.4f} "
@@ -5739,6 +5819,26 @@ def cupti_graph_records(smi: str) -> dict:
     return {"replays": CUPTI_REPLAYS, "sequence": sequence, "lost": lost}
 
 
+@contextlib.contextmanager
+def bitwise_training():
+    """The settings under which a graphed train step must equal its eager
+    body bit for bit: cuDNN deterministic, and ``index_add`` (the backward
+    of the resize in the EMASC step's VGG loss and the refinement's
+    upsampling) adding in a fixed order; other operations without a
+    deterministic form only warn, and nothing fills new memory."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    fill = torch.utils.deterministic.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.use_deterministic_algorithms(False)
+        torch.utils.deterministic.fill_uninitialized_memory = fill
+
+
 def train_graphs_path(pipe: TryOnPipeline, towers: Conditioner, tokenizer,
                       work: pathlib.Path, smi: str) -> dict:
     """Phase 14: every step kind graphed against its eager body, the
@@ -5746,16 +5846,7 @@ def train_graphs_path(pipe: TryOnPipeline, towers: Conditioner, tokenizer,
     programs.  Returns the numbers by label."""
     t0 = time.perf_counter()
     cupti = cupti_graph_records(smi)
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    # index_add (the backward of the resize in the EMASC step's VGG loss
-    # and the refinement's upsampling) then adds in a fixed order; other
-    # operations without a deterministic form only warn, and nothing
-    # fills new memory
-    fill = torch.utils.deterministic.fill_uninitialized_memory
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.utils.deterministic.fill_uninitialized_memory = False
-    try:
+    with bitwise_training():
         makers = step_makers(pipe, towers, tokenizer)
         results = {}
         for label, (make, inputs, profiled) in makers.items():
@@ -5771,10 +5862,6 @@ def train_graphs_path(pipe: TryOnPipeline, towers: Conditioner, tokenizer,
         torch.cuda.empty_cache()
         results["inference"] = inference_programs(work, smi)
         results["cupti"] = cupti
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-        torch.use_deterministic_algorithms(False)
-        torch.utils.deterministic.fill_uninitialized_memory = fill
     log(f"phase 14: the train steps, the TPS evaluation and extraction and "
         f"the metric towers as CUDA graphs ({time.perf_counter() - t0:.1f} "
         f"s)")
@@ -5959,21 +6046,66 @@ def sd15_raw_request(spipe: TryOnPipeline, scond: Conditioner, tokenizer,
     return launches
 
 
+def sd15_train_step(vae: AutoencoderKL, scond: Conditioner, tokenizer,
+                    smi: str) -> dict:
+    """The eight-head VTO step at 512x384, batch 1 (the 31-channel SD-1.5
+    UNet trained in fp32 from phase 15's seed; ``vae``, the SD-1.5 text
+    tower and the adapter to 16 x 768 frozen in bf16) as a
+    ``TrainProgram`` against its eager body over ``TRAIN_GRAPH_STEPS``
+    steps, as phase 14's VTO batch 1 (``trajectories``): bitwise after
+    every step, the launches of a replay confirmed by the profiler.
+    Returns its numbers."""
+    cuda = torch.device("cuda")
+    text, adapter = scond.text_model, scond.adapter
+    for m in (vae, text, adapter):
+        m.requires_grad_(False)
+    empty = torch.from_numpy(tokenizer([""])[0].astype(np.int64)).cuda()
+
+    def make():
+        unet = seeded(sd15_unet, SD15_SEEDS["unet"], "cuda")
+        opt = make_optimizer(list(unet.parameters()), **TRAIN_GRAPH_LR)
+        return {"modules": {"unet": unet}, "optimizer": opt,
+                "step": make_vto_train_step(
+                    optimizer=opt,
+                    config=VTOStepConfig(num_vstar=NUM_VSTAR),
+                    autocast=lambda: precision(cuda, BF16), unet=unet,
+                    vae=vae, text_model=text, inversion_adapter=adapter,
+                    empty_prompt_ids=empty)}
+
+    inputs = train_graph_inputs(tokenizer, TRAIN_GRAPH_STEPS, 1, 1510,
+                                vto_draws)
+    with bitwise_training():
+        r = trajectories("the SD-1.5 VTO step, eight heads, batch 1", make,
+                         inputs, smi, profile=True, phase="phase 15")
+    if not all(r["same"]):
+        raise AssertionError("phase 15: the graphed SD-1.5 VTO step != its "
+                             "eager body")
+    return r
+
+
 def sd15_path(gen: Gen, pipe: TryOnPipeline, towers: Conditioner,
               tokenizer, wrappers: dict, smi: str) -> dict:
-    """Phase 15; returns the kernels' launches over its raw request."""
+    """Phase 15; returns the kernels' launches over its raw request
+    (``sd15_launches``) and over one replay of its graphed train step
+    (``sd15_train_launches``)."""
     t0 = time.perf_counter()
     spipe = sd15_pipeline(pipe)
     scond = sd15_conditioner(towers)
     check_sd15_blocks(gen, spipe, scond.text_model, tokenizer)
     sd15_graphed_request(spipe, smi)
     launches = sd15_raw_request(spipe, scond, tokenizer, wrappers, smi)
-    del spipe, scond
+    del spipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = sd15_train_step(pipe.vae, scond, tokenizer, smi)
+    del scond
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase 15: the SD-1.5 family at full width "
         f"({time.perf_counter() - t0:.1f} s)")
-    return launches
+    return {"sd15_launches": launches,
+            "sd15_train_launches": {name: train["launched"][name]
+                                    for name in wrappers}}
 
 
 def main() -> None:
@@ -6002,10 +6134,10 @@ def main() -> None:
                         "alone (its files written from freshly seeded "
                         "modules), then exit without the result lines")
     parser.add_argument("--sd15-only", action="store_true",
-                        help="phase 2's SD-1.5 K1 rows and phase 15 alone "
-                        "(the SD-1.5 family at full width, from freshly "
-                        "seeded modules), then exit without the result "
-                        "lines")
+                        help="phase 2's SD-1.5 K1 rows, K1's SD-1.5 "
+                        "gradient rows and phase 15 alone (the SD-1.5 "
+                        "family at full width, from freshly seeded "
+                        "modules), then exit without the result lines")
     parser.add_argument("--jpeg-only", action="store_true",
                         help="phase 7's JPEG decoder checks alone (no "
                         "kernel build), then exit without the result lines")
@@ -6059,13 +6191,15 @@ def main() -> None:
     if args.sd15_only:
         for shape in ATTN_SD15_SHAPES:
             attention_row(gen, *shape)
+        check_grad_rows({"flash_attention": attention_grad_rows(
+            gen, ATTN_SD15_GRAD_SHAPES)})
         pipe = full_width_pipeline()
         torch.backends.cudnn.allow_tf32 = True  # as in run_phases
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
             tokenizer = synthetic_tokenizer(pathlib.Path(work))
             towers = conditioner("cuda", (512, 384), tokenizer)
             wrappers = {name: wrapper for name, wrapper, _, _, _ in KERNELS}
-            log(f"launches during phase 15's raw request: "
+            log(f"launches during phase 15: "
                 f"{sd15_path(gen, pipe, towers, tokenizer, wrappers, smi)}")
         return
     if args.training_only:
@@ -6175,8 +6309,15 @@ def run_phases(work: pathlib.Path, gen: Gen, smi: str, checked: dict) -> dict:
         raise AssertionError(f"kernels never launched on the raw-request "
                              f"path: {missing}")
 
-    sd15_launches = sd15_path(gen, pipe, towers, tokenizer, wrappers, smi)
-    log(f"launches during phase 15's raw SD-1.5 request: {sd15_launches}")
+    sd15 = sd15_path(gen, pipe, towers, tokenizer, wrappers, smi)
+    log(f"launches during phase 15's raw SD-1.5 request: "
+        f"{sd15['sd15_launches']}; in a replay of its graphed train step: "
+        f"{sd15['sd15_train_launches']}")
+    missing = [name for name, n in sd15["sd15_train_launches"].items()
+               if not n]
+    if missing:
+        raise AssertionError(f"kernels never launched in phase 15's train "
+                             f"step: {missing}")
 
     t0 = time.perf_counter()
     zoo_launches, zpipe, zcond = zoo_path(work, pipe, cond, record, wrappers)
@@ -6221,7 +6362,7 @@ def run_phases(work: pathlib.Path, gen: Gen, smi: str, checked: dict) -> dict:
         work, {"vitonhd": work / "train_data" / "vh" / "vitonhd"}, tokenizer,
         checked, served, smi)
     log(f"launches during phase 11: {dist_launches}")
-    return {"launches": launches, "sd15_launches": sd15_launches,
+    return {"launches": launches, **sd15,
             "zoo_launches": zoo_launches,
             "mains_launches": mains_launches,
             "serve_launches": serve_launches,

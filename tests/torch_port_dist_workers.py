@@ -160,15 +160,21 @@ class _Quiet:
 
 
 def tp_runs(p: dict) -> dict:
-    """At data 1 x model 2: the tensor-parallel UNet's forward on the
-    payload's inputs, then the TP step's loss and its gradients gathered
+    """At data 1 x model ``p["model"]`` (2 by default): the
+    tensor-parallel UNet's forward on the payload's inputs, then, unless
+    ``p["step"]`` is false, the TP step's loss and its gradients gathered
     to the reference layout (lr 0, no clip)."""
-    mesh = make_mesh(MeshSpec(data=1, model=2))
+    mesh = make_mesh(MeshSpec(data=1, model=p.get("model", 2)))
     t = towers(p)
     unet = tp.unet_tp(t["unet"], mesh)
     q = unet.down_blocks[0].attentions[0].transformer_blocks[0].attn1.to_q
     with torch.no_grad():
         forward = unet(*p["forward"])
+    out = {"forward": forward, "q_shape": tuple(q.weight.shape),
+           "sharded": sorted(k for k, v in unet.named_parameters()
+                             if getattr(v, "tp_sharded", False))}
+    if not p.get("step", True):
+        return out
     opt = steps.make_optimizer(list(unet.parameters()), 0.0,
                                max_grad_norm=None, warmup_steps=0,
                                mesh=mesh)
@@ -176,10 +182,21 @@ def tp_runs(p: dict) -> dict:
     metrics = step(p["batch"], p["draws"])
     grads = tp.gather_unet_state(unet, mesh, {
         k: v.grad for k, v in unet.named_parameters()})
-    return {"forward": forward, "loss": float(metrics["loss"]),
-            "grads": grads, "q_shape": tuple(q.weight.shape),
-            "sharded": sorted(k for k, v in unet.named_parameters()
-                              if getattr(v, "tp_sharded", False))}
+    local = {k: v.grad.clone() for k, v in unet.named_parameters()
+             if not getattr(v, "tp_sharded", False)}
+    return {**out, "loss": float(metrics["loss"]), "grads": grads,
+            "replicated_grads": local}
+
+
+def dp_and_zero(p: dict, workdir: str) -> dict:
+    """``dp_grads`` then ``zero_runs`` in one rank process."""
+    return {"dp": dp_grads(p), "zero": zero_runs(p, workdir)}
+
+
+def each(target: str, calls: list) -> list:
+    """This module's ``target`` on each argument tuple of ``calls`` in
+    turn: several runs for one start-up of the ranks."""
+    return [globals()[target](*args) for args in calls]
 
 
 def single_grads(p: dict) -> dict:
