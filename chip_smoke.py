@@ -10,6 +10,8 @@
     python3 chip_smoke.py --graphs-only       # phases 12, 13 and 14
     python3 chip_smoke.py --jpeg-only         # phase 7's JPEG decoder
     python3 chip_smoke.py --sd15-only         # phase 2's SD-1.5 K1 rows, 15
+    python3 chip_smoke.py --k1-only           # phase 2's K1 rows alone
+    python3 chip_smoke.py --sweep-k1          # K1's device time per tiling
 
 Phases, each printing its numbers before the last line:
 
@@ -42,7 +44,11 @@ Phases, each printing its numbers before the last line:
    ``F.linear``, ``F.layer_norm``); K1's gradient rows include the SD-1.5
    trainers' shapes (eight heads of 40, 80 and 160,
    ``ATTN_SD15_GRAD_SHAPES``).  K1 also runs at the SD-1.5 UNet's
-   shapes (``ATTN_SD15_SHAPES``), and a call at D = 96 must raise.
+   shapes (``ATTN_SD15_SHAPES``) and at their edges
+   (``ATTN_SD15_EDGE_SHAPES``: ragged Sq and Sk, a ragged cross-attention,
+   q, k and v as strided views of one fused tensor), each K1 row printing
+   the exponentials' floor beside its bound, and a call at D = 96 must
+   raise.
    Last, K1 and K4 at the shapes a tensor-parallel UNet (model 2, batch
    4) gives them: K1 on half the heads of the SD-2 UNet's levels 1 and 2
    and its mid block, and on four of the SD-1.5 UNet's eight heads at
@@ -424,7 +430,7 @@ from ladi_vton_tpu_torch.models.vgg import VGG19Features
 from ladi_vton_tpu_torch.ops import _build
 from ladi_vton_tpu_torch.ops import layer_norm as ln
 from ladi_vton_tpu_torch.ops.attention import attention_ref
-from ladi_vton_tpu_torch.ops.flash_attention import flash_attention
+from ladi_vton_tpu_torch.ops.flash_attention import flash_attention, flash_plan
 from ladi_vton_tpu_torch.ops.geglu import (
     BLOCK_K,
     geglu,
@@ -658,12 +664,24 @@ class Gen:
         return (x * scale).to(dtype)
 
 
+# the special-function units' exponentials a second (16 a clock on each of
+# the 132 SMs: the CUDA programming guide's throughput table for compute
+# capability 9.0): K1's floor if every score's exp2 ran there
+SFU_EXP2_PER_S = 3.9e12
+
+
 def attention_row(gen: Gen, B: int, Sq: int, Sk: int, H: int,
-                  D: int) -> dict:
-    """K1 at one shape against its plain version: error, times, bound."""
-    q = gen.normal(B, Sq, H, D)
-    k = gen.normal(B, Sk, H, D)
-    v = gen.normal(B, Sk, H, D)
+                  D: int, fused: bool = False) -> dict:
+    """K1 at one shape against its plain version: error, times, bound.
+    ``fused``: q, k and v are strided views of one (B, S, 3, H, D) tensor,
+    as a fused projection gives them (self-attention)."""
+    if fused:
+        qkv = gen.normal(B, Sq, 3, H, D)
+        q, k, v = qkv.unbind(2)
+    else:
+        q = gen.normal(B, Sq, H, D)
+        k = gen.normal(B, Sk, H, D)
+        v = gen.normal(B, Sk, H, D)
     out = flash_attention(q, k, v)
     torch.cuda.synchronize()
     ref = attention_ref(q.float(), k.float(), v.float())
@@ -674,9 +692,15 @@ def attention_row(gen: Gen, B: int, Sq: int, Sk: int, H: int,
                 lambda: F.scaled_dot_product_attention(qh, kh, vh), 10, 3)
     b = bound(4.0 * B * H * Sq * Sk * D, BF16_TENSOR_FLOPS,
               nbytes(q, k, v, out))
-    r = row(f"B={B} Sq={Sq} Sk={Sk} H={H} D={D}", err, t, b)
+    shape = f"B={B} Sq={Sq} Sk={Sk} H={H} D={D}" + (" fused" if fused else "")
+    r = row(shape, err, t, b)
+    # printed beside the bound, not a measured number: kept out of the row
+    exp_floor_ms = B * H * Sq * Sk / SFU_EXP2_PER_S * 1e3
+    plan = flash_plan(D, Sq, Sk, B * H, _build.sm_count(q.device))
     log(f"K1 flash_attention {r['shape']}: max_abs_err {err:.3e} (limit "
-        f"{ATTN_LIMIT}) {describe(r, 'F.scaled_dot_product_attention')}")
+        f"{ATTN_LIMIT}) {describe(r, 'F.scaled_dot_product_attention')}; "
+        f"exp floor {exp_floor_ms:.4f} ms; plan block_q "
+        f"{plan.block_q} block_k {plan.block_k} split {plan.split}")
     if not err <= ATTN_LIMIT:
         raise AssertionError(f"flash_attention disagrees: {err}")
     return r
@@ -692,10 +716,26 @@ ATTN_SD15_SHAPES = [(4, 3072, 3072, 8, 40), (4, 3072, 77, 8, 40),
 # the same at model 2 (phase 11c's eight-head forward): four heads a rank
 ATTN_SD15_TP_SHAPES = [(B, Sq, Sk, H // 2, D)
                        for B, Sq, Sk, H, D in ATTN_SD15_SHAPES]
+# K1's edges at each SD-1.5 head dim: Sq and Sk multiples of no tile, in
+# 128-row items (B = 2) and in the split form (B = 1, an odd number of K/V
+# tiles), a ragged cross-attention (Sk = 77), and q, k, v as strided views
+# of one fused (B, S, 3, H, D) tensor; (B, Sq, Sk, H, D, fused)
+ATTN_SD15_EDGE_SHAPES = [
+    row for D in (40, 80, 160)
+    for row in ((2, 1000, 300, 8, D, False), (1, 1000, 300, 8, D, False),
+                (2, 1000, 77, 8, D, False),
+                (2, {40: 3072, 80: 768, 160: 192}[D], None, 8, D, True))]
 # K1's gradient rows at the SD-1.5 trainers' batch-1 shapes at 512x384:
 # level-0 self- and cross-attention, the self-attention of levels 1 and 2
 ATTN_SD15_GRAD_SHAPES = [(1, 3072, 3072, 8, 40), (1, 3072, 77, 8, 40),
                          (1, 768, 768, 8, 80), (1, 192, 192, 8, 160)]
+
+
+def sd15_edge_rows(gen: Gen) -> list:
+    """``ATTN_SD15_EDGE_SHAPES`` against the plain version (a fused row is
+    self-attention: Sk = Sq)."""
+    return [attention_row(gen, B, Sq, Sk or Sq, H, D, fused=fused)
+            for B, Sq, Sk, H, D, fused in ATTN_SD15_EDGE_SHAPES]
 
 
 def check_attention(gen: Gen) -> dict:
@@ -709,6 +749,7 @@ def check_attention(gen: Gen) -> dict:
               (8, 3072, 77, 5, 64), (8, 48, 48, 20, 64),
               (4, 3072, 3072, 1, 512)] + ATTN_SD15_SHAPES
     rows = [attention_row(gen, *shape) for shape in shapes]
+    rows += sd15_edge_rows(gen)
     # a head dim no configuration reaches raises on the card: nothing
     # falls back to the plain version or SDPA
     q = gen.normal(1, 128, 2, 96)
@@ -2831,6 +2872,84 @@ def metrics_path(work: pathlib.Path, roots: dict, cond: Conditioner,
     if missing:
         raise AssertionError(f"kernels never launched in phase 9: {missing}")
     return launches
+
+
+def log_nvcc(build_dir: pathlib.Path, source: str) -> None:
+    """The compiler's report (``-Xptxas -v``: registers, spills, warnings)
+    for one source, from the build's ``nvcc.log``."""
+    text = (build_dir / "nvcc.log").read_text()
+    part = [chunk for chunk in re.split(r"\n(?=\S*nvcc )", text)
+            if source in chunk.splitlines()[0]]
+    for line in (part[-1] if part else "").splitlines()[1:]:
+        if "bytes stack" in line or "Used" in line or "warning" in line \
+                or "entry function" in line:
+            log(f"nvcc {source}: {line.strip()}")
+
+
+# the SD-1.5 rows the sweep times (B, Sq, Sk, H, D)
+K1_SWEEP_SHAPES = [(4, 3072, 3072, 8, 40), (4, 3072, 77, 8, 40),
+                   (4, 768, 768, 8, 80), (4, 768, 77, 8, 80),
+                   (4, 192, 192, 8, 160), (4, 192, 77, 8, 160),
+                   (4, 48, 48, 8, 160), (4, 768, 768, 4, 80)]
+
+
+def k1_tilings(D: int) -> list:
+    """(block_q, block_k) of every D = 40, 80, 160 kernel compiled: the
+    BQ-row items against 128-row tiles, 128-row items against 80-row
+    tiles, the split form."""
+    return [(192 if D == 40 else 128, 128), (128, 80),
+            (64, 64 if D == 160 else 128)]
+
+
+def k1_launch(fn, q, k, v, out, block_q: int, block_k: int) -> None:
+    """``ladi_flash_attention_fwd`` with the given tiling (the wrapper's
+    call with another plan)."""
+    B, Sq, H, D = q.shape
+    strides = []
+    for t in (q, k, v, out):
+        sb, ss, sh, _ = t.stride()
+        strides += [sb, sh, ss]
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    B, H, Sq, k.shape[1], D, *strides, D ** -0.5, block_q,
+                    block_k, _build.stream_ptr(q)), "flash_attention")
+
+
+def sweep_k1(gen_seed: int) -> None:
+    """``--sweep-k1``: K1's device time at ``K1_SWEEP_SHAPES`` under every
+    tiling the source compiles (``k1_tilings``, the plan's marked; a CUDA
+    graph of 20 calls), each output against the plain version within
+    ``ATTN_LIMIT``, beside SDPA's.  The measurement behind
+    ``flash_plan``; ``tools/sweep_k1_measures.py`` times the softmax's
+    measures."""
+    built = _build.library()
+    gen = Gen(gen_seed)
+    for B, Sq, Sk, H, D in K1_SWEEP_SHAPES:
+        q, k, v = (gen.normal(B, S, H, D) for S in (Sq, Sk, Sk))
+        ref = attention_ref(q.float(), k.float(), v.float())
+        plan = flash_plan(D, Sq, Sk, B * H, _build.sm_count(q.device))
+        out = torch.empty_like(q)
+        cells = []
+        for block_q, block_k in k1_tilings(D):
+            def call(block_q=block_q, block_k=block_k):
+                k1_launch(built.ladi_flash_attention_fwd, q, k, v, out,
+                          block_q, block_k)
+
+            call()
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            if not err <= ATTN_LIMIT:
+                raise AssertionError(f"K1 {block_q}x{block_k} disagrees: "
+                                     f"{err}")
+            mark = "*" if (block_q, block_k) == (plan.block_q,
+                                                 plan.block_k) else ""
+            cells.append(f"{block_q}x{block_k}{mark} "
+                         f"{graph_ms(call, 20):.4f} ms")
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = graph_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh),
+                        20)
+        log(f"sweep-k1 B={B} Sq={Sq} Sk={Sk} H={H} D={D}: tilings (block_q "
+            f"x block_k, * the plan's) " + ", ".join(cells)
+            + f"; SDPA {sdpa:.4f} ms")
 
 
 def sweep_geglu_tilings() -> None:
@@ -6138,6 +6257,14 @@ def main() -> None:
                         "gradient rows and phase 15 alone (the SD-1.5 "
                         "family at full width, from freshly seeded "
                         "modules), then exit without the result lines")
+    parser.add_argument("--k1-only", action="store_true",
+                        help="phase 2's K1 rows (the SD-1.5 edges and the "
+                        "tensor-parallel shapes too) and K1's SD-1.5 "
+                        "gradient rows alone, then exit without the result "
+                        "lines")
+    parser.add_argument("--sweep-k1", action="store_true",
+                        help="time K1 at the SD-1.5 rows under every "
+                        "tiling its source compiles, then exit")
     parser.add_argument("--jpeg-only", action="store_true",
                         help="phase 7's JPEG decoder checks alone (no "
                         "kernel build), then exit without the result lines")
@@ -6170,6 +6297,9 @@ def main() -> None:
     if args.sweep_layer_norm:
         sweep_layer_norm_plans()
         return
+    if args.sweep_k1:
+        sweep_k1(gen_seed=0)
+        return
     log(f"phase 1: kernels built from ladi_vton_tpu_torch/csrc in "
         f"{build_s:.2f} s, one nvcc per source in parallel (0 = already "
         f"built for these sources); ptxas report in "
@@ -6188,9 +6318,18 @@ def main() -> None:
             train_graphs_path(pipe, towers, tokenizer, pathlib.Path(work),
                               smi)
         return
+    if args.k1_only:
+        log_nvcc(build_dir, "flash_attention.cu")
+        check_attention(gen)
+        for shape in ATTN_TP_SHAPES + ATTN_SD15_TP_SHAPES:
+            attention_row(gen, *shape)
+        check_grad_rows({"flash_attention": attention_grad_rows(
+            gen, ATTN_SD15_GRAD_SHAPES)})
+        return
     if args.sd15_only:
         for shape in ATTN_SD15_SHAPES:
             attention_row(gen, *shape)
+        sd15_edge_rows(gen)
         check_grad_rows({"flash_attention": attention_grad_rows(
             gen, ATTN_SD15_GRAD_SHAPES)})
         pipe = full_width_pipeline()

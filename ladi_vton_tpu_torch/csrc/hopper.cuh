@@ -1,21 +1,28 @@
 // Inline-PTX pieces shared by the Hopper (sm_90a) kernels under csrc/:
 // TMA tensor maps and copies, mbarriers, the wgmma shared-memory
-// descriptor with 128-byte swizzle, wgmma issue/commit/wait, and
-// setmaxnreg.  Plain PTX, no CUTLASS: each kernel source still builds in
-// seconds.
+// descriptor (128-byte swizzle unless a narrower one is asked for), wgmma
+// issue/commit/wait, and setmaxnreg.  Plain PTX, no CUTLASS: each kernel
+// source still builds in seconds.
 //
-// Layout conventions (bf16 operands, 128-byte swizzle everywhere):
+// Layout conventions (bf16 operands, 128-byte swizzle unless stated):
 // - A tile of R rows x 64 columns lands in shared memory through TMA
 //   with CU_TENSOR_MAP_SWIZZLE_128B as R rows of 128 bytes, the 16-byte
 //   chunk c of row r stored at chunk c ^ (r % 8).  Every such tile
 //   starts on a 1024-byte boundary (one 8-row swizzle atom).
+// - Narrower panels (K1 at head dims 80 and 160): R rows x 32 columns
+//   under the 64-byte swizzle (rows of 64 bytes, 8-row atoms of 512 bytes,
+//   chunk c ^ ((r / 2) % 4)) and R rows x 16 columns under the 32-byte one
+//   (rows of 32 bytes, atoms of 256); the map's swizzle and the
+//   descriptor's must agree, and a box's inner extent is the swizzle's
+//   span.
 // - K-major operand (rows are M or N, the 64 columns are K): descriptor
 //   SBO = 1024 bytes (the next 8-row group), LBO unused; the k-th
 //   16-wide step starts 32 * k bytes into the tile.
 // - MN-major operand (rows are K, the 64 columns are N; trans-b = 1):
 //   SBO = 1024 bytes (the next 8 K rows), LBO = the byte distance
 //   between 64-column panels; the k-th 16-deep step starts 2048 * k
-//   bytes into each panel.
+//   bytes into each panel.  Under the narrower swizzles SBO is 8 rows'
+//   bytes (512, 256) and a 16-deep step twice that.
 // - The fp32 accumulator of an m64nN tile: thread t of the warpgroup
 //   holds rows 16 * (t / 32) + (t % 32) / 4 and that + 8; register
 //   4 * j + e (e in 0..3) is column 8 * j + 2 * (t % 4) + (e & 1) of the
@@ -60,12 +67,14 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // A bf16 tensor map of `rank` dimensions (innermost first): dims in
-// elements, strides in bytes for dims 1.., box in elements, 128-byte
-// swizzle, zero fill out of bounds.  The box's inner extent must be 64
-// (128 bytes).
-inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
-                            const uint64_t* dims, const uint64_t* strides,
-                            const uint32_t* box) {
+// elements, strides in bytes for dims 1.., box in elements, zero fill out
+// of bounds.  The box's inner extent must be the swizzle's span: 64
+// elements (128 bytes) under the default 128-byte swizzle, 32 under the
+// 64-byte one, 16 under the 32-byte one.
+inline cudaError_t make_map(
+    CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+    const uint64_t* strides, const uint32_t* box,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return cudaErrorNotSupported;
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
@@ -74,7 +83,7 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int rank,
                   reinterpret_cast<const cuuint64_t*>(dims),
                   reinterpret_cast<const cuuint64_t*>(strides),
                   reinterpret_cast<const cuuint32_t*>(box), elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -188,6 +197,12 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
+// arrive at named barrier `id` without waiting: the threads that sync on
+// it wait for these `count` - their own
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
 // register reallocation between warpgroups
 template <int N>
 __device__ __forceinline__ void reg_alloc() {
@@ -201,14 +216,20 @@ __device__ __forceinline__ void reg_dealloc() {
 
 // wgmma
 
-// descriptor of a 128-byte-swizzled operand tile in shared memory
+// the descriptor's swizzle modes (bits 62-63), each matching the tensor
+// map's CU_TENSOR_MAP_SWIZZLE_128B, _64B, _32B
+constexpr uint32_t kSwizzle128 = 1, kSwizzle64 = 2, kSwizzle32 = 3;
+
+// descriptor of a swizzled operand tile in shared memory (128-byte
+// swizzle unless another mode is given)
 __device__ __forceinline__ uint64_t desc(const void* tile, uint32_t lbo,
-                                         uint32_t sbo) {
+                                         uint32_t sbo,
+                                         uint32_t swizzle = kSwizzle128) {
   const uint32_t addr = smem_addr(tile);
   uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
   d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
   d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
-  d |= (uint64_t)1 << 62;  // 128-byte swizzle
+  d |= (uint64_t)swizzle << 62;
   return d;
 }
 
@@ -497,5 +518,121 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
         "r"(scale_d), "n"(TRANS_B));
 }
 
+// D[64 x 80] (+)= A[64 x 16] * B[16 x 80], A and B from shared memory
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss(float (&d)[40], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, 0, %43;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+}
+
+// D[64 x 16] (+)= A[64 x 16] * B[16 x 16], A from registers (four
+// bf16x2 per thread, the accumulator layout of a 64 x 16 tile)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d), "n"(TRANS_B));
+}
+
+// D[64 x 32] (+)= A[64 x 16] * B[16 x 32], A from registers (four
+// bf16x2 per thread, the accumulator layout of a 64 x 16 tile)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d), "n"(TRANS_B));
+}
+
+// D[64 x 40] (+)= A[64 x 16] * B[16 x 40], A from registers (four
+// bf16x2 per thread, the accumulator layout of a 64 x 16 tile)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[20],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1, %26;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d), "n"(TRANS_B));
+}
+
+// D[64 x 128] (+)= A[64 x 16] * B[16 x 128], A from registers (four
+// bf16x2 per thread, the accumulator layout of a 64 x 16 tile)
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d), "n"(TRANS_B));
+}
 
 }  // namespace hopper

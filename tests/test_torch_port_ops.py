@@ -7,8 +7,13 @@ the port side is what a CPU tensor takes, the plain PyTorch version.
 Each tolerance is stated where it is used.
 """
 
+import functools
 import math
 import re
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -36,9 +41,11 @@ from ladi_vton_tpu_torch.models.layers import LayerNorm, timestep_embedding
 from ladi_vton_tpu_torch.ops import _build
 from ladi_vton_tpu_torch.ops.attention import dot_product_attention
 from ladi_vton_tpu_torch.ops.flash_attention import (
+    ACC_REG_RESERVE,
     flash_attention,
-    flash_tiling,
+    flash_plan,
 )
+from ladi_vton_tpu_torch.ops.flash_attention import SMEM_LIMIT as K1_SMEM
 from ladi_vton_tpu_torch.ops.geglu import (
     BLOCK_K,
     geglu,
@@ -106,27 +113,211 @@ def test_attention_matches_pallas_flash_and_xla(sq, sk, heads, d):
     np.testing.assert_allclose(ours, pallas, rtol=1e-5, atol=1e-5)
 
 
-def test_flash_tiling_fits_each_head_dim():
-    # D = 64: two 64-row consumers, 128-row K/V tiles
-    assert flash_tiling(64) == (128, 128)
-    # D = 512: Q (64 rows) + two K/V stages + the fp32 partial-score swap
-    # (2 parities x 2 warpgroups x 64 x block_k) in 227 KB of shared memory
-    block_q, block_k = flash_tiling(512)
-    assert block_q == 64
-    smem = block_q * 512 * 2 + 2 * 2 * block_k * 512 * 2 + 4 * 64 * block_k * 4
-    assert smem <= 227 * 1024
-    # D = 40, 80, 160: D padded to 64-column panels (1, 2, 3); a two-stage
-    # Q ring of 128 rows and a K/V ring of three stages (one panel) or two
-    for d, panels in ((40, 1), (64, 1), (80, 2), (160, 3)):
-        block_q, block_k = flash_tiling(d)
-        assert block_q == 128 and block_k == (64 if panels == 3 else 128)
-        row = 128 * panels  # bytes of a padded bf16 row
-        stages = 3 if panels == 1 else 2
-        smem = 2 * block_q * row + stages * 2 * block_k * row
-        assert smem <= 227 * 1024
-    for d in (32, 96, 128):
+def _extract(src: str, pattern: str) -> str:
+    found = re.findall(pattern, src, flags=re.S | re.M)
+    assert len(found) == 1, pattern
+    return found[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_tilings() -> dict:
+    """Each tiling K1's source launches, with the constants the source
+    computes for it, keyed (head dim, block_q, block_k): ``Cols`` and
+    ``Fit`` at every (BK, BQ) that ``small<D>`` dispatches (D = 40, 80,
+    160), ``Panels<64>`` and ``d512``, compiled from
+    ``csrc/flash_attention.cu`` with the host C++ compiler (the swizzle
+    modes stood in by their spans in bytes)."""
+    src = (Path(_build.CSRC) / "flash_attention.cu").read_text()
+    structs = "\n".join(_extract(src, pattern) for pattern in (
+        r"^constexpr int kSmemLimit = [^\n]*",
+        r"^constexpr int up1024\([^\n]*",
+        r"^template <int D>\nstruct Panels \{.*?^\};",
+        r"^namespace d512 \{.*?^\}  // namespace d512",
+        r"^template <int D>\nstruct Cols \{.*?^\};",
+        r"^template <int D, int BK, int BQ>\nstruct Fit \{.*?^\};"))
+    small = _extract(src, r"^int small\(.*?^\}")
+    consts = "\n".join(re.findall(r"^\s*constexpr int \w+ = [^\n]*", small,
+                                  flags=re.M))
+    launches = re.findall(r"small_launch<D, (\w+), (\w+)>", small)
+    assert len(launches) == 3, launches
+    shows = " ".join(f"show<D, {bk}, {bq}>();" for bk, bq in launches)
+    program = f"""#include <cstdint>
+#include <cstdio>
+constexpr uint32_t kSwizzle128 = 128, kSwizzle64 = 64, kSwizzle32 = 32;
+{structs}
+template <int D, int BK, int BQ> void show() {{
+  using L = Fit<D, BK, BQ>;
+  using C = Cols<D>;
+  std::printf("%d %d %d %d %d %d %d %d %d %d %d %d %d %d\\n", D, BQ, BK,
+              C::NP, C::LAST, (int)C::LAST_SWIZZLE, C::N0, C::N1, L::QST,
+              L::ST, L::SMEM, L::CONSUMER_REGS, L::ACC_REGS, (int)L::SPLIT);
+}}
+template <int D> void tilings() {{
+{consts}
+  {shows}
+}}
+int main() {{
+  tilings<40>(); tilings<80>(); tilings<160>();
+  using P = Panels<64>;
+  std::printf("64 %d %d %d %d\\n", P::BQ, P::BK, P::QST, P::ST);
+  std::printf("%d\\n", P::SMEM);
+  std::printf("512 %d %d %d\\n", d512::BQ, d512::BK, d512::ST);
+  std::printf("%d\\n", d512::SMEM);
+}}
+"""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    with tempfile.TemporaryDirectory() as tmp:
+        (Path(tmp) / "fit.cpp").write_text(program)
+        subprocess.run([cxx, "-std=c++17", "-o", f"{tmp}/fit", f"{tmp}/fit.cpp"],
+                       check=True)
+        lines = subprocess.run([f"{tmp}/fit"], check=True, capture_output=True,
+                               text=True).stdout.split("\n")
+    fields = ("panels", "swizzles", "pv_widths", "q_stages", "kv_stages",
+              "smem", "consumer_regs", "acc_regs", "split")
+    out = {}
+    for line in lines[:9]:
+        (d, bq, bk, np_, last, swizzle, n0, n1, qst, st, smem, regs, acc,
+         split) = map(int, line.split())
+        out[d, bq, bk] = dict(zip(fields, (
+            (64,) * (np_ - 1) + (last,), (128,) * (np_ - 1) + (swizzle,),
+            tuple(n for n in (n0, n1) if n), qst, st, smem, regs, acc,
+            bool(split))))
+    d, bq, bk, qst, st = map(int, lines[9].split())
+    out[d, bq, bk] = {"q_stages": qst, "kv_stages": st,
+                      "smem": int(lines[10])}
+    d, bq, bk, st = map(int, lines[11].split())
+    out[d, bq, bk] = {"kv_stages": st, "smem": int(lines[12])}
+    return out
+
+
+# (B * H, Sq, Sk) of the SD-2 and SD-1.5 UNets' calls at batch 4 (eight
+# and four heads, self- and cross-attention), the trainers' batch 1, a
+# ragged shape and the VAE's single head
+PLAN_SHAPES = [(32, 3072, 3072), (32, 3072, 77), (32, 768, 768),
+               (16, 768, 768), (32, 768, 77), (32, 192, 192), (16, 192, 192),
+               (32, 48, 48), (32, 48, 77), (8, 3072, 3072), (8, 768, 768),
+               (8, 192, 192), (16, 1000, 300), (8, 1000, 300), (1, 3072, 3072),
+               (20, 3072, 3072)]
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160, 512])
+def test_flash_tiling_fits_each_head_dim(d):
+    for bh, sq, sk in PLAN_SHAPES:
+        plan = flash_plan(d, sq, sk, bh)
+        assert plan.head_dim == d
+        # every product's N is a legal wgmma N: the S tile (block_k), P V's
+        # products, each panel (a K-major k-step reads 16 of its columns)
+        for n in (plan.block_k, *plan.pv_widths, *plan.panels):
+            assert n % 8 == 0 and 8 <= n <= 256, (d, n)
+        assert plan.panels[0] == 64 and sum(plan.panels) >= d
+        # P V at N = D (at D = 512 each consumer's half of D)
+        assert sum(plan.pv_widths) == (d // 2 if d == 512 else d)
+        # a TMA box's inner bytes are its swizzle's span
+        assert plan.swizzles == tuple(2 * w for w in plan.panels)
+        assert all(s in (32, 64, 128) for s in plan.swizzles)
+        # the rings (and D = 512's exchange, the split form's) fit 227 KB
+        row = 2 * sum(plan.panels)
+        rings = (plan.q_stages * plan.block_q * row
+                 + 2 * plan.kv_stages * plan.block_k * row)
+        assert rings < plan.smem <= K1_SMEM == 227 * 1024
+        assert plan.kv_stages >= (3 if plan.split else 2)
+        # a tiling the source launches, each number as the source has it
+        source = _kernel_tilings()[d, plan.block_q, plan.block_k]
+        assert {k: getattr(plan, k) for k in source} == source
+        # S, O and the packed P fit a consumer thread's registers: 232
+        # beside one other consumer, 160 beside two (with the producer's
+        # 32: 128 * 32 + 384 * 160 = 64K)
+        consumers = 2 if plan.split or d == 512 else plan.block_q // 64
+        assert plan.consumer_regs == {2: 232, 3: 160}[consumers]
+        assert plan.acc_regs + ACC_REG_RESERVE <= plan.consumer_regs
+        if d in (64, 512):  # one tiling each, whatever the shape
+            assert plan == flash_plan(d, 1, 1)
+            continue
+        assert plan.pv_widths == {40: (40,), 80: (64, 16),
+                                  160: (128, 32)}[d]
+        # the 77-token context takes one 80-column key tile, unless the
+        # split form's 64-row items fill more SMs
+        assert plan.block_k == (80 if sk <= 80 and not plan.split else
+                                64 if d == 160 and plan.split else 128)
+        # three consumers of 64 q rows at D = 40 against 128-row K/V tiles
+        assert plan.block_q == (64 if plan.split else 192 if d == 40
+                                and plan.block_k == 128 else 128)
+        if sk == 77 and (d, sq) in ((40, 3072), (80, 768)):
+            assert plan.block_k == 80  # the path's cross-attention
+    # the split form where 128-row items leave SMs idle: eight heads at
+    # S = 768 (192 items on 132 SMs), D = 160 at S = 192; not at S = 3072
+    # (D = 40's 192-row items: 512 at batch 4, 128 at batch 1) nor at
+    # S = 768 with four heads (96 items: one round)
+    expect = {40: (False, False, False), 80: (True, False, True),
+              160: (True, True, True)}.get(d)
+    if d == 160:  # S = 192 and 48, Sk = 77 and 48: 64-row items
+        assert all(flash_plan(160, sq, sk, 32).split
+                   for sq, sk in ((192, 77), (48, 48), (48, 77)))
+    if expect:
+        assert tuple(flash_plan(d, sq, sk, bh).split for bh, sq, sk in
+                     ((32, 768 if d != 40 else 3072, 768 if d != 40 else 3072),
+                      (16, 192 if d == 160 else 768,
+                       192 if d == 160 else 768),
+                      (8, 3072 if d == 40 else 768,
+                       3072 if d == 40 else 768))) == expect
+    for bad in (32, 96, 128):
         with pytest.raises(ValueError, match="head dim"):
-            flash_tiling(d)
+            flash_plan(bad, 256, 256)
+
+
+def _kernel_constants() -> dict:
+    """The FMA exp2's constants as ``csrc/flash_attention.cu`` states them
+    (C hex floats, and its share of 16)."""
+    src = (Path(_build.CSRC) / "flash_attention.cu").read_text()
+    consts = {name: float.fromhex(value) if "0x" in value else float(value)
+              for name, value in re.findall(
+                  r"constexpr float (kExp2\w+) = ([-+0-9a-fA-Fx.p]+)f;", src)}
+    share = re.search(r"constexpr int kPolyShare = (\d+);", src)
+    consts["share"] = int(share.group(1))
+    return consts
+
+
+def _poly_exp2(x: torch.Tensor, c: dict) -> torch.Tensor:
+    """The kernel's poly_exp2 in float32 on the CPU: clamp, floor by the
+    shift (an add rounded down gives floor(x) + shift exactly), fraction,
+    Horner by fused multiply-adds (one rounding each), the floor shifted
+    into the exponent field."""
+    f32 = torch.float32
+
+    def fma(a, b, k):
+        return (a.double() * b.double() + k.double()).to(f32)
+
+    x = torch.clamp(x, min=c["kExp2Min"])
+    t = torch.floor(x) + torch.tensor(c["kExp2Shift"], dtype=f32)
+    f = x - (t - torch.tensor(c["kExp2Shift"], dtype=f32))
+    p = torch.full_like(f, c["kExp2C3"])
+    for k in (c["kExp2C2"], c["kExp2C1"], 1.0):
+        p = fma(p, f, torch.full_like(f, k))
+    shift = (t - c["kExp2Shift"]).to(torch.int32) << 23
+    return (p.view(torch.int32) + shift).view(f32)
+
+
+def test_fma_exp2_matches_exp2():
+    c = _kernel_constants()
+    assert set(c) == {"kExp2C1", "kExp2C2", "kExp2C3", "kExp2Shift",
+                      "kExp2Min", "share"}
+    assert c["kExp2Shift"] == 1.5 * 2 ** 23 and c["kExp2Min"] == -127.0
+    # a share of 16 exponentials, some on each pipe
+    assert 0 < c["share"] < 16
+    rng = np.random.default_rng(3)
+    x = np.concatenate([np.linspace(-126.0, 0.0, 1_000_001),
+                        -rng.random(200_000) * 2.0,
+                        -rng.random(200_000) * 126.0,
+                        [0.0, -1e-30, -126.0, -0.5, -1.0]]).astype(np.float32)
+    got = _poly_exp2(torch.from_numpy(x), c).double().numpy()
+    ref = np.exp2(x.astype(np.float64))
+    rel = np.abs(got - ref) / ref
+    # the bound the design states: far under bf16's half ulp of 2^-9
+    assert rel.max() < 2.0 ** -12, rel.max()
+    # a masked column (-inf) gives +0 exactly, as ex2.approx does
+    inf = _poly_exp2(torch.tensor([-np.inf, -200.0], dtype=torch.float32), c)
+    assert inf.tolist() == [0.0, 0.0]
+    assert not torch.signbit(inf).any()
 
 
 def test_causal_attention_matches_xla():
