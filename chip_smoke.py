@@ -191,10 +191,17 @@ Phases, each printing its numbers before the last line:
    each UNet part's reduced gradient within stated limits, and the same
    step with the gradient ``all_reduce`` left out (a planted fault)
    outside the gradient's limit; then under ZeRO-1, its updates bitwise
-   the unsharded ones and each rank holding half of the AdamW state;
-   step seconds and peak memory a rank.
-   (b) one rank over NCCL: the step over its group of one bitwise the
-   step without a group.  (c) data 1 x model 2: the tensor-parallel UNet
+   the unsharded ones and each rank holding half of the AdamW state.
+   Each form runs four steps graphed (the real step, then the capture of
+   its two stages, the gradients' and the update's, with the collectives
+   eager between and after them; then replays), which must be bitwise
+   the same steps through ``run_eager`` and launch the same kernels;
+   step, warm-up and capture seconds, peak memory and the graphs' pool
+   a rank.
+   (b) one rank over NCCL: four steps of the staged program over its
+   group of one bitwise four graphed steps without a group; their
+   replays beside the same program's stages run eagerly.  (c) data 1 x
+   model 2: the tensor-parallel UNet
    forward (batch 4, 64x48 latents) against the unsharded one, each of
    the two also against an fp32 CPU forward of the same weights, and the
    forward with ``reduce_from_model`` left out (a planted fault) outside
@@ -204,12 +211,14 @@ Phases, each printing its numbers before the last line:
    holds four heads a rank, held to its own fp32 CPU forward; one
    tensor-parallel step's loss and
    its gradient, gathered to the reference layout, by UNet part against
-   (a)'s.  (d) the mains over two ranks, one step each: ``train_vto
-   --shard_optimizer_states``, the peak memory of each rank,
-   its consolidated checkpoint included, below (a)'s unsharded step's
-   (the resume of a ZeRO-1 checkpoint into the sharded optimizer runs on
-   the card in (e)'s phase 2);
-   ``train_vto --tensor_parallel 2``, its gathered ``unet_1.pth``
+   (a)'s; the step runs eagerly and says why.  (d) the mains over two
+   ranks: ``train_vto --shard_optimizer_states`` two steps (the second
+   replays the first's graphs, as its log says), the peak memory of each
+   rank, its consolidated checkpoint included, below (a)'s unsharded
+   step's (the resume of a ZeRO-1 checkpoint into the sharded optimizer
+   runs on the card in (e)'s phase 2);
+   ``train_vto --tensor_parallel 2`` one step, eager as its log says,
+   its gathered ``unet_1.pth``
    loaded through the zoo; ``cli.inference`` over phase 7's VITON-HD
    split against phase 7's images.  (e) ``dryrun_multichip(2)`` on the
    card, every kernel launched in its tensor-parallel step.  (f)
@@ -222,9 +231,10 @@ Phases, each printing its numbers before the last line:
    exit 0.  (d)'s ``cli.inference``, (e) and (f), ranks alone, start
    before phase 10 and run beside its mains (``ServedLane``); after phase
    10 and the one-process references, the rest runs in stages of jobs
-   that fit on the card together (``DIST_STAGES``): (a) beside (b), the
-   ZeRO-1 ``train_vto`` beside (c), then the tensor-parallel one (each
-   trainer writes a 10.5 GB checkpoint);
+   that fit on the card together (``DIST_STAGES``): (a) beside (b) and,
+   once (a)'s ranks have ended their data-parallel form and (b) has
+   ended, the tensor-parallel ``train_vto``; then the ZeRO-1 one beside
+   (c) (each trainer writes a 10.5 GB checkpoint);
 12. the sampler as CUDA graphs (``TryOnPipeline.jit_sample``; run right
    after phase 3, on phase 4's full-width modules at 512x384 and CFG
    7.5): each mode (``split=False``; ``split=True`` with ``"scan"`` and
@@ -3655,6 +3665,9 @@ TP_FORWARD_LIMIT = BLOCK_LIMIT
 DIST_IMAGE_LIMIT = IMAGE_MEAN_LIMIT
 DIST_TIMEOUT_S = 600
 DIST_BATCH = 2
+# phase 11a's and 11b's steps a run: the first eager, then captured; the
+# others replays
+DIST_STEPS = 4
 TP_FORWARD = (4, 64, 48)  # batch, latent height and width
 UNET_PARTS = ("conv_in", "time_embedding", "down_blocks", "mid_block",
               "up_blocks", "conv_norm_out", "conv_out")
@@ -3790,14 +3803,76 @@ def dist_reference(work: pathlib.Path, tokenizer) -> dict:
     return {"loss": loss}
 
 
+def run_steps(step, batch: dict, draws: dict, wrappers: dict,
+              eager: bool = False, first=None) -> dict:
+    """``DIST_STEPS`` calls of a train program on the same rows (through
+    ``run_eager`` where ``eager``), ``first()`` after the first: each
+    step's loss, seconds (host clock, synchronised) and launches."""
+    call = step.run_eager if eager else step
+    out = {"losses": [], "seconds": [], "launches": []}
+    for i in range(DIST_STEPS):
+        reset_counts(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["losses"].append(call(batch, draws)["loss"])
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["launches"].append(main_counts(wrappers))
+        if i == 0 and first is not None:
+            first()
+    return out
+
+
+def graphed_run(step, batch: dict, draws: dict, wrappers: dict,
+                first=None) -> dict:
+    """``run_steps`` of a graphed program: with how it ran (graphed,
+    staged, ``eager_reason``), its warm-up's and capture's seconds and
+    its graphs' pool."""
+    r = run_steps(step, batch, draws, wrappers, first=first)
+    (captured,) = step.sets.values()
+    r.update(graphed=step.graphed, staged=step.seams is not None,
+             eager_reason=step.eager_reason,
+             warmup_s=captured.warmup_seconds,
+             capture_s=captured.capture_seconds,
+             pool_gib=pool_gib(captured.pool))
+    return r
+
+
+def release() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def reset_unet(towers: dict, start: dict) -> dict:
+    """``towers`` with the UNet's parameters back at ``start`` (its host
+    copy) and no gradients: the seeded state, without building the towers
+    again."""
+    unet = towers["unet"]
+    unet.load_state_dict(start)
+    for p in unet.parameters():
+        p.grad = None
+    return towers
+
+
+def same_losses(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def dp_rank(work: str) -> dict:
-    """Phase 11a on each of two ranks: two data-parallel steps (one row of
-    the global batch a rank), then the same two under ZeRO-1 from the same
-    state; the first step's loss and the cosine of its reduced gradient by
-    part against the one process's, whether ZeRO-1's updates are bitwise
-    the unsharded ones, the AdamW elements held, each step's seconds, peak
-    memory and the second step's launches; then a planted fault, the first
-    step with the gradient ``all_reduce`` left out, and its cosines."""
+    """Phase 11a on each of two ranks (one row of the global batch a
+    rank), under ``bitwise_training``: for each form, data-parallel then
+    ZeRO-1, ``DIST_STEPS`` steps of the program (``graphed_run``: the
+    first the real step, then the capture of its two stages; the others
+    replays), then the same steps through ``run_eager`` from the same
+    state.  The first step's loss and the cosine of its reduced gradient
+    by part against the one process's; whether each form's losses and
+    parameters are bitwise its eager run's, and ZeRO-1's the unsharded
+    ones; the AdamW elements held; each step's seconds and launches, the
+    peak and the graphs' pool (``DP_FORM_DONE`` touched once the
+    data-parallel form has ended); then a planted fault, the first step with
+    the gradient ``all_reduce`` left out (the staged program's stages run
+    eagerly, as its first call runs them, without the capture), and its
+    cosines."""
     from ladi_vton_tpu_torch.core.mesh import MeshSpec, make_mesh, shard_batch
 
     dev = rank_setup()
@@ -3809,44 +3884,65 @@ def dp_rank(work: str) -> dict:
     draws = on_card({k: v[rows] for k, v in inputs["draws"].items()}, dev)
     wrappers = {name: fn for name, fn, _, _, _ in KERNELS}
     ref = torch.load(work / "reference.pt", weights_only=True)["grads"]
-    out = {}
-    for zero in (False, True):
-        torch.cuda.reset_peak_memory_stats()
-        towers = dist_towers(dev)
-        opt, step = dist_step(towers, inputs, dev, mesh, zero)
-        tag = "zero1" if zero else "dp"
-        seconds, losses = [], []
-        for i in range(2):
-            reset_counts(wrappers)
-            t0 = time.perf_counter()
-            losses.append(float(step(batch, draws)["loss"]))
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-            if i == 0 and not zero:
-                out["cosine"] = cosines(unet_grads(towers["unet"]), ref)
-        out[tag] = {"loss": losses[0], "seconds": seconds,
-                    "peak_gib": peak_gib(), "launches": main_counts(wrappers),
-                    "adam_numel": opt.local_state_numel(),
-                    "eager_reason": step.eager_reason}
-        if zero:
-            out["zero1_bitwise"] = same_params(updated,
-                                               host_params(towers["unet"]))
-        else:
-            updated = host_params(towers["unet"])
-        del towers, opt, step
-        torch.cuda.empty_cache()
     towers = dist_towers(dev)
-    _, step = dist_step(towers, inputs, dev, mesh)
-    with planted(steps_mod, "reduce_gradients", lambda params, mesh: None):
-        step(batch, draws)
-    out["fault_cosine"] = cosines(unet_grads(towers["unet"]), ref)
+    start = host_params(towers["unet"])
+    out = {}
+
+    def first() -> None:
+        out["cosine"] = cosines(unet_grads(towers["unet"]), ref)
+
+    with bitwise_training():
+        for zero in (False, True):
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            opt, step = dist_step(reset_unet(towers, start), inputs, dev,
+                                  mesh, zero)
+            r = graphed_run(step, batch, draws, wrappers,
+                            None if zero else first)
+            r.update(peak_gib=peak_gib(), adam_numel=opt.local_state_numel())
+            params = host_params(towers["unet"])
+            del opt, step
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            step = dist_step(reset_unet(towers, start), inputs, dev, mesh,
+                             zero)[1]
+            eager = run_steps(step, batch, draws, wrappers, eager=True)
+            r.update(eager_seconds=eager["seconds"],
+                     eager_launches=eager["launches"],
+                     eager_peak_gib=peak_gib(),
+                     bitwise_eager=same_losses(r["losses"], eager["losses"])
+                     and same_params(params, host_params(towers["unet"])))
+            del step
+            if zero:
+                out["zero1_bitwise"] = (
+                    same_params(updated, params)
+                    and same_losses(out["dp"]["losses"], r["losses"]))
+            else:
+                updated = params
+                release()
+                (work / f"{DP_FORM_DONE}.{mesh.data_index}").touch()
+            out["zero1" if zero else "dp"] = r
+        del updated, params
+        release()
+        step = dist_step(reset_unet(towers, start), inputs, dev, mesh)[1]
+        with planted(steps_mod, "reduce_gradients",
+                     lambda params, mesh: None):
+            step.run_eager(batch, draws)
+        out["fault_cosine"] = cosines(unet_grads(towers["unet"]), ref)
+    for tag in ("dp", "zero1"):
+        out[tag]["losses"] = [float(x) for x in out[tag]["losses"]]
     return out
 
 
 def nccl_rank(work: str) -> dict:
-    """Phase 11b on one rank over NCCL: the step without a mesh, then over
-    the NCCL group of one rank (its ``all_reduce`` runs), from the same
-    state; whether the losses and the updated UNets are bitwise equal."""
+    """Phase 11b on one rank over NCCL, under ``bitwise_training``:
+    ``DIST_STEPS`` graphed steps without a mesh, then as many of the
+    staged program over the NCCL group of one rank (its ``all_reduce``
+    and the metrics' mean run) from the same state, then, its graphs
+    dropped, as many of that program's stages run eagerly over the same
+    group; whether the two graphed runs' losses and updated UNets are
+    bitwise equal, each run's step seconds, warm-up and capture seconds,
+    peak memory and the graphs' pool."""
     import torch.distributed as dist
 
     from ladi_vton_tpu_torch.core.mesh import MeshSpec, make_mesh
@@ -3855,18 +3951,32 @@ def nccl_rank(work: str) -> dict:
     inputs = torch.load(pathlib.Path(work) / "inputs.pt", weights_only=True)
     batch = on_card(inputs["batch"], dev)
     draws = on_card(inputs["draws"], dev)
-    results = []
-    for mesh in (None, make_mesh(MeshSpec())):
-        towers = dist_towers(dev)
-        _, step = dist_step(towers, inputs, dev, mesh)
-        loss = float(step(batch, draws)["loss"])
-        results.append((loss, host_params(towers["unet"])))
-        del towers, step
-        torch.cuda.empty_cache()
+    wrappers = {name: fn for name, fn, _, _, _ in KERNELS}
+    towers = dist_towers(dev)
+    start = host_params(towers["unet"])
+    runs, params = {}, {}
+    with bitwise_training():
+        for label, mesh in (("single", None), ("nccl", make_mesh(MeshSpec()))):
+            torch.cuda.reset_peak_memory_stats()
+            step = dist_step(reset_unet(towers, start), inputs, dev, mesh)[1]
+            r = graphed_run(step, batch, draws, wrappers)
+            r["peak_gib"] = peak_gib()
+            params[label] = host_params(towers["unet"])
+            if mesh is not None:
+                step.sets.clear()
+                release()
+                r["eager_seconds"] = run_steps(step, batch, draws, wrappers,
+                                               eager=True)["seconds"]
+            del step
+            release()
+            runs[label] = r
+    bitwise = (same_params(params["single"], params["nccl"])
+               and same_losses(runs["single"]["losses"],
+                               runs["nccl"]["losses"]))
+    for r in runs.values():
+        r["losses"] = [float(x) for x in r["losses"]]
     return {"backend": dist.get_backend(), "world": dist.get_world_size(),
-            "loss": results[1][0],
-            "bitwise": results[0][0] == results[1][0]
-            and same_params(results[0][1], results[1][1])}
+            "runs": runs, "bitwise": bitwise}
 
 
 # phase 11c's two UNets: name -> (factory, seed, context width); the
@@ -3998,7 +4108,8 @@ def tp_rank(work: str) -> dict:
                              on_card(inputs["draws"], dev))["loss"])
     torch.cuda.synchronize()
     out.update(step_seconds=time.perf_counter() - t0, peak_gib=peak_gib(),
-               step_launches=main_counts(wrappers))
+               step_launches=main_counts(wrappers),
+               eager_reason=step.eager_reason)
     grads = tp.gather_unet_state(towers["unet"], mesh,
                                  unet_grads(towers["unet"]))
     out["cosine"] = cosines(grads, torch.load(
@@ -4091,22 +4202,51 @@ def distributed_only(work: pathlib.Path, checked: dict, smi: str) -> dict:
                             smi)
 
 
+# what phase 11d's trainers must log about their step
+TRAIN_STEP_LOG = {"zero1": "graphed on cuda:0: two graphs a batch shape",
+                  "tp": "runs eagerly on cuda:0: a mesh of 1 x 2 ranks"}
+
+
+def step_log_line(path: pathlib.Path) -> str:
+    """A rank's line on how its train step runs (``TrainProgram``), or
+    "" where it logged none."""
+    for line in path.read_text(errors="replace").splitlines():
+        if "the train step " in line:
+            return line.split(" - ")[-1]
+    return ""
+
+
+def staged_only(work: pathlib.Path, smi: str) -> None:
+    """``--staged-only``: phase 11a's one-process reference, then 11a and
+    11b."""
+    t0 = time.perf_counter()
+    tokenizer = synthetic_tokenizer(work / "tokenizer")
+    out = work / "dist"
+    out.mkdir()
+    ref = dist_reference(out, tokenizer)
+    launches = dp_steps(out, ref, {}, smi)
+    add_launches(launches, nccl_step(out, smi))
+    log(f"phases 11a and 11b: launches {launches} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
 def dist_mains(work: pathlib.Path, train_roots: dict, out: pathlib.Path,
                smi: str, which: str) -> tuple:
-    """Phase 11d's trainer runs, two ranks with torchrun's variables, one
-    step each (11a holds ZeRO-1 over two); (the launches summed
-    over the ranks, each rank's peak GiB).  ``which`` "zero1":
-    ``cli.train_vto --shard_optimizer_states``, its consolidated
-    checkpoint written at the end (phase 11 holds each rank's peak, the
-    checkpoint included, below phase 11a's unsharded step's); "tp":
-    ``cli.train_vto --tensor_parallel 2``, its gathered ``unet_1.pth``
-    loaded through the zoo."""
+    """Phase 11d's trainer runs, two ranks with torchrun's variables; (the
+    launches summed over the ranks, each rank's peak GiB).  ``which``
+    "zero1": ``cli.train_vto --shard_optimizer_states``, two steps (the
+    first the real step and the capture of its two stages, the second a
+    replay), its consolidated checkpoint written at the end (phase 11
+    holds each rank's peak, the checkpoint included, below phase 11a's
+    unsharded step's); "tp": ``cli.train_vto --tensor_parallel 2``, one
+    step, eager, its gathered ``unet_1.pth`` loaded through the zoo.
+    Each rank's log must say how its step ran: graphed in two stages, or
+    eagerly and why (``TRAIN_STEP_LOG``)."""
     sd2 = work / "sd2"
     vto = ["--dataset", "vitonhd", "--vitonhd_dataroot",
            str(train_roots["vitonhd"]), "--sd2_model_dir", str(sd2),
            "--train_batch_size", str(DIST_BATCH), "--test_batch_size", "1",
            "--num_workers", "2", "--num_workers_test", "2",
-           "--max_train_steps", "1", "--checkpointing_steps", "1",
            "--lr_warmup_steps", "0",
            "--report_to", "none", "--test_order", "paired", "--seed", "9",
            "--device", "cuda", "--dist_backend", "gloo",
@@ -4117,15 +4257,19 @@ def dist_mains(work: pathlib.Path, train_roots: dict, out: pathlib.Path,
     runs = out / "mains"
     target = runs / which
     if which == "zero1":
-        label, flags = ("train_vto --shard_optimizer_states",
-                        ["--shard_optimizer_states"])
+        label, flags, n = ("train_vto --shard_optimizer_states",
+                           ["--shard_optimizer_states"], 2)
     else:
-        label, flags = ("train_vto --tensor_parallel 2",
-                        ["--tensor_parallel", "2"])
-    argv = vto + flags + ["--output_dir", str(target)]
+        label, flags, n = ("train_vto --tensor_parallel 2",
+                           ["--tensor_parallel", "2"], 1)
+    argv = vto + flags + ["--max_train_steps", str(n),
+                          "--checkpointing_steps", str(n),
+                          "--output_dir", str(target)]
     results, seconds = ranks("run_main", 2,
                              ("ladi_vton_tpu_torch.cli.train_vto", argv),
                              label, runs)
+    said = [step_log_line(runs / label.replace(" ", "_") / f"rank{i}.err")
+            for i in range(2)]
     launches = {name: 0 for name, _, _, _, _ in KERNELS}
     for r in results:
         add_launches(launches, r["launches"])
@@ -4137,10 +4281,15 @@ def dist_mains(work: pathlib.Path, train_roots: dict, out: pathlib.Path,
         f"clock, each with its batch's loading), peak device memory over "
         f"the run, its checkpoint included, "
         f"{[round(r['peak_gib'], 2) for r in results]} GiB a rank, "
-        f"launches {[r['launches'] for r in results]} [{smi}]")
-    if any(r["result"] != 1 for r in results):
+        f"launches {[r['launches'] for r in results]}; each rank's log: "
+        f"{said} [{smi}]")
+    if any(r["result"] != n for r in results):
         raise AssertionError(f"{label}: the ranks ended at "
                              f"{[r['result'] for r in results]}")
+    expected = TRAIN_STEP_LOG[which]
+    if not all(line and expected in line for line in said):
+        raise AssertionError(f"{label}: a rank's log does not say "
+                             f"{expected!r}: {said}")
     if which == "tp":
         unet = zoo.extended_unet(checkpoint=str(target / "unet_1.pth"),
                                  device="cuda", dtype=BF16)
@@ -4385,8 +4534,14 @@ class ServedLane:
 # ranks) stay within the 58.4 GiB that 11c and the ZeRO-1 trainer held
 # when they first shared the card; 11a beside the ZeRO-1 trainer (62.8
 # GiB) ran it out of memory.  The two trainers, each writing a 10.5 GB
-# checkpoint, run in different stages.
-DIST_STAGES = (("dp", "nccl"), ("zero1", "tp"), ("tp_main",))
+# checkpoint, run in different stages.  In the first, the tensor-parallel
+# trainer starts once 11a's ranks have ended their data-parallel form
+# (``DP_FORM_DONE``) and 11b has ended: beside 11a's ZeRO-1 form, 12.95
+# GiB a rank, its 16.36 GiB a rank sum to 58.6 GiB.
+DIST_STAGES = (("dp", "nccl", "tp_main"), ("zero1", "tp"))
+# 11a's ranks each touch ``<out>/dp_form_done.<rank>`` once their
+# data-parallel form has ended and released the card
+DP_FORM_DONE = "dp_form_done"
 
 
 def distributed_path(work: pathlib.Path, train_roots: dict, tokenizer,
@@ -4397,8 +4552,9 @@ def distributed_path(work: pathlib.Path, train_roots: dict, tokenizer,
     every check of the comment above.  Returns the kernels' launches
     summed over every rank of the phase.
 
-    The one-process references come first, in this process (the fp32
-    twin's forward on the host beside the ranks), then ``DIST_STAGES``."""
+    The one-process reference comes first, in this process, then
+    ``DIST_STAGES``; 11c's job runs the fp32 twins' forwards on the host
+    before its ranks."""
     t_phase = time.perf_counter()
     out = served.out
     total = served.result()  # its ranks leave the card to the stages
@@ -4419,19 +4575,33 @@ def distributed_path(work: pathlib.Path, train_roots: dict, tokenizer,
         return job
 
     def tp_job() -> dict:
-        forward.result()  # the fp32 twins' forwards, which the ranks read
+        tp_reference(twins, out)  # the fp32 twins' forwards, for the ranks
         return tp_steps(out, ref, checked, smi)
+
+    def after_dp_form() -> dict:
+        """The tensor-parallel trainer, once 11a's ranks have ended their
+        data-parallel form and 11b has ended."""
+        marks = [out / f"{DP_FORM_DONE}.{i}" for i in range(2)]
+        while not all(m.exists() for m in marks):
+            if futures["dp"].done():
+                futures["dp"].result()  # raises where 11a failed
+                break
+            time.sleep(1.0)
+        futures["nccl"].result()
+        log("phase 11d: the tensor-parallel trainer starts beside 11a's "
+            "ZeRO-1 form")
+        return trainer("tp")()
 
     jobs = {"dp": lambda: dp_steps(out, ref, peaks, smi),
             "nccl": lambda: nccl_step(out, smi), "tp": tp_job,
-            "zero1": trainer("zero1"), "tp_main": trainer("tp")}
-    with ThreadPoolExecutor(2) as pool:
-        forward = pool.submit(tp_reference, twins, out)
-        del twins
+            "zero1": trainer("zero1"), "tp_main": after_dp_form}
+    with ThreadPoolExecutor(max(map(len, DIST_STAGES))) as pool:
         for stage in DIST_STAGES:
-            others = [pool.submit(jobs[name]) for name in stage[1:]]
-            for launches in [jobs[stage[0]]()] + [f.result() for f in others]:
-                add_launches(total, launches or {})
+            futures = {}
+            for name in stage:
+                futures[name] = pool.submit(jobs[name])
+            for f in futures.values():
+                add_launches(total, f.result() or {})
     if any(p >= peaks["dp"] for p in peaks["zero1"]):
         raise AssertionError(f"phase 11d: a ZeRO-1 rank's peak "
                              f"{peaks['zero1']} GiB is not below the "
@@ -4447,6 +4617,16 @@ def distributed_path(work: pathlib.Path, train_roots: dict, tokenizer,
     return total
 
 
+def rounded(xs: list, digits: int = 3) -> list:
+    return [round(x, digits) for x in xs]
+
+
+def replay_mean(seconds: list) -> float:
+    """The mean of a run's steps after the first (its warm-up and
+    capture)."""
+    return float(np.mean(seconds[1:]))
+
+
 def dp_steps(out: pathlib.Path, ref: dict, peaks: dict, smi: str) -> dict:
     """Phase 11a over two ranks against this process's step (``ref``);
     the unsharded step's peak under ``peaks["dp"]``; the launches of the
@@ -4455,25 +4635,32 @@ def dp_steps(out: pathlib.Path, ref: dict, peaks: dict, smi: str) -> dict:
     total = {name: 0 for name, _, _, _, _ in KERNELS}
     for i, r in enumerate(results):
         for tag in ("dp", "zero1"):
-            add_launches(total, r[tag]["launches"])
-        log(f"phase 11a rank {i}: data-parallel steps "
-            f"{[round(x, 3) for x in r['dp']['seconds']]} s (the first with "
-            f"its warm-up), first loss "
-            f"{r['dp']['loss']:.6f} against {ref['loss']:.6f}, gradient "
-            f"cosine by part "
-            f"{({k: round(v, 6) for k, v in r['cosine'].items()})}, peak "
-            f"device memory {r['dp']['peak_gib']:.2f} GiB, AdamW "
-            f"elements {r['dp']['adam_numel']}; ZeRO-1 steps "
-            f"{[round(x, 3) for x in r['zero1']['seconds']]} s, peak "
-            f"{r['zero1']['peak_gib']:.2f} GiB, AdamW elements "
-            f"{r['zero1']['adam_numel']}, updates bitwise the unsharded "
-            f"ones: {r['zero1_bitwise']}; launches of a step "
-            f"{r['dp']['launches']}; planted fault, no gradient all_reduce: "
+            f = r[tag]
+            for counts in f["launches"] + f["eager_launches"]:
+                add_launches(total, counts)
+            log(f"phase 11a rank {i}, {tag}: {DIST_STEPS} steps graphed "
+                f"{rounded(f['seconds'])} s (the first the real step, "
+                f"{f['warmup_s']:.3f} s, and the capture of its two "
+                f"stages, {f['capture_s']:.3f} s; replays "
+                f"{replay_mean(f['seconds']):.3f} s), through run_eager "
+                f"{rounded(f['eager_seconds'])} s; losses "
+                f"{[round(x, 6) for x in f['losses']]}, losses and "
+                f"parameters bitwise the eager run's: {f['bitwise_eager']}; "
+                f"peak device memory graphed {f['peak_gib']:.2f} GiB (the "
+                f"graphs' pool {f['pool_gib']:.2f} GiB, gradients "
+                f"included), eager {f['eager_peak_gib']:.2f} GiB; AdamW "
+                f"elements {f['adam_numel']}; launches of a replay "
+                f"{f['launches'][-1]}; staged {f['staged']}, graphed "
+                f"{f['graphed']} [{smi}]")
+        log(f"phase 11a rank {i}: first loss {r['dp']['losses'][0]:.6f} "
+            f"against {ref['loss']:.6f}, gradient cosine by part "
+            f"{({k: round(v, 6) for k, v in r['cosine'].items()})}; "
+            f"ZeRO-1's losses and updates bitwise the unsharded ones: "
+            f"{r['zero1_bitwise']}; planted fault, no gradient all_reduce: "
             f"cosine by part "
             f"{({k: round(v, 6) for k, v in r['fault_cosine'].items()})} "
-            f"(limit {DIST_GRAD_COS}); the steps ran eagerly: "
-            f"{r['dp']['eager_reason']} [{smi}]")
-        rel = abs(r["dp"]["loss"] - ref["loss"]) / abs(ref["loss"])
+            f"(limit {DIST_GRAD_COS}) [{smi}]")
+        rel = abs(r["dp"]["losses"][0] - ref["loss"]) / abs(ref["loss"])
         half = r["zero1"]["adam_numel"] / r["dp"]["adam_numel"]
         if not (rel <= DIST_LOSS_LIMIT and r["zero1_bitwise"]
                 and min(r["cosine"].values()) >= DIST_GRAD_COS
@@ -4484,25 +4671,58 @@ def dp_steps(out: pathlib.Path, ref: dict, peaks: dict, smi: str) -> dict:
         if min(r["fault_cosine"].values()) >= DIST_GRAD_COS:
             raise AssertionError("phase 11a: the gradient limit does not "
                                  "tell a step without its all_reduce")
-        if not (r["dp"]["eager_reason"] and r["zero1"]["eager_reason"]):
-            raise AssertionError("phase 11a: a step over ranks did not run "
-                                 "eagerly")
+        for tag in ("dp", "zero1"):
+            f = r[tag]
+            if not (f["graphed"] and f["staged"]
+                    and f["eager_reason"] is None):
+                raise AssertionError(f"phase 11a: rank {i}'s {tag} step is "
+                                     f"not graphed in two stages "
+                                     f"({f['eager_reason']})")
+            if not f["bitwise_eager"]:
+                raise AssertionError(f"phase 11a: rank {i}'s graphed {tag} "
+                                     f"steps differ from their eager run")
+            launches = f["launches"] + f["eager_launches"]
+            if any(x != launches[0] for x in launches):
+                raise AssertionError(f"phase 11a: rank {i}'s {tag} steps "
+                                     f"launch other kernels graphed and "
+                                     f"eager: {launches}")
     peaks["dp"] = max(r["dp"]["peak_gib"] for r in results)
     log(f"phase 11a: two ranks in {seconds:.1f} s wall")
     return total
 
 
-def nccl_step(out: pathlib.Path, smi: str) -> None:
-    """Phase 11b: one rank over NCCL, its step bitwise the one without a
-    process group."""
+def nccl_step(out: pathlib.Path, smi: str) -> dict:
+    """Phase 11b: one rank over NCCL, its staged step's graphs bitwise
+    the step without a process group; the launches of its steps."""
     (r,), seconds = ranks("nccl_rank", 1, (str(out),), "nccl", out,
                           backend="nccl")
-    log(f"phase 11b: one rank over {r['backend']} (world {r['world']}): "
-        f"loss {r['loss']:.6f}, the step and its update bitwise the one "
-        f"without a process group: {r['bitwise']} ({seconds:.1f} s wall) "
-        f"[{smi}]")
+    total = {name: 0 for name, _, _, _, _ in KERNELS}
+    single, nccl = r["runs"]["single"], r["runs"]["nccl"]
+    for f in (single, nccl):
+        for counts in f["launches"]:
+            add_launches(total, counts)
+    log(f"phase 11b: one rank over {r['backend']} (world {r['world']}), "
+        f"batch {DIST_BATCH}, {DIST_STEPS} steps each: without a process "
+        f"group graphed {rounded(single['seconds'], 4)} s (replays "
+        f"{replay_mean(single['seconds']):.4f} s; warm-up "
+        f"{single['warmup_s']:.3f}, capture {single['capture_s']:.3f} s; "
+        f"peak {single['peak_gib']:.2f} GiB, pool {single['pool_gib']:.2f} "
+        f"GiB); over the group in two stages "
+        f"{rounded(nccl['seconds'], 4)} s (replays "
+        f"{replay_mean(nccl['seconds']):.4f} s; warm-up "
+        f"{nccl['warmup_s']:.3f}, capture {nccl['capture_s']:.3f} s; peak "
+        f"{nccl['peak_gib']:.2f} GiB, pool {nccl['pool_gib']:.2f} GiB), "
+        f"its stages run eagerly {rounded(nccl['eager_seconds'], 4)} s "
+        f"(after the first {replay_mean(nccl['eager_seconds']):.4f} s); "
+        f"losses {[round(x, 6) for x in nccl['losses']]}, the two graphed "
+        f"runs bitwise equal: {r['bitwise']}; staged {nccl['staged']}, "
+        f"graphed {nccl['graphed']} ({seconds:.1f} s wall) [{smi}]")
     if r["backend"] != "nccl" or not r["bitwise"]:
         raise AssertionError("phase 11b: the NCCL step differs")
+    if not (nccl["graphed"] and nccl["staged"] and single["graphed"]
+            and not single["staged"]):
+        raise AssertionError("phase 11b: the steps did not run as graphs")
+    return total
 
 
 def tp_steps(out: pathlib.Path, ref: dict, checked: dict, smi: str) -> dict:
@@ -4523,11 +4743,14 @@ def tp_steps(out: pathlib.Path, ref: dict, checked: dict, smi: str) -> dict:
             f"{r['loss']:.6f} ({rel:.3e} relative, limit "
             f"{DIST_LOSS_LIMIT}), gathered gradient cosine by part "
             f"{({k: round(v, 6) for k, v in r['cosine'].items()})}, peak "
-            f"{r['peak_gib']:.2f} GiB, launches {r['step_launches']} "
-            f"[{smi}]")
+            f"{r['peak_gib']:.2f} GiB, launches {r['step_launches']}; run "
+            f"eagerly: {r['eager_reason']} [{smi}]")
         if not (rel <= DIST_LOSS_LIMIT
                 and min(r["cosine"].values()) >= DIST_GRAD_COS):
             raise AssertionError(f"phase 11c: rank {i}'s step disagrees")
+        if not r["eager_reason"]:
+            raise AssertionError(f"phase 11c: rank {i}'s tensor-parallel "
+                                 f"step did not run eagerly")
     log(f"phase 11c: two ranks in {seconds:.1f} s wall")
     return total
 
@@ -6252,6 +6475,11 @@ def main() -> None:
                         help="phase 2's tensor-parallel rows and phase 11 "
                         "alone (its files written from freshly seeded "
                         "modules), then exit without the result lines")
+    parser.add_argument("--staged-only", action="store_true",
+                        help="phases 11a and 11b alone (the data-parallel "
+                        "and ZeRO-1 steps over two ranks and the NCCL "
+                        "rank, graphed in two stages), then exit without "
+                        "the result lines")
     parser.add_argument("--sd15-only", action="store_true",
                         help="phase 2's SD-1.5 K1 rows, K1's SD-1.5 "
                         "gradient rows and phase 15 alone (the SD-1.5 "
@@ -6345,6 +6573,10 @@ def main() -> None:
         check_gradients(gen)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
             training_only(pathlib.Path(work), smi)
+        return
+    if args.staged_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+            staged_only(pathlib.Path(work), smi)
         return
     if args.distributed_only:
         checked = check_tensor_parallel_rows(gen, {})

@@ -16,12 +16,21 @@ collective over them is skipped; a process group of one rank (NCCL's
 init at world size 1) still runs them.  ``shard_batch`` takes this
 rank's rows of a global batch.  The JAX ``replicate`` has no
 counterpart: every rank builds or loads the same parameters.
+
+A train step over the data axis is two captured stages with its
+collectives between them (``pipelines.graphs.TrainProgram``); ``stage``
+marks a stage while it runs or is captured, and the port's collectives of
+the step (``all_reduce_mean`` here, the gradient mean and ZeRO-1's
+broadcasts in ``train.steps``) call ``outside_stage`` first, so that one
+misplaced into a stage raises instead of being captured.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import threading
 from typing import Any, Optional
 
 import torch
@@ -112,11 +121,42 @@ def shard_batch(mesh: Optional[Mesh], tree):
     return tree[mesh.rows(len(tree))]
 
 
+_STAGE = threading.local()
+
+
+@contextlib.contextmanager
+def stage(name: str):
+    """The block is ``name``, a stage of a train program (captured on the
+    card, run as it is on the CPU): ``outside_stage`` raises inside it."""
+    outer = current_stage()
+    _STAGE.name = name
+    try:
+        yield
+    finally:
+        _STAGE.name = outer
+
+
+def current_stage() -> Optional[str]:
+    """The train program's stage running on this thread, or None."""
+    return getattr(_STAGE, "name", None)
+
+
+def outside_stage(what: str) -> None:
+    """Raises where ``what``, a collective, would run inside a stage."""
+    name = current_stage()
+    if name is not None:
+        raise RuntimeError(
+            f"{what} inside the {name} stage of a train program: a stage "
+            f"is captured as a CUDA graph, which holds no collective; it "
+            f"runs between the stages")
+
+
 def all_reduce_mean(t: torch.Tensor, group, size: int) -> torch.Tensor:
     """``t`` averaged over ``group`` (of ``size`` ranks), in fp32; ``t``
     itself where there is no group."""
     if group is None:
         return t
+    outside_stage("the metrics' all_reduce")
     out = t.detach().float().clone()
     dist.all_reduce(out, group=group)
     return (out / size).to(t.dtype)

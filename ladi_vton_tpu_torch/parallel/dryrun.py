@@ -7,8 +7,10 @@ starts ``n`` ranks itself (``parallel.launch.spawn``, gloo) and each runs
 1. the ZeRO-1 VTO train step (the adapter trained too) over a data mesh
    of ``n``: gradients averaged over ``data``, the AdamW state sharded;
 2. an asynchronous checkpoint save by rank 0 (consolidated state), a
-   restore on every rank into the same sharded optimizer, the parameters
-   and the update count checked, and a further step;
+   restore on every rank into a new sharded optimizer and step program
+   (as a restarted run restores: a captured program reads its
+   optimizer's state in place and refuses a load), the parameters and
+   the update count checked, and a further step;
 3. data-parallel sampling as the mains run it: ``drivers.run_batches``
    over one global batch, each rank sampling its rows (``parallel.
    sharding``'s ``local_batch`` and ``sample_draws``) with 2 DDIM steps
@@ -209,7 +211,9 @@ def run_rank(device: str, workdir: str) -> dict:
     with torch.no_grad():  # the restore must put them back
         for p in unet.parameters():
             p.add_(1.0)
-    optimizer.count = 0
+    del step
+    modules, optimizer, step = _step_fn(mesh, unet, adapter, vae, text, dev,
+                                        dtype, shard_optimizer_states=True)
     restored = resume(mgr, "latest", modules, optimizer,
                       _Quiet(), mesh)
     if restored != 1 or optimizer.count != 1 or not all(

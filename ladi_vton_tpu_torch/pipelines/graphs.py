@@ -24,7 +24,10 @@ forward (running-statistics updates, one dropout mask for good).
 grad mode on, the optimizer's learning rate written before each call and
 its count advanced after, the first call of a signature the real step
 (eager) before the capture, and dropout in training mode refused where
-BatchNorm in training mode is captured with its statistics' update.
+BatchNorm in training mode is captured with its statistics' update.  A
+step over the data axis of ranks is two graphs of one pool, the
+gradients' and the update's, with its collectives run eagerly between
+and after them (``Seams``, ``StagedTrainStep``).
 
 ``LoopProgram`` captures a sampling loop as three graphs of one memory
 pool, replayed in the order they were captured: a prepare graph (which
@@ -78,6 +81,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from ladi_vton_tpu_torch.core.mesh import stage
 from ladi_vton_tpu_torch.ops.flash_attention import flash_attention
 from ladi_vton_tpu_torch.ops.geglu import geglu
 from ladi_vton_tpu_torch.ops.group_norm import group_norm
@@ -121,13 +125,15 @@ class Graph:
     eager run there (the warm-up, whose outputs go to ``warmed``);
     ``args`` are the static tensors it reads (any nesting of tuples, lists
     and dicts), ``outputs`` what it returned.  ``pool``: another graph's
-    memory pool to share."""
+    memory pool to share.  ``warm=False``: no warm-up, where the caller
+    ran the body's work already."""
 
     def __init__(self, body: Callable, *args, stream: torch.cuda.Stream,
-                 pool=None):
-        stream.wait_stream(torch.cuda.current_stream(stream.device))
-        with torch.cuda.stream(stream), _uncached_autocast():
-            self.warmed(body(*args))
+                 pool=None, warm: bool = True):
+        if warm:
+            stream.wait_stream(torch.cuda.current_stream(stream.device))
+            with torch.cuda.stream(stream), _uncached_autocast():
+                self.warmed(body(*args))
         before = counts()
         self.graph = torch.cuda.CUDAGraph()
         # no collection during the capture: one that freed another graph
@@ -348,12 +354,98 @@ class TrainStep(Graph):
         self.warmup_seconds = time.perf_counter() - self.t0
 
     def captured(self) -> None:
-        for p, g in zip(self.params, self.grads):
-            if p.grad is not None and g is not None:
-                p.grad.copy_(g)
+        _copy_grads(self.params, self.grads)
         del self.grads
 
     run = Graph.replay
+
+
+def _offload_grads(params: Sequence[torch.Tensor]) -> list:
+    """The real step's gradients copied to host memory, each ``.grad``
+    released from the card: ranks that share a card capture beside one
+    another, and the pool need not sit beside a second copy of the
+    gradients (a second or two of copying for the UNet's 3.46 GB)."""
+    grads = [None if p.grad is None else p.grad.to("cpu") for p in params]
+    for p in params:
+        p.grad = None
+    return grads
+
+
+def _copy_grads(params: Sequence[torch.Tensor], grads: list) -> None:
+    """The real step's gradients into the ones a capture gave ``params``."""
+    for p, g in zip(params, grads):
+        if p.grad is not None and g is not None:
+            p.grad.copy_(g)
+
+
+@dataclasses.dataclass(frozen=True)
+class Seams:
+    """The eager part of a train step over the data axis of ranks, around
+    its two captured stages (the gradients', then the optimizer's
+    ``update``): ``reduce()`` runs between them (the gradients' mean over
+    the data group), ``finish(metrics) -> metrics`` after them (ZeRO-1's
+    broadcasts, the metrics' mean over the group) on the gradient stage's
+    outputs; ``what`` says what they run, for the program's log line."""
+
+    reduce: Callable[[], None]
+    finish: Callable[[dict], dict]
+    what: str = ""
+
+
+class StagedTrainStep:
+    """One signature's static ``inputs`` and a staged train step's two
+    graphs over them (``program.seams`` is set).  The warm-up is the real
+    step, run once eagerly on ``stream`` with its collectives
+    (``TrainProgram.run_stages``), and its outputs are ``first``; its
+    cache is released, then the gradient stage (``program.body``) and the
+    update stage (``optimizer.update``) are captured in that order as two
+    graphs of one pool, which runs nothing: the call that captures applies
+    one update.  The update graph reads the gradients the first graph
+    leaves in the pool, into which the real step's are copied (held in
+    host memory meanwhile, ``_offload_grads``).
+
+    ``run()`` replays the gradient graph, runs ``seams.reduce()``, replays
+    the update graph and returns ``seams.finish`` of the first graph's
+    outputs, all on the caller's current stream: a collective orders its
+    work after that stream's (gloo copies a CUDA tensor out after an
+    event recorded on it, NCCL's stream waits on it) and, when it
+    returns, that stream after its own, so each sits between the two
+    replays.  ``graph`` makes each graph (``Graph``'s arguments, with
+    ``warm=False``).  ``warmup_seconds`` and ``capture_seconds`` as
+    ``TrainStep``'s; ``pool`` the graphs' pool."""
+
+    def __init__(self, program: "TrainProgram", inputs: tuple,
+                 stream: torch.cuda.Stream, graph: Callable = Graph):
+        self.inputs, self.seams = inputs, program.seams
+        params, device = program.optimizer.params, stream.device
+        t0 = time.perf_counter()
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream), _uncached_autocast():
+            self.first = program.run_stages(*inputs)
+        torch.cuda.synchronize(device)
+        grads = _offload_grads(params)
+        torch.cuda.empty_cache()
+        self.warmup_seconds = time.perf_counter() - t0
+        with stage("gradients"):
+            self.gradients = graph(program.body, *inputs, stream=stream,
+                                   warm=False)
+        with stage("update"):
+            self.update = graph(program.optimizer.update, stream=stream,
+                                pool=self.gradients.pool, warm=False)
+        _copy_grads(params, grads)
+        torch.cuda.synchronize(device)
+        self.capture_seconds = time.perf_counter() - t0 - \
+            self.warmup_seconds
+
+    @property
+    def pool(self):
+        return self.gradients.pool
+
+    def run(self):
+        out = self.gradients.replay()
+        self.seams.reduce()
+        self.update.replay()
+        return self.seams.finish(out)
 
 
 class TrainProgram(Program):
@@ -363,48 +455,78 @@ class TrainProgram(Program):
 
     ``body(*args) -> metrics`` is the step's device work (``zero_grad``,
     the forwards and backwards, ``optimizer.update()``), with grad mode
-    on.  A call writes the learning rate (``optimizer.write_lr()``), runs
-    the step, advances ``optimizer.count`` and returns the metrics: on
-    the card each input signature's first call is the real step, after
-    which it is captured (``TrainStep``), and later calls copy their
-    inputs into the signature's static ones and replay.  The gradients
-    live in the graphs' pool.  Before a capture, ``modules`` holding a
-    dropout with p > 0 in training mode are refused (``_refuse_draws``);
-    BatchNorm in training mode is captured with its statistics' update.
-    ``eager_reason`` (a str) runs the step eagerly on the card instead,
-    and is logged once."""
+    on; with ``seams``, the gradient stage alone (``zero_grad``, the
+    forwards and backwards, this rank's metrics), which the update stage
+    (``optimizer.update()``) follows, with the collectives of ``seams``
+    between and after them (``run_stages``).  A call writes the learning
+    rate (``optimizer.write_lr()``), runs the step, advances
+    ``optimizer.count`` and returns the metrics: on the card each input
+    signature's first call is the real step, after which it is captured
+    (``TrainStep``, or ``StagedTrainStep`` with ``seams``), and later
+    calls copy their inputs into the signature's static ones and replay.
+    The gradients live in the graphs' pool.  Each captured stage runs
+    inside ``core.mesh.stage``, so that a collective of the port's in it
+    raises.  Before a capture, ``modules`` holding a dropout with p > 0
+    in training mode are refused (``_refuse_draws``); BatchNorm in
+    training mode is captured with its statistics' update.
+    ``eager_reason`` (a str) runs the step eagerly on the card instead.
+    On the card the program logs once how it runs."""
 
     def __init__(self, body: Callable, *, optimizer, device,
                  modules: Sequence[torch.nn.Module] = (),
-                 eager_reason: Optional[str] = None):
+                 eager_reason: Optional[str] = None,
+                 seams: Optional[Seams] = None):
         super().__init__(body, device=device, modules=modules)
         self.optimizer = optimizer
+        self.seams = seams
         self.eager_reason = eager_reason if self.graphed else None
+        log = logging.getLogger(__name__)
         if self.eager_reason is not None:
             self.graphed = False
-            logging.getLogger(__name__).info(
-                "the train step runs eagerly on %s: %s", self.device,
-                self.eager_reason)
+            log.info("the train step runs eagerly on %s: %s", self.device,
+                     self.eager_reason)
+        elif self.graphed:
+            log.info("the train step is graphed on %s: %s", self.device,
+                     "one graph a batch shape" if seams is None else
+                     f"two graphs a batch shape, the gradients' and the "
+                     f"update's; {seams.what}, eagerly")
 
     def refuse(self) -> None:
         _refuse_draws(self.modules)
 
-    def capture(self, inputs: tuple) -> TrainStep:
-        step = TrainStep(self.body, inputs, self.stream,
-                         self.optimizer.params)
+    def capture(self, inputs: tuple):
+        if self.seams is not None:
+            step = StagedTrainStep(self, inputs, self.stream)
+        else:
+            with stage("step"):
+                step = TrainStep(self.body, inputs, self.stream,
+                                 self.optimizer.params)
         self.optimizer.captured = True
         return step
 
-    def first_run(self, step: TrainStep):
+    def first_run(self, step):
         first, step.first = step.first, None
         return first
 
+    def run_stages(self, *args):
+        """The step's work in order, eagerly: ``body``; with ``seams``,
+        the gradient stage, ``seams.reduce()``, the update stage and
+        ``seams.finish``, each stage inside ``core.mesh.stage``."""
+        if self.seams is None:
+            return self.body(*args)
+        with stage("gradients"):
+            out = self.body(*args)
+        self.seams.reduce()
+        with stage("update"):
+            self.optimizer.update()
+        return self.seams.finish(out)
+
     def run_eager(self, *args):
-        """The step as the CPU runs it: ``body`` itself, between the
+        """The step as the CPU runs it (``run_stages``), between the
         learning rate's write and the count's advance."""
         self.optimizer.write_lr()
         with torch.enable_grad():
-            out = self.body(*args)
+            out = self.run_stages(*args)
         self.optimizer.advance()
         return out
 

@@ -7,8 +7,11 @@ Counterpart of ``ladi_vton_tpu/train/steps.py``.  A step,
 the card its first call per input signature is the real step, run
 eagerly, after which the step is captured as a CUDA graph that later
 calls replay (forward, backward, clip and AdamW inside the graph, the
-learning rate written before each replay); on the CPU, and over a
-process group (``eager_reason``), it runs eagerly.
+learning rate written before each replay).  Over the data axis of a
+mesh (the JAX ``shard_step``) it is two captured stages, the gradients'
+and the update's, with the collectives run eagerly between and after
+them; at a model axis above 1 it runs eagerly (``eager_reason``), and on
+the CPU every form runs its stages eagerly, in order.
 
 * The optimizer (``make_optimizer``) is AdamW after a global-norm clip,
   matched to optax's ``chain(clip_by_global_norm, adamw(schedule))``:
@@ -35,12 +38,15 @@ process group (``eager_reason``), it runs eagerly.
   the gradients over the mesh's ``data`` group, so the update is the one
   of the global batch's mean loss (the JAX ``psum``); the clip then sees
   the same reduced gradients on every rank, and the metrics are averaged
-  over ``data``.
+  over ``data``.  That ``all_reduce`` sits between the step's two
+  stages, and ZeRO-1's broadcasts and the metrics' mean after the second
+  (``build_train_step``).
 * ZeRO-1 (``Optimizer(..., zero_group=)``, the JAX
   ``zero1_state_sharding``): the parameters stay replicated and the AdamW
   moments are sharded over ``data`` by
   ``torch.distributed.optim.ZeroRedundancyOptimizer``: each rank updates
-  the parameters it owns and broadcasts them.  AdamW's arithmetic is per
+  the parameters it owns (``Optimizer.update``, captured) and broadcasts
+  them (``Optimizer.sync``, eager).  AdamW's arithmetic is per
   element, so the update is bitwise the unsharded one.
 * Tensor parallelism (``parallel.tp``): parameters marked ``tp_sharded``
   are one rank's slice; the clip's global norm adds their squares over
@@ -65,14 +71,14 @@ import torch
 import torch.distributed as dist
 from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
-from ladi_vton_tpu_torch.core.mesh import Mesh, all_reduce_mean
+from ladi_vton_tpu_torch.core.mesh import Mesh, all_reduce_mean, outside_stage
 from ladi_vton_tpu_torch.diffusion.schedulers import DDPMScheduler
 from ladi_vton_tpu_torch.diffusion.text import encode_text_word_embedding
 from ladi_vton_tpu_torch.models.emasc import mask_features
 from ladi_vton_tpu_torch.models.vae import DiagonalGaussian
 from ladi_vton_tpu_torch.models.vgg import vgg_loss
 from ladi_vton_tpu_torch.ops.resize import resize_bilinear, resize_nearest
-from ladi_vton_tpu_torch.pipelines.graphs import TrainProgram
+from ladi_vton_tpu_torch.pipelines.graphs import Seams, TrainProgram
 from ladi_vton_tpu_torch.pipelines.tryon import _nchw as nchw
 
 LR_SCHEDULERS = ("linear", "cosine", "cosine_with_restarts", "polynomial",
@@ -135,14 +141,15 @@ class Optimizer:
     A step is split so that a CUDA graph can hold its device part:
     ``write_lr`` (host: the schedule's value at ``count`` into the
     learning rate the update reads), ``update`` (device: the clip and the
-    AdamW update, no host sync) and ``advance`` (host: ``count`` + 1);
-    ``step`` is the three in order.  On the card AdamW is capturable: its
-    step counters live on the device and ``lr`` is a 0-dim fp32 device
-    tensor that ``write_lr`` fills, so a captured update reads each
-    replay's value; the bias correction is then computed in fp32 on the
-    device, not in float64 on the host.  On the CPU (where PyTorch refuses
-    capturable parameters) AdamW is not capturable and ``write_lr`` sets
-    the param groups' float.
+    AdamW update of this rank's parameters, no host sync), ``sync``
+    (collective: ZeRO-1's broadcasts of the updated parameters) and
+    ``advance`` (host: ``count`` + 1); ``step`` is the four in order.
+    On the card AdamW is capturable: its step counters live on the device
+    and ``lr`` is a 0-dim fp32 device tensor that ``write_lr`` fills, so
+    a captured update reads each replay's value; the bias correction is
+    then computed in fp32 on the device, not in float64 on the host.  On
+    the CPU (where PyTorch refuses capturable parameters) AdamW is not
+    capturable and ``write_lr`` sets the param groups' float.
 
     ``zero_group`` (a process group of more than one rank) shards the
     AdamW state over it (ZeRO-1); ``state_dict`` is then collective and
@@ -224,6 +231,7 @@ class Optimizer:
                             for g, s in zip(grads, sharded) if s == keep),
                            torch.zeros((), device=grads[0].device))
             part = squares(True)
+            outside_stage("the clip's all_reduce over model")
             dist.all_reduce(part, group=self.model_group)
             norm = torch.sqrt(squares(False) + part)
         scale = torch.where(norm < self.max_grad_norm,
@@ -244,10 +252,22 @@ class Optimizer:
 
     def update(self) -> Optional[torch.Tensor]:
         """The device part of a step: the clip and the AdamW update with
-        the learning rate last written; returns the clip's norm."""
+        the learning rate last written, of the parameters this rank owns
+        under ZeRO-1 (``ZeroRedundancyOptimizer``'s local step, without
+        its broadcasts); returns the clip's norm."""
         norm = self.clip()
-        self.adamw.step()
+        if self.zero_group is not None:
+            self.adamw._local_step()
+        else:
+            self.adamw.step()
         return norm
+
+    def sync(self) -> None:
+        """ZeRO-1's collective part of a step: each rank broadcasts the
+        parameters it updated (a no-op without ``zero_group``)."""
+        if self.zero_group is not None:
+            outside_stage("ZeRO-1's parameter broadcasts")
+            self.adamw._sync_params()
 
     def advance(self) -> None:
         self.count += 1
@@ -255,6 +275,7 @@ class Optimizer:
     def step(self) -> Optional[torch.Tensor]:
         self.write_lr()
         norm = self.update()
+        self.sync()
         self.advance()
         return norm
 
@@ -398,6 +419,7 @@ def reduce_gradients(params, mesh: Optional[Mesh]) -> None:
     parameter order (a no-op without a process group)."""
     if mesh is None or mesh.data_group is None:
         return
+    outside_stage("the gradients' all_reduce")
     grads = [p.grad for p in params if p.grad is not None]
     buckets: dict = {}
     for g in grads:
@@ -417,16 +439,19 @@ def reduce_gradients(params, mesh: Optional[Mesh]) -> None:
 
 def eager_reason(mesh: Optional[Mesh]) -> Optional[str]:
     """Why a step over ``mesh`` runs eagerly on the card, or None where
-    it is a captured program: a step over a process group runs its
-    collectives (the gradient ``all_reduce`` over ``data``, ZeRO-1's
-    broadcasts, the clip's ``all_reduce`` over ``model``), which gloo
-    stages through the host and a graph cannot hold; NCCL's capture
-    waits for a machine with more than one card to be checked."""
-    if mesh is None or (mesh.data_group is None
-                        and mesh.model_group is None):
+    it is captured.  At a model axis of 1 every collective of the step
+    sits between its stages (the gradient ``all_reduce`` over ``data``)
+    or after them (ZeRO-1's broadcasts, the metrics' mean), whatever the
+    data axis and the backend.  Above 1 the tensor-parallel collectives
+    sit inside every attention and feed-forward, forward and backward,
+    and the clip's ``all_reduce`` over ``model`` inside the update: only
+    NCCL could capture them, and that waits for a machine with more than
+    one card to be checked."""
+    if mesh is None or mesh.model == 1:
         return None
-    return (f"a mesh of {mesh.data} x {mesh.model} ranks over a process "
-            f"group: its collectives are not captured")
+    return (f"a mesh of {mesh.data} x {mesh.model} ranks: the tensor-"
+            f"parallel collectives inside the forward, the backward and "
+            f"the clip are not captured")
 
 
 def build_train_step(loss_fn: Callable, optimizer: Optimizer,
@@ -444,12 +469,21 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
     it.
 
     The step is a ``pipelines.graphs.TrainProgram`` (the JAX
-    ``shard_step``'s ``jax.jit``): captured and replayed on the card but
+    ``shard_step``'s ``jax.jit``), captured and replayed on the card but
     where ``eager_reason(mesh)`` says why not; ``modules`` are the
-    towers the loss runs, checked before the capture."""
+    towers the loss runs, checked before the capture.  Without a data
+    group it is one stage: ``zero_grad``, the micro-batches, the update.
+    Over one (a model axis of 1) it is two stages with the collectives
+    between them, as ``pipelines.graphs.Seams`` sets out: the gradient
+    stage (``zero_grad``, the micro-batches, this rank's metrics), the
+    gradients' ``all_reduce``, the update stage (``optimizer.update``),
+    then ZeRO-1's broadcasts and the metrics' mean.  The ``all_reduce``
+    looks ``reduce_gradients`` up when it runs."""
     A = gradient_accumulation_steps
+    group = mesh.data_group if mesh is not None else None
+    size = mesh.data if mesh is not None else 1
 
-    def body(batch: dict, draws: Optional[dict] = None) -> dict:
+    def gradients(batch: dict, draws: Optional[dict] = None) -> dict:
         optimizer.zero_grad()
         parts = (zip(_split(batch, A), _split(draws or {}, A)) if A > 1
                  else [(batch, draws or {})])
@@ -461,14 +495,35 @@ def build_train_step(loss_fn: Callable, optimizer: Optimizer,
             for k, v in {"loss": loss, **metrics}.items():
                 v = v.detach().float()
                 total[k] = total[k] + v if k in total else v
-        reduce_gradients(optimizer.params, mesh)
-        optimizer.update()
-        group = mesh.data_group if mesh is not None else None
-        return {k: all_reduce_mean(v / A, group, mesh.data if mesh else 1)
-                for k, v in total.items()}
+        return {k: v / A for k, v in total.items()}
 
-    return TrainProgram(body, optimizer=optimizer, device=optimizer.device,
-                        modules=modules, eager_reason=eager_reason(mesh))
+    def reduce() -> None:
+        reduce_gradients(optimizer.params, mesh)
+
+    def finish(metrics: dict) -> dict:
+        optimizer.sync()
+        return {k: all_reduce_mean(v, group, size) for k, v in metrics.items()}
+
+    reason = eager_reason(mesh)
+    if group is not None and reason is None:
+        zero = ("ZeRO-1's parameter broadcasts and "
+                if optimizer.zero_group is not None else "")
+        seams = Seams(reduce, finish,
+                      f"between them the gradients' all_reduce over "
+                      f"{size} data ranks, after them {zero}the metrics' "
+                      f"all_reduce")
+        return TrainProgram(gradients, optimizer=optimizer,
+                            device=optimizer.device, modules=modules,
+                            seams=seams)
+
+    def step(batch: dict, draws: Optional[dict] = None) -> dict:
+        metrics = gradients(batch, draws)
+        reduce()
+        optimizer.update()
+        return finish(metrics)
+
+    return TrainProgram(step, optimizer=optimizer, device=optimizer.device,
+                        modules=modules, eager_reason=reason)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -25,7 +25,7 @@ written before each update, the count advanced after it.
   (``UPDATE_RTOL``), BatchNorm's running statistics (``STATS_RTOL``)
   and the counts.
 * The refusal rules: ``train.steps.eager_reason`` (graphed with no mesh
-  or a mesh without process groups, eager over one), and a training
+  and over a data axis alone, eager at a model axis above 1), and a training
   program's refusal of a dropout with p > 0 in training mode (BatchNorm
   in training mode allowed).
 * The checkpoint round trip: ``Optimizer.state_dict`` loads into a fresh
@@ -411,9 +411,15 @@ def test_eager_reason_rules():
     assert steps.eager_reason(None) is None
     assert steps.eager_reason(single()) is None
     group = object()  # any process group: its collectives run
+    # over the data axis alone the step is captured in two stages, with
+    # its collectives between them, whatever the data axis
     for mesh in (Mesh(2, 1, 0, 0, (0, 1), (0,), data_group=group),
-                 Mesh(1, 2, 0, 0, (0,), (0, 1), model_group=group),
                  Mesh(1, 1, 0, 0, (0,), (0,), data_group=group)):
+        assert steps.eager_reason(mesh) is None
+    # a model axis puts collectives inside the forward and the backward
+    for mesh in (Mesh(1, 2, 0, 0, (0,), (0, 1), model_group=group),
+                 Mesh(2, 2, 0, 0, (0, 2), (0, 1), data_group=group,
+                      model_group=group)):
         reason = steps.eager_reason(mesh)
         assert reason and "not captured" in reason
     # a program given a reason runs eagerly wherever it is; on the CPU

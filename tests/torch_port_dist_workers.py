@@ -9,6 +9,7 @@ the global draws; each rank takes its rows.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import time
 from pathlib import Path
@@ -18,6 +19,7 @@ import torch
 
 from ladi_vton_tpu_torch.core import distributed
 from ladi_vton_tpu_torch.core.checkpoint import CheckpointManager
+from ladi_vton_tpu_torch.core import mesh as mesh_mod
 from ladi_vton_tpu_torch.core.mesh import MeshSpec, make_mesh, shard_batch
 from ladi_vton_tpu_torch.diffusion.schedulers import make_scheduler
 from ladi_vton_tpu_torch.models import clip
@@ -29,6 +31,7 @@ from ladi_vton_tpu_torch.models.unet_condition import (
 )
 from ladi_vton_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 from ladi_vton_tpu_torch.parallel import tp
+from ladi_vton_tpu_torch.pipelines import graphs
 from ladi_vton_tpu_torch.pipelines.serving import TryOnService
 from ladi_vton_tpu_torch.pipelines.tryon import TryOnPipeline
 from ladi_vton_tpu_torch.train import steps
@@ -237,4 +240,204 @@ def serve_rank(p: dict) -> dict:
     time.sleep(p["idle_s"])
     out["generate"] = service.generate(**p["request"])
     service.close()
+    return out
+
+
+# ------------------------------------------------- the staged step
+
+
+@contextlib.contextmanager
+def recording(calls: list):
+    """``torch.distributed.all_reduce`` and ``broadcast`` wrapped to add
+    (name, the train program's stage at the call) to ``calls``."""
+    dist = torch.distributed
+    real = {name: getattr(dist, name) for name in ("all_reduce", "broadcast")}
+
+    def wrapped(name: str):
+        def call(*args, **kw):
+            calls.append((name, mesh_mod.current_stage()))
+            return real[name](*args, **kw)
+        return call
+
+    for name in real:
+        setattr(dist, name, wrapped(name))
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(dist, name, fn)
+
+
+def single_body_step(loss_fn, opt, A: int, mesh):
+    """The step over ranks as one body, as the port ran it before its
+    stages: the micro-batches, the gradients' mean, the clip,
+    ``ZeroRedundancyOptimizer``'s whole step (its local step and its
+    broadcasts) or AdamW's, the metrics' mean; the learning rate written
+    before and the count advanced after."""
+    def step(batch: dict, draws: dict) -> dict:
+        opt.write_lr()
+        opt.zero_grad()
+        total: dict = {}
+        parts = (zip(steps._split(batch, A), steps._split(draws, A))
+                 if A > 1 else [(batch, draws)])
+        for mb, md in parts:
+            loss, _ = loss_fn(mb, md)
+            (loss / A).backward()
+            v = loss.detach().float()
+            total["loss"] = total["loss"] + v if "loss" in total else v
+        steps.reduce_gradients(opt.params, mesh)
+        opt.clip()
+        opt.adamw.step()
+        opt.advance()
+        return {k: mesh_mod.all_reduce_mean(v / A, mesh.data_group,
+                                            mesh.data)
+                for k, v in total.items()}
+    return step
+
+
+class EagerGraph:
+    """A graph stand-in for the CPU (``Graph``'s arguments): nothing runs
+    at the capture; a replay runs ``body`` over the same arguments and
+    writes its results into the first replay's tensors, as a graph reads
+    and writes fixed memory."""
+
+    def __init__(self, body, *args, stream=None, pool=None,
+                 warm: bool = True):
+        self.body, self.args, self.outputs = body, args, None
+        self.pool = pool
+
+    def replay(self):
+        out = self.body(*self.args)
+        if self.outputs is None:
+            self.outputs = out
+        elif isinstance(out, dict):
+            for k, v in out.items():
+                self.outputs[k].copy_(v)
+        return self.outputs
+
+
+class _Stream:
+    device = torch.device("cpu")
+
+    def wait_stream(self, other) -> None:
+        pass
+
+
+class CPUStagedProgram(graphs.TrainProgram):
+    """A staged program whose per-signature path runs on the CPU: the
+    first call the real step, then ``StagedTrainStep`` over ``EagerGraph``
+    stand-ins, replayed by later calls.  ``stand_in`` patches the CUDA
+    calls the path makes."""
+
+    def __init__(self, program: graphs.TrainProgram):
+        super().__init__(program.body, optimizer=program.optimizer,
+                         device="cpu", modules=program.modules,
+                         seams=program.seams)
+        self.graphed, self.stream = True, _Stream()
+
+    def capture(self, inputs: tuple):
+        step = graphs.StagedTrainStep(self, inputs, self.stream,
+                                      graph=EagerGraph)
+        self.optimizer.captured = True
+        return step
+
+
+@contextlib.contextmanager
+def stand_in():
+    cuda = torch.cuda
+    real = {name: getattr(cuda, name) for name in
+            ("current_stream", "stream", "synchronize", "empty_cache")}
+    cuda.current_stream = lambda device=None: None
+    cuda.stream = lambda stream: contextlib.nullcontext()
+    cuda.synchronize = cuda.empty_cache = lambda device=None: None
+    try:
+        yield
+    finally:
+        for name, fn in real.items():
+            setattr(cuda, name, fn)
+
+
+def _unet_state(t: dict) -> dict:
+    return {k: v.detach().clone() for k, v in t["unet"].state_dict().items()}
+
+
+def _staged_form(p: dict, mesh, zero: bool, A: int, kind: str) -> dict:
+    """Three steps of one form from the payload's state: ``kind``
+    "single" (``single_body_step``), "staged" (the program, its stages
+    run in order) or "per_signature" (``CPUStagedProgram``); each step's
+    loss and UNet, the collectives by stage, the program's form."""
+    t = towers(p)
+    opt = _adamw(list(t["unet"].parameters()), mesh, zero)
+    loss_fn = _loss(p, t)
+    program = steps.build_train_step(loss_fn, opt, A, mesh=mesh)
+    out = {"seams": program.seams is not None,
+           "eager_reason": program.eager_reason, "calls": [],
+           "losses": [], "unets": []}
+    if kind == "single":
+        step = single_body_step(loss_fn, opt, A, mesh)
+    elif kind == "per_signature":
+        step = CPUStagedProgram(program)
+    else:
+        step = program
+    n = len(p["batches"][0]["image"])
+    with recording(out["calls"]), stand_in():
+        for batch, draws in zip(p["batches"], p["step_draws"]):
+            metrics = step(shard_batch(mesh, batch), _rows(mesh, draws, n))
+            out["losses"].append(metrics["loss"].clone())
+            out["unets"].append(_unet_state(t))
+    if kind == "per_signature":
+        out["signatures"] = len(step.sets)
+    out["count"] = opt.count
+    return out
+
+
+def _planted(p: dict, mesh, what: str) -> dict:
+    """One data-parallel step with a collective planted into the
+    gradient stage: ``what`` "reduce_gradients" (the gradients' mean moved
+    there from between the stages) or "all_reduce" (a bare
+    ``torch.distributed.all_reduce``, which no guard of the port's sees);
+    the collectives by stage and the error raised, if any."""
+    t = towers(p)
+    opt = _adamw(list(t["unet"].parameters()), mesh, False)
+    program = steps.build_train_step(_loss(p, t), opt, mesh=mesh)
+    body = program.body
+
+    def moved(batch, draws):
+        metrics = body(batch, draws)
+        if what == "reduce_gradients":
+            steps.reduce_gradients(opt.params, mesh)
+        else:
+            torch.distributed.all_reduce(next(
+                q.grad for q in opt.params if q.grad is not None),
+                group=mesh.data_group)
+        return metrics
+
+    planted = graphs.TrainProgram(
+        moved, optimizer=opt, device="cpu",
+        seams=graphs.Seams(lambda: None, program.seams.finish))
+    out = {"calls": [], "error": None}
+    n = len(p["batches"][0]["image"])
+    with recording(out["calls"]):
+        try:
+            planted(shard_batch(mesh, p["batches"][0]),
+                    _rows(mesh, p["step_draws"][0], n))
+        except RuntimeError as e:
+            out["error"] = str(e)
+    return out
+
+
+def staged_runs(p: dict) -> dict:
+    """For each (zero, A) of ``p["forms"]``: three steps of the staged
+    program, its stages run in order, and of ``single_body_step`` from
+    the same state; for each of ``p["per_signature"]`` the same three
+    steps through ``CPUStagedProgram``; then the planted collectives."""
+    mesh = make_mesh(MeshSpec())
+    out = {}
+    for zero, A in p["forms"]:
+        kinds = ["staged", "single"] + (
+            ["per_signature"] if (zero, A) in p["per_signature"] else [])
+        for kind in kinds:
+            out[(zero, A, kind)] = _staged_form(p, mesh, zero, A, kind)
+    for what in ("reduce_gradients", "all_reduce"):
+        out[("planted", what)] = _planted(p, mesh, what)
     return out
