@@ -192,14 +192,18 @@ Phases, each printing its numbers before the last line:
    step with the gradient ``all_reduce`` left out (a planted fault)
    outside the gradient's limit; then under ZeRO-1, its updates bitwise
    the unsharded ones and each rank holding half of the AdamW state.
-   Each form runs four steps graphed (the real step, then the capture of
-   its two stages, the gradients' and the update's, with the collectives
-   eager between and after them; then replays), which must be bitwise
-   the same steps through ``run_eager`` and launch the same kernels;
-   step, warm-up and capture seconds, peak memory and the graphs' pool
-   a rank.
-   (b) one rank over NCCL: four steps of the staged program over its
-   group of one bitwise four graphed steps without a group; their
+   Each form runs three steps graphed (the real step, then the capture
+   of its two stages, the gradients' and the update's, with the
+   collectives eager between and after them; then replays), which must
+   be bitwise the same steps through ``run_eager`` and launch the same
+   kernels; step, warm-up and capture seconds, peak memory and the
+   graphs' pool a rank.  The data-parallel step again with the dry
+   run's tiny towers over two batch shapes (A, B, A), graphed bitwise
+   ``run_eager``, and with a planted revert (the first shape's replay
+   averaging the second capture's gradients) outside that equality; two
+   ranks of their own run it after (f).
+   (b) one rank over NCCL: three steps of the staged program over its
+   group of one bitwise three graphed steps without a group; their
    replays beside the same program's stages run eagerly.  (c) data 1 x
    model 2: the tensor-parallel UNet
    forward (batch 4, 64x48 latents) against the unsharded one, each of
@@ -208,8 +212,17 @@ Phases, each printing its numbers before the last line:
    the limit; K1's and K4's calls counted and their shard shapes held to
    phase 2's tensor-parallel rows; then, in the same ranks, the same for
    the eight-head SD-1.5 UNet (a 768-wide context), whose every attention
-   holds four heads a rank, held to its own fp32 CPU forward; one
-   tensor-parallel step's loss and
+   holds four heads a rank, held to its own fp32 CPU forward; for each
+   of the two UNets, the tensor-parallel denoise step (DDIM-50, 512x384,
+   batch 2, the UNet at 4 under CFG 7.5) as pieces
+   (``pipelines.graphs.Graph``: one graph more than the step has
+   ``all_reduce``s over the model axis, which run eagerly between them),
+   captured once and replayed over three fresh inputs, each bitwise the
+   eager step on the same inputs with its launches and its
+   ``all_reduce``s, one cut at each of the eager step's ``all_reduce``s,
+   on a buffer of its shape, and a replay with one cut's ``all_reduce``
+   skipped (a planted fault) outside that equality; capture, replay and
+   eager seconds; one tensor-parallel step's loss and
    its gradient, gathered to the reference layout, by UNet part against
    (a)'s; the step runs eagerly and says why.  (d) the mains over two
    ranks: ``train_vto --shard_optimizer_states`` two steps (the second
@@ -228,12 +241,15 @@ Phases, each printing its numbers before the last line:
    process's answer to the same flags, a planted missing gather (the
    follower's rows replaced by rank 0's) outside it, K1, K2, K4 and K5
    launched on each rank, and SIGINT to rank 0 ending both ranks with
-   exit 0.  (d)'s ``cli.inference``, (e) and (f), ranks alone, start
-   before phase 10 and run beside its mains (``ServedLane``); after phase
-   10 and the one-process references, the rest runs in stages of jobs
-   that fit on the card together (``DIST_STAGES``): (a) beside (b) and,
-   once (a)'s ranks have ended their data-parallel form and (b) has
-   ended, the tensor-parallel ``train_vto``; then the ZeRO-1 one beside
+   exit 0; at model 2 the start line names the graphed sampler with its
+   step in pieces, and each rank logs its step captured as pieces.
+   (d)'s ``cli.inference``, (e), (f) and (a)'s second batch shape, ranks
+   alone, start before phase 10 and run beside its mains
+   (``ServedLane``); after phase 10 and the one-process references, the
+   rest runs in stages of jobs that fit on the card together
+   (``DIST_STAGES``): (a) beside (b) and, once (a)'s ranks have ended
+   their data-parallel form and (b) has ended, the tensor-parallel
+   ``train_vto``; then the ZeRO-1 one beside
    (c) (each trainer writes a 10.5 GB checkpoint);
 12. the sampler as CUDA graphs (``TryOnPipeline.jit_sample``; run right
    after phase 3, on phase 4's full-width modules at 512x384 and CFG
@@ -360,6 +376,7 @@ import gc
 import importlib.util
 import io
 import json
+import logging
 import os
 import pathlib
 import re
@@ -3667,7 +3684,7 @@ DIST_TIMEOUT_S = 600
 DIST_BATCH = 2
 # phase 11a's and 11b's steps a run: the first eager, then captured; the
 # others replays
-DIST_STEPS = 4
+DIST_STEPS = 3
 TP_FORWARD = (4, 64, 48)  # batch, latent height and width
 UNET_PARTS = ("conv_in", "time_embedding", "down_blocks", "mid_block",
               "up_blocks", "conv_norm_out", "conv_out")
@@ -3858,6 +3875,67 @@ def same_losses(a: list, b: list) -> bool:
     return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+# phase 11a's check of each signature's gradient mean: the data-parallel
+# step of the dry run's tiny towers over global batches of these rows
+# (shapes A, B, A: two rows a rank, one, two), graphed and through
+# run_eager; the third replays A's capture after B's.  At full width a second signature's pool holds
+# another 3.46 GB of gradients a rank, which 11a's stage (58.6 GiB of
+# peaks beside 11b and the tensor-parallel trainer) cannot spare; two
+# ranks of its own run it last in ``ServedLane``, beside phase 10
+SIGNATURE_ROWS = (4, 2, 4)
+
+
+def signature_steps(mesh, dev) -> dict:
+    """The data-parallel step's ``SIGNATURE_ROWS`` steps graphed (the
+    third replays the first shape's capture after the second shape's)
+    and through ``run_eager``, from the same seeded towers: whether the
+    losses and the UNet are bitwise the same, and the same with a planted
+    revert (``.grad`` left where the last capture pointed it, so the
+    first shape's replay averages the second's gradients)."""
+    from ladi_vton_tpu_torch.core.mesh import shard_batch
+    from ladi_vton_tpu_torch.parallel import dryrun
+
+    def run(kind: str) -> dict:
+        unet, adapter, vae, text = dryrun._towers(dev, BF16)
+        step = dryrun._step_fn(mesh, unet, adapter, vae, text, dev, BF16)[2]
+        call = step.run_eager if kind == "eager" else step
+        losses = []
+        for i, n in enumerate(SIGNATURE_ROWS):
+            batch = dryrun._batch(n, dev)
+            losses.append(call(shard_batch(mesh, batch),
+                               dryrun._draws(mesh, batch, i, dev))["loss"])
+        return {"losses": losses, "unet": host_params(unet),
+                "signatures": len(step.sets)}
+
+    eager, graphed = run("eager"), run("graphed")
+    with planted(graphs, "_point_grads", lambda params, grads: None):
+        stale = run("graphed")
+    return {"signatures": graphed["signatures"],
+            "bitwise": same_losses(graphed["losses"], eager["losses"])
+            and same_params(graphed["unet"], eager["unet"]),
+            "stale_bitwise": same_losses(stale["losses"], eager["losses"])
+            and same_params(stale["unet"], eager["unet"])}
+
+
+def signature_rank() -> dict:
+    """``signature_steps`` on each of two ranks at data 2."""
+    from ladi_vton_tpu_torch.core.mesh import MeshSpec, make_mesh
+
+    dev = rank_setup()
+    with bitwise_training():
+        return signature_steps(make_mesh(MeshSpec()), dev)
+
+
+def signature_job(out: pathlib.Path, smi: str) -> None:
+    """Phase 11a's second batch shape: ``signature_rank`` on two ranks,
+    each checked."""
+    results, seconds = ranks("signature_rank", 2, (), "signatures", out)
+    for i, r in enumerate(results):
+        check_signatures(i, r, smi)
+    log(f"phase 11a's second batch shape: two ranks in {seconds:.1f} s "
+        f"wall")
+
+
 def dp_rank(work: str) -> dict:
     """Phase 11a on each of two ranks (one row of the global batch a
     rank), under ``bitwise_training``: for each form, data-parallel then
@@ -3869,10 +3947,13 @@ def dp_rank(work: str) -> dict:
     parameters are bitwise its eager run's, and ZeRO-1's the unsharded
     ones; the AdamW elements held; each step's seconds and launches, the
     peak and the graphs' pool (``DP_FORM_DONE`` touched once the
-    data-parallel form has ended); then a planted fault, the first step with
-    the gradient ``all_reduce`` left out (the staged program's stages run
-    eagerly, as its first call runs them, without the capture), and its
-    cosines."""
+    data-parallel form has ended); then a planted fault, the first step
+    with the gradient ``all_reduce`` left out (the staged program's
+    stages run eagerly, as its first call runs them, without the
+    capture), and its cosines.  The fault's step takes the ZeRO-1
+    optimizer, whose peak (12.95 GiB a rank, not the unsharded 17.4) is
+    what the tensor-parallel trainer's stage allows for beside it; the
+    gradients it leaves do not depend on the optimizer."""
     from ladi_vton_tpu_torch.core.mesh import MeshSpec, make_mesh, shard_batch
 
     dev = rank_setup()
@@ -3890,6 +3971,7 @@ def dp_rank(work: str) -> dict:
 
     def first() -> None:
         out["cosine"] = cosines(unet_grads(towers["unet"]), ref)
+
 
     with bitwise_training():
         for zero in (False, True):
@@ -3924,7 +4006,8 @@ def dp_rank(work: str) -> dict:
             out["zero1" if zero else "dp"] = r
         del updated, params
         release()
-        step = dist_step(reset_unet(towers, start), inputs, dev, mesh)[1]
+        step = dist_step(reset_unet(towers, start), inputs, dev, mesh,
+                         zero=True)[1]
         with planted(steps_mod, "reduce_gradients",
                      lambda params, mesh: None):
             step.run_eager(batch, draws)
@@ -4076,9 +4159,142 @@ def tp_forward(name: str, mesh, dev, work: pathlib.Path) -> dict:
            "forward_launches": launches,
            "shapes": {k: sorted(v) for k, v in shapes.items()},
            "to_q": tuple(q.weight.shape)}
-    del unet, full, sharded, unreduced
+    del full, sharded, unreduced
+    torch.cuda.empty_cache()
+    out["pieces"] = tp_step_pieces(name, unet, dev)
+    del unet
     torch.cuda.empty_cache()
     return out
+
+
+# phase 11c's tensor-parallel denoise step as pieces: a DDIM-50 step at
+# 512x384 and batch 2 (the UNet at batch 4 under CFG 7.5), captured once
+# (its warm-up eager), then replayed over fresh inputs; the planted fault
+# skips the all_reduce of cut TP_STEP_SKIP in one replay
+TP_STEP = (2, 64, 48)  # batch, latent height and width
+TP_STEP_REPLAYS = 3
+TP_STEP_SKIP = 5
+
+
+def tp_step_inputs(plan, g: torch.Generator, ctx_width: int) -> tuple:
+    """Fresh inputs of one denoise step (``SamplerPlan.step``'s
+    arguments) on the card, the same on every rank of ``g``'s seed: the
+    loop's latents and state, a step index and its timestep, the CFG
+    inputs of a prepared batch."""
+    B, lh, lw = TP_STEP
+    dev = plan.device
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    prepared = {"latents": randn(B, 4, lh, lw),
+                "mask_lat": (randn(B, 1, lh, lw) > 0).float(),
+                "masked_latents": randn(B, 4, lh, lw),
+                "pose_lat": randn(B, 18, lh, lw).clamp(0, 1),
+                "cloth_latents": randn(B, 4, lh, lw)}
+    latents, state, inputs = plan.pipe.loop_inputs(
+        prepared, prompt_embeds=randn(B, 77, ctx_width).to(BF16),
+        negative_prompt_embeds=randn(B, 77, ctx_width).to(BF16),
+        guidance_scale=plan.guidance_scale)
+    i = int(torch.randint(len(plan.timesteps), (), generator=g,
+                          device=dev))
+    return latents, state, plan.steps[i].clone(), plan.timesteps[i].clone(), \
+        inputs
+
+
+@contextlib.contextmanager
+def all_reduces(calls: list, skip: int = -1):
+    """``torch.distributed.all_reduce`` recording each call's tensor
+    shape in ``calls``; call number ``skip`` (from 0) is not run."""
+    real = torch.distributed.all_reduce
+
+    def call(t, *args, **kw):
+        calls.append(tuple(t.shape))
+        if len(calls) - 1 != skip:
+            return real(t, *args, **kw)
+
+    torch.distributed.all_reduce = call
+    try:
+        yield
+    finally:
+        torch.distributed.all_reduce = real
+
+
+def tp_step_pieces(name: str, unet, dev) -> dict:
+    """Phase 11c's check of the tensor-parallel denoise step as pieces
+    (``pipelines.graphs.Graph`` through a ``Program`` of
+    ``SamplerPlan.step``), on this rank's tensor-parallel ``unet``: the
+    eager step on ``TP_STEP_REPLAYS + 1`` fresh inputs (its
+    ``all_reduce``s recorded, its launches counted, timed), then the
+    program's first call (the capture, timed) and a replay on each of the
+    others, each bitwise the eager step, each with the eager step's
+    launches and ``all_reduce``s; last, one replay with the all_reduce of
+    cut ``TP_STEP_SKIP`` skipped (a planted fault)."""
+    wrappers = {k: fn for k, fn, _, _, _ in KERNELS}
+    plan = graphs.SamplerPlan(
+        TryOnPipeline(unet=unet, vae=None, scheduler=make_scheduler("ddim")),
+        split=True, denoise_mode="host", num_inference_steps=50,
+        guidance_scale=7.5)
+    g = torch.Generator(dev).manual_seed(117)
+    xs = [tp_step_inputs(plan, g, TP_UNETS[name][2])
+          for _ in range(TP_STEP_REPLAYS + 1)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {"eager_s": [], "replay_s": [], "replay_calls": [],
+           "replay_launches": [], "bitwise": []}
+    try:
+        eager = []
+        for i, x in enumerate(xs):
+            calls: list = []
+            reset_counts(wrappers)
+            with all_reduces(calls), torch.no_grad():
+                result, seconds = synced(lambda: plan.step(*x))
+            eager.append(result)
+            out["eager_s"].append(seconds)
+            if i == 0:
+                out.update(eager_calls=calls,
+                           eager_launches=main_counts(wrappers))
+        program = graphs.Program(plan.step, device=dev)
+        first = program(*xs[0])
+        (key,) = program.sets
+        graph = program.sets[key].graph
+        out.update(capture_s=program.capture_seconds[key],
+                   pieces=len(graph.pieces),
+                   cut_shapes=[tuple(t.shape) for t, _ in graph.cuts],
+                   bitwise=[same_tree(first, eager[0])])
+        for x, ref in zip(xs[1:], eager[1:]):
+            calls = []
+            reset_counts(wrappers)
+            with all_reduces(calls):
+                result, seconds = synced(lambda: program(*x))
+            out["replay_s"].append(seconds)
+            out["replay_calls"].append(calls)
+            out["replay_launches"].append(main_counts(wrappers))
+            out["bitwise"].append(same_tree(result, ref))
+        with all_reduces([], skip=TP_STEP_SKIP):
+            skipped = program(*xs[1])
+        out["skipped_bitwise"] = same_tree(skipped, eager[1])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del program, graph, eager, first, result, skipped
+    torch.cuda.empty_cache()
+    return out
+
+
+def synced(fn) -> tuple:
+    """(``fn()``, its host seconds between two synchronisations)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def same_tree(a, b) -> bool:
+    """Two outputs of the step (tensor trees) bit for bit."""
+    xs, ys = graphs._leaves(a), graphs._leaves(b)
+    return len(xs) == len(ys) and all(torch.equal(x, y)
+                                      for x, y in zip(xs, ys))
 
 
 def tp_rank(work: str) -> dict:
@@ -4230,6 +4446,38 @@ def staged_only(work: pathlib.Path, smi: str) -> None:
         f"({time.perf_counter() - t0:.1f} s)")
 
 
+def tp_pieces_rank() -> dict:
+    """``--tp-pieces-only`` on each of two ranks at data 1 x model 2:
+    ``tp_step_pieces`` of each of ``TP_UNETS``, seeded as
+    ``tp_forward`` seeds them; then ``signature_steps`` at data 2."""
+    from ladi_vton_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from ladi_vton_tpu_torch.parallel import tp
+
+    dev = rank_setup(deterministic=False)
+    mesh = make_mesh(MeshSpec(data=1, model=2))
+    out = {}
+    for name, (factory, seed, _) in TP_UNETS.items():
+        unet = tp.unet_tp(seeded(factory, seed, dev, BF16), mesh)
+        out[name] = tp_step_pieces(name, unet, dev)
+        del unet
+        torch.cuda.empty_cache()
+    with bitwise_training():
+        out["signatures"] = signature_steps(make_mesh(MeshSpec()), dev)
+    return out
+
+
+def tp_pieces_only(work: pathlib.Path, smi: str) -> None:
+    """``--tp-pieces-only``: phase 11c's denoise steps as pieces and the
+    second batch shape of phase 11a's tiny towers, alone."""
+    results, seconds = ranks("tp_pieces_rank", 2, (), "tp_pieces", work)
+    for i, r in enumerate(results):
+        for name in TP_UNETS:
+            check_tp_pieces(i, name, r[name], smi)
+        check_signatures(i, r["signatures"], smi)
+    log(f"phase 11c's pieces and 11a's second batch shape: two ranks in "
+        f"{seconds:.1f} s wall")
+
+
 def dist_mains(work: pathlib.Path, train_roots: dict, out: pathlib.Path,
                smi: str, which: str) -> tuple:
     """Phase 11d's trainer runs, two ranks with torchrun's variables; (the
@@ -4345,16 +4593,36 @@ SERVE_DIST_STEPS = 10
 SERVE_DIST_KERNELS = ("flash_attention", "group_norm", "geglu", "layer_norm")
 
 
+class LogLines(logging.Handler):
+    """The messages logged to it, in ``lines``."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list = []
+
+    def emit(self, record) -> None:
+        self.lines.append(record.getMessage())
+
+
 def serve_rank(argv: list) -> dict:
     """Phase 11f on one rank: ``cli.serve``'s main in the ranks' process
     group (rank 0 serves until SIGINT, the other rank follows it); the
-    kernels' launches and the peak memory over the rank's run."""
+    kernels' launches and the peak memory over the rank's run, and what
+    ``pipelines.graphs`` logged (how the sampler was captured)."""
     wrappers = {name: fn for name, fn, _, _, _ in KERNELS}
     reset_counts(wrappers)
     torch.cuda.reset_peak_memory_stats()
-    serve_cli.main(argv)
+    logger = logging.getLogger(graphs.__name__)
+    lines = LogLines()
+    logger.addHandler(lines)
+    logger.setLevel(logging.INFO)
+    try:
+        serve_cli.main(argv)
+    finally:
+        logger.removeHandler(lines)
     torch.cuda.synchronize()
-    return {"launches": main_counts(wrappers), "peak_gib": peak_gib()}
+    return {"launches": main_counts(wrappers), "peak_gib": peak_gib(),
+            "graph_log": lines.lines}
 
 
 def serve_dist_argv(work: pathlib.Path, *flags: str) -> list:
@@ -4425,6 +4693,8 @@ def serve_over_ranks(work: pathlib.Path, out: pathlib.Path, raw: dict,
                wait=False) as started:
         url = served_url(started)
         t_up = time.perf_counter() - t0
+        start_line = next(line for line in started.output(0).splitlines()
+                          if line.startswith("serving try-on on "))
         answer = client_raw(TryOnClient(url, timeout_s=SERVE_TIMEOUT_S), raw)
         t1 = time.perf_counter()
         started.procs[0].send_signal(signal.SIGINT)
@@ -4445,6 +4715,18 @@ def serve_over_ranks(work: pathlib.Path, out: pathlib.Path, raw: dict,
     launches = {name: 0 for name, _, _, _, _ in KERNELS}
     for r in results:
         add_launches(launches, r["launches"])
+    # at model 2 each rank's sampler captures its step in pieces, and
+    # logs how many; at data 2 it is one graph a stage, and logs nothing
+    pieces = [[line for line in r["graph_log"] if "the step as " in line]
+              for r in results]
+    log(f"phase 11f at {label}: rank 0's start line {start_line!r}; the "
+        f"sampler's capture by rank {pieces}")
+    kind = ("its denoise step in pieces" if label == "model 2"
+            else "CUDA-graphed sampler)")
+    if kind not in start_line or any(bool(p) != (label == "model 2")
+                                     for p in pieces):
+        raise AssertionError(f"phase 11f: the {label} ranks do not sample "
+                             f"as the graphed sampler of their mesh")
     log(f"phase 11f cli.serve over two ranks at {label} (batch "
         f"{SERVE_DIST_BATCH}, DDIM-{SERVE_DIST_STEPS}, CFG 7.5): up in "
         f"{t_up:.1f} s; "
@@ -4477,10 +4759,11 @@ SERVED_ROOM_GIB = 16.0
 
 
 class ServedLane:
-    """Phase 11's 11d inference, 11e and 11f, one after another in a
-    thread: ranks alone (this process only reads their files and
-    answers), which hold at most 11 GiB of the card and write little, so
-    they run beside phase 10's mains.  ``start`` first takes 11f's
+    """Phase 11's 11d inference, 11e, 11f and 11a's second batch shape
+    (``signature_job``), one after another in a thread: ranks alone
+    (this process only reads their files and answers), which hold at
+    most 11 GiB of the card and write little, so they run beside phase
+    10's mains.  ``start`` first takes 11f's
     one-process answer in this process, so it is called where no launch
     count is open, then caps this process's caching allocator to leave
     ``SERVED_ROOM_GIB`` free (the cache would grow to fill the card: the
@@ -4517,7 +4800,8 @@ class ServedLane:
                     lambda: serve_over_ranks(work, out, raw, ref, "data 2",
                                              smi),
                     lambda: serve_over_ranks(work, out, raw, ref, "model 2",
-                                             smi)):
+                                             smi),
+                    lambda: signature_job(out, smi) or {}):
             add_launches(total, job())
         return total
 
@@ -4536,8 +4820,10 @@ class ServedLane:
 # GiB) ran it out of memory.  The two trainers, each writing a 10.5 GB
 # checkpoint, run in different stages.  In the first, the tensor-parallel
 # trainer starts once 11a's ranks have ended their data-parallel form
-# (``DP_FORM_DONE``) and 11b has ended: beside 11a's ZeRO-1 form, 12.95
-# GiB a rank, its 16.36 GiB a rank sum to 58.6 GiB.
+# (``DP_FORM_DONE``) and 11b has ended: beside 11a's ZeRO-1 form and its
+# planted fault, 12.95 GiB a rank, its 16.36 GiB a rank sum to 58.6 GiB.
+# (The fault's step once took the unsharded optimizer, 17.4 GiB a rank,
+# and met the trainer's step: the card ran out of memory.)
 DIST_STAGES = (("dp", "nccl", "tp_main"), ("zero1", "tp"))
 # 11a's ranks each touch ``<out>/dp_form_done.<rank>`` once their
 # data-parallel form has ended and released the card
@@ -4671,6 +4957,7 @@ def dp_steps(out: pathlib.Path, ref: dict, peaks: dict, smi: str) -> dict:
         if min(r["fault_cosine"].values()) >= DIST_GRAD_COS:
             raise AssertionError("phase 11a: the gradient limit does not "
                                  "tell a step without its all_reduce")
+
         for tag in ("dp", "zero1"):
             f = r[tag]
             if not (f["graphed"] and f["staged"]
@@ -4735,6 +5022,7 @@ def tp_steps(out: pathlib.Path, ref: dict, checked: dict, smi: str) -> dict:
     for i, r in enumerate(results):
         for name, f in (("sd2", r), ("sd15", r["sd15"])):
             check_tp_forward(i, name, f, checked, smi)
+            check_tp_pieces(i, name, f["pieces"], smi)
             add_launches(total, f["forward_launches"])
         add_launches(total, r["step_launches"])
         rel = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
@@ -4753,6 +5041,56 @@ def tp_steps(out: pathlib.Path, ref: dict, checked: dict, smi: str) -> dict:
                                  f"step did not run eagerly")
     log(f"phase 11c: two ranks in {seconds:.1f} s wall")
     return total
+
+
+def check_signatures(i: int, sig: dict, smi: str) -> None:
+    """Rank ``i``'s ``signature_steps``: each form over two batch shapes
+    bitwise its eager run, the planted revert not."""
+    log(f"phase 11a's second batch shape, rank {i}: the dry run's tiny "
+        f"towers over global batches of {SIGNATURE_ROWS} rows, graphed "
+        f"against run_eager: {sig} [{smi}]")
+    if not (sig["signatures"] == 2 and sig["bitwise"]):
+        raise AssertionError(f"phase 11a: rank {i}'s steps over two batch "
+                             f"shapes differ from their eager run")
+    if sig["stale_bitwise"]:
+        raise AssertionError("phase 11a: a reduce of the last capture's "
+                             "gradients goes unseen")
+
+
+def check_tp_pieces(i: int, name: str, r: dict, smi: str) -> None:
+    """Rank ``i``'s denoise step of one of ``TP_UNETS`` as pieces
+    (``tp_step_pieces``): one cut at each ``all_reduce`` of the eager
+    step, on a buffer of its shape; every replay bitwise the eager step,
+    with its launches and its ``all_reduce``s; the planted skipped cut
+    outside that equality."""
+    cuts = len(r["eager_calls"])
+    replays = sum(r["replay_s"]) / len(r["replay_s"])
+    eager = sum(r["eager_s"][1:]) / len(r["eager_s"][1:])
+    log(f"phase 11c rank {i}: the {name} tensor-parallel denoise step "
+        f"(DDIM-50, batch {TP_STEP[0]}, {TP_STEP[1] * 8}x{TP_STEP[2] * 8}, "
+        f"CFG 7.5) as {r['pieces']} graphs with {len(r['cut_shapes'])} "
+        f"cuts ({cuts} all_reduces over the model axis an eager step), "
+        f"captured in {r['capture_s']:.3f} s with its warm-up; a replay "
+        f"{replays:.4f} s against an eager step {eager:.4f} s (means of "
+        f"{len(r['replay_s'])}; eager {rounded(r['eager_s'], 4)}, replays "
+        f"{rounded(r['replay_s'], 4)}); bitwise the eager step "
+        f"{r['bitwise']}; launches a replay {r['replay_launches'][0]}, an "
+        f"eager step {r['eager_launches']}; planted fault, cut "
+        f"{TP_STEP_SKIP}'s all_reduce skipped: bitwise "
+        f"{r['skipped_bitwise']} [{smi}]")
+    if not (cuts and r["cut_shapes"] == r["eager_calls"]
+            and r["pieces"] == cuts + 1):
+        raise AssertionError(f"phase 11c: rank {i}'s {name} step is not "
+                             f"cut at each all_reduce of the eager step")
+    if not (all(r["bitwise"]) and len(r["bitwise"]) == TP_STEP_REPLAYS + 1
+            and all(c == r["eager_calls"] for c in r["replay_calls"])
+            and all(n == r["eager_launches"]
+                    for n in r["replay_launches"])):
+        raise AssertionError(f"phase 11c: rank {i}'s {name} pieces are not "
+                             f"the eager step")
+    if r["skipped_bitwise"]:
+        raise AssertionError("phase 11c: a skipped cut leaves the step "
+                             "unchanged")
 
 
 def check_tp_forward(i: int, name: str, r: dict, checked: dict,
@@ -6480,6 +6818,11 @@ def main() -> None:
                         "and ZeRO-1 steps over two ranks and the NCCL "
                         "rank, graphed in two stages), then exit without "
                         "the result lines")
+    parser.add_argument("--tp-pieces-only", action="store_true",
+                        help="phase 11c's tensor-parallel denoise steps as "
+                        "pieces and 11a's tiny towers over two batch "
+                        "shapes alone (two ranks, from freshly seeded "
+                        "modules), then exit without the result lines")
     parser.add_argument("--sd15-only", action="store_true",
                         help="phase 2's SD-1.5 K1 rows, K1's SD-1.5 "
                         "gradient rows and phase 15 alone (the SD-1.5 "
@@ -6577,6 +6920,10 @@ def main() -> None:
     if args.staged_only:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
             staged_only(pathlib.Path(work), smi)
+        return
+    if args.tp_pieces_only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
+            tp_pieces_only(pathlib.Path(work), smi)
         return
     if args.distributed_only:
         checked = check_tensor_parallel_rows(gen, {})

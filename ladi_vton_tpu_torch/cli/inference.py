@@ -34,8 +34,9 @@ is rounded up to a multiple of ``data``, each data rank conditions,
 samples and saves its rows of every batch with its rows of the global
 batch's noise, and model rank 0 writes; ``--tensor_parallel N`` splits
 the UNet's attentions and feed-forwards over ``model``
-(``parallel.tp``), and the sampler then runs eagerly
-(``parallel.sharding.eager_reason``).  ``--dist_backend`` is NCCL on
+(``parallel.tp``), and the sampler's denoise step is then captured in
+pieces, with the ``all_reduce``s over ``model`` run eagerly between
+them (``pipelines.graphs.Graph``).  ``--dist_backend`` is NCCL on
 the card and gloo on the CPU.  ``--compute_metrics`` scores the saved
 images once the saver has flushed (``metrics.compute.compute_metrics``
 on ``--device``, weights from ``$LADI_VTON_METRIC_WEIGHTS``) and writes

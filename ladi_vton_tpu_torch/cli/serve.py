@@ -30,8 +30,9 @@ graphs before the batcher and HTTP threads start, and every request
 replays them (``--no_warmup`` skips those requests, and the first
 request of each captures).
 The start line says which sampler runs: over ranks at
-``--tensor_parallel`` above 1 it is the eager one, since the
-tensor-parallel UNet's collectives run on the host.
+``--tensor_parallel`` above 1 its denoise step is captured in pieces,
+with the tensor-parallel UNet's ``all_reduce``s run eagerly between
+them.
 
 Over ranks (``python -m torch.distributed.run --nproc_per_node N -m
 ladi_vton_tpu_torch.cli.serve ...``) the ranks form the data x model mesh

@@ -23,6 +23,15 @@ marks a stage while it runs or is captured, and the port's collectives of
 the step (``all_reduce_mean`` here, the gradient mean and ZeRO-1's
 broadcasts in ``train.steps``) call ``outside_stage`` first, so that one
 misplaced into a stage raises instead of being captured.
+
+A forward over the model axis sums the partial outputs of each sharded
+attention and feed-forward (``parallel.tp``) through ``model_all_reduce``.
+Outside a capture it runs the ``all_reduce``.  A capture that may be cut
+(``pipelines.graphs.Graph``: a stage with a ``cut``) hands it the buffer
+instead: the capture ends its graph there, records the ``all_reduce``
+to run eagerly between that graph and the next, and begins the next, in
+which the forward goes on over the buffer.  Inside a stage without a cut
+it raises, as every other collective of the port does inside any stage.
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ import contextlib
 import dataclasses
 import datetime
 import threading
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
@@ -125,19 +134,21 @@ _STAGE = threading.local()
 
 
 @contextlib.contextmanager
-def stage(name: str):
-    """The block is ``name``, a stage of a train program (captured on the
-    card, run as it is on the CPU): ``outside_stage`` raises inside it."""
-    outer = current_stage()
-    _STAGE.name = name
+def stage(name: str, cut: Optional[Callable] = None):
+    """The block is ``name``, a stage of a program (captured on the card,
+    run as it is on the CPU): ``outside_stage`` raises inside it, and
+    ``model_all_reduce`` calls ``cut(t, group) -> t`` where it is given,
+    else raises too."""
+    outer = current_stage(), getattr(_STAGE, "cut", None)
+    _STAGE.name, _STAGE.cut = name, cut
     try:
         yield
     finally:
-        _STAGE.name = outer
+        _STAGE.name, _STAGE.cut = outer
 
 
 def current_stage() -> Optional[str]:
-    """The train program's stage running on this thread, or None."""
+    """The program's stage running on this thread, or None."""
     return getattr(_STAGE, "name", None)
 
 
@@ -146,9 +157,22 @@ def outside_stage(what: str) -> None:
     name = current_stage()
     if name is not None:
         raise RuntimeError(
-            f"{what} inside the {name} stage of a train program: a stage "
-            f"is captured as a CUDA graph, which holds no collective; it "
-            f"runs between the stages")
+            f"{what} inside the {name} stage of a program: a stage is "
+            f"captured as a CUDA graph, which holds no collective; it runs "
+            f"between the stages")
+
+
+def model_all_reduce(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` summed over the model ``group`` in place, and returned: the
+    one collective of a forward over the model axis.  Inside a stage with
+    a cut (a capture), the cut's: the capture is cut at ``t``, whose
+    ``all_reduce`` runs eagerly between two graphs."""
+    cut = getattr(_STAGE, "cut", None)
+    if cut is not None:
+        return cut(t, group)
+    outside_stage("the model axis's all_reduce")
+    dist.all_reduce(t, group=group)
+    return t
 
 
 def all_reduce_mean(t: torch.Tensor, group, size: int) -> torch.Tensor:

@@ -16,9 +16,11 @@ their rows, and this is the one mechanism for that, which the mains
   where the JAX sampler gathers the batch to every host;
 * ``make_sampler(pipe, mesh, ...)``: the run's sampler,
   ``pipe.jit_sample(split=True, denoise_mode="host")`` (CUDA graphs on
-  the card) where the model axis is 1, else the eager ``pipe.sample``:
-  the tensor-parallel UNet's collectives over gloo run on the host,
-  which a graph cannot capture (``eager_reason`` says so).
+  the card) at every mesh: at a model axis above 1 the tensor-parallel
+  UNet's ``all_reduce``s cut its step into pieces, one graph each, with
+  the ``all_reduce``s run eagerly between them (``pipelines.graphs.
+  Graph``), the JAX ``tensor_parallel_sampler``'s one program with the
+  per-block all-reduces inside it.
 
 The global batch must divide by ``data``, as in JAX.  The JAX
 ``eval_placement`` gives the UNet the Megatron plan: here each rank
@@ -63,40 +65,18 @@ def sample_draws(mesh: Optional[Mesh], seed: int, step: int, device,
                         width, rows)
 
 
-def eager_reason(mesh: Optional[Mesh]) -> Optional[str]:
-    """Why a run over ``mesh`` samples eagerly, or None where it replays
-    the sampler's CUDA graphs: at a model axis above 1 every UNet call
-    runs the tensor-parallel collectives, which go through the host
-    under gloo (and under NCCL wait for a machine with more than one
-    card to be captured and checked)."""
-    if mesh is not None and mesh.model > 1:
-        return (f"model axis {mesh.model}: the tensor-parallel UNet's "
-                f"collectives run on the host and are not captured")
-    return None
-
-
 def make_sampler(pipe, mesh: Optional[Mesh], **static) -> Callable:
-    """The sampler of a run over ``mesh``, with the call of
-    ``TryOnPipeline.jit_sample``'s: that sampler where ``eager_reason`` is
-    None, else ``pipe.sample`` with the same static keys.  Build it after
-    the modules are placed and the tensor-parallel UNet swapped in.
+    """The sampler of a run over ``mesh``: ``TryOnPipeline.jit_sample``'s
+    with the static keys ``static``.  Build it after the modules are
+    placed and the tensor-parallel UNet swapped in: its graphs read their
+    storage.
 
     The JAX callers take ``split=True`` with the scan; this one takes the
     JAX package's other split mode, ``denoise_mode="host"`` (one step
     graph replayed a step), whose stated use is where building the whole
     loop is impractical: its images are the scan's bit for bit and take
     as long, and its capture takes a step's time, not the loop's, which
-    every run, service start and new batch shape pays."""
-    if eager_reason(mesh) is None:
-        return pipe.jit_sample(split=True, denoise_mode="host", **static)
-
-    def sampler(image, mask_image, pose_map, warped_cloth, prompt_embeds,
-                negative_prompt_embeds, *, generator=None, noise=None,
-                latents=None):
-        return pipe.sample(
-            image=image, mask_image=mask_image, pose_map=pose_map,
-            warped_cloth=warped_cloth, prompt_embeds=prompt_embeds,
-            negative_prompt_embeds=negative_prompt_embeds,
-            generator=generator, noise=noise, latents=latents, **static)
-
-    return sampler
+    every run, service start and new batch shape pays.  At a model axis
+    above 1 that step is in pieces, one for each ``all_reduce`` of the
+    UNet and one more."""
+    return pipe.jit_sample(split=True, denoise_mode="host", **static)

@@ -30,7 +30,11 @@ The collectives are two autograd Functions over the model group:
 a parallel region's input and ``reduce_from_model`` (``all_reduce``
 forward, identity backward) at its output, each summing in fp32.  So the
 replicated parameters get the same gradient on every model rank, and the
-sharded ones (marked ``tp_sharded``) their slice's.
+sharded ones (marked ``tp_sharded``) their slice's.  The forward's
+``all_reduce`` goes through ``core.mesh.model_all_reduce``, where a
+capture cuts its graph (the sampler's denoise step is captured in pieces,
+``pipelines.graphs.Graph``); the backward's calls ``outside_stage``
+first, as the port's other collectives do.
 
 ``tp_shard_state_dict`` and its exact inverse ``tp_gather_state_dict``
 move between the reference layout, which both zoos load, and one rank's
@@ -50,7 +54,11 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from ladi_vton_tpu_torch.core.mesh import Mesh
+from ladi_vton_tpu_torch.core.mesh import (
+    Mesh,
+    model_all_reduce,
+    outside_stage,
+)
 from ladi_vton_tpu_torch.models.layers import (
     BasicTransformerBlock,
     CrossAttention,
@@ -190,6 +198,8 @@ def tp_gather_state_dict(shards: list, specs: dict) -> dict:
 
 
 def _all_reduce_fp32(t: torch.Tensor, group) -> torch.Tensor:
+    """The backward's sum of ``t`` over ``group``, in fp32."""
+    outside_stage("the model axis's gradient all_reduce")
     out = t.float().clone()
     dist.all_reduce(out, group=group)
     return out
@@ -214,7 +224,7 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.dtype = x.dtype
-        return _all_reduce_fp32(x, group)
+        return model_all_reduce(x.float().clone(), group)
 
     @staticmethod
     def backward(ctx, grad):
@@ -339,8 +349,8 @@ class TPFeedForwardGEGLU(nn.Module):
 def unet_tp(unet: nn.Module, mesh: Mesh) -> nn.Module:
     """Swap every transformer block's attentions (where their heads divide
     ``model``) and feed-forward for this rank's tensor-parallel modules,
-    in place; the UNet's other parameters stay replicated.  Returns
-    ``unet``."""
+    each in the training mode of the module it replaces, in place; the
+    UNet's other parameters stay replicated.  Returns ``unet``."""
     if mesh.model == 1:
         return unet
     unet_tp_plan(unet, mesh.model)  # raises where an axis does not divide
@@ -350,9 +360,11 @@ def unet_tp(unet: nn.Module, mesh: Mesh) -> nn.Module:
             attn = getattr(block, name)
             if isinstance(attn, CrossAttention) and attn.heads % mesh.model \
                     == 0:
-                setattr(block, name, TPCrossAttention(attn, mesh))
+                setattr(block, name, TPCrossAttention(attn, mesh).train(
+                    attn.training))
         if isinstance(block.ff, FeedForwardGEGLU):
-            block.ff = TPFeedForwardGEGLU(block.ff, mesh)
+            block.ff = TPFeedForwardGEGLU(block.ff, mesh).train(
+                block.ff.training)
     return unet
 
 

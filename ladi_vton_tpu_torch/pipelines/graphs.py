@@ -60,6 +60,15 @@ trainers' validation) the capture runs without autocast's cache of cast
 weights, so the casts are in the graph.  A capture or replay that fails
 raises; nothing runs eagerly in its place on the card.
 
+Over a model axis of ranks the UNet sums each sharded attention's and
+feed-forward's partial outputs with an ``all_reduce`` (the JAX
+``tensor_parallel_sampler`` compiles these into its one program): a
+capture ends its graph at each (``core.mesh.model_all_reduce``) and
+begins the next in the same pool, so the denoise step is a chain of
+graphs, replayed in order with each ``all_reduce`` run eagerly on its
+buffer between two of them (``Graph``).  Prepare and decode hold no
+collective and stay one graph each.
+
 The kernel wrappers count their launches in Python, which a replay does
 not run: a graph keeps what each counter rose by during its capture
 (and takes it back, since a capture launches nothing) and adds it at
@@ -80,8 +89,9 @@ import time
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
-from ladi_vton_tpu_torch.core.mesh import stage
+from ladi_vton_tpu_torch.core.mesh import current_stage, stage
 from ladi_vton_tpu_torch.ops.flash_attention import flash_attention
 from ladi_vton_tpu_torch.ops.geglu import geglu
 from ladi_vton_tpu_torch.ops.group_norm import group_norm
@@ -121,21 +131,40 @@ def _uncached_autocast():
 
 
 class Graph:
-    """``body(*args)`` captured as one CUDA graph on ``stream``, after one
-    eager run there (the warm-up, whose outputs go to ``warmed``);
-    ``args`` are the static tensors it reads (any nesting of tuples, lists
-    and dicts), ``outputs`` what it returned.  ``pool``: another graph's
-    memory pool to share.  ``warm=False``: no warm-up, where the caller
-    ran the body's work already."""
+    """``body(*args)`` captured as CUDA graphs of one pool on ``stream``,
+    after one eager run there (the warm-up, whose outputs go to
+    ``warmed``); ``args`` are the static tensors it reads (any nesting of
+    tuples, lists and dicts), ``outputs`` what it returned.  ``pool``:
+    another graph's memory pool to share.  ``warm=False``: no warm-up,
+    where the caller ran the body's work already.  ``make``: the graph
+    class (``torch.cuda.CUDAGraph``).
+
+    Outside a caller's stage the capture is a stage of its own,
+    ``"capture"``, whose cut is ``model_all_reduce``'s
+    (``core.mesh``): where the body sums over the model axis, the
+    capture ends its graph, keeps the buffer and its group in ``cuts``
+    and begins the next graph in the same pool, and the body goes on over
+    the buffer.  So ``pieces`` holds one graph more than ``cuts``; a body
+    with no collective is one graph.  ``replay()`` replays them in the
+    order they were captured on the caller's stream, with each cut's
+    ``all_reduce`` run eagerly on its buffer between its two graphs.  No
+    collective runs during the capture, on any rank: the warm-up ran
+    them all, so the ranks' sequences stay aligned.  Any other collective
+    of the port inside the capture raises (``outside_stage``).  Inside a
+    caller's stage (a train program's) the stage stays, and a
+    ``model_all_reduce`` raises too."""
 
     def __init__(self, body: Callable, *args, stream: torch.cuda.Stream,
-                 pool=None, warm: bool = True):
+                 pool=None, warm: bool = True,
+                 make: Callable = torch.cuda.CUDAGraph):
         if warm:
             stream.wait_stream(torch.cuda.current_stream(stream.device))
             with torch.cuda.stream(stream), _uncached_autocast():
                 self.warmed(body(*args))
-        before = counts()
-        self.graph = torch.cuda.CUDAGraph()
+        self.pieces, self.cuts, self.piece_deltas = [], [], []
+        self._make, self._pool = make, pool
+        cutting = (stage("capture", cut=self._cut)
+                   if current_stage() is None else contextlib.nullcontext())
         # no collection during the capture: one that freed another graph
         # (a sampler dropped in a reference cycle) would free device
         # memory, which the capture forbids.  ``torch.cuda.graph`` would
@@ -144,20 +173,41 @@ class Graph:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with _uncached_autocast(), torch.cuda.stream(stream):
-                self.graph.capture_begin(pool=pool,
-                                         capture_error_mode="thread_local")
+            with _uncached_autocast(), torch.cuda.stream(stream), cutting:
+                self._begin()
                 try:
                     self.outputs = body(*args)
                 finally:
-                    self.graph.capture_end()
+                    self._end()
         finally:
             if collecting:
                 gc.enable()
-            after = counts()
-            self.deltas = {k: after[k] - before[k] for k in after}
+            # a capture launches nothing: take back what the counters rose
+            self.deltas = {k: sum(d[k] for d in self.piece_deltas)
+                           for k in counts()}
             _add_counts({k: -d for k, d in self.deltas.items()})
         self.captured()
+
+    def _begin(self) -> None:
+        graph = self._make()
+        graph.capture_begin(pool=self._pool,
+                            capture_error_mode="thread_local")
+        self.pieces.append(graph)
+        self._before = counts()
+
+    def _end(self) -> None:
+        self.pieces[-1].capture_end()
+        after = counts()
+        self.piece_deltas.append({k: after[k] - self._before[k]
+                                  for k in after})
+        if self._pool is None:
+            self._pool = self.pieces[0].pool()
+
+    def _cut(self, t: torch.Tensor, group) -> torch.Tensor:
+        self._end()
+        self.cuts.append((t, group))
+        self._begin()
+        return t
 
     def warmed(self, outputs) -> None:
         """The warm-up run's outputs (dropped here), before the capture."""
@@ -167,11 +217,15 @@ class Graph:
 
     @property
     def pool(self):
-        return self.graph.pool()
+        return self.pieces[0].pool()
 
     def replay(self):
-        self.graph.replay()
-        _add_counts(self.deltas)
+        for i, graph in enumerate(self.pieces):
+            if i:
+                t, group = self.cuts[i - 1]
+                dist.all_reduce(t, group=group)
+            graph.replay()
+            _add_counts(self.piece_deltas[i])
         return self.outputs
 
 
@@ -330,7 +384,9 @@ class TrainStep(Graph):
     the call that captures applies one update.  The capture gives
     ``params`` new gradients in the graph's pool, into which the real
     step's are copied: after the call, as after every replay, each
-    ``.grad`` holds the step's gradient.  ``warmup_seconds`` and
+    ``.grad`` is this signature's gradient in the pool (another
+    signature's capture points it elsewhere; a replay points it back).
+    ``warmup_seconds`` and
     ``capture_seconds``: the real step's and the capture's (host clock,
     synchronised)."""
 
@@ -355,9 +411,12 @@ class TrainStep(Graph):
 
     def captured(self) -> None:
         _copy_grads(self.params, self.grads)
-        del self.grads
+        self.grads = [p.grad for p in self.params]
 
-    run = Graph.replay
+    def run(self):
+        out = self.replay()
+        _point_grads(self.params, self.grads)
+        return out
 
 
 def _offload_grads(params: Sequence[torch.Tensor]) -> list:
@@ -369,6 +428,12 @@ def _offload_grads(params: Sequence[torch.Tensor]) -> list:
     for p in params:
         p.grad = None
     return grads
+
+
+def _point_grads(params: Sequence[torch.Tensor], grads: list) -> None:
+    """Each ``.grad`` back at a signature's gradients in its pool."""
+    for p, g in zip(params, grads):
+        p.grad = g
 
 
 def _copy_grads(params: Sequence[torch.Tensor], grads: list) -> None:
@@ -404,13 +469,17 @@ class StagedTrainStep:
     leaves in the pool, into which the real step's are copied (held in
     host memory meanwhile, ``_offload_grads``).
 
-    ``run()`` replays the gradient graph, runs ``seams.reduce()``, replays
-    the update graph and returns ``seams.finish`` of the first graph's
-    outputs, all on the caller's current stream: a collective orders its
-    work after that stream's (gloo copies a CUDA tensor out after an
-    event recorded on it, NCCL's stream waits on it) and, when it
-    returns, that stream after its own, so each sits between the two
-    replays.  ``graph`` makes each graph (``Graph``'s arguments, with
+    ``grads`` are the gradients the gradient graph's capture gave the
+    parameters: the graph writes them at every replay, and the update
+    graph reads them.  ``run()`` replays the gradient graph, points each
+    ``.grad`` back at ``grads`` (another signature's capture pointed them
+    at its own), runs ``seams.reduce()``, which averages the ``.grad`` it
+    finds, replays the update graph and returns ``seams.finish`` of the
+    first graph's outputs, all on the caller's current stream: a
+    collective orders its work after that stream's (gloo copies a CUDA
+    tensor out after an event recorded on it, NCCL's stream waits on it)
+    and, when it returns, that stream after its own, so each sits between
+    the two replays.  ``graph`` makes each graph (``Graph``'s arguments, with
     ``warm=False``).  ``warmup_seconds`` and ``capture_seconds`` as
     ``TrainStep``'s; ``pool`` the graphs' pool."""
 
@@ -429,6 +498,8 @@ class StagedTrainStep:
         with stage("gradients"):
             self.gradients = graph(program.body, *inputs, stream=stream,
                                    warm=False)
+        self.params = params
+        self.grads = [p.grad for p in params]
         with stage("update"):
             self.update = graph(program.optimizer.update, stream=stream,
                                 pool=self.gradients.pool, warm=False)
@@ -443,6 +514,7 @@ class StagedTrainStep:
 
     def run(self):
         out = self.gradients.replay()
+        _point_grads(self.params, self.grads)
         self.seams.reduce()
         self.update.replay()
         return self.seams.finish(out)
@@ -545,13 +617,16 @@ class HostLoop:
     (``(x,)``): ``plan.prepare_loop(x)`` -> (carry, latents, state, step
     inputs), ``plan.step(latents, state, step_i, t, step inputs)`` ->
     (latents, state), replayed once per step of ``plan.timesteps``, and
-    ``plan.decode_loop(latents, carry)``."""
+    ``plan.decode_loop(latents, carry)``.  ``graph`` makes each
+    (``Graph``'s arguments); the step is in pieces where the UNet sums
+    over the model axis."""
 
-    def __init__(self, plan, inputs: tuple, stream: torch.cuda.Stream):
+    def __init__(self, plan, inputs: tuple, stream: torch.cuda.Stream,
+                 graph: Callable = Graph):
         # the plan's steps, not the plan: no reference to the program
         self.inputs = inputs
         self.steps, self.timesteps = plan.steps, plan.timesteps
-        prep = Graph(plan.prepare_loop, *inputs, stream=stream)
+        prep = graph(plan.prepare_loop, *inputs, stream=stream)
         pool = prep.pool
         carry, latents, state, step_inputs = prep.outputs
         self.step_i = torch.zeros((), dtype=plan.steps.dtype,
@@ -560,9 +635,9 @@ class HostLoop:
                              device=plan.timesteps.device)
         # the step reads the latents and state the prepare graph wrote,
         # and each replay's results are copied back over them
-        step = Graph(plan.step, latents, state, self.step_i, self.t,
+        step = graph(plan.step, latents, state, self.step_i, self.t,
                      step_inputs, stream=stream, pool=pool)
-        dec = Graph(plan.decode_loop, latents, carry, stream=stream,
+        dec = graph(plan.decode_loop, latents, carry, stream=stream,
                     pool=pool)
         self.graphs = [prep, step, dec]
 
@@ -593,7 +668,9 @@ class LoopProgram(Program):
     """A sampling loop as a program: ``run_loop(plan, x)`` on the CPU,
     the ``HostLoop`` graphs of each signature on the card.  ``plan`` has
     ``device``, ``steps``, ``timesteps``, ``prepare_loop``, ``step`` and
-    ``decode_loop``."""
+    ``decode_loop``.  ``graph`` makes each graph (``Graph``)."""
+
+    graph: Callable = Graph
 
     def __init__(self, plan, *, modules: Sequence[torch.nn.Module] = ()):
         super().__init__(functools.partial(run_loop, plan),
@@ -601,7 +678,7 @@ class LoopProgram(Program):
         self.plan = plan
 
     def capture(self, inputs: tuple):
-        return HostLoop(self.plan, inputs, self.stream)
+        return HostLoop(self.plan, inputs, self.stream, graph=self.graph)
 
 
 class SamplerPlan:
@@ -667,19 +744,20 @@ class SamplerPlan:
 
 class Staged:
     """The whole sample as one graph, or prepare, the unrolled denoise
-    loop and decode as three of one pool, over static ``inputs``."""
+    loop and decode as three of one pool, over static ``inputs``; each in
+    pieces where the UNet sums over the model axis (``graph``'s)."""
 
     def __init__(self, plan: SamplerPlan, inputs: tuple,
-                 stream: torch.cuda.Stream):
+                 stream: torch.cuda.Stream, graph: Callable = Graph):
         self.inputs = inputs
         if plan.mode == "whole":
-            self.graphs = [Graph(plan.whole, *inputs, stream=stream)]
+            self.graphs = [graph(plan.whole, *inputs, stream=stream)]
             return
         (x,) = inputs
-        prep = Graph(plan.prepare, x, stream=stream)
+        prep = graph(plan.prepare, x, stream=stream)
         pool = prep.pool
-        den = Graph(plan.denoise, prep.outputs, x, stream=stream, pool=pool)
-        dec = Graph(plan.decode_loop, den.outputs, prep.outputs,
+        den = graph(plan.denoise, prep.outputs, x, stream=stream, pool=pool)
+        dec = graph(plan.decode_loop, den.outputs, prep.outputs,
                     stream=stream, pool=pool)
         self.graphs = [prep, den, dec]
 
@@ -701,9 +779,20 @@ class Sampler(LoopProgram):
         self.mode = plan.mode
 
     def capture(self, inputs: tuple):
-        if self.mode == "host":
-            return super().capture(inputs)
-        return Staged(self.plan, inputs, self.stream)
+        loop = (super().capture(inputs) if self.mode == "host" else
+                Staged(self.plan, inputs, self.stream, graph=self.graph))
+        names = {"host": ("prepare", "step", "decode"),
+                 "scan": ("prepare", "denoise", "decode"),
+                 "whole": ("sample",)}[self.mode]
+        cut = [f"the {name} as {len(g.pieces)} graphs with {len(g.cuts)} "
+               f"all_reduces over the model axis between them"
+               for name, g in zip(names, loop.graphs) if g.cuts]
+        if cut:
+            logging.getLogger(__name__).info(
+                "the sampler (%s) at batch %d on %s: %s, run eagerly",
+                self.mode, len(inputs[0]["image"]), self.device,
+                "; ".join(cut))
+        return loop
 
     def __call__(self, image: torch.Tensor, mask_image: torch.Tensor,
                  pose_map: torch.Tensor,

@@ -52,7 +52,6 @@ from ladi_vton_tpu_torch.core.mesh import Mesh
 from ladi_vton_tpu_torch.core.rng import request_seed
 from ladi_vton_tpu_torch.data.labels import CATEGORY_PROMPT_TEXT
 from ladi_vton_tpu_torch.parallel.sharding import (
-    eager_reason,
     make_sampler,
     sample_noise,
 )
@@ -109,10 +108,11 @@ class TryOnService:
 
     The batches go through ``parallel.sharding.make_sampler``'s
     ``TryOnPipeline.jit_sample(split=True, denoise_mode="host")``: on
-    the card its CUDA graphs are captured by ``warmup`` and replayed by
-    every request; a rank of a mesh whose model axis is above 1 samples
-    eagerly (``parallel.sharding.eager_reason``).  ``sampler_kind`` says
-    which, for the start line."""
+    the card its CUDA graphs are captured by ``warmup`` (or the first
+    request) and replayed by every request; at a model axis above 1 the
+    denoise step is in pieces, with the model axis's ``all_reduce``s run
+    eagerly between them.  ``sampler_kind`` says which, for the start
+    line."""
 
     def __init__(self, pipe: TryOnPipeline, *, batch_size: int = 8,
                  height: int = 512, width: int = 384,
@@ -138,11 +138,12 @@ class TryOnService:
         self.sampler = make_sampler(pipe, self.mesh,
                                     num_inference_steps=num_inference_steps,
                                     guidance_scale=guidance_scale)
-        reason = eager_reason(self.mesh)
+        model = self.mesh.model if self.mesh is not None else 1
         self.sampler_kind = (
-            f"eager sampler ({reason})" if reason is not None
-            else "CUDA-graphed sampler" if pipe.device.type == "cuda"
-            else "eager sampler (CPU)")
+            "eager sampler (CPU)" if pipe.device.type != "cuda"
+            else "CUDA-graphed sampler" if model == 1
+            else f"CUDA-graphed sampler, its denoise step in pieces between "
+                 f"the all_reduces over the model axis of {model}")
         self.broken: Optional[BaseException] = None
         self.broken_event = threading.Event()
         self._closed = False

@@ -442,16 +442,16 @@ def eager_reason(mesh: Optional[Mesh]) -> Optional[str]:
     it is captured.  At a model axis of 1 every collective of the step
     sits between its stages (the gradient ``all_reduce`` over ``data``)
     or after them (ZeRO-1's broadcasts, the metrics' mean), whatever the
-    data axis and the backend.  Above 1 the tensor-parallel collectives
-    sit inside every attention and feed-forward, forward and backward,
-    and the clip's ``all_reduce`` over ``model`` inside the update: only
-    NCCL could capture them, and that waits for a machine with more than
-    one card to be checked."""
+    data axis and the backend.  Above 1 the forward's ``all_reduce``s
+    over ``model`` could cut a capture into pieces, as the sampler's do
+    (``core.mesh.model_all_reduce``), but the backward's (the gradient
+    of every parallel region's input, ``parallel.tp._CopyToModel``) and
+    the clip's inside the update cannot yet: the step stays eager."""
     if mesh is None or mesh.model == 1:
         return None
     return (f"a mesh of {mesh.data} x {mesh.model} ranks: the tensor-"
-            f"parallel collectives inside the forward, the backward and "
-            f"the clip are not captured")
+            f"parallel all_reduces of the backward and of the clip are not "
+            f"captured")
 
 
 def build_train_step(loss_fn: Callable, optimizer: Optimizer,

@@ -13,9 +13,10 @@ with ``"scan"`` and with ``"host"``), each held to one sample of the JAX
 ``jit_sample(split=True, denoise_mode="host")``, made once for the
 module: the JAX package's own tests hold its three modes to each other.
 On the CPU the port's sampler runs its stages eagerly, so each mode must
-also equal the port's own ``sample`` bit for bit.  Last, the rule that a service over a mesh
-whose model axis is above 1 keeps the eager sampler, and that the
-callers' sampler is ``split=True`` with ``"host"``.
+also equal the port's own ``sample`` bit for bit.  Last, the rule that a service over any
+mesh, and the mains, take ``jit_sample`` with ``split=True`` and
+``"host"``, which on the CPU runs eagerly (at a model axis above 1 the
+card captures its step in pieces: ``test_torch_port_tp_sample.py``).
 """
 
 import dataclasses
@@ -31,7 +32,7 @@ from ladi_vton_tpu.diffusion import schedulers as jax_schedulers
 from ladi_vton_tpu_torch.core.mesh import Mesh
 from ladi_vton_tpu_torch.diffusion.schedulers import make_scheduler
 from ladi_vton_tpu_torch.ops import resize
-from ladi_vton_tpu_torch.parallel.sharding import eager_reason, make_sampler
+from ladi_vton_tpu_torch.parallel.sharding import make_sampler
 from ladi_vton_tpu_torch.pipelines.graphs import Sampler
 from ladi_vton_tpu_torch.pipelines.serving import TryOnService
 from ladi_vton_tpu_torch.pipelines.tryon import cloth_gate_start
@@ -185,29 +186,28 @@ def _mesh(data: int, model: int) -> Mesh:
 @pytest.mark.parametrize("data,model", [(1, 1), (2, 1), (1, 2), (2, 2)])
 def test_model_axis_service_keeps_the_eager_sampler(pipelines, data,
                                                     model):
-    """At a model axis above 1 the tensor-parallel UNet's collectives run
-    on the host, which a CUDA graph cannot capture: the service (and the
-    mains, through ``make_sampler``) keep ``pipe.sample``; data-parallel
-    ranks and one process take ``jit_sample``."""
+    """At every mesh the service (and the mains, through
+    ``make_sampler``) take ``jit_sample(split=True, denoise_mode="host")``:
+    on the card a model axis above 1 captures its denoise step in pieces
+    between the tensor-parallel ``all_reduce``s; on the CPU, at every
+    mesh, it runs eagerly, as the start line says, and is
+    ``pipe.sample`` bit for bit."""
     _, _, pipe = pipelines
     mesh = _mesh(data, model)
-    assert (eager_reason(mesh) is None) == (model == 1)
-    assert eager_reason(None) is None
     service = TryOnService(pipe, batch_size=2 * data, height=H, width=W,
                            num_inference_steps=2, context_dim=CTX,
                            mesh=mesh)
     try:
-        graphed = isinstance(service.sampler, Sampler)
-        assert graphed == (model == 1)
         # the callers' sampler: prepare, one step graph, decode
-        assert not graphed or service.sampler.mode == "host"
-        assert service.sampler_kind.startswith(
-            "eager sampler (CPU)" if model == 1
-            else f"eager sampler (model axis {model}")
+        assert isinstance(service.sampler, Sampler)
+        assert service.sampler.mode == "host"
+        assert not service.sampler.graphed
+        assert service.sampler_kind == "eager sampler (CPU)"
     finally:
         service.close()
-    # the eager sampler takes the jit sampler's call and is pipe.sample
     sampler = make_sampler(pipe, mesh, **GEN)
+    assert isinstance(sampler, Sampler) and sampler.mode == "host"
+    # on the CPU the sampler runs eagerly: pipe.sample's image
     req = _request(74)
     args = [_torch(req[k]) for k in (
         "image", "mask_image", "pose_map", "warped_cloth", "prompt_embeds",

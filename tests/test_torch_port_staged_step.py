@@ -17,8 +17,9 @@ draws.
   mean, the clip, ``ZeroRedundancyOptimizer``'s whole step or AdamW's,
   the metrics' mean), on both ranks; the same for the program's
   per-signature path (the first call the real step, then
-  ``StagedTrainStep`` over eager stand-ins of the graphs, replayed),
-  which keeps one signature.  ``test_torch_port_distributed.py`` holds
+  ``StagedTrainStep`` over stand-ins of the graphs whose gradients stay
+  in fixed tensors, ``FixedGrads``, replayed), which keeps one
+  signature.  ``test_torch_port_distributed.py`` holds
   the same staged steps against the JAX ``shard_step``.
 * ``torch.distributed.all_reduce`` and ``broadcast`` recorded with the
   stage they run in: none inside a stage; each step the gradients' mean
@@ -26,6 +27,13 @@ draws.
   faults: ``reduce_gradients`` moved into the gradient stage raises
   (``core.mesh.outside_stage``), and a bare ``all_reduce`` planted there
   is recorded inside it; the check fails on both.
+* Two batch shapes, A, B, A (two rows a rank, then one), through the
+  per-signature path over ``FixedGrads``, whose gradients stay in the
+  tensors their capture made, as a CUDA graph's stay in its pool: each step bitwise ``single_body_step``'s under data
+  parallelism and ZeRO-1, on both ranks, so a replay of the first shape
+  averages its own gradients, not those the second capture left behind.
+  A planted revert (``StaleReduce``: the reduce reads whatever ``.grad``
+  points at) fails the check.
 """
 
 import os
@@ -81,6 +89,9 @@ def seeded(factory, seed: int) -> dict:
 @pytest.fixture(scope="module")
 def runs():
     batches = [to_torch(make_batch(60 + i, n=B)) for i in range(STEPS)]
+    # batch shapes A, B, A: two rows a rank, then one, then two
+    signature_batches = [to_torch(make_batch(75 + i, n=n))
+                         for i, n in enumerate((B, B // 2, B))]
     payload = {
         "unet_cfg": dict(in_channels=31, **UNET), "vae_cfg": VAE,
         "text_cfg": TEXT, "vision_cfg": VISION, "adapter_cfg": ADAPTER,
@@ -96,7 +107,10 @@ def runs():
         "step_cfg": STEP_CFG, "empty": T(EMPTY).long(), "batches": batches,
         "step_draws": [vto_draws(b, torch.Generator().manual_seed(70 + i))
                        for i, b in enumerate(batches)],
-        "forms": FORMS, "per_signature": PER_SIGNATURE}
+        "forms": FORMS, "per_signature": PER_SIGNATURE,
+        "signature_batches": signature_batches,
+        "signature_draws": [vto_draws(b, torch.Generator().manual_seed(
+            80 + i)) for i, b in enumerate(signature_batches)]}
     return spawn("torch_port_dist_workers:staged_runs", 2, (payload,),
                  timeout=TIMEOUT_S, env=ENV)
 
@@ -164,3 +178,24 @@ def test_a_collective_planted_in_a_stage_fails_the_check(runs, what):
         else:
             assert planted["error"] is None
             assert ("all_reduce", "gradients") in planted["calls"]
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["dp", "zero1"])
+def test_each_signature_reduces_its_own_gradients(runs, zero):
+    for r in runs:
+        fixed, single = (r[("signatures", zero, kind)]
+                         for kind in ("fixed", "single"))
+        assert fixed["signatures"] == 2
+        assert same_steps(fixed, single)
+    assert same_steps(runs[0][("signatures", zero, "fixed")],
+                      runs[1][("signatures", zero, "fixed")])
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["dp", "zero1"])
+def test_a_stale_reduce_fails_the_signature_check(runs, zero):
+    """The planted revert applies each rank's own gradients at the third
+    step (the first shape's replay): the check above fails on it."""
+    for r in runs:
+        stale = r[("signatures", zero, "stale")]
+        assert stale["signatures"] == 2
+        assert not same_steps(stale, r[("signatures", zero, "single")])

@@ -11,11 +11,14 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from ladi_vton_tpu_torch.core import distributed
 from ladi_vton_tpu_torch.core.checkpoint import CheckpointManager
@@ -30,7 +33,7 @@ from ladi_vton_tpu_torch.models.unet_condition import (
     UNetConfig,
 )
 from ladi_vton_tpu_torch.models.vae import AutoencoderKL, VAEConfig
-from ladi_vton_tpu_torch.parallel import tp
+from ladi_vton_tpu_torch.parallel import sharding, tp
 from ladi_vton_tpu_torch.pipelines import graphs
 from ladi_vton_tpu_torch.pipelines.serving import TryOnService
 from ladi_vton_tpu_torch.pipelines.tryon import TryOnPipeline
@@ -38,6 +41,8 @@ from ladi_vton_tpu_torch.train import steps
 
 torch.set_num_threads(1)
 LR = 1e-5  # the reference's learning rate
+SAMPLE_ARGS = ("image", "mask_image", "pose_map", "warped_cloth",
+               "prompt_embeds", "negative_prompt_embeds")
 
 
 def probe(workdir: str) -> dict:
@@ -295,25 +300,60 @@ def single_body_step(loss_fn, opt, A: int, mesh):
     return step
 
 
-class EagerGraph:
-    """A graph stand-in for the CPU (``Graph``'s arguments): nothing runs
-    at the capture; a replay runs ``body`` over the same arguments and
-    writes its results into the first replay's tensors, as a graph reads
-    and writes fixed memory."""
+def _point(params, grads) -> None:
+    for q, g in zip(params, grads):
+        q.grad = g
 
-    def __init__(self, body, *args, stream=None, pool=None,
+
+class FixedGrads:
+    """Graph stand-ins (``Graph``'s arguments) whose gradients stay in
+    fixed tensors, as a CUDA graph's stay in its pool.  The gradient
+    stage's capture runs it once, and the gradients that run leaves are
+    the graph's own; a replay runs it again, copies the new gradients into
+    the graph's own and leaves every ``.grad`` where it found it, since a
+    replay runs no Python.  The update's capture runs nothing and keeps
+    the gradients it sees; a replay updates from those."""
+
+    def __init__(self, optimizer):
+        self.optimizer = optimizer
+
+    def __call__(self, body, *args, stream=None, pool=None,
                  warm: bool = True):
-        self.body, self.args, self.outputs = body, args, None
-        self.pool = pool
+        return _FixedGradGraph(self.optimizer, body, args)
+
+
+class _FixedGradGraph:
+    def __init__(self, optimizer, body, args):
+        self.params, self.body, self.args = optimizer.params, body, args
+        self.is_update, self.pool = body == optimizer.update, None
+        self.outputs = None if self.is_update else body(*args)
+        self.grads = [q.grad for q in self.params]
 
     def replay(self):
-        out = self.body(*self.args)
-        if self.outputs is None:
-            self.outputs = out
-        elif isinstance(out, dict):
+        found = [q.grad for q in self.params]
+        if self.is_update:
+            _point(self.params, self.grads)
+            self.body()
+        else:
+            out = self.body(*self.args)
+            for g, q in zip(self.grads, self.params):
+                if g is not None:
+                    g.copy_(q.grad)
             for k, v in out.items():
                 self.outputs[k].copy_(v)
+        _point(self.params, found)
         return self.outputs
+
+
+class StaleReduce(graphs.StagedTrainStep):
+    """A planted revert: the staged step as it ran before each signature
+    kept its gradients, the reduce reading whatever ``.grad`` points at."""
+
+    def run(self):
+        out = self.gradients.replay()
+        self.seams.reduce()
+        self.update.replay()
+        return self.seams.finish(out)
 
 
 class _Stream:
@@ -325,19 +365,22 @@ class _Stream:
 
 class CPUStagedProgram(graphs.TrainProgram):
     """A staged program whose per-signature path runs on the CPU: the
-    first call the real step, then ``StagedTrainStep`` over ``EagerGraph``
-    stand-ins, replayed by later calls.  ``stand_in`` patches the CUDA
+    first call the real step, then ``staged`` (``StagedTrainStep``) over
+    ``graph``'s stand-ins (``FixedGrads`` by default), replayed by later
+    calls.  ``stand_in`` patches the CUDA
     calls the path makes."""
 
-    def __init__(self, program: graphs.TrainProgram):
+    def __init__(self, program: graphs.TrainProgram, graph=None,
+                 staged=graphs.StagedTrainStep):
         super().__init__(program.body, optimizer=program.optimizer,
                          device="cpu", modules=program.modules,
                          seams=program.seams)
         self.graphed, self.stream = True, _Stream()
+        self.graph = FixedGrads(program.optimizer) if graph is None else graph
+        self.staged = staged
 
     def capture(self, inputs: tuple):
-        step = graphs.StagedTrainStep(self, inputs, self.stream,
-                                      graph=EagerGraph)
+        step = self.staged(self, inputs, self.stream, graph=self.graph)
         self.optimizer.captured = True
         return step
 
@@ -391,6 +434,33 @@ def _staged_form(p: dict, mesh, zero: bool, A: int, kind: str) -> dict:
     return out
 
 
+def _signature_form(p: dict, mesh, zero: bool, kind: str) -> dict:
+    """The steps of ``p["signature_batches"]`` (two batch shapes, A, B,
+    A) from the payload's state: ``kind`` "single" (``single_body_step``),
+    "fixed" (``CPUStagedProgram``) or "stale" (the same with
+    ``StaleReduce``); each step's loss and UNet."""
+    t = towers(p)
+    opt = _adamw(list(t["unet"].parameters()), mesh, zero)
+    loss_fn = _loss(p, t)
+    program = steps.build_train_step(loss_fn, opt, mesh=mesh)
+    if kind == "single":
+        step = single_body_step(loss_fn, opt, 1, mesh)
+    else:
+        step = CPUStagedProgram(program, staged=StaleReduce if kind ==
+                                "stale" else graphs.StagedTrainStep)
+    out = {"losses": [], "unets": []}
+    with stand_in():
+        for batch, draws in zip(p["signature_batches"],
+                                p["signature_draws"]):
+            n = len(batch["image"])
+            metrics = step(shard_batch(mesh, batch), _rows(mesh, draws, n))
+            out["losses"].append(metrics["loss"].clone())
+            out["unets"].append(_unet_state(t))
+    if kind != "single":
+        out["signatures"] = len(step.sets)
+    return out
+
+
 def _planted(p: dict, mesh, what: str) -> dict:
     """One data-parallel step with a collective planted into the
     gradient stage: ``what`` "reduce_gradients" (the gradients' mean moved
@@ -430,7 +500,9 @@ def staged_runs(p: dict) -> dict:
     """For each (zero, A) of ``p["forms"]``: three steps of the staged
     program, its stages run in order, and of ``single_body_step`` from
     the same state; for each of ``p["per_signature"]`` the same three
-    steps through ``CPUStagedProgram``; then the planted collectives."""
+    steps through ``CPUStagedProgram``; then the planted collectives;
+    then, for data parallelism and ZeRO-1, ``_signature_form``'s three
+    kinds."""
     mesh = make_mesh(MeshSpec())
     out = {}
     for zero, A in p["forms"]:
@@ -440,4 +512,154 @@ def staged_runs(p: dict) -> dict:
             out[(zero, A, kind)] = _staged_form(p, mesh, zero, A, kind)
     for what in ("reduce_gradients", "all_reduce"):
         out[("planted", what)] = _planted(p, mesh, what)
+    for zero in (False, True):
+        for kind in ("single", "fixed", "stale"):
+            out[("signatures", zero, kind)] = _signature_form(p, mesh, zero,
+                                                              kind)
+    return out
+
+
+# ------------------------------------------ the sampler over a model axis
+
+
+class RecordedGraph:
+    """A ``torch.cuda.CUDAGraph`` stand-in for the CPU: between
+    ``capture_begin`` and ``capture_end`` it runs the operations and
+    records each ATen call with its tensors; ``replay`` runs the recorded
+    calls again over the same tensors, writing each result into the
+    tensor the capture made, as a graph reads and writes fixed memory.
+    Each collective recorded (a ``c10d`` operation) is also kept in
+    ``collectives``."""
+
+    def __init__(self):
+        self.calls, self.collectives = [], []
+        self._pool = self._mode = None
+
+    def capture_begin(self, pool=None, capture_error_mode=None):
+        self._pool = id(self) if pool is None else pool
+        self._mode = _Recorder(self)
+        self._mode.__enter__()
+
+    def capture_end(self):
+        self._mode.__exit__(None, None, None)
+
+    def pool(self):
+        return self._pool
+
+    def replay(self):
+        for func, args, kwargs, out in self.calls:
+            fresh = func(*args, **kwargs)
+            for old, new in zip(tree_leaves(out), tree_leaves(fresh)):
+                if (isinstance(old, torch.Tensor)
+                        and old.data_ptr() != new.data_ptr()):
+                    old.copy_(new)
+
+
+class _Recorder(TorchDispatchMode):
+    def __init__(self, graph: RecordedGraph):
+        super().__init__()
+        self.graph = graph
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func.namespace in ("c10d", "_c10d_functional"):
+            self.graph.collectives.append(str(func))
+        self.graph.calls.append((func, args, kwargs, out))
+        return out
+
+
+def recorded(sampler):
+    """``sampler`` (a ``pipelines.graphs.Sampler``) capturing and
+    replaying on the CPU, its graphs ``RecordedGraph``s (under
+    ``stand_in``)."""
+    sampler.graphed, sampler.stream = True, _Stream()
+    sampler.graph = functools.partial(graphs.Graph, make=RecordedGraph)
+    return sampler
+
+
+@contextlib.contextmanager
+def reductions(calls: list, skip: int = -1):
+    """``torch.distributed.all_reduce`` wrapped to add (the stage at the
+    call, the tensor's shape) to ``calls``; the call numbered ``skip``
+    (from 0) is recorded and not run (a planted fault)."""
+    dist = torch.distributed
+    real = dist.all_reduce
+
+    def call(t, *args, **kw):
+        calls.append((mesh_mod.current_stage(), tuple(t.shape)))
+        if len(calls) - 1 != skip:
+            return real(t, *args, **kw)
+
+    dist.all_reduce = call
+    try:
+        yield
+    finally:
+        dist.all_reduce = real
+
+
+def _tp_pipe(p: dict, mesh) -> TryOnPipeline:
+    unet = UNet2DCondition(UNetConfig(**p["unet_cfg"]))
+    vae = AutoencoderKL(VAEConfig(**p["vae_cfg"]))
+    emasc = EMASC(*p["emasc_cfg"])
+    for module, name in ((unet, "unet"), (vae, "vae"), (emasc, "emasc")):
+        module.load_state_dict(p["state"][name])
+        module.eval()
+    return TryOnPipeline(unet=tp.unet_tp(unet, mesh), vae=vae, emasc=emasc,
+                         scheduler=make_scheduler("ddim"))
+
+
+def tp_sample_runs(p: dict) -> dict:
+    """At data 1 x model 2: for each of ``p["requests"]`` ((args, noise)),
+    ``pipe.sample`` (its ``all_reduce``s recorded), ``make_sampler``'s
+    sampler, and the same sampler capturing in pieces on the CPU
+    (``recorded``; its first call captures, the second replays), its
+    ``all_reduce``s recorded; the step graph's pieces and cuts.  Then the
+    planted faults: the second request replayed with one cut's
+    ``all_reduce`` skipped, and an ``all_reduce_mean`` planted in the
+    step, which must raise at the capture."""
+    mesh = make_mesh(MeshSpec(data=1, model=2))
+    pipe = _tp_pipe(p, mesh)
+    static = p["static"]
+    sampler = sharding.make_sampler(pipe, mesh, **static)
+    pieces = recorded(sharding.make_sampler(pipe, mesh, **static))
+    out = {"kind": type(sampler).__name__, "mode": sampler.mode,
+           "graphed": sampler.graphed, "eager": [], "sampled": [],
+           "made": [], "pieces": [], "piece_calls": []}
+    for args, noise in p["requests"]:
+        calls: list = []
+        with reductions(calls):
+            out["sampled"].append(pipe.sample(
+                **dict(zip(SAMPLE_ARGS, args)), noise=noise, **static))
+        out["eager"].append(calls)
+        out["made"].append(sampler(*args, noise=noise))
+        calls = []
+        with stand_in(), reductions(calls):
+            out["pieces"].append(pieces(*args, noise=noise).clone())
+        out["piece_calls"].append(calls)
+    (loop,) = pieces.sets.values()
+    out["graphs"] = [{"pieces": len(g.pieces),
+                      "cut_shapes": [tuple(t.shape) for t, _ in g.cuts],
+                      "collectives": [c for piece in g.pieces
+                                      for c in piece.collectives]}
+                     for g in loop.graphs]
+    args, noise = p["requests"][1]
+    with stand_in(), reductions([], skip=p["skip"]):
+        out["skipped"] = pieces(*args, noise=noise).clone()
+
+    planted = recorded(sharding.make_sampler(pipe, mesh, **static))
+    step = planted.plan.step
+
+    def step_with_mean(latents, *rest):
+        latents = mesh_mod.all_reduce_mean(latents, mesh.model_group,
+                                           mesh.model)
+        return step(latents, *rest)
+
+    planted.plan.step = step_with_mean
+    out["planted_error"] = None
+    try:
+        with stand_in():
+            planted(*args, noise=noise)
+    except RuntimeError as e:
+        out["planted_error"] = str(e)
     return out
